@@ -1,0 +1,47 @@
+"""Datasets: the user surface over one BAM (counterpart of
+hadoop_bam_tpu/api/dataset.py, slice 1: ``flagstat`` and ``seq_stats``).
+
+    ds = open_bam("sample.bam")          # cuda:0
+    ds = open_bam("sample.bam", device="cpu")
+    ds.flagstat()
+    ds.seq_stats()
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from hadoop_bam_torch.config import DEFAULT_CONFIG, HBamConfig
+from hadoop_bam_torch.device import resolve_device
+from hadoop_bam_torch.formats.bamio import read_bam_header
+
+
+class BamDataset:
+    """One BAM file, its header, and the device its reductions run on."""
+
+    def __init__(self, path: str, device=None,
+                 config: HBamConfig = DEFAULT_CONFIG):
+        self.path = path
+        self.device = resolve_device(device)
+        self.config = config
+        self.header, self.first_voffset = read_bam_header(path)
+
+    def flagstat(self, geometry=None, mode: str = "tile") -> Dict[str, int]:
+        """The 16 samtools flagstat counters (parallel/pipeline.flagstat_file)."""
+        from hadoop_bam_torch.parallel.pipeline import flagstat_file
+        return flagstat_file(self.path, device=self.device,
+                             config=self.config, geometry=geometry,
+                             header=self.header, mode=mode)
+
+    def seq_stats(self, geometry=None) -> Dict[str, object]:
+        """Mean GC fraction, mean per-read quality and the base-code
+        histogram (parallel/pipeline.seq_stats_file, K2 kernel)."""
+        from hadoop_bam_torch.parallel.pipeline import seq_stats_file
+        return seq_stats_file(self.path, device=self.device,
+                              config=self.config, geometry=geometry,
+                              header=self.header)
+
+
+def open_bam(path: str, device=None,
+             config: HBamConfig = DEFAULT_CONFIG) -> BamDataset:
+    """Open a BAM for device reductions on ``cuda:0`` (or ``device``)."""
+    return BamDataset(path, device=device, config=config)

@@ -1,0 +1,1 @@
+"""formats layer of the hadoop_bam_torch port (see the package docstring)."""

@@ -1,0 +1,139 @@
+"""Build and load the hand-written CUDA kernels of ``hadoop_bam_torch/csrc``.
+
+Each ``.cu`` source has a plain C interface and is compiled by ``nvcc``
+for ``sm_90a`` into its own shared library under ``hadoop_bam_torch/_build``
+at first use, then loaded with ctypes; pointers and the CUDA stream pass
+as ``c_void_p``.  ``build()`` starts one ``nvcc`` per source, all at once,
+and waits for them together.  Nothing here runs at import time, so the
+package imports where there is no ``nvcc`` and no card (its CPU tensors
+take the kernels' plain PyTorch versions instead).
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Iterable, Optional
+
+from hadoop_bam_torch.utils.errors import HBamError
+
+_PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG_ROOT, "csrc")
+BUILD_DIR = os.path.join(_PKG_ROOT, "_build")
+
+_VP = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I32 = ctypes.c_int32
+
+# source stem -> (C entry point, argtypes); every entry point returns the
+# cudaGetLastError() code after its launch
+KERNELS: Dict[str, tuple] = {
+    "unpack_bam": ("hbam_unpack_fixed_fields",
+                   [_VP, _I64, _VP, _I64, _VP, _VP]),
+    "seq_stats": ("hbam_seq_qual_stats",
+                  [_VP, _I64, _VP, _I64, _VP, _I64, _VP, _VP, _VP, _I32,
+                   _VP]),
+}
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_fns: Dict[str, ctypes._CFuncPtr] = {}
+
+
+class KernelBuildError(HBamError, RuntimeError):
+    """nvcc is missing or refused a kernel source."""
+
+
+class KernelLaunchError(HBamError, RuntimeError):
+    """A kernel launch returned a CUDA error."""
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise KernelBuildError("nvcc not found (set CUDA_HOME or PATH)")
+    return found
+
+
+def _paths(name: str) -> tuple:
+    return (os.path.join(CSRC, f"{name}.cu"),
+            os.path.join(BUILD_DIR, f"lib{name}.so"),
+            os.path.join(BUILD_DIR, f"{name}.log"))
+
+
+def _stale(name: str) -> bool:
+    src, so, _ = _paths(name)
+    return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src)
+
+
+def build(names: Optional[Iterable[str]] = None,
+          force: bool = False) -> float:
+    """Compile the named kernels (all by default) that are missing or
+    older than their source, one nvcc process per source, all started
+    together.  Returns the wall seconds; raises KernelBuildError with the
+    compiler's output when a build fails.  nvcc's ptxas report of each
+    kernel (registers, shared memory, spills) lands in ``<name>.log``."""
+    names = list(KERNELS if names is None else names)
+    todo = [n for n in names if force or _stale(n)]
+    t0 = time.perf_counter()
+    if not todo:
+        return 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name in todo:
+        src, so, log = _paths(name)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        out = open(log, "w")
+        procs[name] = (subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, src], stdout=out,
+            stderr=subprocess.STDOUT), out, tmp, so, log)
+    failed = []
+    for name, (proc, out, tmp, so, log) in procs.items():
+        rc = proc.wait()
+        out.close()
+        if rc != 0:
+            with open(log) as f:
+                failed.append(f"{name} (rc {rc}):\n{f.read()[-4000:]}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise KernelBuildError("nvcc failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def kernel(name: str) -> ctypes._CFuncPtr:
+    """The C entry point of one kernel library, built first if needed."""
+    with _lock:
+        fn = _fns.get(name)
+        if fn is None:
+            build([name])
+            symbol, argtypes = KERNELS[name]
+            lib = ctypes.CDLL(_paths(name)[1])
+            fn = getattr(lib, symbol)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+            _fns[name] = fn
+        return fn
+
+
+def check_launch(name: str, rc: int) -> None:
+    if rc != 0:
+        raise KernelLaunchError(f"{name} launch failed: CUDA error {rc}")
+
+
+def ptxas_report(name: str) -> str:
+    """The ptxas lines of the last build of ``name`` ("" when none)."""
+    log = _paths(name)[2]
+    if not os.path.exists(log):
+        return ""
+    with open(log) as f:
+        return "".join(l for l in f if "ptxas" in l)

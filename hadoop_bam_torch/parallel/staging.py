@@ -1,0 +1,248 @@
+"""Staging ring + the host->device feed pipeline (counterpart of
+hadoop_bam_tpu/parallel/staging.py).
+
+- ``StagingRing``: a few preallocated ``[n_dev, cap, w]`` group buffers,
+  pinned host tensors when the data axis is on CUDA.  A dispatch copies
+  a slot to the card with ``non_blocking=True`` on the current CUDA
+  stream and hands back a CUDA event recorded right after the copies;
+  ``lease`` waits on that event before it hands the slot out again, so
+  the packer can never overwrite a buffer an asynchronous copy is still
+  reading.  (The reference blocked on device arrays for the same rule:
+  ``committed_device_put`` and ``_block_in_flight``.)
+- ``FeedPipeline``: a packer thread repacks per-span row arrays into ring
+  slots (rows written in place; a partial tile zeroes only its own tail)
+  while the caller's thread dispatches the previous group.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import queue
+import threading
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+def bucket_cap(count: int, cap: int, block_n: int = 256) -> int:
+    """Rows to dispatch for a partial tile of ``count`` records: full
+    tiles ship at ``cap``; the final partial tile shrinks to the smallest
+    of (~cap/16, ~cap/4, cap) that holds it, rounded up to ``block_n``."""
+    for b in (cap // 16, cap // 4):
+        b = -(-b // block_n) * block_n
+        if b >= block_n and count <= b < cap:
+            return b
+    return cap
+
+
+@dataclasses.dataclass(frozen=True)
+class TileSpec:
+    """Per-record layout of one array in a tile tuple: trailing shape,
+    numpy dtype, and the value rows past a device's count hold."""
+    shape: Tuple[int, ...]
+    dtype: object
+    pad: object = 0
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
+
+
+class RingSlot:
+    """One leased group buffer set.  ``tensors[j]`` is the host tensor
+    [n_dev, cap, *shape] (pinned on CUDA axes) and ``arrays[j]`` its
+    numpy view; ``counts`` holds the per-device row counts.
+    ``in_flight`` is the handle (anything with ``synchronize()``, a CUDA
+    event on the card) of the last copy out of these buffers."""
+    __slots__ = ("tensors", "arrays", "counts", "in_flight")
+
+    def __init__(self, tensors: List[torch.Tensor], n_dev: int):
+        self.tensors = tensors
+        self.arrays = [t.numpy() for t in tensors]
+        self.counts = np.zeros(n_dev, np.int32)
+        self.in_flight = None
+
+
+class Cancelled(Exception):
+    """The other side of the pipeline stopped; unwind quietly."""
+
+
+class StagingRing:
+    """A ring of two preallocated group buffers (one being packed while
+    the other's copy is in flight), leased and released.  ``lease``
+    never returns a slot whose last copy is still in flight."""
+
+    def __init__(self, n_dev: int, cap: int, specs: Sequence[TileSpec],
+                 pin_memory: bool = False):
+        self._free: "queue.Queue[RingSlot]" = queue.Queue()
+        for _ in range(2):
+            self._free.put(RingSlot([
+                torch.full((n_dev, cap) + tuple(s.shape), s.pad,
+                           dtype=_torch_dtype(s.dtype),
+                           pin_memory=pin_memory)
+                for s in specs], n_dev))
+
+    def lease(self, cancel: Optional[threading.Event] = None) -> RingSlot:
+        while True:
+            try:
+                slot = self._free.get(timeout=0.05)
+                break
+            except queue.Empty:
+                if cancel is not None and cancel.is_set():
+                    raise Cancelled()
+        if slot.in_flight is not None:
+            slot.in_flight.synchronize()
+            slot.in_flight = None
+        return slot
+
+    def release(self, slot: RingSlot) -> None:
+        self._free.put(slot)
+
+
+def _put(q: "queue.Queue", item, cancel: threading.Event) -> None:
+    while True:
+        try:
+            q.put(item, timeout=0.05)
+            return
+        except queue.Full:
+            if cancel.is_set():
+                raise Cancelled()
+
+
+_SENTINEL = object()
+
+
+class FeedPipeline:
+    """Group assembly on a packer thread + dispatch on the caller's.
+
+    ``feed(span_arrays_stream, dispatch_fn)``: the stream yields per-span
+    TUPLES of row arrays in lockstep (axis 0 = records; empty spans
+    allowed).  Device ``i`` of a group holds rows ``[i*cap, (i+1)*cap)``
+    of the concatenated stream; the final partial group spreads evenly
+    over the devices and ships in the smallest bucket that holds it.  ``dispatch_fn(tensors, counts)``
+    gets ``tensors[j]`` as a [n_dev, bucket, *shape] view of a leased
+    slot's host tensor; it must start the copies out of it before it
+    returns, and return their in-flight handle (or None when the copies
+    were synchronous).  The slot goes back to the ring when the call
+    returns, and the ring waits on the handle before reusing it."""
+
+    def __init__(self, n_dev: int, cap: int, specs: Sequence[TileSpec],
+                 *, block_n: int = 256, pin_memory: bool = False):
+        self.n_dev, self.cap = int(n_dev), int(cap)
+        self.specs = list(specs)
+        self.block_n = int(block_n)
+        self.pin_memory = bool(pin_memory)
+        self.dispatches = 0
+
+    def _pack_loop(self, stream: Iterable[Tuple[np.ndarray, ...]],
+                   q: "queue.Queue", cancel: threading.Event,
+                   ring: StagingRing) -> None:
+        it = iter(stream)
+        parts: "collections.deque[Tuple[np.ndarray, ...]]" = \
+            collections.deque()
+        have = 0
+        exhausted = False
+
+        def pull_until(need: int) -> None:
+            nonlocal exhausted, have
+            while not exhausted and have < need:
+                if cancel.is_set():
+                    raise Cancelled()
+                try:
+                    arrays = tuple(next(it))
+                except StopIteration:
+                    exhausted = True
+                    return
+                if arrays[0].shape[0]:
+                    parts.append(arrays)
+                    have += arrays[0].shape[0]
+
+        while True:
+            # one group's worth buffered up front: the tail split
+            # depends on the total
+            pull_until(self.n_dev * self.cap)
+            if not have:
+                break
+            slot = ring.lease(cancel)
+            counts = slot.counts
+            counts[:] = 0
+            target = self.cap
+            if exhausted and have < self.n_dev * self.cap:
+                target = max(1, -(-have // self.n_dev))
+            for dev in range(self.n_dev):
+                filled = 0
+                while filled < target:
+                    if not parts:
+                        pull_until(1)
+                        if not parts:
+                            break
+                    head = parts[0]
+                    k = min(target - filled, head[0].shape[0])
+                    for dst, src in zip(slot.arrays, head):
+                        dst[dev, filled:filled + k] = src[:k]
+                    if k == head[0].shape[0]:
+                        parts.popleft()
+                    else:
+                        parts[0] = tuple(h[k:] for h in head)
+                    filled += k
+                    have -= k
+                counts[dev] = filled
+                if not parts and exhausted:
+                    break
+            bucket = max(bucket_cap(int(c), self.cap, self.block_n)
+                         for c in counts)
+            # zero only rows [count, bucket) per device: rows under the
+            # count were just written, rows past the bucket never ship
+            for spec, dst in zip(self.specs, slot.arrays):
+                for dev in range(self.n_dev):
+                    c = int(counts[dev])
+                    if c < bucket:
+                        dst[dev, c:bucket] = spec.pad
+            _put(q, (slot, bucket), cancel)
+
+    def feed(self, span_stream: Iterable[Tuple[np.ndarray, ...]],
+             dispatch_fn: Callable) -> int:
+        """Drive the whole stream through ``dispatch_fn``; returns the
+        number of dispatched groups."""
+        ring = StagingRing(self.n_dev, self.cap, self.specs,
+                           self.pin_memory)
+        q: "queue.Queue" = queue.Queue(maxsize=1)
+        cancel = threading.Event()
+        errs: List[BaseException] = []
+
+        def pack() -> None:
+            try:
+                self._pack_loop(span_stream, q, cancel, ring)
+            except Cancelled:
+                return
+            except BaseException as e:  # noqa: BLE001 — re-raised by feed
+                errs.append(e)
+            try:
+                _put(q, _SENTINEL, cancel)
+            except Cancelled:
+                pass
+
+        packer = threading.Thread(target=pack, name="hbam-feed-pack",
+                                  daemon=True)
+        self.dispatches = 0
+        packer.start()
+        try:
+            while True:
+                item = q.get()
+                if item is _SENTINEL:
+                    break
+                slot, bucket = item
+                try:
+                    slot.in_flight = dispatch_fn(
+                        tuple(t[:, :bucket] for t in slot.tensors),
+                        slot.counts)
+                    self.dispatches += 1
+                finally:
+                    ring.release(slot)
+        finally:
+            cancel.set()
+            packer.join()
+        if errs:
+            raise errs[0]
+        return self.dispatches

@@ -1,0 +1,1 @@
+"""split layer of the hadoop_bam_torch port (see the package docstring)."""

@@ -1,0 +1,25 @@
+"""FileVirtualSpan — the unit of distributable work (copy of
+hadoop_bam_tpu/split/spans.py): a path plus [start, end) virtual offsets.
+Any host can decode any span on its own."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+from hadoop_bam_torch.formats.virtual_offset import split_voffset
+
+
+@dataclass(frozen=True)
+class FileVirtualSpan:
+    path: str
+    start_voffset: int  # packed (coffset << 16 | uoffset), inclusive
+    end_voffset: int    # exclusive
+    locations: Tuple[str, ...] = ()
+
+    @property
+    def start(self) -> Tuple[int, int]:
+        return split_voffset(self.start_voffset)
+
+    @property
+    def end(self) -> Tuple[int, int]:
+        return split_voffset(self.end_voffset)

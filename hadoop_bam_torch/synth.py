@@ -1,0 +1,209 @@
+"""Synthetic paired-end BAM from a seed, with its expected results.
+
+Builds whole records with vectorized NumPy (fixed 277-byte records:
+10-byte read names, one CIGAR op, 151 bases) in chunks, writes them with
+``formats.bamio.BamWriter`` and keeps the numbers an oracle needs: the
+16 flagstat counters and the seq-stats means and base histogram,
+computed from the generating arrays (not by reading the file back).
+
+The mix is WGS-like: ~41% GC with some N bases, Illumina-like qualities
+from 2 to 41, and FLAGs that make every flagstat counter non-zero
+(proper pairs, unmapped reads and mates, secondary, supplementary,
+duplicate and QC-fail reads, mates on the other contig, MAPQ on both
+sides of 5).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import numpy as np
+
+from hadoop_bam_torch.formats.bam import (
+    FDUP, FMREVERSE, FMUNMAP, FPAIRED, FPROPER_PAIR, FQCFAIL, FREAD1,
+    FREAD2, FREVERSE, FSECONDARY, FSUPPLEMENTARY, FUNMAP, SAMHeader,
+)
+from hadoop_bam_torch.formats.bamio import BamWriter
+from hadoop_bam_torch.ops.flagstat import FLAGSTAT_FIELDS
+
+READ_LEN = 151
+MAX_LEN = 160                      # PayloadGeometry().max_len
+NAME_LEN = 10                      # "r%08d\0"
+CONTIGS: Tuple[Tuple[str, int], ...] = (("chr20", 64444167),
+                                        ("chr21", 46709983))
+# base code [SPEC] -> probability: A, C, G, T, N
+_CODES = np.array([1, 2, 4, 8, 15], np.uint8)
+_CODE_P = np.array([0.2945, 0.2045, 0.2045, 0.2945, 0.002])
+
+RECORD = np.dtype([
+    ("block_size", "<i4"), ("refid", "<i4"), ("pos", "<i4"),
+    ("l_read_name", "u1"), ("mapq", "u1"), ("bin", "<u2"),
+    ("n_cigar", "<u2"), ("flag", "<u2"), ("l_seq", "<i4"),
+    ("mate_refid", "<i4"), ("mate_pos", "<i4"), ("tlen", "<i4"),
+    ("name", "u1", (NAME_LEN,)), ("cigar", "<u4"),
+    ("seq", "u1", ((READ_LEN + 1) // 2,)), ("qual", "u1", (READ_LEN,)),
+])
+
+
+@dataclasses.dataclass
+class SynthTruth:
+    """What the generator knows about the file it wrote."""
+    n_reads: int
+    flagstat: Dict[str, int]
+    base_hist: np.ndarray          # int64 [16]
+    mean_gc: float
+    mean_qual: float
+
+
+def header() -> SAMHeader:
+    text = "@HD\tVN:1.6\tSO:unsorted\n" + "".join(
+        f"@SQ\tSN:{n}\tLN:{l}\n" for n, l in CONTIGS)
+    return SAMHeader(text=text, ref_names=[n for n, _ in CONTIGS],
+                     ref_lengths=[l for _, l in CONTIGS])
+
+
+def _reg2bin(beg: np.ndarray, end: np.ndarray) -> np.ndarray:
+    """[SPEC] SAMv1 section 5.3 UCSC bin, vectorized."""
+    end = end - 1
+    out = np.zeros_like(beg)
+    done = np.zeros(beg.shape, bool)
+    for shift, first in ((14, 4681), (17, 585), (20, 73), (23, 9), (26, 1)):
+        m = ~done & ((beg >> shift) == (end >> shift))
+        out[m] = first + (beg[m] >> shift)
+        done |= m
+    return out
+
+
+def flagstat_oracle(flag: np.ndarray, refid: np.ndarray,
+                    mate_refid: np.ndarray, mapq: np.ndarray
+                    ) -> Dict[str, int]:
+    """samtools flagstat counters over whole columns, in NumPy."""
+    flag = flag.astype(np.int64)
+
+    def has(bit):
+        return (flag & bit) != 0
+
+    primary = ~has(FSECONDARY) & ~has(FSUPPLEMENTARY)
+    mapped = ~has(FUNMAP)
+    paired = has(FPAIRED)
+    mate_mapped = ~has(FMUNMAP)
+    both = paired & mapped & mate_mapped
+    diff = both & (mate_refid != refid) & (refid >= 0) & (mate_refid >= 0)
+    masks = [np.ones(flag.shape, bool), primary, has(FSECONDARY),
+             has(FSUPPLEMENTARY), has(FDUP), primary & has(FDUP), mapped,
+             primary & mapped, paired, paired & has(FREAD1),
+             paired & has(FREAD2), paired & has(FPROPER_PAIR) & mapped,
+             both, paired & mapped & ~mate_mapped, diff, diff & (mapq >= 5)]
+    return {k: int(m.sum()) for k, m in zip(FLAGSTAT_FIELDS, masks)}
+
+
+def _chunk(rng: np.random.Generator, first_pair: int, n_pairs: int):
+    """Records of pairs [first_pair, first_pair + n_pairs), mates adjacent."""
+    n = 2 * n_pairs
+    lens = np.array([l for _, l in CONTIGS], np.int64)
+    pair = first_pair + np.arange(n_pairs)
+    contig = rng.integers(0, len(CONTIGS), n_pairs)
+    pos1 = rng.integers(0, lens[contig] - 2000)
+    insert = rng.integers(200, 600, n_pairs)
+    other = rng.random(n_pairs) < 0.015            # mate on the other contig
+    contig2 = np.where(other, 1 - contig, contig)
+    pos2 = np.where(other, rng.integers(0, lens[contig2] - 2000),
+                    pos1 + insert - READ_LEN)
+    refid = np.stack([contig, contig2], 1).reshape(-1)
+    pos = np.stack([pos1, pos2], 1).reshape(-1)
+    unmapped = rng.random(n) < 0.02
+    mate_unmapped = unmapped.reshape(-1, 2)[:, ::-1].reshape(-1)
+    rev = np.repeat(rng.random(n_pairs) < 0.5, 2)
+    first = np.tile([True, False], n_pairs)
+    # an unmapped read sits at its mate's place; an unmapped pair nowhere
+    mate_ref = refid.reshape(-1, 2)[:, ::-1].reshape(-1)
+    mate_pos = pos.reshape(-1, 2)[:, ::-1].reshape(-1)
+    refid = np.where(unmapped, np.where(mate_unmapped, -1, mate_ref), refid)
+    pos = np.where(unmapped, np.where(mate_unmapped, -1, mate_pos), pos)
+    mate_ref = refid.reshape(-1, 2)[:, ::-1].reshape(-1)
+    mate_pos = pos.reshape(-1, 2)[:, ::-1].reshape(-1)
+    proper = np.repeat(~other & (rng.random(n_pairs) < 0.95), 2) & \
+        ~unmapped & ~mate_unmapped
+    flag = (FPAIRED + np.where(first, FREAD1, FREAD2)
+            + np.where(rev == first, FREVERSE, 0)
+            + np.where(rev != first, FMREVERSE, 0)
+            + np.where(unmapped, FUNMAP, 0)
+            + np.where(mate_unmapped, FMUNMAP, 0)
+            + np.where(proper, FPROPER_PAIR, 0))
+    u = rng.random((4, n))
+    flag = flag + np.where(~unmapped & (u[0] < 0.01), FSECONDARY, 0) \
+        + np.where(~unmapped & (u[1] < 0.01), FSUPPLEMENTARY, 0) \
+        + np.where(u[2] < 0.03, FDUP, 0) + np.where(u[3] < 0.005, FQCFAIL, 0)
+    mapq = np.where(unmapped, 0, np.where(rng.random(n) < 0.08,
+                                          rng.integers(0, 5, n),
+                                          rng.integers(5, 61, n)))
+    tlen = np.where(proper, np.where(first, 1, -1) * np.repeat(insert, 2), 0)
+
+    codes = _CODES[np.searchsorted(np.cumsum(_CODE_P),
+                                   rng.random((n, READ_LEN)), side="right")
+                   .clip(max=_CODES.size - 1)]
+    cycle = np.arange(READ_LEN)[None, :]
+    qual = np.rint(rng.normal(37.0 - 0.04 * cycle, 3.0, (n, READ_LEN)))
+    low = rng.random((n, READ_LEN)) < 0.03
+    qual = np.where(low, rng.integers(2, 13, (n, READ_LEN)), qual)
+    qual = qual.clip(2, 41).astype(np.uint8)
+
+    rec = np.zeros(n, RECORD)
+    rec["block_size"] = RECORD.itemsize - 4
+    rec["refid"] = refid
+    rec["pos"] = pos
+    rec["l_read_name"] = NAME_LEN
+    rec["mapq"] = mapq
+    rec["bin"] = np.where(pos >= 0, _reg2bin(np.maximum(pos, 0),
+                                             np.maximum(pos, 0) + READ_LEN),
+                          4680)
+    rec["n_cigar"] = 1
+    rec["flag"] = flag
+    rec["l_seq"] = READ_LEN
+    rec["mate_refid"] = mate_ref
+    rec["mate_pos"] = mate_pos
+    rec["tlen"] = tlen
+    digits = (np.repeat(pair, 2)[:, None]
+              // 10 ** np.arange(7, -1, -1)[None, :]) % 10
+    rec["name"][:, 0] = ord("r")
+    rec["name"][:, 1:9] = 48 + digits
+    rec["cigar"] = (READ_LEN << 4) | 0                 # 151M
+    padded = np.concatenate([codes, np.zeros((n, 1), np.uint8)], 1) \
+        if READ_LEN % 2 else codes
+    rec["seq"] = (padded[:, 0::2] << 4) | padded[:, 1::2]
+    rec["qual"] = qual
+    cols = dict(flag=flag, refid=refid, mate_refid=mate_ref, mapq=mapq)
+    return rec, codes, qual, cols
+
+
+def write_synthetic_bam(path: str, n_reads: int, seed: int,
+                        chunk_pairs: int = 1 << 16) -> SynthTruth:
+    """Write ``n_reads`` (even) paired reads to ``path``; return the
+    truth, with seq-stats at the default payload geometry's max_len."""
+    if n_reads % 2:
+        raise ValueError("n_reads must be even (reads come in pairs)")
+    rng = np.random.default_rng(seed)
+    use = min(READ_LEN, MAX_LEN)
+    counters = dict.fromkeys(FLAGSTAT_FIELDS, 0)
+    hist = np.zeros(16, np.int64)
+    gc_sum = 0.0
+    q_sum = 0.0
+    with BamWriter(path, header()) as w:
+        for p0 in range(0, n_reads // 2, chunk_pairs):
+            k = min(chunk_pairs, n_reads // 2 - p0)
+            rec, codes, qual, cols = _chunk(rng, p0, k)
+            w.write_raw(rec.tobytes(), rec.size)
+            for key, v in flagstat_oracle(**cols).items():
+                counters[key] += v
+            kept = codes[:, :use]
+            hist += np.bincount(kept.reshape(-1), minlength=16)
+            gc = np.isin(kept, (2, 4, 6)).sum(1)
+            qs = qual[:, :use].astype(np.int64).sum(1)
+            denom = np.float32(max(use, 1))
+            gc_sum += float((gc.astype(np.float32) / denom)
+                            .astype(np.float64).sum())
+            q_sum += float((qs.astype(np.float32) / denom)
+                           .astype(np.float64).sum())
+    n = max(n_reads, 1)
+    return SynthTruth(n_reads=n_reads, flagstat=counters, base_hist=hist,
+                      mean_gc=gc_sum / n, mean_qual=q_sum / n)

@@ -1,0 +1,249 @@
+"""Build + load the host C++ decode library (ctypes).
+
+Counterpart of hadoop_bam_tpu/utils/native.py.  It compiles the same
+source, ``native/hbam_native.cpp``, as it stands, but into this package's
+own build directory (``hadoop_bam_torch/_build/``), and it never degrades
+quietly: when the native plane is asked for and ``g++`` fails, ``load()``
+raises with the compiler's message.  The zlib plane (``ops/inflate.py``)
+is the explicit alternative, chosen by ``config.inflate_backend``.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+from typing import Optional
+
+import numpy as np
+
+from hadoop_bam_torch.utils.errors import HBamError
+
+_PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(os.path.dirname(_PKG_ROOT), "native", "hbam_native.cpp")
+BUILD_DIR = os.path.join(_PKG_ROOT, "_build")
+_SO = os.path.join(BUILD_DIR, "libhbam_native.so")
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+class NativeBuildError(HBamError, RuntimeError):
+    """The host C++ library could not be built or loaded."""
+
+
+def _compile() -> None:
+    """g++ into a process-unique temp name, then an atomic rename: test
+    workers that build at the same time never load a half-written file."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{_SO}.{os.getpid()}.tmp"
+    base = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-pthread",
+            _SRC, "-o", tmp]
+    errors = []
+    # libdeflate when the host has it (~2x zlib inflate), else plain zlib.
+    # A host can link libdeflate and still lack its runtime library, so a
+    # build counts only once it loads.
+    for extra in (["-DHBAM_USE_LIBDEFLATE", "-lz", "-ldeflate"], ["-lz"]):
+        try:
+            subprocess.run(base + extra, check=True, capture_output=True,
+                           text=True, timeout=300)
+            ctypes.CDLL(tmp)
+        except FileNotFoundError as e:
+            raise NativeBuildError(f"g++ not found: {e}") from e
+        except subprocess.CalledProcessError as e:
+            errors.append(e.stderr[-2000:])
+            continue
+        except OSError as e:
+            errors.append(str(e))
+            continue
+        os.replace(tmp, _SO)
+        return
+    raise NativeBuildError("building native/hbam_native.cpp failed:\n"
+                           + "\n".join(errors))
+
+
+def load() -> ctypes.CDLL:
+    """Load the native library, compiling it first when the build is
+    missing or older than the source.  Raises NativeBuildError."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if not os.path.exists(_SRC):
+            raise NativeBuildError(f"native source missing: {_SRC}")
+        if (not os.path.exists(_SO)
+                or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
+            _compile()
+        try:
+            lib = ctypes.CDLL(_SO)
+        except OSError as e:
+            raise NativeBuildError(f"cannot load {_SO}: {e}") from e
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        u32p = ctypes.POINTER(ctypes.c_uint32)
+        lib.hbam_inflate_batch.restype = ctypes.c_int
+        lib.hbam_inflate_batch.argtypes = [
+            u8p, i64p, i32p, ctypes.c_int32, u8p, i64p, i32p, ctypes.c_int32]
+        lib.hbam_walk_bam_records.restype = ctypes.c_int64
+        lib.hbam_walk_bam_records.argtypes = [
+            u8p, ctypes.c_int64, ctypes.c_int64, i64p, ctypes.c_int64, i64p]
+        lib.hbam_walk_bam_packed.restype = ctypes.c_int64
+        lib.hbam_walk_bam_packed.argtypes = [
+            u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, i32p, i32p,
+            ctypes.c_int32, ctypes.c_int32, u8p, i64p, ctypes.c_int64, i64p]
+        lib.hbam_walk_bam_payload.restype = ctypes.c_int64
+        lib.hbam_walk_bam_payload.argtypes = [
+            u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            u8p, u8p, u8p, i64p, ctypes.c_int64, i64p]
+        lib.hbam_crc32_batch.restype = ctypes.c_int
+        lib.hbam_crc32_batch.argtypes = [
+            u8p, i64p, i32p, ctypes.c_int32, u32p, ctypes.c_int32]
+        lib.hbam_deflate_batch.restype = ctypes.c_int
+        lib.hbam_deflate_batch.argtypes = [
+            u8p, i64p, i32p, ctypes.c_int32, u8p, i64p, i32p, i32p,
+            ctypes.c_int32, ctypes.c_int32]
+        _lib = lib
+        return _lib
+
+
+def _ptr(arr: np.ndarray, ctype):
+    return arr.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _threads(n_items: int, n_threads: int) -> int:
+    if n_threads > 0:
+        return n_threads
+    return max(1, min(n_items, os.cpu_count() or 1))
+
+
+def inflate_batch(src: np.ndarray, cdata_off: np.ndarray,
+                  cdata_len: np.ndarray, dst: np.ndarray,
+                  dst_off: np.ndarray, isize: np.ndarray,
+                  n_threads: int = 0) -> None:
+    """Inflate every block of a span into ``dst`` (threaded); raises
+    ValueError naming the first corrupt block."""
+    lib = load()
+    rc = lib.hbam_inflate_batch(
+        _ptr(src, ctypes.c_uint8), _ptr(cdata_off, ctypes.c_int64),
+        _ptr(cdata_len, ctypes.c_int32), len(cdata_off),
+        _ptr(dst, ctypes.c_uint8), _ptr(dst_off, ctypes.c_int64),
+        _ptr(isize, ctypes.c_int32), _threads(len(cdata_off), n_threads))
+    if rc:
+        raise ValueError(f"native inflate failed at block {rc - 1000}")
+
+
+def walk_bam_records(buf: np.ndarray, start: int, cap: int
+                     ) -> tuple[np.ndarray, int]:
+    """Record walk; returns (offsets, tail_offset)."""
+    lib = load()
+    out = np.empty(cap, dtype=np.int64)
+    tail = np.zeros(1, dtype=np.int64)
+    n = lib.hbam_walk_bam_records(
+        _ptr(buf, ctypes.c_uint8), buf.size, start,
+        _ptr(out, ctypes.c_int64), cap, _ptr(tail, ctypes.c_int64))
+    if n < 0:
+        raise ValueError("malformed BAM record chain")
+    if n > cap:
+        raise ValueError(f"record count {n} exceeds capacity {cap}")
+    return out[:n], int(tail[0])
+
+
+def walk_bam_packed(buf: np.ndarray, start: int, cap: int,
+                    sel: "list[tuple[int, int]]", row_stride: int,
+                    stop: Optional[int] = None,
+                    ) -> tuple[np.ndarray, np.ndarray, int]:
+    """Single-pass walk + columnar row pack: ``sel`` (src_offset, length)
+    ranges of each record's fixed prefix packed back to back into
+    ``row_stride``-byte rows; the walk stops at the first record starting
+    at or past ``stop``.  Returns (rows[n, row_stride], offsets[n], tail)."""
+    lib = load()
+    if stop is None:
+        stop = buf.size
+    sel_off = np.asarray([o for o, _ in sel], dtype=np.int32)
+    sel_len = np.asarray([l for _, l in sel], dtype=np.int32)
+    rows = np.empty((cap, row_stride), dtype=np.uint8)
+    offs = np.empty(cap, dtype=np.int64)
+    tail = np.zeros(1, dtype=np.int64)
+    n = lib.hbam_walk_bam_packed(
+        _ptr(buf, ctypes.c_uint8), buf.size, start, stop,
+        _ptr(sel_off, ctypes.c_int32), _ptr(sel_len, ctypes.c_int32),
+        len(sel), row_stride, _ptr(rows, ctypes.c_uint8),
+        _ptr(offs, ctypes.c_int64), cap, _ptr(tail, ctypes.c_int64))
+    if n < 0:
+        raise ValueError("malformed BAM record chain")
+    if n > cap:
+        raise ValueError(f"record count {n} exceeds capacity {cap}")
+    return rows[:n], offs[:n], int(tail[0])
+
+
+def walk_bam_payload(buf: np.ndarray, start: int, cap: int, max_len: int,
+                     seq_stride: int, qual_stride: int,
+                     stop: Optional[int] = None,
+                     ) -> tuple[np.ndarray, np.ndarray, np.ndarray,
+                                np.ndarray, int]:
+    """Single-pass walk + prefix/seq/qual tile pack.  Returns
+    (prefix[n, 36], seq[n, seq_stride], qual[n, qual_stride], offsets[n],
+    tail); rows are zero past each read's payload."""
+    lib = load()
+    if stop is None:
+        stop = buf.size
+    prefix = np.zeros((cap, 36), dtype=np.uint8)
+    seq = np.zeros((cap, seq_stride), dtype=np.uint8)
+    qual = np.zeros((cap, qual_stride), dtype=np.uint8)
+    offs = np.empty(cap, dtype=np.int64)
+    tail = np.zeros(1, dtype=np.int64)
+    n = lib.hbam_walk_bam_payload(
+        _ptr(buf, ctypes.c_uint8), buf.size, start, stop,
+        max_len, seq_stride, qual_stride,
+        _ptr(prefix, ctypes.c_uint8), _ptr(seq, ctypes.c_uint8),
+        _ptr(qual, ctypes.c_uint8), _ptr(offs, ctypes.c_int64), cap,
+        _ptr(tail, ctypes.c_int64))
+    if n < 0:
+        raise ValueError("malformed BAM record chain")
+    if n > cap:
+        raise ValueError(f"record count {n} exceeds capacity {cap}")
+    return prefix[:n], seq[:n], qual[:n], offs[:n], int(tail[0])
+
+
+def crc32_batch(data: np.ndarray, off: np.ndarray, length: np.ndarray,
+                n_threads: int = 0) -> np.ndarray:
+    """CRC32 of each ``data[off[i]:off[i] + length[i]]`` range."""
+    lib = load()
+    n = len(off)
+    out = np.empty(n, dtype=np.uint32)
+    lib.hbam_crc32_batch(
+        _ptr(data, ctypes.c_uint8), _ptr(off, ctypes.c_int64),
+        _ptr(length, ctypes.c_int32), n, _ptr(out, ctypes.c_uint32),
+        _threads(n, n_threads))
+    return out
+
+
+def deflate_batch(payloads: "list[bytes]", level: int = 6,
+                  n_threads: int = 0) -> "list[Optional[bytes]]":
+    """Raw-DEFLATE many payloads at once (threaded).  An entry is None
+    where the compressed form would not fit ``len(payload) + 64`` bytes;
+    the caller compresses that block another way."""
+    lib = load()
+    n = len(payloads)
+    src = np.frombuffer(b"".join(payloads), dtype=np.uint8)
+    src_len = np.asarray([len(p) for p in payloads], dtype=np.int32)
+    src_off = np.zeros(n, dtype=np.int64)
+    np.cumsum(src_len[:-1], out=src_off[1:])
+    cap = np.maximum(src_len + 64, 256).astype(np.int32)
+    dst_off = np.zeros(n, dtype=np.int64)
+    np.cumsum(cap[:-1], out=dst_off[1:])
+    dst = np.empty(int(cap.sum(dtype=np.int64)), dtype=np.uint8)
+    out_len = np.zeros(n, dtype=np.int32)
+    rc = lib.hbam_deflate_batch(
+        _ptr(src, ctypes.c_uint8), _ptr(src_off, ctypes.c_int64),
+        _ptr(src_len, ctypes.c_int32), n, _ptr(dst, ctypes.c_uint8),
+        _ptr(dst_off, ctypes.c_int64),
+        _ptr(cap, ctypes.c_int32),
+        _ptr(out_len, ctypes.c_int32), level, _threads(n, n_threads))
+    if rc:
+        # the zlib build reports an output that did not fit as a failure
+        return [None] * n
+    return [dst[int(o):int(o) + int(l)].tobytes() if l > 0 else None
+            for o, l in zip(dst_off, out_len)]

@@ -1,0 +1,75 @@
+"""Positioned byte sources (trimmed copy of hadoop_bam_tpu/utils/seekable.py).
+
+Every host layer reads through ``pread(offset, size) -> bytes`` plus
+``size``, so local files and in-memory buffers are interchangeable.
+"""
+from __future__ import annotations
+
+import os
+from typing import Union
+
+
+class ByteSource:
+    """Interface: stateless positioned reads."""
+
+    size: int
+
+    def pread(self, offset: int, size: int) -> bytes:
+        raise NotImplementedError
+
+    def close(self) -> None:
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class FileByteSource(ByteSource):
+    """Positioned reads over a local file via os.pread (thread-safe: many
+    decode threads share one descriptor)."""
+
+    def __init__(self, path: Union[str, os.PathLike]):
+        self.path = os.fspath(path)
+        self._fd = -1  # set first so __del__ is safe if os.open raises
+        self._fd = os.open(self.path, os.O_RDONLY)
+        self.size = os.fstat(self._fd).st_size
+
+    def pread(self, offset: int, size: int) -> bytes:
+        if offset >= self.size or size <= 0:
+            return b""
+        return os.pread(self._fd, size, offset)
+
+    def close(self) -> None:
+        if self._fd >= 0:
+            os.close(self._fd)
+            self._fd = -1
+
+    def __del__(self):
+        try:
+            self.close()
+        except OSError:
+            pass
+
+
+class BytesByteSource(ByteSource):
+    """Over an in-memory buffer."""
+
+    def __init__(self, data: bytes):
+        self._data = data
+        self.size = len(data)
+
+    def pread(self, offset: int, size: int) -> bytes:
+        return self._data[offset:offset + size]
+
+
+def as_byte_source(obj) -> ByteSource:
+    if isinstance(obj, ByteSource):
+        return obj
+    if isinstance(obj, (bytes, bytearray, memoryview)):
+        return BytesByteSource(bytes(obj))
+    if isinstance(obj, (str, os.PathLike)):
+        return FileByteSource(obj)
+    raise TypeError(f"cannot make a ByteSource from {type(obj)!r}")
