@@ -11,8 +11,12 @@ Phases (any failure raises and exits non-zero):
 3. K1 (fixed-field gather) on the card against its plain PyTorch version
    at the span-mode geometry (D = 16 MiB, N = 262,144), with its time;
 4. K2 (seq/qual stats) on the card against its plain version at the
-   default payload geometry (65,536 rows of 96 + 160 bytes), and the
-   2^24-bases histogram case, with its time;
+   default payload geometry (65,536 rows of 96 + 160 bytes of real
+   reads), on random bytes (all 16 codes), odd widths, base addresses off
+   16 bytes, n = 1 and n off a stage's rows, twice in a row, and the
+   2^24-bases histogram case; its ptxas line, launch geometry and time,
+   and its time on the same rows through the direct path and with every
+   length 0;
 5. the main path: a synthetic paired-end BAM (``--reads`` 151-bp reads,
    made from ``--seed``) through ``open_bam(path).flagstat()``,
    ``.seq_stats()`` and the span-mode ``.flagstat(mode="span")`` on
@@ -86,8 +90,8 @@ def device_ms(torch, calls, reps: int = 32) -> float:
     ``calls`` (each over its own copy of the inputs, together larger than
     the 50 MB L2, so every call reads device memory).  Unlike event
     timing around one call, host launch overhead does not count.  Falls
-    back to event timing (``time_ms``) when the profiler records no
-    device activity, and says so."""
+    back to event timing (``time_ms``) when three profiler sessions in a
+    row record no device activity, and says so."""
     if not torch.cuda.is_available():
         return float("nan")   # a rehearsal on the CPU measures nothing
     from torch.autograd import DeviceType
@@ -95,16 +99,18 @@ def device_ms(torch, calls, reps: int = 32) -> float:
     for call in calls:
         call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            calls[i % len(calls)]()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    if us > 0:
-        return us / reps / 1e3
-    log("torch.profiler recorded no device time: event timing instead")
+    for _ in range(3):   # a profiler session now and then records nothing
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                calls[i % len(calls)]()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+    log("torch.profiler recorded no device time in 3 sessions: event "
+        "timing instead")
     return time_ms(torch, calls[0], torch.empty(
         64 << 20, dtype=torch.uint8, device="cuda"))
 
@@ -248,12 +254,43 @@ def _k2_compare(torch, seq, qual, lengths) -> int:
                 - want["base_hist"].to(torch.int64)).abs().max())
 
 
-def phase_k2(torch, path, dev) -> dict:
-    log("== phase 4: K2 seq_qual_stats vs plain")
+def _k2_cases(torch, dev) -> int:
+    """K2 against its plain version where the kernel's design could go
+    wrong: random bytes (all 16 codes) at the default widths, odd widths,
+    base addresses off 16 bytes (rows 1..n of a [n + 1, W] tile), n = 1,
+    n off the rows of a stage, back-to-back launches."""
     import numpy as np
-    from hadoop_bam_torch.ops.seq_stats import (
-        seq_qual_stats, seq_qual_stats_plain,
-    )
+    from hadoop_bam_torch.ops.seq_stats import k2_launch, seq_qual_stats_plain
+    rng = np.random.default_rng(7)
+    err = 0
+    for n, sb, qb, sliced in ((65_536, 96, 160, False), (100, 17, 33, False),
+                              (4097, 76, 151, True), (1000, 96, 160, True),
+                              (1, 96, 160, False), (1001, 96, 160, False),
+                              (65, 96, 160, False)):
+        k = 1 if sliced else 0
+        seq = rng.integers(0, 256, (n + k, sb), dtype=np.uint8)
+        qual = rng.integers(0, 256, (n + k, qb), dtype=np.uint8)
+        lens = rng.integers(-2, 2 * sb + 9, n + k).astype(np.int32)
+        lens[k:k + 4] = [2 * sb, 0, 1, qb + 1][:n]
+        ts = [torch.from_numpy(a).to(dev)[k:] for a in (seq, qual, lens)]
+        check(all(t.is_contiguous() for t in ts), "contiguous slices")
+        for _ in range(2):
+            err = max(err, _k2_compare(torch, *ts))
+        codes = int(seq_qual_stats_plain(*ts)["base_hist"].count_nonzero())
+        check(codes == 16 or n < 65, f"all 16 codes in the {n}-row case")
+        go = k2_launch(n, sb, qb, tuple(t.data_ptr() for t in ts), 132)
+        log(f"random {n} x ({sb}, {qb}){' at rows 1..n' if sliced else ''}"
+            f": {codes} codes present, bit-equal twice in a row "
+            f"({'TMA rings' if go.aligned else 'direct loads'}, base "
+            f"addresses % 16 = {[t.data_ptr() % 16 for t in ts]})")
+    return err
+
+
+def k2_fixture(torch, path, dev):
+    """The first tile of real reads at the default payload geometry, with
+    edge lengths in its first rows: (geometry, lengths, seq, qual,
+    lengths tensors on ``dev``)."""
+    import numpy as np
     from hadoop_bam_torch.parallel.pipeline import (
         PayloadGeometry, decode_span_payload_host,
     )
@@ -274,12 +311,30 @@ def phase_k2(torch, path, dev) -> dict:
     l_seq = prefix[:, 20:24].copy().view("<i4")[:, 0]
     lens = np.minimum(l_seq, g.max_len).astype(np.int32)
     lens[:7] = [0, 1, 2, 3, 200, -4, 161]   # edge rows: empty, odd, > row
-    s_t = torch.from_numpy(seq).to(dev)
-    q_t = torch.from_numpy(qual).to(dev)
-    l_t = torch.from_numpy(lens).to(dev)
+    return g, lens, *(torch.from_numpy(a).to(dev) for a in (seq, qual, lens))
+
+
+def phase_k2(torch, path, dev) -> dict:
+    log("== phase 4: K2 seq_qual_stats vs plain")
+    import numpy as np
+    from hadoop_bam_torch.ops import kernels
+    from hadoop_bam_torch.ops.seq_stats import (
+        k2_launch, seq_qual_stats, seq_qual_stats_plain,
+    )
+    g, lens, s_t, q_t, l_t = k2_fixture(torch, path, dev)
+    n = g.tile_records
     err = _k2_compare(torch, s_t, q_t, l_t)
     log(f"{n} x ({g.seq_stride}, {g.qual_stride}) rows: gc, mean_qual "
         f"bit-equal, base_hist equal")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    go = k2_launch(n, g.seq_stride, g.qual_stride,
+                   (s_t.data_ptr(), q_t.data_ptr(), l_t.data_ptr()), sms)
+    log(f"K2 launch: {'TMA rings' if go.aligned else 'direct loads'}, "
+        f"{go.tiles} tiles of {go.rows} rows on {go.grid} blocks of "
+        f"{go.warps} warps, {go.smem} B shared memory per block")
+    for line in kernels.ptxas_report("seq_stats").splitlines():
+        log(f"  ptxas: {line.strip()}")
+    err = max(err, _k2_cases(torch, dev))
     L = 16383
     big_s = torch.full((2048, (L + 1) // 2), 0x11, dtype=torch.uint8,
                        device=dev)
@@ -298,6 +353,16 @@ def phase_k2(torch, path, dev) -> dict:
     ms = device_ms(torch, [lambda c=c: seq_qual_stats(*c) for c in copies])
     plain_ms = device_ms(torch, [lambda c=c: seq_qual_stats_plain(*c)
                                  for c in copies])
+    # the same rows through the direct path (rows 1..n of [n + 1, W]
+    # copies: base addresses off 16 bytes), and through the TMA rings with
+    # every length 0 (the bytes staged, nothing counted)
+    off16 = [tuple(t.new_empty((n + 1,) + t.shape[1:])[1:].copy_(t)
+                   for t in c) for c in copies]
+    direct_ms = device_ms(torch, [lambda c=c: seq_qual_stats(*c)
+                                  for c in off16])
+    del off16
+    staged_ms = device_ms(torch, [lambda c=c: seq_qual_stats(
+        c[0], c[1], torch.zeros_like(c[2])) for c in copies])
     ln = np.maximum(lens.astype(np.int64), 0)
     nbytes = int(4 * n + np.minimum((ln + 1) // 2, g.seq_stride).sum()
                  + np.minimum(ln, g.qual_stride).sum() + 8 * n + 64)
@@ -305,7 +370,10 @@ def phase_k2(torch, path, dev) -> dict:
     log(f"K2 device {ms:.4f} ms (plain {plain_ms:.4f} ms; one call timed "
         f"by events incl. launch overhead {ev_ms:.4f} ms), bound "
         f"{bound_ms:.4f} ms = {nbytes} B / 3.35 TB/s; no single PyTorch "
-        f"call computes this function (library_ms null)")
+        f"call computes this function (library_ms null); the same rows "
+        f"through the direct path {direct_ms:.4f} ms; through the TMA "
+        f"rings with every length 0 (staged, nothing counted) "
+        f"{staged_ms:.4f} ms")
     return {"name": "seq_qual_stats", "route": "cuda",
             "source": "hadoop_bam_torch/csrc/seq_stats.cu",
             "replaces": "hadoop_bam_tpu/ops/seq_pallas.py:127",
@@ -362,8 +430,10 @@ def phase_main(torch, path, truth, card, dev) -> dict:
                           lambda: ds.flagstat(mode="span"))):
             wall, busy, by_name = device_busy(torch, fn)
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+            k2 = sum(v for k, v in by_name.items() if "seq_stats_kernel" in k)
             log(f"{name} profiled: {wall:.3f} s wall, device busy "
-                f"{busy:.4f} s ({100 * busy / wall:.2f}%); top: "
+                f"{busy:.4f} s ({100 * busy / wall:.2f}%); K2 {k2 * 1e3:.3f} "
+                f"ms; top: "
                 + "; ".join(f"{k[:60]} {v * 1e3:.2f} ms" for k, v in top))
     return launches
 

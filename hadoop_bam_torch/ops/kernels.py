@@ -34,8 +34,8 @@ KERNELS: Dict[str, tuple] = {
     "unpack_bam": ("hbam_unpack_fixed_fields",
                    [_VP, _I64, _VP, _I64, _VP, _VP]),
     "seq_stats": ("hbam_seq_qual_stats",
-                  [_VP, _I64, _VP, _I64, _VP, _I64, _VP, _VP, _VP, _I32,
-                   _VP]),
+                  [_VP, _I64, _VP, _I64, _VP, _I64, _VP, _VP, _VP, _VP,
+                   _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _VP]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -131,9 +131,10 @@ def check_launch(name: str, rc: int) -> None:
 
 
 def ptxas_report(name: str) -> str:
-    """The ptxas lines of the last build of ``name`` ("" when none)."""
+    """The ptxas lines of the last build of ``name``, spill counts
+    included ("" when none)."""
     log = _paths(name)[2]
     if not os.path.exists(log):
         return ""
     with open(log) as f:
-        return "".join(l for l in f if "ptxas" in l)
+        return "".join(l for l in f if "ptxas" in l or "spill" in l)

@@ -12,7 +12,8 @@ Codes [SPEC]: 0='=', 1=A, 2=C, 4=G, 8=T, 15=N; GC counts C, G and S (6).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +23,19 @@ from hadoop_bam_torch.ops import kernels
 N_CODES = 16
 
 _GC_CODES = (2, 4, 6)
+
+# Launch geometry of the K2 kernel (csrc/seq_stats.cu).  A tile is R whole
+# rows, one warp's work; its seq and qual bytes fill one stage of that
+# warp's shared-memory ring.
+STAGES = 3                     # ring depth (kStages in the source)
+STAGE_BYTES = 4 << 10          # payload bytes a stage aims at
+MAX_ROWS = 32                  # rows per tile at most
+BLOCK_WARPS = 8                # warps per block at most (kWarps)
+BLOCKS_PER_SM = 4              # the persistent grid (kMinBlocksDirect)
+ALIGNED_BLOCKS_PER_SM = 2      # with the rings (kMinBlocksAligned)
+SMEM_BLOCK_MAX = 232_448       # shared memory one block may use (227 KB)
+SMEM_SM = 233_472              # shared memory of one SM (228 KB)
+SMEM_RESERVED = 1_024          # the runtime's share per resident block
 
 
 def _is_gc(c: torch.Tensor) -> torch.Tensor:
@@ -79,6 +93,90 @@ def seq_qual_stats_plain(seq: torch.Tensor, qual: torch.Tensor,
     return {"gc": gc, "mean_qual": mq, "base_hist": hist.to(torch.int32)}
 
 
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+@dataclass(frozen=True)
+class K2Launch:
+    """One K2 launch: tiles of ``rows`` rows go round robin to the
+    ``grid * warps`` warps of a persistent grid; ``aligned`` selects the
+    TMA rings (else direct loads).  The sizes of one warp's shared memory
+    are decided here and taken as they are by the kernel: aligned, a count
+    buffer of ``rows`` rows of ``pitch`` u32 at offset 0, then STAGES
+    stages of ``stage_bytes`` from ``stage_off`` on (each a tile's seq
+    rows, qual rows and lengths); direct, per-row gc and quality sums."""
+    n: int
+    aligned: bool
+    rows: int
+    tiles: int
+    grid: int
+    warps: int
+    pitch: int
+    stage_off: int
+    stage_bytes: int
+    warp_bytes: int
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory of one block."""
+        return self.warps * self.warp_bytes
+
+
+def _warp_layout(rows: int, sb: int, qb: int, aligned: bool
+                 ) -> Tuple[int, int, int, int]:
+    """(pitch, stage_off, stage_bytes, warp_bytes) of one warp.  The count
+    buffer's row pitch is odd, so the per-row sums are free of bank
+    conflicts; stages start on 128 bytes, as the TMA copies want."""
+    if not aligned:
+        return 0, 0, 0, 2 * 4 * rows
+    pitch = (sb // 16 + qb // 16) | 1
+    stage_off = _round_up(rows * pitch * 4, 128)
+    stage = _round_up(rows * (sb + qb) + _round_up(4 * rows, 16), 128)
+    return pitch, stage_off, stage, stage_off + STAGES * stage
+
+
+def k2_launch(n: int, sb: int, qb: int, ptrs: Tuple[int, int, int],
+              sms: int) -> K2Launch:
+    """The arithmetic of a K2 launch over n rows of sb + qb bytes, with the
+    seq, qual and lengths base addresses ``ptrs`` on a card of ``sms``
+    SMs.  The aligned path needs 16-byte strides and base addresses and a
+    warp's ring to fit one block's shared memory."""
+    rows = max(1, min(MAX_ROWS, STAGE_BYTES // max(sb + qb, 1)))
+    if rows >= 4:
+        rows -= rows % 4    # whole 16-byte runs of lengths per tile
+    aligned = (sb > 0 and qb > 0 and sb % 16 == 0 and qb % 16 == 0
+               and all(p % 16 == 0 for p in ptrs))
+    warps = BLOCK_WARPS
+    if aligned:
+        warps = min(BLOCK_WARPS,
+                    SMEM_BLOCK_MAX // _warp_layout(rows, sb, qb, True)[3])
+        aligned = warps > 0
+        warps = warps or BLOCK_WARPS
+    layout = _warp_layout(rows, sb, qb, aligned)
+    smem = warps * layout[3]
+    per_sm = max(1, min(ALIGNED_BLOCKS_PER_SM if aligned else BLOCKS_PER_SM,
+                        SMEM_SM // (smem + SMEM_RESERVED)))
+    tiles = -(-n // rows)
+    return K2Launch(n, aligned, rows, tiles,
+                    max(1, min(-(-tiles // warps), per_sm * sms)), warps,
+                    *layout)
+
+
+_scratch: Dict[tuple, torch.Tensor] = {}
+
+
+def _k2_scratch(dev: torch.device, stream: int) -> torch.Tensor:
+    """K2's running per-bin (arrivals, count) pairs for launches on one
+    stream: zeroed once; each bin's last arrival in a launch zeroes it."""
+    key = (dev.index, stream)
+    buf = _scratch.get(key)
+    if buf is None:
+        buf = _scratch[key] = torch.zeros(N_CODES, dtype=torch.int64,
+                                          device=dev)
+    return buf
+
+
 def seq_qual_stats(seq: torch.Tensor, qual: torch.Tensor,
                    lengths: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Fused per-read stats over packed payload tiles.
@@ -99,17 +197,24 @@ def seq_qual_stats(seq: torch.Tensor, qual: torch.Tensor,
     dev = seq.device
     gc = torch.empty(n, dtype=torch.float32, device=dev)
     mq = torch.empty(n, dtype=torch.float32, device=dev)
-    hist = torch.zeros(N_CODES, dtype=torch.int32, device=dev)
-    if n:
-        fn = kernels.kernel("seq_stats")
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        with torch.cuda.device(dev):
-            rc = fn(seq.data_ptr(), sb, qual.data_ptr(), qb,
-                    lengths.data_ptr(), n, gc.data_ptr(), mq.data_ptr(),
-                    hist.data_ptr(), 8 * sms,
-                    torch.cuda.current_stream(dev).cuda_stream)
-        kernels.check_launch("seq_qual_stats", rc)
-        seq_qual_stats.launches += 1
+    if not n:
+        return {"gc": gc, "mean_qual": mq,
+                "base_hist": torch.zeros(N_CODES, dtype=torch.int32,
+                                         device=dev)}
+    hist = torch.empty(N_CODES, dtype=torch.int32, device=dev)
+    fn = kernels.kernel("seq_stats")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    go = k2_launch(n, sb, qb, (seq.data_ptr(), qual.data_ptr(),
+                               lengths.data_ptr()), sms)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(seq.data_ptr(), sb, qual.data_ptr(), qb, lengths.data_ptr(),
+                n, gc.data_ptr(), mq.data_ptr(), hist.data_ptr(),
+                _k2_scratch(dev, stream).data_ptr(), go.rows, go.grid,
+                go.warps, int(go.aligned), go.pitch, go.stage_off,
+                go.stage_bytes, go.warp_bytes, stream)
+    kernels.check_launch("seq_qual_stats", rc)
+    seq_qual_stats.launches += 1
     return {"gc": gc, "mean_qual": mq, "base_hist": hist}
 
 

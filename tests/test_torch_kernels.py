@@ -205,6 +205,75 @@ def test_k2_wrapper_rejects_bad_arguments(bad):
         tss.seq_qual_stats(seq, qual, lens)
 
 
+@pytest.mark.parametrize("shape", [(65_536, 96, 160), (1, 96, 160),
+                                   (1001, 96, 160), (513, 76, 151),
+                                   (100, 17, 33), (2048, 8192, 16383),
+                                   (2048, 8192, 16384), (7, 16, 16)])
+def test_k2_launch_covers_every_row_once(shape):
+    """The tiles cover rows 0..n-1 exactly once, every warp of the
+    persistent grid owns at least one tile, and the launch stays inside
+    what the C entry point accepts."""
+    n, sb, qb = shape
+    go = tss.k2_launch(n, sb, qb, (0, 0, 0), sms=132)
+    assert 1 <= go.rows <= tss.MAX_ROWS
+    assert (go.tiles - 1) * go.rows < n <= go.tiles * go.rows
+    assert 1 <= go.warps <= tss.BLOCK_WARPS
+    assert 1 <= go.grid <= tss.BLOCKS_PER_SM * 132 and go.grid < 1 << 16
+    assert (go.grid - 1) * go.warps < go.tiles
+
+
+@pytest.mark.parametrize("widths", [(96, 160), (16, 16), (48, 80),
+                                    (8192, 16384), (16384, 32768),
+                                    (32768, 65536), (8192, 16383),
+                                    (1, 1)])
+def test_k2_launch_stage_fits_shared_memory(widths):
+    """A stage holds at least one row and about STAGE_BYTES of payload,
+    and a block's rings fit its shared memory (the 16383-wide row
+    included); rows too wide for one warp's ring take the direct path."""
+    sb, qb = widths
+    go = tss.k2_launch(4096, sb, qb, (0, 0, 0), sms=132)
+    assert go.rows >= 1
+    assert go.rows == 1 or go.rows * (sb + qb) <= tss.STAGE_BYTES
+    assert go.smem == go.warps * go.warp_bytes <= tss.SMEM_BLOCK_MAX
+    per_sm = -(-go.grid // 132)
+    assert per_sm * (go.smem + tss.SMEM_RESERVED) <= tss.SMEM_SM
+    if go.aligned:
+        # the count buffer, then the stages, none overlapping: a stage is
+        # the tile's seq rows, qual rows and lengths, 128-byte aligned
+        assert go.pitch % 2 == 1 and go.pitch >= sb // 16 + qb // 16
+        assert go.rows * go.pitch * 4 <= go.stage_off
+        assert go.rows * (sb + qb + 4) <= go.stage_bytes
+        assert go.stage_off % 128 == 0 and go.stage_bytes % 128 == 0
+        assert go.stage_off + tss.STAGES * go.stage_bytes <= go.warp_bytes
+    else:
+        assert go.warp_bytes == 2 * 4 * go.rows
+    if go.rows >= 4:
+        assert go.rows % 4 == 0
+    wide = (sb, qb) == (32768, 65536)
+    assert go.aligned == (sb % 16 == 0 and qb % 16 == 0 and not wide)
+
+
+@pytest.mark.parametrize("case", ["seq_ptr", "qual_ptr", "len_ptr",
+                                  "odd_seq", "odd_qual", "aligned"])
+def test_k2_launch_selects_path(case):
+    """A base address off 16 bytes or an odd width selects the direct
+    path; 16-byte strides and addresses select the TMA rings."""
+    sb, qb, ptrs = 96, 160, [1 << 20, 2 << 20, 3 << 20]
+    if case == "seq_ptr":
+        ptrs[0] += 96 + 76       # a row slice t[1:] of a [n + 1, 76] tile
+    elif case == "qual_ptr":
+        ptrs[1] += 4
+    elif case == "len_ptr":
+        ptrs[2] += 4
+    elif case == "odd_seq":
+        sb = 76
+    elif case == "odd_qual":
+        qb = 151
+    go = tss.k2_launch(65_536, sb, qb, tuple(ptrs), sms=132)
+    assert go.aligned == (case == "aligned")
+    assert go.smem == go.warps * go.warp_bytes <= tss.SMEM_BLOCK_MAX
+
+
 def test_unpack_bases_matches_jax():
     seq, _, _ = _k2_inputs(7, n=16, sb=33)
     got = tss.unpack_bases(torch.from_numpy(seq), max_len=61)
