@@ -17,11 +17,29 @@ Phases (any failure raises and exits non-zero):
    2^24-bases histogram case; its ptxas line, launch geometry and time,
    and its time on the same rows through the direct path and with every
    length 0;
-5. the main path: a synthetic paired-end BAM (``--reads`` 151-bp reads,
-   made from ``--seed``) through ``open_bam(path).flagstat()``,
-   ``.seq_stats()`` and the span-mode ``.flagstat(mode="span")`` on
-   cuda:0, checked against the generator's own counts, with each
-   kernel's launch count from that run.
+5. the native plane's main path: a synthetic paired-end BAM
+   (``--reads`` 151-bp reads, made from ``--seed``) through
+   ``open_bam(path, config=native).flagstat()``, ``.seq_stats()`` and the
+   span-mode ``.flagstat(mode="span")`` on cuda:0, checked against the
+   generator's own counts, with each kernel's launch count from that run;
+6. K7+K8 (LZ77 resolve + pack) against its plain version and zlib's
+   bytes: the BAM's first 63 BGZF blocks and one run-length block at
+   B = 64, P = 65,536, and a chunk on each smaller rung (8 KiB, 1 KiB);
+7. K9 (record walk) against its plain version on a 64-block chunk of the
+   BAM and on a cut final record, start past the buffer, stop mid-chunk,
+   a block_size below 32, one past the buffer, and more records than R;
+8. K10p (payload gather) against its plain version on that chunk's walk
+   at the default payload geometry, and on random edge rows; then K1 and
+   K2 at the shapes the device plane gives them (that chunk's walk
+   offsets at ``records_cap`` rows, and its payload tiles) against their
+   plain versions, with their times and bounds there;
+9. the device decode plane's main path: what "auto" resolves to and
+   ``probe_device_plane()``'s reading, then ``flagstat()`` and
+   ``seq_stats()`` with ``inflate_backend="device"`` over the same BAM,
+   checked against the generator's counts, with every kernel of that
+   path launched, walls, rates and device-busy shares beside the native
+   plane's, and the plane's host stages timed alone (the span plan at
+   the plane's 512 KiB grain and at the native flagstat's 4 MiB).
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -381,17 +399,14 @@ def phase_k2(torch, path, dev) -> dict:
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
 
 
-def phase_main(torch, path, truth, card, dev) -> dict:
-    log("== phase 5: main path on cuda:0")
-    import numpy as np
+def phase_main(torch, path, truth, card, dev):
+    log("== phase 5: the native plane's main path on cuda:0")
     from hadoop_bam_torch.api import open_bam
-    from hadoop_bam_torch.ops.seq_stats import seq_qual_stats
-    from hadoop_bam_torch.ops.unpack_bam import unpack_fixed_fields
+    from hadoop_bam_torch.config import HBamConfig
     size = os.path.getsize(path)
-    ds = open_bam(path) if dev.type == "cuda" else open_bam(path, dev)
+    ds = open_bam(path, config=HBamConfig(inflate_backend="native"))
     check(ds.device == dev, f"dataset device is {dev}")
-    unpack_fixed_fields.launches = 0
-    seq_qual_stats.launches = 0
+    reset_launches()
     walls = {}
     t0 = time.perf_counter()
     flag = ds.flagstat()
@@ -402,40 +417,500 @@ def phase_main(torch, path, truth, card, dev) -> dict:
     t0 = time.perf_counter()
     flag_span = ds.flagstat(mode="span")
     walls["flagstat_span"] = time.perf_counter() - t0
-    launches = {"unpack_fixed_fields": unpack_fixed_fields.launches,
-                "seq_qual_stats": seq_qual_stats.launches}
-    log(f"launches in the main path: {launches}")
+    launches = {k: v for k, v in read_launches().items()
+                if k in ("unpack_fixed_fields", "seq_qual_stats")}
+    log(f"launches in the native plane's main path: {read_launches()}")
     for name, n in launches.items():
-        check(n > 0 or dev.type != "cuda", f"{name} launched on the main path")
-    check(flag == truth.flagstat, f"flagstat {flag} != {truth.flagstat}")
+        check(n > 0, f"{name} launched on the native plane's main path")
+    check_truth(flag, stats, truth)
     check(flag_span == truth.flagstat, "span-mode flagstat matches")
     check(all(v > 0 for v in flag.values()), "every counter non-zero")
-    check(stats["n_reads"] == truth.n_reads, "seq_stats n_reads")
-    check(np.array_equal(stats["base_hist"], truth.base_hist),
-          "seq_stats base_hist")
-    for k in ("mean_gc", "mean_qual"):
-        rel = abs(stats[k] - getattr(truth, k)) / abs(getattr(truth, k))
-        check(rel <= 1e-6, f"seq_stats {k} rel err {rel} <= 1e-6")
     log(f"flagstat / seq_stats / span flagstat equal the generator's counts "
         f"(mean_gc {stats['mean_gc']:.9f}, mean_qual "
         f"{stats['mean_qual']:.9f})")
     for name, wall in walls.items():
         log(f"{name}: {wall:.3f} s wall, {truth.n_reads / wall:,.0f} reads/s, "
             f"{size / wall / 1e6:.1f} compressed MB/s [{card}]")
-    if dev.type == "cuda":
-        # a second, profiled run of each driver: the device's busy share
-        for name, fn in (("flagstat", ds.flagstat),
-                         ("seq_stats", ds.seq_stats),
-                         ("flagstat_span",
-                          lambda: ds.flagstat(mode="span"))):
-            wall, busy, by_name = device_busy(torch, fn)
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-            k2 = sum(v for k, v in by_name.items() if "seq_stats_kernel" in k)
-            log(f"{name} profiled: {wall:.3f} s wall, device busy "
-                f"{busy:.4f} s ({100 * busy / wall:.2f}%); K2 {k2 * 1e3:.3f} "
-                f"ms; top: "
-                + "; ".join(f"{k[:60]} {v * 1e3:.2f} ms" for k, v in top))
+    # a second, profiled run of each driver: the device's busy share
+    for name, fn in (("flagstat", ds.flagstat),
+                     ("seq_stats", ds.seq_stats),
+                     ("flagstat_span", lambda: ds.flagstat(mode="span"))):
+        log_busy(torch, name, fn, card)
+    return launches, walls
+
+
+def log_busy(torch, name, fn, card) -> None:
+    """Profile one more run of a driver: device busy share and the four
+    busiest kernels."""
+    wall, busy, by_name = device_busy(torch, fn)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    k2 = sum(v for k, v in by_name.items() if "seq_stats_kernel" in k)
+    log(f"{name} profiled: {wall:.3f} s wall, device busy {busy:.4f} s "
+        f"({100 * busy / wall:.2f}%); K2 {k2 * 1e3:.3f} ms; top: "
+        + "; ".join(f"{k[:60]} {v * 1e3:.2f} ms" for k, v in top)
+        + f" [{card}]")
+
+
+def _wrappers():
+    from hadoop_bam_torch.ops import inflate_device as tid
+    from hadoop_bam_torch.ops.seq_stats import seq_qual_stats
+    from hadoop_bam_torch.ops.unpack_bam import unpack_fixed_fields
+    return {"resolve_pack": tid.resolve_pack,
+            "walk_records_device": tid.walk_records_device,
+            "unpack_fixed_fields": unpack_fixed_fields,
+            "payload_gather": tid.payload_gather,
+            "seq_qual_stats": seq_qual_stats}
+
+
+def reset_launches() -> None:
+    for w in _wrappers().values():
+        w.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: w.launches for k, w in _wrappers().items()}
+
+
+def first_blocks(path, n):
+    """The BAM's first ``n`` BGZF blocks: (compressed bytes, block table
+    as ops.inflate.block_table gives it)."""
+    import numpy as np
+    from hadoop_bam_torch.formats import bgzf
+    with open(path, "rb") as f:
+        raw = f.read(n * bgzf.MAX_BLOCK_SIZE)
+    cols = {k: [] for k in ("coffset", "cdata_off", "cdata_len", "isize")}
+    off = 0
+    for _ in range(n):
+        info = bgzf.parse_block_header(raw, off)
+        for k, v in zip(cols, (info.coffset, info.cdata_offset,
+                               info.cdata_size, info.isize)):
+            cols[k].append(v)
+        off = info.next_coffset
+    table = {k: np.asarray(v, np.int64 if k in ("coffset", "cdata_off")
+                           else np.int32) for k, v in cols.items()}
+    return raw[:off], table
+
+
+def tokenize(payloads, P, B):
+    """Raw-DEFLATE byte strings tokenized natively at width P, padded to
+    B rows: (tokens as int32 bits, n_tokens, isize) numpy arrays."""
+    import zlib
+    import numpy as np
+    from hadoop_bam_torch.utils import native
+    comps = []
+    for d in payloads:
+        co = zlib.compressobj(6, zlib.DEFLATED, -15)
+        comps.append(co.compress(d) + co.flush())
+    src = np.frombuffer(b"".join(comps), np.uint8)
+    off = np.cumsum([0] + [len(c) for c in comps[:-1]]).astype(np.int64)
+    ln = np.array([len(c) for c in comps], np.int32)
+    return pad_tokens(native.deflate_tokenize_batch(src, off, ln, P), B)
+
+
+def pad_tokens(out, B):
+    import numpy as np
+    toks, nt, ol = out[:3]
+    n, P = toks.shape
+    tok = np.zeros((B, P), np.int32)
+    tok[:n] = toks.view(np.int32)
+    pad = np.zeros(B, np.int32)
+    nt_p, iz_p = pad.copy(), pad.copy()
+    nt_p[:n], iz_p[:n] = nt, ol
+    return tok, nt_p, iz_p
+
+
+def _k7_check(torch, dev, tok, nt, iz, want: bytes) -> None:
+    from hadoop_bam_torch.ops import inflate_device as tid
+    args = [torch.from_numpy(a).to(dev) for a in (tok, nt, iz)]
+    got, total = tid.resolve_pack(*args)
+    plain, plain_total = tid.pack_contiguous_plain(
+        tid.resolve_tokens_plain(args[0], args[1], tok.shape[1]), args[2])
+    sync(torch, dev)
+    check(torch.equal(got, plain), "K7+K8 bit-equal to plain")
+    check(int(total) == int(plain_total) == len(want), "K7+K8 total")
+    host = got.cpu().numpy()
+    check(host[:len(want)].tobytes() == want, "K7+K8 equal to zlib's bytes")
+    check(not host[len(want):].any(), "K7+K8 zeros past the total")
+    return args
+
+
+def phase_k7(torch, path, dev) -> dict:
+    log("== phase 6: K7+K8 resolve_pack vs plain and zlib")
+    import zlib
+    import numpy as np
+    from hadoop_bam_torch.ops import inflate_device as tid
+    from hadoop_bam_torch.utils import native
+    raw, table = first_blocks(path, 63)
+    src = np.frombuffer(raw, np.uint8)
+    blocks = [zlib.decompress(raw[o:o + n], wbits=-15) for o, n in
+              zip(table["cdata_off"], table["cdata_len"])]
+    rle = b"A" * 65536                    # dist-1 chains 64 K deep
+    co = zlib.compressobj(6, zlib.DEFLATED, -15)
+    rle_c = co.compress(rle) + co.flush()
+    both = np.concatenate([src, np.frombuffer(rle_c, np.uint8)])
+    off = np.append(table["cdata_off"], src.size).astype(np.int64)
+    ln = np.append(table["cdata_len"], len(rle_c)).astype(np.int32)
+    tok, nt, iz = pad_tokens(native.deflate_tokenize_batch(
+        both, off, ln, 1 << 16), 64)
+    args = _k7_check(torch, dev, tok, nt, iz, b"".join(blocks) + rle)
+    log(f"B = 64, P = 65536 (63 BAM blocks + 1 run-length block, "
+        f"{int(iz.sum())} bytes, {int(nt.sum())} tokens): bit-equal to "
+        f"plain and to zlib, zeros past the total")
+    T = -(-int(nt.max()) // 256) * 256        # the device plane's narrow rows
+    narrow = torch.from_numpy(np.ascontiguousarray(tok[:, :T])).to(dev)
+    check(torch.equal(tid.resolve_pack(narrow, *args[1:], P=1 << 16)[0],
+                      tid.resolve_pack(*args)[0]),
+          f"K7+K8 on [64, {T}] token rows equals [64, 65536]")
+    log(f"the same chunk as [64, {T}] token rows (as the device plane "
+        f"ships it): equal")
+    data = b"".join(blocks)
+    for P, sizes, B in ((1 << 13, [8192, 5000, 1025, 8000, 7777] * 2 + [0],
+                         16), (1 << 10, [1024, 1, 700, 1000, 0], 8)):
+        pieces, p = [], 0
+        for n in sizes:
+            pieces.append(data[p:p + n])
+            p += n
+        _k7_check(torch, dev, *tokenize(pieces, P, B), b"".join(pieces))
+        log(f"B = {B}, P = {P} ({len(pieces)} blocks, an empty one "
+            f"included): bit-equal to plain and to zlib")
+    copies = [tuple(a.clone() for a in args) for _ in range(4)]
+    ms = device_ms(torch, [lambda c=c: tid.resolve_pack(*c)
+                           for c in copies])
+    plain_ms = device_ms(torch, [lambda c=c: tid.pack_contiguous_plain(
+        tid.resolve_tokens_plain(c[0], c[1], 1 << 16), c[2])
+        for c in copies])
+    nbytes = int(4 * np.minimum(nt, 1 << 16).sum() + 8 * 64 + 64 * 65536
+                 + 4)
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    log(f"K7+K8 device {ms:.4f} ms (plain {plain_ms:.4f} ms), bound "
+        f"{bound_ms:.4f} ms = {nbytes} B / 3.35 TB/s (tokens read once, "
+        f"the [64 x 65536] buffer written once); no single PyTorch call "
+        f"computes this function (library_ms null)")
+    for line in kernels_report("lz77_resolve"):
+        log(f"  ptxas: {line}")
+    return {"name": "resolve_pack", "route": "cuda",
+            "source": "hadoop_bam_torch/csrc/lz77_resolve.cu",
+            "replaces": "hadoop_bam_tpu/ops/inflate_device.py:98",
+            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+
+
+def kernels_report(name):
+    from hadoop_bam_torch.ops import kernels
+    return [l.strip() for l in kernels.ptxas_report(name).splitlines()
+            if "registers" in l or "spill" in l]
+
+
+def bam_chunk(torch, path, dev):
+    """The BAM's first 64 blocks resolved on the card: (buf, total, start
+    of the first record, host copy of buf)."""
+    import numpy as np
+    from hadoop_bam_torch.formats.bamio import read_bam_header
+    from hadoop_bam_torch.ops import inflate_device as tid
+    from hadoop_bam_torch.utils import native
+    raw, table = first_blocks(path, 64)
+    tok, nt, iz = pad_tokens(native.deflate_tokenize_batch(
+        np.frombuffer(raw, np.uint8), table["cdata_off"],
+        table["cdata_len"], 1 << 16), 64)
+    buf, total = tid.resolve_pack(*(torch.from_numpy(a).to(dev)
+                                    for a in (tok, nt, iz)))
+    _, voff = read_bam_header(path)
+    blk = int(np.nonzero(table["coffset"] == voff >> 16)[0][0])
+    start = int(iz[:blk].sum()) + (voff & 0xFFFF)
+    return buf, total, start, buf.cpu().numpy()
+
+
+def _le32(a, p):
+    return int(a[p:p + 4].view("<i4")[0])
+
+
+def phase_k9(torch, path, dev) -> dict:
+    log("== phase 7: K9 walk_records_device vs plain")
+    import numpy as np
+    from hadoop_bam_torch.ops import inflate_device as tid
+    buf, total, start, host = bam_chunk(torch, path, dev)
+    L = buf.shape[0]
+    R = tid.records_cap(64, 1 << 16)
+    t = int(total)
+    second = start + 4 + _le32(host, start)
+    third = second + 4 + _le32(host, second)
+
+    def with_bs(p, value):
+        b = buf.clone()
+        b[p:p + 4] = torch.from_numpy(
+            np.frombuffer(np.int32(value).tobytes(), np.uint8).copy())
+        return b
+
+    cases = [("chunk", buf, total, start, t, R),
+             ("cut final record", buf, third + 20, start, t, R),
+             ("start past L", buf, total, L + 3, t, R),
+             ("stop mid-chunk", buf, total, start, t // 2, R),
+             ("block_size 5", with_bs(third, 5), total, start, t, R),
+             ("block_size past L", with_bs(second, L + 1), total, start, t,
+              R),
+             ("n_all past R", buf, total, start, t, 16)]
+    for name, b, tot, st, sp, r in cases:
+        got = tid.walk_records_device(b, tot, st, sp, r)
+        want = tid.walk_records_device_plain(b, tot, st, sp, r)
+        sync(torch, dev)
+        check(torch.equal(got[0], want[0]), f"K9 offsets, {name}")
+        g, w = [int(x) for x in got[1:]], [int(x) for x in want[1:]]
+        check(g == w, f"K9 (n_all, tail, bad) {g} != {w}, {name}")
+        log(f"{name}: offsets and (n_all, tail, bad) = {tuple(g)} equal")
+    copies = [(buf.clone(), total.clone()) for _ in range(4)]
+    ms = device_ms(torch, [lambda c=c: tid.walk_records_device(
+        c[0], c[1], start, t, R) for c in copies])
+    plain_ms = device_ms(torch, [lambda c=c: tid.walk_records_device_plain(
+        c[0], c[1], start, t, R) for c in copies])
+    nbytes = L + 4 + 4 * R + 12
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    log(f"K9 device {ms:.4f} ms (plain {plain_ms:.4f} ms; "
+        f"{tid.walk_rounds(L)} rounds at L = {L}), bound {bound_ms:.4f} ms "
+        f"= {nbytes} B / 3.35 TB/s (buffer read once, offsets written once); "
+        f"no single PyTorch call computes this function (library_ms null)")
+    return {"name": "walk_records_device", "route": "cuda",
+            "source": "hadoop_bam_torch/csrc/record_walk.cu",
+            "replaces": "hadoop_bam_tpu/ops/inflate_device.py:176",
+            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+
+
+def phase_k10p(torch, path, dev) -> dict:
+    log("== phase 8: K10p payload_gather vs plain")
+    import numpy as np
+    from hadoop_bam_torch.ops import inflate_device as tid
+    from hadoop_bam_torch.ops.unpack_bam import unpack_fixed_fields
+    from hadoop_bam_torch.parallel.pipeline import PayloadGeometry
+    g = PayloadGeometry()
+    geo = (g.max_len, g.seq_stride, g.qual_stride)
+    buf, total, start, _ = bam_chunk(torch, path, dev)
+    R = tid.records_cap(64, 1 << 16)
+    offs, n_all, _, _ = tid.walk_records_device(buf, total, start,
+                                                int(total), R)
+    cols = unpack_fixed_fields(buf, offs)
+    args = (buf, offs, cols["l_seq"], cols["l_read_name"], cols["n_cigar"],
+            n_all.reshape(1))
+    rng = np.random.default_rng(5)
+    L, n = 1 << 20, 4096
+    edge = [torch.from_numpy(rng.integers(0, 256, L, dtype=np.uint8)).to(dev)]
+    l_seq = rng.integers(-3, 400, n).astype(np.int32)
+    l_seq[:3] = [2**31 - 1, 0, 161]
+    for a in (rng.integers(-50, L + 50, n).astype(np.int32), l_seq,
+              rng.integers(0, 256, n).astype(np.int32),
+              rng.integers(0, 70_000, n).astype(np.int32)):
+        edge.append(torch.from_numpy(a).to(dev))
+    for name, a, nv in (("chunk", args[:5], args[5]),
+                        ("random edge rows", edge, 1000)):
+        got = tid.payload_gather(*a, nv, *geo)
+        want = tid.payload_gather_plain(*a, nv, *geo)
+        sync(torch, dev)
+        for x, y, what in zip(got, want, ("seq", "qual")):
+            check(torch.equal(x, y), f"K10p {what}, {name}")
+        rows = R if name == "chunk" else n
+        log(f"{name}: seq and qual tiles bit-equal ({rows} rows, "
+            f"{int(nv)} valid)")
+    copies = [tuple(t.clone() for t in args) for _ in range(4)]
+    ms = device_ms(torch, [lambda c=c: tid.payload_gather(*c, *geo)
+                           for c in copies])
+    plain_ms = device_ms(torch, [lambda c=c: tid.payload_gather_plain(
+        *c, *geo) for c in copies])
+    nv = min(int(n_all), R)
+    use = np.clip(cols["l_seq"][:nv].cpu().numpy().astype(np.int64), 0,
+                  g.max_len)
+    nbytes = int(R * (g.seq_stride + g.qual_stride) + 16 * R + 4
+                 + ((use + 1) // 2).sum() + use.sum())
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    log(f"K10p device {ms:.4f} ms (plain {plain_ms:.4f} ms), bound "
+        f"{bound_ms:.4f} ms = {nbytes} B / 3.35 TB/s (the [{R}, 96 + 160] "
+        f"tiles written once, columns and the {nv} records' payload bytes "
+        f"read once); no single PyTorch call computes this function "
+        f"(library_ms null)")
+    return {"name": "payload_gather", "route": "cuda",
+            "source": "hadoop_bam_torch/csrc/payload_gather.cu",
+            "replaces": "hadoop_bam_tpu/ops/inflate_device.py:320",
+            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+
+
+def phase_plane_shapes(torch, path, dev, rows) -> None:
+    """K1 and K2 at the shapes the device plane gives them: the 64-block
+    chunk's walk offsets at ``records_cap`` rows, and the payload tiles
+    K10p cuts from it (lengths 0 past the walk's count, as
+    ``device_seq_stats_step`` passes them).  Each must equal its plain
+    version; its times and bound there go into its row of the kernels
+    line as ``device_plane_shape``."""
+    log("== phase 8b: K1 and K2 at the device plane's chunk shape vs plain")
+    import numpy as np
+    from hadoop_bam_torch.ops import inflate_device as tid
+    from hadoop_bam_torch.ops.seq_stats import (
+        seq_qual_stats, seq_qual_stats_plain,
+    )
+    from hadoop_bam_torch.ops.unpack_bam import (
+        FIXED_FIELDS, unpack_fixed_fields, unpack_fixed_fields_plain,
+    )
+    from hadoop_bam_torch.parallel.pipeline import PayloadGeometry
+    g = PayloadGeometry()
+    buf, total, start, _ = bam_chunk(torch, path, dev)
+    L = buf.shape[0]
+    R = tid.records_cap(64, 1 << 16)
+    offs, n_all, _, _ = tid.walk_records_device(buf, total, start,
+                                                int(total), R)
+    cols = unpack_fixed_fields(buf, offs)
+    want = unpack_fixed_fields_plain(buf, offs)
+    sync(torch, dev)
+    err = 0
+    for name in FIXED_FIELDS:
+        diff = cols[name].to(torch.int64) - want[name].to(torch.int64)
+        err = max(err, int(diff.abs().max()))
+        check(torch.equal(cols[name], want[name]),
+              f"K1 column {name} at the device plane's shape")
+    nv = min(int(n_all), R)
+    log(f"K1 on the chunk's walk offsets ({nv} records, {R} rows, "
+        f"L = {L}): every column equal (max_abs_err {err})")
+    copies = [(buf.clone(), offs.clone()) for _ in range(4)]
+    ms = device_ms(torch, [lambda c=c: unpack_fixed_fields(*c)
+                           for c in copies])
+    plain_ms = device_ms(torch, [lambda c=c: unpack_fixed_fields_plain(*c)
+                                 for c in copies])
+    distinct = int(torch.unique(offs).numel())
+    nbytes = 4 * R + 36 * distinct + 48 * R
+    rows["unpack_fixed_fields"]["device_plane_shape"] = _shape_row(
+        f"[{L}] u8, {R} offsets", err, ms, plain_ms, nbytes)
+    rows["unpack_fixed_fields"]["max_abs_err"] = max(
+        rows["unpack_fixed_fields"]["max_abs_err"], err)
+    log(f"K1 at the device plane's shape: device {ms:.4f} ms (plain "
+        f"{plain_ms:.4f} ms), bound {nbytes / H100_BYTES_PER_S * 1e3:.4f} ms "
+        f"= {nbytes} B / 3.35 TB/s; at the span shape (phase 3) "
+        f"{rows['unpack_fixed_fields']['ms']:.4f} ms, bound "
+        f"{rows['unpack_fixed_fields']['bound_ms']:.4f} ms")
+    seq, qual = tid.payload_gather(buf, offs, cols["l_seq"],
+                                   cols["l_read_name"], cols["n_cigar"],
+                                   n_all.reshape(1), g.max_len,
+                                   g.seq_stride, g.qual_stride)
+    valid = torch.arange(R, device=dev) < nv
+    lengths = torch.where(valid, torch.clamp(cols["l_seq"], 0, g.max_len),
+                          0).to(torch.int32)
+    err = _k2_compare(torch, seq, qual, lengths)
+    log(f"K2 on the chunk's payload tiles ({R} x ({g.seq_stride}, "
+        f"{g.qual_stride}), {nv} with a length): gc, mean_qual bit-equal, "
+        f"base_hist equal")
+    copies = [(seq.clone(), qual.clone(), lengths.clone()) for _ in range(4)]
+    ms = device_ms(torch, [lambda c=c: seq_qual_stats(*c) for c in copies])
+    plain_ms = device_ms(torch, [lambda c=c: seq_qual_stats_plain(*c)
+                                 for c in copies])
+    ln = lengths.cpu().numpy().astype(np.int64)
+    nbytes = int(4 * R + np.minimum((ln + 1) // 2, g.seq_stride).sum()
+                 + np.minimum(ln, g.qual_stride).sum() + 8 * R + 64)
+    rows["seq_qual_stats"]["device_plane_shape"] = _shape_row(
+        f"{R} x ({g.seq_stride}, {g.qual_stride}), {nv} reads", err, ms,
+        plain_ms, nbytes)
+    log(f"K2 at the device plane's shape: device {ms:.4f} ms (plain "
+        f"{plain_ms:.4f} ms), bound {nbytes / H100_BYTES_PER_S * 1e3:.4f} ms "
+        f"= {nbytes} B / 3.35 TB/s; at the tile shape (phase 4) "
+        f"{rows['seq_qual_stats']['ms']:.4f} ms, bound "
+        f"{rows['seq_qual_stats']['bound_ms']:.4f} ms")
+
+
+def _shape_row(shape, err, ms, plain_ms, nbytes) -> dict:
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    return {"shape": shape, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "share_of_bound": bound_ms / ms}
+
+
+def phase_device_main(torch, path, truth, card, dev, native_walls):
+    log("== phase 9: the device decode plane's main path on cuda:0")
+    from hadoop_bam_torch.api import open_bam
+    from hadoop_bam_torch.config import HBamConfig, resolve_inflate_backend
+    from hadoop_bam_torch.ops.inflate_device import probe_device_plane
+    plane = resolve_inflate_backend(HBamConfig())
+    check(plane == "native", '"auto" resolves to the native plane')
+    log(f'"auto" resolves to {plane!r} without a probe; '
+        f"probe_device_plane() reads {probe_device_plane(dev)} (not acted "
+        f"on); each driver below names its plane")
+    size = os.path.getsize(path)
+    ds = open_bam(path, config=HBamConfig(inflate_backend="device"))
+    reset_launches()
+    walls = {}
+    t0 = time.perf_counter()
+    flag = ds.flagstat()
+    walls["flagstat"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats = ds.seq_stats()
+    walls["seq_stats"] = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"launches in the device plane's main path: {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} launched on the device plane's main path")
+    check_truth(flag, stats, truth)
+    log("device plane: flagstat / seq_stats equal the generator's counts "
+        f"(mean_gc {stats['mean_gc']:.9f}, mean_qual "
+        f"{stats['mean_qual']:.9f})")
+    for name, wall in walls.items():
+        log(f"{name} on the device plane: {wall:.3f} s wall, "
+            f"{truth.n_reads / wall:,.0f} reads/s, {size / wall / 1e6:.1f} "
+            f"compressed MB/s; native plane {native_walls[name]:.3f} s, "
+            f"{truth.n_reads / native_walls[name]:,.0f} reads/s [{card}]")
+    for name, fn in (("flagstat", ds.flagstat), ("seq_stats", ds.seq_stats)):
+        log_busy(torch, f"{name} (device plane)", fn, card)
+    device_plane_stages(torch, path, dev, card)
     return launches
+
+
+def device_plane_stages(torch, path, dev, card) -> None:
+    """The device plane's host stages, each alone over the whole file:
+    the span plan (at the plane's grain and at the native flagstat's),
+    the native tokenize of every span on the decode pool, and the plane
+    with a step that does nothing on the device (tokenize, pinned staging
+    and token copies)."""
+    import concurrent.futures as cf
+    from hadoop_bam_torch.config import HBamConfig
+    from hadoop_bam_torch.device import data_axis
+    from hadoop_bam_torch.parallel import pipeline as tp
+    from hadoop_bam_torch.utils.seekable import as_byte_source
+    cfg = HBamConfig(inflate_backend="device")
+    t0 = time.perf_counter()
+    spans = list(tp._plan(path, None, 1, tp.DEVICE_PLANE_SPAN_BYTES))
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    coarse = list(tp._plan(path, None, 1, 4 << 20))
+    coarse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blocks = tokens = 0
+    with as_byte_source(path) as src, cf.ThreadPoolExecutor(
+            cfg.pool_size()) as pool:
+        for c in tp.iter_windowed(
+                pool, spans, lambda s: tp._tokenize_span_tokens(src, s),
+                2 * cfg.pool_size()):
+            blocks += c.used
+            tokens += int(c.n_tokens.sum())
+    tok_s = time.perf_counter() - t0
+
+    def null_step(tok, nt, iz, start, stop, P):
+        return torch.zeros(3, dtype=torch.int32, device=tok.device)
+
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    tp._device_plane(path, data_axis(dev), cfg, None, spans, 2, null_step)
+    sync(torch, dev)
+    null_s = time.perf_counter() - t0
+    log(f"device plane host stages, each alone: plan of {len(spans)} spans "
+        f"{plan_s:.3f} s (at 4 MiB, {len(coarse)} spans, {coarse_s:.3f} s); "
+        f"tokenize of {blocks} blocks ({tokens} tokens) on "
+        f"{cfg.pool_size()} threads {tok_s:.3f} s; tokenize + staging + "
+        f"token copies with no device step {null_s:.3f} s "
+        f"({os.cpu_count()} CPUs) [{card}]")
+
+
+def check_truth(flag, stats, truth) -> None:
+    import numpy as np
+    check(flag == truth.flagstat, f"flagstat {flag} != {truth.flagstat}")
+    check(stats["n_reads"] == truth.n_reads, "seq_stats n_reads")
+    check(np.array_equal(stats["base_hist"], truth.base_hist),
+          "seq_stats base_hist")
+    for k in ("mean_gc", "mean_qual"):
+        rel = abs(stats[k] - getattr(truth, k)) / abs(getattr(truth, k))
+        check(rel <= 1e-6, f"seq_stats {k} rel err {rel} <= 1e-6")
 
 
 def main(argv=None) -> int:
@@ -460,11 +935,24 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     k1 = phase_k1(torch, path, dev)
     k2 = phase_k2(torch, path, dev)
-    launches = phase_main(torch, path, truth, card, dev)
-    k1["launches"] = launches["unpack_fixed_fields"]
-    k2["launches"] = launches["seq_qual_stats"]
+    native_launches, native_walls = phase_main(torch, path, truth, card, dev)
+    k7 = phase_k7(torch, path, dev)
+    k9 = phase_k9(torch, path, dev)
+    k10 = phase_k10p(torch, path, dev)
+    rows = {"unpack_fixed_fields": k1, "seq_qual_stats": k2,
+            "resolve_pack": k7, "walk_records_device": k9,
+            "payload_gather": k10}
+    phase_plane_shapes(torch, path, dev, rows)
+    device_launches = phase_device_main(torch, path, truth, card, dev,
+                                        native_walls)
+    for name, row in rows.items():
+        by_path = {"native": native_launches.get(name, 0),
+                   "device": device_launches[name]}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

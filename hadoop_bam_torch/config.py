@@ -11,18 +11,31 @@ import dataclasses
 import os
 from typing import Optional
 
-from hadoop_bam_torch.ops.inflate import check_backend
 from hadoop_bam_torch.utils.errors import PlanError
+
+# decode planes: "device" is the token-feed plane (host tokenize, LZ77
+# resolve and record walk on the card); "native" and "zlib" inflate and
+# walk on the host; "auto" is "native" (see resolve_inflate_backend)
+INFLATE_BACKENDS = ("auto", "native", "zlib", "device")
 
 
 @dataclasses.dataclass(frozen=True)
 class HBamConfig:
     check_crc: bool = False               # verify BGZF CRC32 footers
-    inflate_backend: str = "native"       # host decode plane: native | zlib
+    inflate_backend: str = "auto"         # decode plane, INFLATE_BACKENDS
     decode_pool_workers: Optional[int] = None  # span decode threads
 
     def __post_init__(self):
-        check_backend(self.inflate_backend)
+        if self.inflate_backend not in INFLATE_BACKENDS:
+            raise PlanError(f"unknown inflate backend "
+                            f"{self.inflate_backend!r}; expected one of "
+                            f"{INFLATE_BACKENDS}")
+
+    @property
+    def host_backend(self) -> str:
+        """The host plane of paths that inflate on the host: native
+        unless zlib is asked for."""
+        return "zlib" if self.inflate_backend == "zlib" else "native"
 
     def pool_size(self) -> int:
         """Decode threads: decode_pool_workers when set, else 4x CPUs in
@@ -36,17 +49,25 @@ class HBamConfig:
 DEFAULT_CONFIG = HBamConfig()
 
 
+def resolve_inflate_backend(config: Optional[HBamConfig]) -> str:
+    """The concrete decode plane ("native" | "zlib" | "device") of a
+    config.  "auto" is "native" on every device: on an NVIDIA H100 80GB
+    HBM3 at 700 W the device plane took more than four times the native
+    plane's wall over chip_smoke.py's 2,000,000-read file (PERF.md), and
+    ``probe_device_plane``'s one-block timing cannot tell the two planes
+    apart, so the device plane runs only when a caller names it."""
+    backend = (config if config is not None else DEFAULT_CONFIG
+               ).inflate_backend
+    return "native" if backend == "auto" else backend
+
+
 def config_from_dict(d: dict) -> HBamConfig:
-    """The port's config from a dict of reference config fields.  The
-    reference's ``inflate_backend="auto"`` resolves to a host plane there
-    when the native library builds, so it maps to ``"native"``; its
-    ``"device"`` plane is not in this slice and raises PlanError."""
-    backend = d.get("inflate_backend", DEFAULT_CONFIG.inflate_backend)
-    if backend == "auto":
-        backend = "native"
+    """The port's config from a dict of reference config fields; every
+    decode plane name, "auto" and "device" included, carries over."""
     return HBamConfig(
         check_crc=bool(d.get("check_crc", DEFAULT_CONFIG.check_crc)),
-        inflate_backend=backend,
+        inflate_backend=d.get("inflate_backend",
+                              DEFAULT_CONFIG.inflate_backend),
         decode_pool_workers=d.get("decode_pool_workers"))
 
 

@@ -1,14 +1,17 @@
 """Span inflate + record walk on the host (trimmed copy of
 hadoop_bam_tpu/ops/inflate.py).
 
-Two planes, chosen by ``config.inflate_backend``:
+Three backends for ``inflate_span``:
 
 - ``native``: the C++ library inflates every block of a span at once on
   several threads, and walks records in one pass;
-- ``zlib``: Python zlib per block and the Python record walk.
+- ``zlib``: Python zlib per block and the Python record walk;
+- ``device``: host Huffman tokenize + LZ77 resolve on the card
+  (``ops/inflate_device.inflate_span_device``); its walk and CRC checks
+  here are the native ones.
 
-Both give the same bytes, offsets and error classes for a bad block
-(BGZFError).  There is no "auto" probe and no device plane in this slice.
+All give the same bytes, offsets and error classes for a bad block
+(BGZFError).  ``config.resolve_inflate_backend`` picks among them.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from hadoop_bam_torch.formats import bgzf
 from hadoop_bam_torch.utils import native
 from hadoop_bam_torch.utils.errors import PlanError
 
-BACKENDS = ("native", "zlib")
+BACKENDS = ("native", "zlib", "device")
 
 
 def check_backend(backend: str) -> str:
@@ -52,13 +55,19 @@ def block_table(raw: bytes, offset: int = 0) -> dict:
 
 
 def inflate_span(raw: bytes, table: Optional[dict] = None,
-                 backend: str = "native", n_threads: int = 0
+                 backend: str = "native", n_threads: int = 0, device=None
                  ) -> Tuple[np.ndarray, np.ndarray]:
     """Inflate all blocks of a compressed span.  Returns (data, ubase):
-    the contiguous inflated bytes and each block's start offset in them."""
+    the contiguous inflated bytes and each block's start offset in them.
+    ``device`` is where the ``device`` backend resolves (``cuda:0`` by
+    default)."""
     check_backend(backend)
     if table is None:
         table = block_table(raw)
+    if backend == "device":
+        from hadoop_bam_torch.ops.inflate_device import inflate_span_device
+        return inflate_span_device(raw, table, n_threads=n_threads,
+                                   device=device)
     isize = table["isize"]
     ubase = np.zeros(isize.size + 1, dtype=np.int64)
     np.cumsum(isize, out=ubase[1:])
@@ -101,7 +110,7 @@ def verify_crcs(raw: bytes, table: dict, data: np.ndarray,
     check_backend(backend)
     n = table["isize"].size
     expect = footer_crcs(np.frombuffer(raw, dtype=np.uint8), table)
-    if backend == "native":
+    if backend != "zlib":
         got = native.crc32_batch(data, ubase, table["isize"])
     else:
         got = np.empty(n, dtype=np.uint32)
@@ -121,7 +130,7 @@ def walk_records(data: np.ndarray, start: int = 0, backend: str = "native"
     (== len(data) when the walk consumed everything)."""
     check_backend(backend)
     data = np.ascontiguousarray(data)
-    if backend == "native":
+    if backend != "zlib":
         # min on-wire record = 4-byte block_size + 32-byte core
         return native.walk_bam_records(data, start,
                                        max(16, data.size // 36 + 1))

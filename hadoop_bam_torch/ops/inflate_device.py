@@ -1,0 +1,596 @@
+"""The device decode plane's kernels: LZ77 resolve, record walk and
+payload gather on the card (counterpart of
+hadoop_bam_tpu/ops/inflate_device.py).
+
+Inflating a BGZF block splits into two halves.  The Huffman decode is
+bit-serial and stays on the host: ``utils/native.deflate_tokenize_batch``
+turns each block into fixed-width u32 LZ77 tokens (bit 31 set: a copy,
+length in bits 16-24, distance - 1 in bits 0-15; clear: a literal byte).
+Everything after that runs here, on one chunk of at most 64 blocks:
+
+- ``resolve_pack`` (K7+K8, ``csrc/lz77_resolve.cu``): tokens -> each
+  block's bytes by pointer doubling, packed into one contiguous buffer;
+- ``walk_records_device`` (K9, ``csrc/record_walk.cu``): the BAM record
+  chain over that buffer by pointer doubling over per-byte successors;
+- ``unpack_fixed_fields`` (K1) at the walk's offsets;
+- ``payload_gather`` (K10p, ``csrc/payload_gather.cu``): each record's
+  packed bases and quals into the fixed-stride tiles K2 reads.
+
+``resolve_walk_fields`` and ``resolve_walk_payload`` chain them, so the
+inflated bytes never exist on the host.  Each wrapper launches its kernel
+on a CUDA tensor (``<wrapper>.launches`` counts the launches) and runs
+its plain PyTorch version, kept beside it, on a CPU tensor.
+
+Shapes: a chunk is [B, P] tokens with P (bytes per block row, == the
+token pad) on the ``P_LADDER`` rungs and B a power of two >= 8, so the
+record capacity ``records_cap(B, P)`` is fixed per rung.
+"""
+from __future__ import annotations
+
+import time
+import zlib
+from typing import Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from hadoop_bam_torch.device import resolve_device
+from hadoop_bam_torch.formats import bgzf
+from hadoop_bam_torch.ops import kernels
+from hadoop_bam_torch.ops.unpack_bam import PREFIX, unpack_fixed_fields
+from hadoop_bam_torch.utils import native
+from hadoop_bam_torch.utils.errors import PlanError
+
+# BGZF caps a block's inflated size at 64 KiB [SPEC SAMv1 4.1]
+BGZF_MAX_ISIZE = 1 << 16
+
+# per-block widths P snaps up to: tiny index/EOF blocks, mid-size text
+# blocks, full 64 KiB BAM blocks
+P_LADDER = (1 << 10, 1 << 13, 1 << 16)
+
+# BGZF blocks per resolve_pack call of inflate_span_device
+SPAN_CHUNK_BLOCKS = 64
+
+# inflated bytes of the synthetic block probe_device_plane times
+PROBE_BLOCK_BYTES = 1 << 16
+
+# positions per block of the walk's count and write passes (kTile in
+# csrc/record_walk.cu)
+WALK_TILE = 1024
+
+Scalar = Union[int, torch.Tensor]
+
+
+def round_pow2(x: int, lo: int = 1) -> int:
+    n = lo
+    while n < x:
+        n <<= 1
+    return n
+
+
+def ladder_pow2(x: int) -> int:
+    """Snap a per-block byte width up to its ``P_LADDER`` rung."""
+    for p in P_LADDER:
+        if x <= p:
+            return p
+    raise bgzf.BGZFError(
+        f"block inflated size {x} exceeds the BGZF 64 KiB cap")
+
+
+def records_cap(B: int, P: int) -> int:
+    """Record capacity of a [B, P] chunk's walk: a BAM record is at least
+    36 bytes (4-byte block_size + 32-byte core), so B*P//32 rounded up to
+    a power of two can never be exceeded by well-formed data; more is
+    corruption."""
+    return round_pow2(max(16, (B * P) // 32), 16)
+
+
+def walk_rounds(L: int) -> int:
+    """Pointer-doubling rounds that always reach the end of the record
+    chain of an L-byte buffer: the least k with 2^k >= L / 36 + 2 (chain
+    nodes are at least 36 bytes apart)."""
+    k = 0
+    while (1 << k) * 36 < L + 72:
+        k += 1
+    return k
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _cuda_or_cpu(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one
+    (take the plain version); raises for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return True
+
+
+def _i32_scalar(x: Scalar, dev: torch.device) -> torch.Tensor:
+    """A [1] int32 tensor on ``dev`` holding x (a Python int or a tensor
+    already there)."""
+    if isinstance(x, torch.Tensor):
+        if x.device != dev or x.dtype != torch.int32 or x.numel() != 1:
+            raise ValueError(f"scalar must be one int32 on {dev}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+        return x.reshape(1)
+    return torch.full((1,), int(x), dtype=torch.int32, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# K7+K8: LZ77 resolve + contiguous pack
+# ---------------------------------------------------------------------------
+
+def _tokens_i64(tokens: torch.Tensor) -> torch.Tensor:
+    if tokens.dtype == torch.uint32:
+        return tokens.to(torch.int64)
+    return tokens.to(torch.int64) & 0xFFFFFFFF
+
+
+def resolve_tokens_plain(tokens: torch.Tensor, n_tokens: torch.Tensor,
+                         P: int) -> torch.Tensor:
+    """Plain version of the resolve: [B, T] tokens + [B] counts -> [B, P]
+    u8 block bytes (junk past each block's length).  The reference's
+    steps: token lengths, exclusive cumsum, marks at token starts, cumsum
+    to a token id per byte, a source pointer per byte, pointer doubling
+    to convergence, one gather of the literals."""
+    B, T = tokens.shape
+    dev = tokens.device
+    w = _tokens_i64(tokens)
+    is_copy = (w >> 31) == 1
+    tok_len = torch.where(is_copy, (w >> 16) & 0x1FF, 1)
+    valid = (torch.arange(T, device=dev)[None, :]
+             < n_tokens.to(torch.int64)[:, None])
+    tok_len = torch.where(valid, tok_len, 0)
+    starts = torch.cumsum(tok_len, 1) - tok_len
+    # zero-length pads (and starts past P) land in a sacrificial column
+    scat = torch.where((tok_len > 0) & valid, starts, P).clamp_(max=P)
+    marks = torch.zeros((B, P + 1), dtype=torch.int64, device=dev)
+    marks.scatter_add_(1, scat, torch.ones_like(scat))
+    tok_of_byte = (torch.cumsum(marks[:, :P], 1) - 1).clamp_(0, T - 1)
+    wb = torch.gather(w, 1, tok_of_byte)
+    pos = torch.arange(P, device=dev)[None, :]
+    copy = (wb >> 31) == 1
+    src = torch.where(copy, pos - ((wb & 0xFFFF) + 1), pos).clamp_(0, P - 1)
+    lit = torch.where(copy, 0, wb & 0xFF).to(torch.uint8)
+    while True:
+        s2 = torch.gather(src, 1, src)
+        if torch.equal(s2, src):
+            break
+        src = s2
+    return torch.gather(lit, 1, src)
+
+
+def pack_contiguous_plain(blk_bytes: torch.Tensor, isize: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the pack: [B, P] block bytes + [B] isize -> ([B*P]
+    u8 buffer with block b's first clamp(isize, 0, P) bytes at their
+    running offset and zeros past the total, total as int32)."""
+    B, P = blk_bytes.shape
+    dev = blk_bytes.device
+    iz = isize.to(torch.int64).clamp(0, P)
+    ubase = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                       torch.cumsum(iz, 0)])
+    total = ubase[B]
+    q = torch.arange(B * P, device=dev)
+    blk = torch.searchsorted(ubase[1:].contiguous(), q,
+                             right=True).clamp_(max=B - 1)
+    off = (q - ubase[blk]).clamp_(0, P - 1)
+    out = blk_bytes.reshape(-1)[blk * P + off]
+    out = torch.where(q < total, out, torch.zeros_like(out))
+    return out, total.to(torch.int32)
+
+
+def _check_resolve_args(tokens, n_tokens, isize) -> None:
+    if tokens.dtype not in (torch.uint32, torch.int32) or tokens.dim() != 2:
+        raise ValueError(f"tokens must be uint32 [B, T], got {tokens.dtype} "
+                         f"{tuple(tokens.shape)}")
+    B = tokens.shape[0]
+    for name, t in (("n_tokens", n_tokens), ("isize", isize)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (B,):
+            raise ValueError(f"{name} must be int32 [{B}], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != tokens.device:
+            raise ValueError(f"{name} on {t.device}, tokens on "
+                             f"{tokens.device}")
+    if tokens.shape[1] < 1 or B < 1:
+        raise ValueError(f"empty token chunk {tuple(tokens.shape)}")
+    if not (tokens.is_contiguous() and n_tokens.is_contiguous()
+            and isize.is_contiguous()):
+        raise ValueError("tokens, n_tokens and isize must be contiguous")
+
+
+def resolve_pack(tokens: torch.Tensor, n_tokens: torch.Tensor,
+                 isize: torch.Tensor, P: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Resolve a token chunk and pack it contiguous: [B, T] tokens (u32,
+    or their bits as int32),
+    [B] i32 counts and [B] i32 ISIZEs -> ([B*P] u8 buffer, int32 total),
+    zeros past the total.  P (bytes per row) defaults to T.
+
+    CUDA tensors launch the K7+K8 kernel on the current stream (no
+    synchronisation); CPU tensors take the plain versions."""
+    _check_resolve_args(tokens, n_tokens, isize)
+    B, T = tokens.shape
+    P = T if P is None else int(P)
+    if not _cuda_or_cpu(tokens):
+        return pack_contiguous_plain(
+            resolve_tokens_plain(tokens, n_tokens, P), isize)
+    if not 1 <= P <= BGZF_MAX_ISIZE:
+        raise ValueError(f"P = {P} outside [1, {BGZF_MAX_ISIZE}]")
+    dev = tokens.device
+    out = torch.empty(B * P, dtype=torch.uint8, device=dev)
+    total = torch.empty(1, dtype=torch.int32, device=dev)
+    fn = kernels.kernel("lz77_resolve")
+    with torch.cuda.device(dev):
+        rc = fn(tokens.data_ptr(), B, T, P, n_tokens.data_ptr(),
+                isize.data_ptr(), out.data_ptr(), total.data_ptr(),
+                _stream(dev))
+    kernels.check_launch("resolve_pack", rc)
+    resolve_pack.launches += 1
+    return out, total[0]
+
+
+resolve_pack.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K9: the record walk
+# ---------------------------------------------------------------------------
+
+def walk_records_device_plain(buf: torch.Tensor, total: Scalar, start: int,
+                              stop: int, R: int):
+    """Plain version of the walk (the reference's pointer doubling over a
+    successor per byte, marks pushed along the jumps until no mark
+    changes).  Returns (offs [R] i32, n_all, tail, bad) as int32
+    scalars."""
+    L = buf.shape[0]
+    dev = buf.device
+    total = (total.to(torch.int64).reshape(()) if isinstance(
+        total, torch.Tensor) else torch.tensor(int(total), device=dev))
+    pos = torch.arange(L, device=dev)
+    bp = torch.cat([buf, torch.zeros(4, dtype=torch.uint8, device=dev)]
+                   ).to(torch.int64)
+    bs = bp[:L] | (bp[1:L + 1] << 8) | (bp[2:L + 2] << 16) | \
+        (bp[3:L + 3] << 24)
+    bs = torch.where(bs >= 1 << 31, bs - (1 << 32), bs)
+    has_size = pos + 4 <= total
+    bs_ok = has_size & (bs >= 32) & (bs <= L)
+    rec_end = pos + 4 + torch.where(bs_ok, bs, 0)
+    complete = bs_ok & (rec_end <= total)
+    sink = torch.full((1,), L, dtype=torch.int64, device=dev)
+    jumps = torch.cat([torch.where(complete, rec_end.clamp(max=L), L), sink])
+    marks = torch.zeros(L + 1, dtype=torch.bool, device=dev)
+    marks[min(int(start), L)] = True
+    while True:
+        m2 = marks.clone()
+        m2[jumps[marks]] = True
+        jumps = jumps[jumps]
+        if torch.equal(m2, marks):
+            break
+        marks = m2
+    started = marks[:L]
+    term = started & ~complete
+    bad = (term & has_size & (bs < 32)).any().to(torch.int32)
+    tail = torch.where(term, pos, total).min().to(torch.int32)
+    kept = started & complete & (pos < stop)
+    n_all = kept.sum().to(torch.int32)
+    rank = torch.cumsum(kept.to(torch.int64), 0) - 1
+    sel = kept & (rank < R)
+    offs = torch.zeros(R, dtype=torch.int32, device=dev)
+    offs[rank[sel]] = pos[sel].to(torch.int32)
+    return offs, n_all, tail, bad
+
+
+def walk_records_device(buf: torch.Tensor, total: Scalar, start: int,
+                        stop: int, R: int):
+    """The BAM record walk over a contiguous inflated buffer: the chain
+    from ``start``; ``total`` bytes are data.  Returns (offs [R] int32:
+    the records starting before ``stop`` whose bytes are complete, in
+    order, rows past min(n_all, R) zero; n_all: their count, unclamped;
+    tail: the first reached record that is not complete, or total; bad:
+    1 when a reached record has a readable block_size below 32).
+
+    CUDA tensors launch the K9 kernels on the current stream (no
+    synchronisation; ``total`` may be a device int32); CPU tensors take
+    ``walk_records_device_plain``."""
+    if buf.dtype != torch.uint8 or buf.dim() != 1 or buf.shape[0] < 1:
+        raise ValueError(f"buf must be uint8 [L], got {buf.dtype} "
+                         f"{tuple(buf.shape)}")
+    if not buf.is_contiguous():
+        raise ValueError("buf must be contiguous")
+    if int(start) < 0 or int(R) < 0:
+        raise ValueError(f"start {start} and R {R} must be >= 0")
+    if not _cuda_or_cpu(buf):
+        return walk_records_device_plain(buf, total, start, stop, R)
+    dev = buf.device
+    L = buf.shape[0]
+    if L >= (1 << 31) - 8:
+        raise ValueError(f"buffer of {L} bytes exceeds int32 positions")
+    total = _i32_scalar(total, dev)
+    rounds = walk_rounds(L)
+    tiles = -(-L // WALK_TILE)
+    offs = torch.empty(R, dtype=torch.int32, device=dev)
+    walk = torch.empty(3, dtype=torch.int32, device=dev)
+    jumps = torch.empty(2 * (L + 1), dtype=torch.int32, device=dev)
+    flag_bytes = torch.empty(2 * L + 1, dtype=torch.uint8, device=dev)
+    words = torch.empty(rounds + 1 + tiles, dtype=torch.int32, device=dev)
+    fn = kernels.kernel("record_walk")
+    with torch.cuda.device(dev):
+        rc = fn(buf.data_ptr(), L, total.data_ptr(), int(start), int(stop),
+                int(R), rounds, offs.data_ptr(), walk.data_ptr(),
+                jumps.data_ptr(), flag_bytes.data_ptr(), words.data_ptr(),
+                _stream(dev))
+    kernels.check_launch("walk_records_device", rc)
+    walk_records_device.launches += 1
+    return offs, walk[0], walk[1], walk[2]
+
+
+walk_records_device.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K10p: the segmented seq/qual gather
+# ---------------------------------------------------------------------------
+
+def payload_gather_plain(buf: torch.Tensor, offs: torch.Tensor,
+                         l_seq: torch.Tensor, l_read_name: torch.Tensor,
+                         n_cigar: torch.Tensor, n_all: Scalar, max_len: int,
+                         seq_stride: int, qual_stride: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the payload gather: one index tile per stream,
+    the reference's int32 arithmetic (it wraps where the reference's
+    does) and its clamp of every index to [0, L - 1]."""
+    L = buf.shape[0]
+    R = offs.shape[0]
+    dev = buf.device
+    n_valid = torch.clamp(torch.as_tensor(n_all, device=dev), 0, R)
+    valid = torch.arange(R, device=dev) < n_valid
+    seq_off = offs + PREFIX + l_read_name + 4 * n_cigar
+    nb = (torch.clamp(l_seq, min=0) + 1) // 2
+    use = torch.where(valid, torch.clamp(l_seq, 0, max_len), 0)
+    half = (use + 1) // 2
+
+    def tile(start: torch.Tensor, width: int, limit: torch.Tensor):
+        j = torch.arange(width, dtype=torch.int32, device=dev)[None, :]
+        idx = (start[:, None] + j).clamp_(0, L - 1).to(torch.int64)
+        return torch.where(j < limit[:, None], buf[idx],
+                           torch.zeros((), dtype=torch.uint8, device=dev))
+
+    return (tile(seq_off, seq_stride, half),
+            tile(seq_off + nb, qual_stride, use))
+
+
+def payload_gather(buf: torch.Tensor, offs: torch.Tensor,
+                   l_seq: torch.Tensor, l_read_name: torch.Tensor,
+                   n_cigar: torch.Tensor, n_all: Scalar, max_len: int,
+                   seq_stride: int, qual_stride: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each valid record's packed bases and quals as [R, seq_stride] and
+    [R, qual_stride] u8 tiles (rows r >= min(n_all, R) and bytes past a
+    read's clipped length zero), with ``resolve_walk_payload``'s rules.
+
+    CUDA tensors launch the K10p kernel on the current stream (``n_all``
+    may be a device int32); CPU tensors take ``payload_gather_plain``."""
+    if buf.dtype != torch.uint8 or buf.dim() != 1 or buf.shape[0] < 1:
+        raise ValueError(f"buf must be uint8 [L], got {buf.dtype} "
+                         f"{tuple(buf.shape)}")
+    R = offs.shape[0]
+    for name, t in (("offs", offs), ("l_seq", l_seq),
+                    ("l_read_name", l_read_name), ("n_cigar", n_cigar)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (R,):
+            raise ValueError(f"{name} must be int32 [{R}], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != buf.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {buf.device}")
+    if not _cuda_or_cpu(buf):
+        return payload_gather_plain(buf, offs, l_seq, l_read_name, n_cigar,
+                                    n_all, max_len, seq_stride, qual_stride)
+    dev = buf.device
+    n_all = _i32_scalar(n_all, dev)
+    seq = torch.empty((R, seq_stride), dtype=torch.uint8, device=dev)
+    qual = torch.empty((R, qual_stride), dtype=torch.uint8, device=dev)
+    fn = kernels.kernel("payload_gather")
+    with torch.cuda.device(dev):
+        rc = fn(buf.data_ptr(), buf.shape[0], offs.data_ptr(),
+                l_seq.data_ptr(), l_read_name.data_ptr(), n_cigar.data_ptr(),
+                n_all.data_ptr(), R, int(max_len), int(seq_stride),
+                int(qual_stride), seq.data_ptr(), qual.data_ptr(),
+                _stream(dev))
+    kernels.check_launch("payload_gather", rc)
+    payload_gather.launches += 1
+    return seq, qual
+
+
+payload_gather.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The fused decode steps
+# ---------------------------------------------------------------------------
+
+def _resolve_walk(tokens, n_tokens, isize, start: int, stop: int,
+                  P: Optional[int]):
+    """resolve + pack + walk + K1 at the walk's offsets."""
+    B, T = tokens.shape
+    P = T if P is None else int(P)
+    R = records_cap(B, P)
+    buf, total = resolve_pack(tokens, n_tokens, isize, P)
+    offs, n_all, tail, bad = walk_records_device(buf, total, start, stop, R)
+    cols = unpack_fixed_fields(buf, offs)
+    valid = torch.arange(R, device=buf.device) < torch.clamp(n_all, max=R)
+    return buf, offs, cols, valid, n_all, tail, bad
+
+
+def resolve_walk_fields(tokens: torch.Tensor, n_tokens: torch.Tensor,
+                        isize: torch.Tensor, start: int, stop: int,
+                        P: Optional[int] = None):
+    """The device decode step of the flagstat family: one chunk's [B, T]
+    tokens (blocks of P bytes, P = T unless given), counts and ISIZEs and
+    its walk window [start, stop) in inflated-buffer coordinates ->
+    (cols: the 12 fixed-field int32
+    columns at the walk's R = records_cap(B, P) offsets, rows past the
+    owned count gathered at offset 0; valid [R] bool; n_all, tail, bad:
+    int32 scalars of the walk)."""
+    _, _, cols, valid, n_all, tail, bad = _resolve_walk(
+        tokens, n_tokens, isize, start, stop, P)
+    return cols, valid, n_all, tail, bad
+
+
+def resolve_walk_payload(tokens: torch.Tensor, n_tokens: torch.Tensor,
+                         isize: torch.Tensor, start: int, stop: int,
+                         max_len: int, seq_stride: int, qual_stride: int,
+                         P: Optional[int] = None):
+    """The device decode step of the payload family: ``resolve_walk_fields``
+    plus each record's packed bases and quals in [R, seq_stride] /
+    [R, qual_stride] tiles (the layout of the host packer
+    ``decode_span_payload_host``).  Returns (cols, seq, qual, valid,
+    n_all, tail, bad); ``bad`` also flags a valid record whose seq or qual
+    section overruns its block_size (the host walker's "malformed BAM
+    record chain")."""
+    buf, offs, cols, valid, n_all, tail, bad = _resolve_walk(
+        tokens, n_tokens, isize, start, stop, P)
+    l_seq = cols["l_seq"]
+    seq_rel = PREFIX + cols["l_read_name"] + 4 * cols["n_cigar"]
+    nb = (torch.clamp(l_seq, min=0) + 1) // 2
+    pay_bad = valid & ((l_seq < 0) | (
+        seq_rel + nb + torch.clamp(l_seq, min=0) > 4 + cols["block_size"]))
+    bad = torch.maximum(bad, pay_bad.any().to(torch.int32))
+    seq, qual = payload_gather(buf, offs, l_seq, cols["l_read_name"],
+                               cols["n_cigar"], n_all, max_len, seq_stride,
+                               qual_stride)
+    return cols, seq, qual, valid, n_all, tail, bad
+
+
+# ---------------------------------------------------------------------------
+# Library entry: a whole span through the device resolve
+# ---------------------------------------------------------------------------
+
+def require_tokenizer() -> None:
+    """The plane needs the native tokenizer; without the host library it
+    is misconfigured (PlanError), not faced with bad data."""
+    try:
+        native.load()
+    except native.NativeBuildError as e:
+        raise PlanError(
+            "the device decode plane needs the native tokenizer "
+            f"(hbam_deflate_tokenize_batch): {e}") from e
+
+
+def inflate_span_device(raw: bytes, table: Optional[dict] = None,
+                        n_threads: int = 0,
+                        check_crc: bool = False, device=None
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """Inflate a BGZF span with host Huffman tokenize + device LZ77
+    resolve, on ``cuda:0`` unless ``device`` says otherwise.  The
+    contract of ``ops.inflate.inflate_span``: (contiguous inflated bytes,
+    per-block starting offsets), resolved SPAN_CHUNK_BLOCKS blocks at a
+    time.  ``check_crc`` checks each block's
+    CRC32 footer against a CRC folded into the tokenize pass; a bad
+    block raises BGZFError as on the host planes."""
+    from hadoop_bam_torch.ops.inflate import block_table, footer_crcs
+    dev = resolve_device(device)
+    if table is None:
+        table = block_table(raw)
+    require_tokenizer()
+    isize = table["isize"]
+    n = isize.size
+    ubase = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(isize, out=ubase[1:])
+    dst = np.empty(int(ubase[-1]), dtype=np.uint8)
+    src = np.frombuffer(raw, dtype=np.uint8)
+    expect = footer_crcs(src, table) if check_crc else None
+    for lo in range(0, n, SPAN_CHUNK_BLOCKS):
+        hi = min(lo + SPAN_CHUNK_BLOCKS, n)
+        sub = isize[lo:hi]
+        P = ladder_pow2(max(16, int(sub.max())))
+        b_cap = round_pow2(hi - lo, 8)
+        try:
+            out = native.deflate_tokenize_batch(
+                src, table["cdata_off"][lo:hi], table["cdata_len"][lo:hi],
+                P, n_threads, with_crc=check_crc)
+        except ValueError as e:
+            raise bgzf.BGZFError(str(e)) from e
+        tokens, n_tokens, out_lens = out[:3]
+        if not np.array_equal(out_lens, sub):
+            bad = int(np.nonzero(out_lens != sub)[0][0])
+            raise bgzf.BGZFError(
+                f"ISIZE mismatch in block {lo + bad}: tokenized "
+                f"{int(out_lens[bad])}, footer says {int(sub[bad])}")
+        if check_crc:
+            mism = np.nonzero(out[3] != expect[lo:hi])[0]
+            if mism.size:
+                raise bgzf.BGZFError(
+                    f"CRC32 mismatch in block(s) {(mism[:8] + lo).tolist()}")
+        tok = np.zeros((b_cap, P), np.int32)
+        tok[:hi - lo] = tokens.view(np.int32)
+        nt = np.zeros(b_cap, np.int32)
+        nt[:hi - lo] = n_tokens
+        iz = np.zeros(b_cap, np.int32)
+        iz[:hi - lo] = sub
+        got, _ = resolve_pack(*(torch.from_numpy(a).to(dev)
+                                for a in (tok, nt, iz)))
+        k = int(ubase[hi] - ubase[lo])
+        dst[int(ubase[lo]):int(ubase[hi])] = got[:k].cpu().numpy()
+    return dst, ubase[:-1]
+
+
+# ---------------------------------------------------------------------------
+# Plane probe: one block through each plane's per-block work
+# ---------------------------------------------------------------------------
+
+def probe_device_plane(device=None) -> Dict[str, object]:
+    """Time one synthetic PROBE_BLOCK_BYTES block of ACGT through each
+    plane's per-block work on ``device`` (``cuda:0`` unless given; the
+    plain resolve on a CPU device), best of 3 after a warm-up.
+
+    The device plane's steady wall per block is max(tokenize, resolve)
+    (the two overlap); the native plane pays the whole inflate, so
+    ``device_wins`` says which of the two the block favours.  It times
+    neither planning nor staging, which is why
+    ``config.resolve_inflate_backend`` does not act on it.  A kernel that
+    fails to build or launch raises."""
+    dev = resolve_device(device)
+    out: Dict[str, object] = {"device": str(dev)}
+    rng = np.random.RandomState(0)
+    data = rng.choice(np.frombuffer(b"ACGT", np.uint8),
+                      size=PROBE_BLOCK_BYTES).tobytes()
+    co = zlib.compressobj(6, zlib.DEFLATED, -15)
+    comp = co.compress(data) + co.flush()
+    src = np.frombuffer(comp, np.uint8)
+    off = np.array([0], np.int64)
+    ln = np.array([len(comp)], np.int32)
+    P = ladder_pow2(len(data))
+
+    def timeit(fn, reps: int = 3) -> float:
+        fn()
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    toks, nt, _ = native.deflate_tokenize_batch(src, off, ln, P, 1)
+    args = [torch.from_numpy(a).to(dev) for a in
+            (toks.view(np.int32), nt, np.array([len(data)], np.int32))]
+
+    def resolve():
+        resolve_pack(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    out["tokenize_s"] = timeit(
+        lambda: native.deflate_tokenize_batch(src, off, ln, P, 1))
+    out["resolve_s"] = timeit(resolve)
+    dst = np.empty(len(data), dtype=np.uint8)
+    dst_off = np.zeros(1, np.int64)
+    isz = np.array([len(data)], np.int32)
+    out["inflate_s"] = timeit(
+        lambda: native.inflate_batch(src, off, ln, dst, dst_off, isz, 1))
+    out["device_wins"] = (max(out["tokenize_s"], out["resolve_s"])
+                          < out["inflate_s"])
+    return out

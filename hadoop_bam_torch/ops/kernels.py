@@ -36,6 +36,14 @@ KERNELS: Dict[str, tuple] = {
     "seq_stats": ("hbam_seq_qual_stats",
                   [_VP, _I64, _VP, _I64, _VP, _I64, _VP, _VP, _VP, _VP,
                    _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _VP]),
+    "lz77_resolve": ("hbam_lz77_resolve",
+                     [_VP, _I64, _I64, _I64, _VP, _VP, _VP, _VP, _VP]),
+    "record_walk": ("hbam_record_walk",
+                    [_VP, _I64, _VP, _I64, _I64, _I64, _I64, _VP, _VP, _VP,
+                     _VP, _VP, _VP]),
+    "payload_gather": ("hbam_payload_gather",
+                       [_VP, _I64, _VP, _VP, _VP, _VP, _VP, _I64, _I64,
+                        _I64, _I64, _VP, _VP, _VP]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -11,26 +11,38 @@ Counterpart of hadoop_bam_tpu/parallel/pipeline.py for the first slice:
 
 Drivers: ``flagstat_file`` (projected-row tiles, or ``mode="span"``:
 whole inflated spans through the K1 gather kernel) and ``seq_stats_file``
-(payload tiles through the K2 stats kernel).  Retry/quarantine, interval
-filters, fused streaming decode and the device decode plane are later
-slices: a corrupt span raises its error class.
+(payload tiles through the K2 stats kernel).  With
+``config.inflate_backend="device"`` ("auto" is the native plane) both
+drivers run the device decode plane instead: the host only
+tokenizes, and LZ77 resolve, record walk, fixed-field unpack and the
+reduction run on the card (section "The device decode plane" below).
+Retry/quarantine, interval filters and fused streaming decode are later
+slices: a corrupt span raises its error class, on every plane.
 """
 from __future__ import annotations
 
 import concurrent.futures as cf
 import dataclasses
 from collections import deque
-from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import (
+    Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple,
+)
 
 import numpy as np
 import torch
 
-from hadoop_bam_torch.config import DEFAULT_CONFIG, HBamConfig
+from hadoop_bam_torch.config import (
+    DEFAULT_CONFIG, HBamConfig, resolve_inflate_backend,
+)
 from hadoop_bam_torch.device import DataAxis, data_axis
 from hadoop_bam_torch.formats import bgzf
 from hadoop_bam_torch.formats.bam import SAMHeader
 from hadoop_bam_torch.ops import inflate as inflate_ops
 from hadoop_bam_torch.ops.flagstat import FLAGSTAT_FIELDS, flagstat_vector
+from hadoop_bam_torch.ops.inflate_device import (
+    ladder_pow2, records_cap, require_tokenizer, resolve_walk_fields,
+    resolve_walk_payload, round_pow2,
+)
 from hadoop_bam_torch.ops.seq_stats import N_CODES, seq_qual_stats
 from hadoop_bam_torch.ops.unpack_bam import (
     ALL_FIELDS, FLAGSTAT_PROJECTION, PREFIX, projection_ranges,
@@ -39,10 +51,10 @@ from hadoop_bam_torch.ops.unpack_bam import (
 from hadoop_bam_torch.parallel.staging import (
     FeedPipeline, StagingRing, TileSpec,
 )
-from hadoop_bam_torch.split.planners import plan_bam_spans
+from hadoop_bam_torch.split.planners import iter_bam_spans
 from hadoop_bam_torch.split.spans import FileVirtualSpan
 from hadoop_bam_torch.utils import native
-from hadoop_bam_torch.utils.errors import PlanError
+from hadoop_bam_torch.utils.errors import CorruptDataError, PlanError
 from hadoop_bam_torch.utils.seekable import as_byte_source
 
 
@@ -298,11 +310,12 @@ def decode_span_payload_host(source, span: FileVirtualSpan,
     return prefix, seq, qual, voffs
 
 
-def iter_windowed(pool: cf.ThreadPoolExecutor, items: Sequence,
+def iter_windowed(pool: cf.ThreadPoolExecutor, items: Iterable,
                   fn: Callable, window: int) -> Iterator:
     """``fn(item)`` on the pool with at most ``window`` futures in
     flight; results in order.  Closing the generator early cancels the
-    futures that have not started."""
+    futures that have not started and closes ``items`` when it is a
+    generator."""
     it = iter(items)
     dq: "deque[cf.Future]" = deque()
     try:
@@ -319,14 +332,18 @@ def iter_windowed(pool: cf.ThreadPoolExecutor, items: Sequence,
     finally:
         for f in dq:
             f.cancel()
+        if hasattr(it, "close"):
+            it.close()
 
 
 def _plan(path: str, header: Optional[SAMHeader], n_dev: int,
-          span_bytes: int) -> List[FileVirtualSpan]:
+          span_bytes: int) -> Iterator[FileVirtualSpan]:
+    """Spans of about ``span_bytes`` compressed bytes, at least one per
+    device, yielded while later boundaries are still being guessed."""
     with as_byte_source(path) as src:
         size = src.size
     n_spans = max(n_dev, int(np.ceil(size / span_bytes)))
-    return plan_bam_spans(path, num_spans=n_spans, header=header)
+    return iter_bam_spans(path, num_spans=n_spans, header=header)
 
 
 def _copy_to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -434,6 +451,247 @@ def _payload_stats_result(totals: _StatTotals) -> Dict[str, object]:
 
 
 # ---------------------------------------------------------------------------
+# The device decode plane (token feed)
+# ---------------------------------------------------------------------------
+# Pool workers fetch each span and run the native Huffman tokenize (the
+# bit-serial half of inflate; CRCs folded in when asked).  This thread
+# stages the span's token chunk in pinned memory, copies it to the card
+# and runs the fused step there: LZ77 resolve + pack (K7+K8), the record
+# walk (K9), the fixed-field gather (K1), then the flagstat reduce or the
+# payload gather (K10p) and K2.  The inflated bytes never exist on the
+# host.  Each chunk's walk scalars (n_all, tail, bad) stay on the card
+# until one drain at the end.  Records a chunk cannot finish -- a final
+# record cut at the chunk's end, and every block of a span past
+# DEVICE_PLANE_MAX_BLOCKS -- go through the host plane's tile path.
+
+# widest token chunk one device step takes: 64 BGZF blocks (~4 MiB
+# inflated at the 64 KiB rung); a wider span sends its first 64 blocks
+# through the card and the rest through the host fixup
+DEVICE_PLANE_MAX_BLOCKS = 64
+# compressed span grain the plane plans at when the caller gives no spans
+DEVICE_PLANE_SPAN_BYTES = 512 << 10
+
+
+@dataclasses.dataclass
+class _TokenChunk:
+    """One span's host-tokenized unit (at most MAX_BLOCKS blocks)."""
+    tokens: np.ndarray     # [used, P] u32 LZ77 tokens
+    n_tokens: np.ndarray   # [used] i32
+    isize: np.ndarray      # [used] i32
+    start: int             # walk start (inflated chunk coordinates)
+    stop: int              # ownership limit (records starting < stop)
+    used: int              # blocks tokenized for the device
+    P: int                 # ladder rung (token pad == bytes per block)
+    n_blocks: int          # blocks of the whole span (> used: host fixup)
+    span: FileVirtualSpan
+    ubase: np.ndarray      # [n_blocks + 1] i64 inflated block starts
+    abs_coffs: np.ndarray  # [n_blocks] i64 compressed block offsets
+
+    def fixup_span(self, tail: int) -> FileVirtualSpan:
+        """The host-decoded remainder: records starting in [tail, span
+        end) -- the cut final record, and every block past the chunk of
+        an over-wide span."""
+        blk = int(np.searchsorted(self.ubase[1:], tail, side="right"))
+        blk = min(blk, self.n_blocks - 1)
+        u = int(tail - self.ubase[blk])
+        start_v = (int(self.abs_coffs[blk]) << 16) | u
+        return FileVirtualSpan(self.span.path, start_v,
+                               self.span.end_voffset)
+
+
+def _tokenize_span_tokens(src, span: FileVirtualSpan,
+                          check_crc: bool = False) -> Optional[_TokenChunk]:
+    """Host half of the device plane for one span: fetch, block table and
+    the threaded native tokenize.  DEFLATE, ISIZE and CRC faults raise
+    BGZFError here, as the host planes raise them.  None for an empty
+    span."""
+    raw, end_block_size, _ = _fetch_span_raw(src, span)
+    if not raw:
+        return None
+    table = inflate_ops.block_table(raw)
+    isize = table["isize"]
+    n = int(isize.size)
+    used = min(n, DEVICE_PLANE_MAX_BLOCKS)
+    src_arr = np.frombuffer(raw, dtype=np.uint8)
+    sub = isize[:used]
+    P = ladder_pow2(max(16, int(sub.max())))
+    try:
+        out = native.deflate_tokenize_batch(
+            src_arr, table["cdata_off"][:used], table["cdata_len"][:used], P,
+            0, with_crc=check_crc)
+    except ValueError as e:
+        raise bgzf.BGZFError(str(e)) from e
+    tokens, n_tokens, out_lens = out[:3]
+    if not np.array_equal(out_lens, sub):
+        bad = int(np.nonzero(out_lens != sub)[0][0])
+        raise bgzf.BGZFError(
+            f"ISIZE mismatch in block {bad}: tokenized "
+            f"{int(out_lens[bad])}, footer says {int(sub[bad])}")
+    if check_crc:
+        expect = inflate_ops.footer_crcs(src_arr, table)[:used]
+        mism = np.nonzero(out[3] != expect)[0]
+        if mism.size:
+            raise bgzf.BGZFError(
+                f"CRC32 mismatch in block(s) {mism[:8].tolist()}")
+    ub = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(isize, out=ub[1:])
+    if used == n and end_block_size:
+        stop = int(ub[n]) - int(isize[-1]) + span.end[1]
+    elif used == n:
+        stop = int(ub[n])
+    else:
+        stop = int(ub[used])
+    return _TokenChunk(tokens=tokens, n_tokens=n_tokens, isize=sub,
+                       start=span.start[1], stop=stop, used=used, P=P,
+                       n_blocks=n, span=span, ubase=ub,
+                       abs_coffs=table["coffset"] + span.start[0])
+
+
+def device_flagstat_step(tokens: torch.Tensor, n_tokens: torch.Tensor,
+                         isize: torch.Tensor, start: int, stop: int,
+                         P: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token chunk ([B, T] tokens of blocks P bytes wide) -> (int64
+    [16] flagstat counters, int32 [3] walk scalars (n_all, tail, bad)):
+    resolve, walk, unpack and reduce on the chunk's device; nothing
+    returns to the host."""
+    cols, valid, n_all, tail, bad = resolve_walk_fields(
+        tokens, n_tokens, isize, start, stop, P)
+    return (flagstat_vector(cols, valid).to(torch.int64),
+            torch.stack([n_all, tail, bad]))
+
+
+def device_seq_stats_step(tokens: torch.Tensor, n_tokens: torch.Tensor,
+                          isize: torch.Tensor, start: int, stop: int,
+                          geometry: PayloadGeometry, P: Optional[int] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """One token chunk -> the payload stats pair of ``_payload_stats_tail``
+    and the int32 [3] walk scalars: resolve, walk, unpack, payload gather
+    and K2 on the chunk's ``records_cap`` rows (lengths clipped to
+    [0, max_len], 0 on rows past the walk's count)."""
+    cols, seq, qual, valid, n_all, tail, bad = resolve_walk_payload(
+        tokens, n_tokens, isize, start, stop, geometry.max_len,
+        geometry.seq_stride, geometry.qual_stride, P)
+    lengths = torch.where(valid, torch.clamp(cols["l_seq"], 0,
+                                             geometry.max_len),
+                          0).to(torch.int32)
+    fvec, ivec = _payload_stats_tail(seq_qual_stats(seq, qual, lengths),
+                                     valid)
+    return fvec, ivec, torch.stack([n_all, tail, bad])
+
+
+class _TokenRing:
+    """Pinned staging of token chunks: a StagingRing of [B*T] token slots
+    (the u32 tokens' bits as int32, which every CUDA copy takes) and [B]
+    counts and sizes, grown when a chunk needs more (the old
+    slots' copies are waited for first).  A slot goes back to the ring
+    once its copies are enqueued; it is leased again only after they
+    complete."""
+
+    def __init__(self, pin_memory: bool):
+        self.pin_memory = pin_memory
+        self.ring: Optional[StagingRing] = None
+        self.elems = self.rows = 0
+
+    def _fit(self, elems: int, rows: int) -> StagingRing:
+        if self.ring is not None and elems <= self.elems \
+                and rows <= self.rows:
+            return self.ring
+        if self.ring is not None:
+            for _ in range(2):        # wait for both slots' copies
+                self.ring.lease()
+        self.elems, self.rows = max(elems, self.elems), max(rows, self.rows)
+        self.ring = StagingRing(
+            1, 1, [TileSpec((self.elems,), np.int32),
+                   TileSpec((self.rows,), np.int32),
+                   TileSpec((self.rows,), np.int32)],
+            pin_memory=self.pin_memory)
+        return self.ring
+
+    def stage(self, c: _TokenChunk, dev: torch.device
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Copy one chunk to ``dev`` as [B, T] tokens, [B] counts and [B]
+        sizes.  B is the chunk's blocks rounded up to a power of two >= 8
+        (pad rows have zero counts and sizes, so their tokens are never
+        read); T is the longest row's token count rounded up to 256, at
+        most P: only the tokens cross the link, not the tokenizer's
+        P-wide rows."""
+        B, n = round_pow2(c.used, 8), c.used
+        T = min(c.P, _round_up(max(int(c.n_tokens.max()), 1), 256))
+        ring = self._fit(B * T, B)
+        slot = ring.lease()
+        try:
+            tok, nt, iz = (a.reshape(-1) for a in slot.arrays)
+            tok[:n * T].reshape(n, T)[:] = c.tokens[:, :T].view(np.int32)
+            nt[:n], nt[n:B] = c.n_tokens, 0
+            iz[:n], iz[n:B] = c.isize, 0
+            tok_t, nt_t, iz_t = (t.reshape(-1) for t in slot.tensors)
+            tokens = torch.empty((B, T), dtype=torch.int32, device=dev)
+            tokens[:n].copy_(tok_t[:n * T].view(n, T), non_blocking=True)
+            out = (tokens, _copy_to(nt_t[:B], dev), _copy_to(iz_t[:B], dev))
+            copies = _CopiesDone()
+            copies.record(dev)
+            slot.in_flight = copies.handle()
+        finally:
+            ring.release(slot)
+        return out
+
+
+def _device_plane(path: str, axis: DataAxis, config: HBamConfig,
+                  header: Optional[SAMHeader],
+                  spans: Optional[Sequence[FileVirtualSpan]], prefetch: int,
+                  step: Callable) -> List[FileVirtualSpan]:
+    """Run every span's token chunk through ``step(tokens, n_tokens,
+    isize, start, stop, P)`` (which keeps its own totals and returns the
+    chunk's int32 [3] walk scalars) and return the spans the host must
+    finish.  Raises PlanError without the native tokenizer, BGZFError for
+    a bad block, CorruptDataError for a malformed record chain or a chunk
+    with more records than its capacity."""
+    require_tokenizer()
+    if spans is None:
+        spans = _plan(path, header, axis.n_dev, DEVICE_PLANE_SPAN_BYTES)
+    ring = _TokenRing(pin_memory=axis.devices[0].type == "cuda")
+    pending: List[Tuple[torch.Tensor, _TokenChunk, int]] = []
+    with as_byte_source(path) as src, cf.ThreadPoolExecutor(
+            config.pool_size(), thread_name_prefix="hbam-tokenize") as pool:
+        stream = iter_windowed(
+            pool, spans,
+            lambda s: _tokenize_span_tokens(src, s, config.check_crc),
+            max(1, prefetch) * config.pool_size())
+        try:
+            for chunk in stream:
+                if chunk is None:
+                    continue
+                dev = axis.devices[len(pending) % axis.n_dev]
+                walk = step(*ring.stage(chunk, dev), chunk.start, chunk.stop,
+                            chunk.P)
+                pending.append((walk, chunk,
+                                records_cap(round_pow2(chunk.used, 8),
+                                            chunk.P)))
+        finally:
+            stream.close()
+    if not pending:
+        return []
+    # one drain of every chunk's walk scalars (a read per chunk would
+    # synchronise the pipeline it exists to overlap)
+    walks = torch.stack([w.to(axis.devices[0]) for w, _, _ in pending]
+                        ).cpu().numpy()
+    fixups = []
+    for (n_all, tail, bad), (_, c, cap) in zip(walks, pending):
+        if bad:
+            raise CorruptDataError(
+                f"malformed BAM record chain in span {c.span}")
+        if n_all > cap:
+            raise CorruptDataError(
+                f"record count {int(n_all)} exceeds capacity {cap} in "
+                f"span {c.span}")
+        if tail < c.stop or c.used < c.n_blocks:
+            fixups.append(c.fixup_span(int(tail)))
+    return fixups
+
+
+# ---------------------------------------------------------------------------
 # Drivers
 # ---------------------------------------------------------------------------
 
@@ -446,7 +704,7 @@ def iter_payload_tile_groups(path: str, spans: Sequence[FileVirtualSpan],
     hand each group to ``dispatch_fn(tensors, counts)`` (the FeedPipeline
     contract).  Returns the number of groups."""
     widths = (PREFIX, geometry.seq_stride, geometry.qual_stride)
-    backend = config.inflate_backend
+    backend = config.host_backend
 
     def decode(span):
         prefix, seq, qual, _ = decode_span_payload_host(
@@ -459,7 +717,7 @@ def iter_payload_tile_groups(path: str, spans: Sequence[FileVirtualSpan],
                       pin_memory=axis.devices[0].type == "cuda")
     with as_byte_source(path) as src, cf.ThreadPoolExecutor(
             config.pool_size(), thread_name_prefix="hbam-decode") as pool:
-        stream = iter_windowed(pool, list(spans), decode,
+        stream = iter_windowed(pool, spans, decode,
                                max(1, prefetch) * config.pool_size())
         try:
             return fp.feed(stream, dispatch_fn)
@@ -467,22 +725,11 @@ def iter_payload_tile_groups(path: str, spans: Sequence[FileVirtualSpan],
             stream.close()
 
 
-def seq_stats_file(path: str, device=None,
-                   config: HBamConfig = DEFAULT_CONFIG,
-                   geometry: Optional[PayloadGeometry] = None,
-                   header: Optional[SAMHeader] = None,
-                   spans: Optional[Sequence[FileVirtualSpan]] = None,
-                   prefetch: int = 2) -> Dict[str, object]:
-    """Sequence/quality stats over a whole BAM: mean GC fraction, mean
-    per-read quality and the 4-bit base-code histogram, computed by the
-    K2 kernel on each device of the axis (``cuda:0`` unless ``device``
-    says otherwise)."""
-    axis = data_axis(device)
-    geometry = geometry if geometry is not None else PayloadGeometry()
-    if spans is None:
-        spans = _plan(path, header, axis.n_dev, 8 << 20)
-    totals = _StatTotals()
-
+def _seq_stats_tiles(path: str, axis: DataAxis, config: HBamConfig,
+                     geometry: PayloadGeometry,
+                     spans: Sequence[FileVirtualSpan], prefetch: int,
+                     totals: "_StatTotals") -> None:
+    """Host-plane payload tiles through K2, added into ``totals``."""
     def dispatch(tensors, counts):
         parts = []
         copies = _CopiesDone()
@@ -497,6 +744,36 @@ def seq_stats_file(path: str, device=None,
 
     iter_payload_tile_groups(path, spans, geometry, axis, dispatch, config,
                              prefetch)
+
+
+def seq_stats_file(path: str, device=None,
+                   config: HBamConfig = DEFAULT_CONFIG,
+                   geometry: Optional[PayloadGeometry] = None,
+                   header: Optional[SAMHeader] = None,
+                   spans: Optional[Sequence[FileVirtualSpan]] = None,
+                   prefetch: int = 2) -> Dict[str, object]:
+    """Sequence/quality stats over a whole BAM: mean GC fraction, mean
+    per-read quality and the 4-bit base-code histogram, computed by the
+    K2 kernel on each device of the axis (``cuda:0`` unless ``device``
+    says otherwise).  On the device decode plane the payload tiles are
+    cut from the inflated bytes on the card (K7+K8, K9, K1, K10p)."""
+    axis = data_axis(device)
+    geometry = geometry if geometry is not None else PayloadGeometry()
+    totals = _StatTotals()
+    if resolve_inflate_backend(config) == "device":
+        def step(tokens, n_tokens, isize, start, stop, P):
+            fvec, ivec, walk = device_seq_stats_step(
+                tokens, n_tokens, isize, start, stop, geometry, P)
+            totals.add(fvec.to(axis.devices[0]), ivec.to(axis.devices[0]))
+            return walk
+
+        spans = _device_plane(path, axis, config, header, spans, prefetch,
+                              step)
+    elif spans is None:
+        spans = _plan(path, header, axis.n_dev, 8 << 20)
+    if spans:
+        _seq_stats_tiles(path, axis, config, geometry, spans, prefetch,
+                         totals)
     return _payload_stats_result(totals)
 
 
@@ -511,7 +788,7 @@ def _flagstat_tiles(path: str, axis: DataAxis, config: HBamConfig,
 
     def decode(span):
         rows, _ = decode_span_prefix_host(
-            src, span, config.check_crc, config.inflate_backend,
+            src, span, config.check_crc, config.host_backend,
             projection, want_voffs=False)
         return (rows,)
 
@@ -532,7 +809,7 @@ def _flagstat_tiles(path: str, axis: DataAxis, config: HBamConfig,
                       pin_memory=axis.devices[0].type == "cuda")
     with as_byte_source(path) as src, cf.ThreadPoolExecutor(
             config.pool_size(), thread_name_prefix="hbam-decode") as pool:
-        stream = iter_windowed(pool, list(spans), decode,
+        stream = iter_windowed(pool, spans, decode,
                                max(1, prefetch) * config.pool_size())
         try:
             fp.feed(stream, dispatch)
@@ -557,12 +834,12 @@ def _flagstat_spans(path: str, axis: DataAxis, config: HBamConfig,
 
     def decode(span):
         data, offs, _ = decode_span_host(src, span, g, config.check_crc,
-                                         config.inflate_backend)
+                                         config.host_backend)
         return data, offs
 
     with as_byte_source(path) as src, cf.ThreadPoolExecutor(
             config.pool_size(), thread_name_prefix="hbam-decode") as pool:
-        stream = iter_windowed(pool, list(spans), decode,
+        stream = iter_windowed(pool, spans, decode,
                                max(1, prefetch) * config.pool_size())
         try:
             for k, (data, offs) in enumerate(stream):
@@ -605,16 +882,36 @@ def flagstat_file(path: str, device=None,
     -> device reduce, on ``cuda:0`` unless ``device`` says otherwise.
 
     ``mode="tile"`` (the reference's default driver) ships 11-byte
-    projected rows; ``mode="span"`` ships whole inflated spans and
-    gathers the fixed fields on the device with the K1 kernel (the
-    reference's span-mode step), planning smaller spans to fit
-    ``geometry.bytes_cap``."""
+    projected rows, or, on the device decode plane, token chunks that the
+    card resolves, walks and unpacks itself; ``mode="span"`` ships whole
+    inflated spans and gathers the fixed fields on the device with the K1
+    kernel (the reference's span-mode step), planning smaller spans to
+    fit ``geometry.bytes_cap``; it inflates on the host whatever the
+    plane."""
     axis = data_axis(device)
     geometry = geometry if geometry is not None else DecodeGeometry()
     if mode == "tile":
-        if spans is None:
+        vec = None
+        if resolve_inflate_backend(config) == "device":
+            parts: List[torch.Tensor] = []
+
+            def step(tokens, n_tokens, isize, start, stop, P):
+                counts, walk = device_flagstat_step(tokens, n_tokens, isize,
+                                                    start, stop, P)
+                counts = counts.to(axis.devices[0])
+                parts[:] = [counts + parts[0] if parts else counts]
+                return walk
+
+            spans = _device_plane(path, axis, config, header, spans,
+                                  prefetch, step)
+            vec = parts[0] if parts else None
+        elif spans is None:
             spans = _plan(path, header, axis.n_dev, 4 << 20)
-        vec = _flagstat_tiles(path, axis, config, geometry, spans, prefetch)
+        if spans:
+            host = _flagstat_tiles(path, axis, config, geometry, spans,
+                                   prefetch)
+            if host is not None:
+                vec = host if vec is None else vec + host
     elif mode == "span":
         if spans is None:
             spans = _plan(path, header, axis.n_dev, geometry.bytes_cap // 8)

@@ -43,13 +43,16 @@ class BAMSplitGuesser:
         """Smallest confirmed record-start virtual offset at or after byte
         ``offset``; None if no record is found before EOF."""
         coffset = offset
+        confirmed: dict = {}
         while True:
-            coffset = self._bgzf.guess_next_block_start(coffset)
+            coffset = self._bgzf.guess_next_block_start(coffset, confirmed)
             if coffset is None:
                 return None
-            # Inflate an inspection window: the candidate block + a few more.
+            # Inflate an inspection window: the candidate block + a few more
+            # (the ones the block confirmation inflated are reused).
             raw = self._src.pread(coffset, INSPECT_BLOCKS * bgzf.MAX_BLOCK_SIZE)
-            blocks, data, first_len = self._inflate_chain(raw)
+            blocks, data, first_len = self._inflate_chain(raw, coffset,
+                                                          confirmed)
             if first_len > 0:
                 u = self._find_record_in_block(data, first_len,
                                                partial=len(blocks) < INSPECT_BLOCKS
@@ -69,13 +72,15 @@ class BAMSplitGuesser:
             if coffset >= self._src.size:
                 return None
 
-    def _inflate_chain(self, raw: bytes):
+    def _inflate_chain(self, raw: bytes, coffset: int, inflated: dict):
         blocks, chunks = [], []
         off = 0
         while off < len(raw) and len(blocks) < INSPECT_BLOCKS:
             try:
                 info = bgzf.parse_block_header(raw, off)
-                chunks.append(bgzf.inflate_block(raw, info, check_crc=False))
+                done = inflated.get(coffset + off)
+                chunks.append(done if done is not None else
+                              bgzf.inflate_block(raw, info, check_crc=False))
             except bgzf.BGZFError:
                 break
             blocks.append(info)
@@ -101,7 +106,15 @@ class BAMSplitGuesser:
         hi = min(first_len, n - FIXED_RECORD_PREFIX)
         if hi <= 0:
             return np.empty(0, dtype=np.int64)
-        offs = np.arange(hi, dtype=np.int64)
+        # block_size at every offset (contiguous slices, no gather); the
+        # other fields are read only where it is plausible
+        bs = (b[0:hi].astype(np.uint32)
+              | (b[1:1 + hi].astype(np.uint32) << 8)
+              | (b[2:2 + hi].astype(np.uint32) << 16)
+              | (b[3:3 + hi].astype(np.uint32) << 24)).view(np.int32)
+        offs = np.flatnonzero((bs >= CORE_AFTER_BLOCKSIZE + 2)  # "x\0"
+                              & (bs <= MAX_PLAUSIBLE_BLOCK_SIZE))
+        bs = bs[offs].astype(np.int64)
 
         def i32(shift):
             v = (b[offs + shift].astype(np.uint32)
@@ -114,7 +127,6 @@ class BAMSplitGuesser:
             return (b[offs + shift].astype(np.int64)
                     | (b[offs + shift + 1].astype(np.int64) << 8))
 
-        bs = i32(0)
         refid = i32(4)
         pos = i32(8)
         l_read_name = b[offs + 12].astype(np.int64)
@@ -132,9 +144,7 @@ class BAMSplitGuesser:
         min_bs = (CORE_AFTER_BLOCKSIZE + l_read_name + 4 * n_cigar
                   + (l_seq + 1) // 2 + l_seq)
         mask = (
-            (bs >= CORE_AFTER_BLOCKSIZE + 2)  # name >= "x\0"
-            & (bs <= MAX_PLAUSIBLE_BLOCK_SIZE)
-            & (refid >= -1) & (refid < self._n_ref)
+            (refid >= -1) & (refid < self._n_ref)
             & (pos >= -1) & (pos < ref_len)
             & (l_read_name >= 2) & (l_read_name <= 255)
             & (l_seq >= 0) & (l_seq <= MAX_PLAUSIBLE_SEQ_LEN)

@@ -24,8 +24,12 @@ class BGZFSplitGuesser:
         self._src: ByteSource = as_byte_source(source)
         self._confirm_blocks = confirm_blocks
 
-    def guess_next_block_start(self, offset: int) -> Optional[int]:
-        """Smallest confirmed BGZF block start >= offset, or None."""
+    def guess_next_block_start(self, offset: int,
+                               inflated: Optional[dict] = None
+                               ) -> Optional[int]:
+        """Smallest confirmed BGZF block start >= offset, or None.  When
+        ``inflated`` is a dict, it receives {coffset: payload} of the
+        blocks the confirmation of the returned start inflated."""
         end = self._src.size
         if offset >= end:
             return None
@@ -37,14 +41,17 @@ class BGZFSplitGuesser:
                 abs_off = window_off + int(cand)
                 if abs_off < offset:
                     continue
-                if self._confirm(abs_off):
+                if inflated is not None:
+                    inflated.clear()
+                if self._confirm(abs_off, inflated):
                     return abs_off
             if window_off + len(win) >= end:
                 return None
             window_off += self.WINDOW
         return None
 
-    def _confirm(self, coffset: int) -> bool:
+    def _confirm(self, coffset: int, inflated: Optional[dict] = None
+                 ) -> bool:
         """Inflate up to confirm_blocks consecutive blocks starting here."""
         for _ in range(self._confirm_blocks):
             head = self._src.pread(coffset, bgzf.MAX_BLOCK_SIZE)
@@ -52,9 +59,11 @@ class BGZFSplitGuesser:
                 return True  # chain ran off EOF cleanly
             try:
                 info = bgzf.parse_block_header(head, 0)
-                bgzf.inflate_block(head, info, check_crc=True)
+                data = bgzf.inflate_block(head, info, check_crc=True)
             except bgzf.BGZFError:
                 return False
+            if inflated is not None:
+                inflated[coffset] = data
             coffset += info.block_size
             if coffset == self._src.size:
                 return True

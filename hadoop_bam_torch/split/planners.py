@@ -7,7 +7,8 @@ same file and ``num_spans`` when no sidecar sits next to the BAM.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import concurrent.futures as cf
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -43,13 +44,18 @@ def plan_byte_ranges(size: int, *, num_spans: Optional[int] = None,
             for i in range(len(bounds) - 1)]
 
 
-def plan_bam_spans(path: str, *, num_spans: Optional[int] = None,
+def iter_bam_spans(path: str, *, num_spans: Optional[int] = None,
                    header: Optional[SAMHeader] = None,
-                   split_size: int = SPLIT_SIZE) -> List[FileVirtualSpan]:
+                   split_size: int = SPLIT_SIZE) -> Iterator[FileVirtualSpan]:
     """Byte ranges -> record-aligned virtual spans (hb/BAMInputFormat
-    .getSplits, guessed boundaries).  ``num_spans`` wins over
+    .getSplits, guessed boundaries), yielded in order as soon as both of
+    a span's boundaries are known.  One background thread guesses the
+    boundaries (each guess inflates a few blocks and scans one for
+    plausible records), so a consumer decodes the first spans while the
+    later ones are still being planned.  ``num_spans`` wins over
     ``split_size`` when both are given."""
     src = as_byte_source(path)
+    pool = cf.ThreadPoolExecutor(1, thread_name_prefix="hbam-plan")
     try:
         size = src.size
         file_header, first_voffset = read_bam_header(src)
@@ -58,16 +64,26 @@ def plan_bam_spans(path: str, *, num_spans: Optional[int] = None,
             size, num_spans=num_spans,
             span_bytes=None if num_spans else split_size)
         guesser = BAMSplitGuesser(src, header)
-        boundaries: List[int] = []
-        for bstart, _bend in ranges:
-            if bstart == 0:
-                boundaries.append(first_voffset)
-                continue
-            v = guesser.guess_next_record_start(bstart)
-            boundaries.append(size << 16 if v is None
-                              else max(v, first_voffset))
-        boundaries.append(size << 16)
-        return [FileVirtualSpan(path, s, e)
-                for s, e in zip(boundaries[:-1], boundaries[1:]) if s < e]
+        guesses = [pool.submit(guesser.guess_next_record_start, b)
+                   for b, _ in ranges if b != 0]
+        prev = first_voffset if ranges and ranges[0][0] == 0 else None
+        for fut in guesses + [None]:
+            if fut is None:
+                v = size << 16
+            else:
+                g = fut.result()
+                v = size << 16 if g is None else max(g, first_voffset)
+            if prev is not None and prev < v:
+                yield FileVirtualSpan(path, prev, v)
+            prev = v
     finally:
+        pool.shutdown(wait=True, cancel_futures=True)
         src.close()
+
+
+def plan_bam_spans(path: str, *, num_spans: Optional[int] = None,
+                   header: Optional[SAMHeader] = None,
+                   split_size: int = SPLIT_SIZE) -> List[FileVirtualSpan]:
+    """``iter_bam_spans`` as a list."""
+    return list(iter_bam_spans(path, num_spans=num_spans, header=header,
+                               split_size=split_size))

@@ -104,6 +104,10 @@ def load() -> ctypes.CDLL:
         lib.hbam_deflate_batch.argtypes = [
             u8p, i64p, i32p, ctypes.c_int32, u8p, i64p, i32p, i32p,
             ctypes.c_int32, ctypes.c_int32]
+        lib.hbam_deflate_tokenize_batch.restype = ctypes.c_int
+        lib.hbam_deflate_tokenize_batch.argtypes = [
+            u8p, i64p, i32p, ctypes.c_int32, u32p, ctypes.c_int64,
+            i32p, i32p, u32p, ctypes.c_int32]
         _lib = lib
         return _lib
 
@@ -218,6 +222,48 @@ def crc32_batch(data: np.ndarray, off: np.ndarray, length: np.ndarray,
         _ptr(length, ctypes.c_int32), n, _ptr(out, ctypes.c_uint32),
         _threads(n, n_threads))
     return out
+
+
+_TOKENIZE_FAULTS = {
+    1: "truncated stream", 2: "malformed stream",
+    3: "token capacity exceeded (caller's tok_stride too small)",
+    4: "back-reference before stream start"}
+
+
+def deflate_tokenize_batch(src: np.ndarray, cdata_off: np.ndarray,
+                           cdata_len: np.ndarray, tok_stride: int,
+                           n_threads: int = 0, with_crc: bool = False
+                           ) -> tuple:
+    """Huffman-decode many raw DEFLATE streams into LZ77 token rows
+    (copies left unresolved): the host half of the device decode plane
+    (``ops/inflate_device.py``).  A token with bit 31 set is a copy
+    (length in bits 16-24, distance - 1 in bits 0-15), else a literal
+    byte.  Returns (tokens [B, tok_stride] u32, n_tokens [B] i32,
+    out_lens [B] i32), plus ``crcs [B] u32`` (each block's inflated
+    CRC32, folded in while tokenizing) with ``with_crc``.  Raises
+    ValueError naming the first failing block and why."""
+    lib = load()
+    n = len(cdata_off)
+    tokens = np.empty((n, tok_stride), dtype=np.uint32)
+    n_tokens = np.zeros(n, dtype=np.int32)
+    out_lens = np.zeros(n, dtype=np.int32)
+    crcs = np.zeros(n, dtype=np.uint32) if with_crc else None
+    rc = lib.hbam_deflate_tokenize_batch(
+        _ptr(src, ctypes.c_uint8), _ptr(cdata_off, ctypes.c_int64),
+        _ptr(cdata_len, ctypes.c_int32), n,
+        _ptr(tokens, ctypes.c_uint32), tok_stride,
+        _ptr(n_tokens, ctypes.c_int32), _ptr(out_lens, ctypes.c_int32),
+        None if crcs is None else _ptr(crcs, ctypes.c_uint32),
+        _threads(n, n_threads))
+    if rc:
+        kind = (rc - 1000) // 1000000
+        block = (rc - 1000) % 1000000
+        raise ValueError(
+            f"deflate tokenize failed at block {block}: "
+            f"{_TOKENIZE_FAULTS.get(kind, f'error {kind}')}")
+    if with_crc:
+        return tokens, n_tokens, out_lens, crcs
+    return tokens, n_tokens, out_lens
 
 
 def deflate_batch(payloads: "list[bytes]", level: int = 6,

@@ -110,3 +110,162 @@ def test_drivers_on_card_match_truth(cuda, tmp_path):
         assert abs(got[k] - getattr(truth, k)) <= 1e-6 * getattr(truth, k)
     assert tub.unpack_fixed_fields.launches > k1
     assert tss.seq_qual_stats.launches > k2
+
+
+# ---------------------------------------------------------------------------
+# the device decode plane's kernels (K7+K8, K9, K10p)
+# ---------------------------------------------------------------------------
+
+def _token_chunk(payloads, P, B=None, level=6):
+    """Raw-DEFLATE ``payloads``, tokenize them natively at width P and
+    pad to B rows (n_tokens = isize = 0): (tokens, n_tokens, isize)."""
+    import zlib
+    from hadoop_bam_torch.utils import native
+    comps = []
+    for d in payloads:
+        co = zlib.compressobj(level, zlib.DEFLATED, -15)
+        comps.append(co.compress(d) + co.flush())
+    src = np.frombuffer(b"".join(comps), np.uint8)
+    off = np.cumsum([0] + [len(c) for c in comps[:-1]]).astype(np.int64)
+    ln = np.array([len(c) for c in comps], np.int32)
+    toks, nt, ol = native.deflate_tokenize_batch(src, off, ln, P)
+    assert [int(x) for x in ol] == [len(d) for d in payloads]
+    B = B or len(payloads)
+    tok = np.zeros((B, P), np.uint32)
+    tok[:len(payloads)] = toks
+    n = np.zeros(B, np.int32)
+    n[:len(payloads)] = nt
+    iz = np.zeros(B, np.int32)
+    iz[:len(payloads)] = ol
+    return tok, n, iz
+
+
+def _payloads(n, size, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        kind = i % 4
+        if kind == 0:
+            d = rng.choice(np.frombuffer(b"ACGT", np.uint8), size)
+        elif kind == 1:
+            d = rng.choice(np.frombuffer(b"FF:,#IIII", np.uint8), size)
+        elif kind == 2:
+            d = np.full(size, ord("A"), np.uint8)      # dist-1 chains
+        else:
+            d = rng.integers(0, 256, size, dtype=np.uint8)
+        out.append(d[:max(1, size - 37 * i)].tobytes())
+    return out
+
+
+@pytest.mark.parametrize("P,n,B", [(1 << 16, 64, 64), (1 << 16, 5, 8),
+                                   (1 << 13, 13, 16), (1 << 10, 3, 8)])
+def test_k7_resolve_pack_matches_plain_and_zlib(cuda, P, n, B):
+    from hadoop_bam_torch.ops import inflate_device as tid
+    payloads = _payloads(n, P, P + n)
+    tok, nt, iz = _token_chunk(payloads, P, B)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (tok.view(np.int32), nt, iz)]
+    before = tid.resolve_pack.launches
+    buf, total = tid.resolve_pack(*args)
+    want, want_total = tid.pack_contiguous_plain(
+        tid.resolve_tokens_plain(args[0], args[1], P), args[2])
+    torch.cuda.synchronize()
+    assert tid.resolve_pack.launches == before + 1
+    assert int(total) == int(want_total) == sum(len(d) for d in payloads)
+    assert torch.equal(buf, want)
+    got = buf.cpu().numpy()
+    assert got[:int(total)].tobytes() == b"".join(payloads)
+    assert not got[int(total):].any()
+
+
+def _walk_buffer(tmp_path, n_reads=6000):
+    """Inflated bytes of a synthetic BAM, from its first record."""
+    from hadoop_bam_torch.formats.bamio import read_bam_header
+    from hadoop_bam_torch.ops.inflate import inflate_span
+    from hadoop_bam_torch.synth import write_synthetic_bam
+    path = str(tmp_path / "w.bam")
+    write_synthetic_bam(path, n_reads, seed=3)
+    data, _ = inflate_span(open(path, "rb").read())
+    _, voff = read_bam_header(path)
+    return data[voff & 0xFFFF:]
+
+
+def _walk_cases(data):
+    """(name, buf, total, start, stop, R) covering the walk's rules."""
+    L = 1 << 20
+    buf = np.zeros(L, np.uint8)
+    buf[:min(L, data.size)] = data[:L]
+    total = int(min(L, data.size))
+    cases = [("full", buf, total, 0, L, 8192),
+             ("cut tail", buf, 700_001, 0, L, 8192),
+             ("stop mid", buf, total, 0, 400_000, 8192),
+             ("start past L", buf, total, L + 9, L, 64),
+             ("n_all over R", buf, total, 0, L, 16)]
+    second = 4 + int(buf[:4].view("<i4")[0])
+    third = second + 4 + int(buf[second:second + 4].view("<i4")[0])
+    bad = buf.copy()
+    bad[third:third + 4] = np.frombuffer(np.int32(5).tobytes(), np.uint8)
+    cases.append(("bs < 32", bad, total, 0, L, 8192))
+    big = buf.copy()
+    big[0:4] = np.frombuffer(np.int32(L + 1).tobytes(), np.uint8)
+    cases.append(("bs > L", big, total, 0, L, 8192))
+    return cases
+
+
+def test_k9_walk_matches_plain(cuda, tmp_path):
+    from hadoop_bam_torch.ops import inflate_device as tid
+    for name, buf, total, start, stop, R in _walk_cases(
+            _walk_buffer(tmp_path)):
+        b = torch.from_numpy(buf).to(cuda)
+        before = tid.walk_records_device.launches
+        got = tid.walk_records_device(b, total, start, stop, R)
+        want = tid.walk_records_device_plain(b, total, start, stop, R)
+        torch.cuda.synchronize()
+        assert tid.walk_records_device.launches == before + 1
+        assert torch.equal(got[0], want[0]), name
+        assert [int(x) for x in got[1:]] == [int(x) for x in want[1:]], name
+
+
+def test_k10p_payload_gather_matches_plain(cuda):
+    from hadoop_bam_torch.ops import inflate_device as tid
+    rng = np.random.default_rng(5)
+    L, R = 1 << 20, 4096
+    buf = torch.from_numpy(rng.integers(0, 256, L, dtype=np.uint8)).to(cuda)
+    offs = rng.integers(-50, L + 50, R).astype(np.int32)
+    l_seq = rng.integers(-3, 400, R).astype(np.int32)
+    l_seq[:3] = [2**31 - 1, 0, 161]
+    rn = rng.integers(0, 256, R).astype(np.int32)
+    nc = rng.integers(0, 70_000, R).astype(np.int32)
+    cols = [torch.from_numpy(a).to(cuda) for a in (offs, l_seq, rn, nc)]
+    for n_all in (0, 1000, R + 7):
+        for strides in ((96, 160), (17, 33)):
+            before = tid.payload_gather.launches
+            got = tid.payload_gather(buf, *cols, n_all, 160, *strides)
+            want = tid.payload_gather_plain(buf, *cols, n_all, 160, *strides)
+            torch.cuda.synchronize()
+            assert tid.payload_gather.launches == before + 1
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (n_all, strides)
+
+
+def test_device_plane_drivers_on_card_match_truth(cuda, tmp_path):
+    """flagstat and seq-stats through the device decode plane on the card
+    equal the synthesizer's counts, with every kernel of the path
+    launched."""
+    from hadoop_bam_torch.config import HBamConfig
+    from hadoop_bam_torch.ops import inflate_device as tid
+    from hadoop_bam_torch.parallel import pipeline as tp
+    from hadoop_bam_torch.synth import write_synthetic_bam
+    path = str(tmp_path / "d.bam")
+    truth = write_synthetic_bam(path, 40_000, seed=4)
+    cfg = HBamConfig(inflate_backend="device")
+    wrappers = (tid.resolve_pack, tid.walk_records_device, tid.payload_gather,
+                tub.unpack_fixed_fields, tss.seq_qual_stats)
+    before = [w.launches for w in wrappers]
+    assert tp.flagstat_file(path, config=cfg) == truth.flagstat
+    got = tp.seq_stats_file(path, config=cfg)
+    assert got["n_reads"] == truth.n_reads
+    assert np.array_equal(got["base_hist"], truth.base_hist)
+    for k in ("mean_gc", "mean_qual"):
+        assert abs(got[k] - getattr(truth, k)) <= 1e-6 * getattr(truth, k)
+    assert all(w.launches > b for w, b in zip(wrappers, before))

@@ -42,6 +42,31 @@ def test_plan_bam_spans_matches_jax(bam, num_spans):
     assert [s.start for s in got] == [s.start for s in ref]
 
 
+@pytest.fixture(scope="module")
+def fine_bam(tmp_path_factory):
+    """A synthetic BAM of ~60 full BGZF blocks: fine-grained plans guess
+    boundaries with several blocks of inspection window ahead."""
+    from hadoop_bam_torch.synth import write_synthetic_bam
+    path = str(tmp_path_factory.mktemp("tf") / "fine.bam")
+    write_synthetic_bam(path, 20000, seed=6, chunk_pairs=2048)
+    return path
+
+
+@pytest.mark.parametrize("num_spans", [7, 25, 60])
+def test_fine_plans_match_jax(fine_bam, num_spans):
+    """Boundary guesses that inflate only the blocks the block check
+    already inflated (and the rest when a check reaches their end) give
+    the reference's plan, streamed or listed."""
+    from hadoop_bam_torch.split.planners import iter_bam_spans
+    ref = [(s.start_voffset, s.end_voffset)
+           for s in jax_plan(fine_bam, num_spans=num_spans)]
+    got = plan_bam_spans(fine_bam, num_spans=num_spans)
+    assert [(s.start_voffset, s.end_voffset) for s in got] == ref
+    assert [(s.start_voffset, s.end_voffset) for s in
+            iter_bam_spans(fine_bam, num_spans=num_spans)] == ref
+    assert len(ref) > num_spans // 2
+
+
 def test_read_bam_header_matches_jax(bam):
     h, v = read_bam_header(bam)
     hj, vj = jax_header(bam)

@@ -103,14 +103,17 @@ def test_bucket_cap_matches_jax():
 
 def test_config_and_geometry_from_jax_dicts():
     cfg = tconfig.config_from_dict(dataclasses.asdict(JAX_CONFIG))
-    assert cfg == tconfig.HBamConfig(inflate_backend="native")
+    assert cfg == tconfig.HBamConfig(inflate_backend="auto")
+    assert tconfig.resolve_inflate_backend(cfg) == "native"
     z = dataclasses.replace(JAX_CONFIG, inflate_backend="zlib",
                             check_crc=True, decode_pool_workers=3)
     cfg = tconfig.config_from_dict(dataclasses.asdict(z))
     assert (cfg.inflate_backend, cfg.check_crc, cfg.pool_size()) == \
         ("zlib", True, 3)
+    assert tconfig.config_from_dict(
+        {"inflate_backend": "device"}).inflate_backend == "device"
     with pytest.raises(PlanError):
-        tconfig.config_from_dict({"inflate_backend": "device"})
+        tconfig.config_from_dict({"inflate_backend": "gpu"})
     for g in (jp.PayloadGeometry(max_len=100, tile_records=512),
               jp.DecodeGeometry(bytes_cap=1 << 20)):
         tg = tconfig.geometry_from_dict(dataclasses.asdict(g))
