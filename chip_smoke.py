@@ -27,7 +27,10 @@ Phases (any failure raises and exits non-zero):
    B = 64, P = 65,536, and a chunk on each smaller rung (8 KiB, 1 KiB);
 7. K9 (record walk) against its plain version on a 64-block chunk of the
    BAM and on a cut final record, start past the buffer, stop mid-chunk,
-   a block_size below 32, one past the buffer, and more records than R;
+   a block_size below 32, one past the buffer, and more records than R,
+   and on the tiled walk's edge cases (``synth.walk_cases``), each twice
+   in a row; its time at that chunk and at the main path's usual
+   17-block chunk, with |C|, tiles, rounds and its ptxas lines;
 8. K10p (payload gather) against its plain version on that chunk's walk
    at the default payload geometry, and on random edge rows; then K1 and
    K2 at the shapes the device plane gives them (that chunk's walk
@@ -43,6 +46,12 @@ Phases (any failure raises and exits non-zero):
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+
+``--times KERNEL`` stops after the build: it only checks and times that
+kernel at its shapes (``TIMES``: K9 at both chunk shapes) and prints
+them as one JSON line; with ``--tree DIR`` it does so for the port in
+another checkout (an earlier tree unpacked by ``git archive``), so that
+two trees' kernels can be timed in turns on the same card and inputs.
 """
 from __future__ import annotations
 
@@ -131,6 +140,22 @@ def device_ms(torch, calls, reps: int = 32) -> float:
         "timing instead")
     return time_ms(torch, calls[0], torch.empty(
         64 << 20, dtype=torch.uint8, device="cuda"))
+
+
+def kernel_split(torch, calls, reps: int = 32) -> dict:
+    """Mean device ms per call of each kernel (its function name) over
+    ``reps`` calls cycling through ``calls``, from ``device_busy``; {}
+    where there is no card."""
+    if not torch.cuda.is_available():
+        return {}
+    _, _, by_name = device_busy(
+        torch, lambda: [calls[i % len(calls)]() for i in range(reps)])
+    out = {}
+    for name, sec in by_name.items():
+        name = name.replace("(anonymous namespace)::", "")
+        name = name.replace("void ", "").split("(")[0]
+        out[name] = out.get(name, 0.0) + sec * 1e3 / reps
+    return dict(sorted(out.items()))
 
 
 def device_busy(torch, fn):
@@ -445,8 +470,10 @@ def log_busy(torch, name, fn, card) -> None:
     wall, busy, by_name = device_busy(torch, fn)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     k2 = sum(v for k, v in by_name.items() if "seq_stats_kernel" in k)
+    k9 = sum(v for k, v in by_name.items() if "walk_" in k)
     log(f"{name} profiled: {wall:.3f} s wall, device busy {busy:.4f} s "
-        f"({100 * busy / wall:.2f}%); K2 {k2 * 1e3:.3f} ms; top: "
+        f"({100 * busy / wall:.2f}%); K2 {k2 * 1e3:.3f} ms; K9 "
+        f"{k9 * 1e3:.3f} ms; top: "
         + "; ".join(f"{k[:60]} {v * 1e3:.2f} ms" for k, v in top)
         + f" [{card}]")
 
@@ -601,23 +628,65 @@ def kernels_report(name):
             if "registers" in l or "spill" in l]
 
 
-def bam_chunk(torch, path, dev):
-    """The BAM's first 64 blocks resolved on the card: (buf, total, start
-    of the first record, host copy of buf)."""
+def bam_chunk(torch, path, dev, n=64):
+    """The BAM's first ``n`` blocks resolved on the card as the device
+    plane ships them (rows padded to a power of two >= 8): (buf, total,
+    start of the first record, host copy of buf)."""
     import numpy as np
     from hadoop_bam_torch.formats.bamio import read_bam_header
     from hadoop_bam_torch.ops import inflate_device as tid
     from hadoop_bam_torch.utils import native
-    raw, table = first_blocks(path, 64)
+    raw, table = first_blocks(path, n)
     tok, nt, iz = pad_tokens(native.deflate_tokenize_batch(
         np.frombuffer(raw, np.uint8), table["cdata_off"],
-        table["cdata_len"], 1 << 16), 64)
+        table["cdata_len"], 1 << 16), tid.round_pow2(n, 8))
     buf, total = tid.resolve_pack(*(torch.from_numpy(a).to(dev)
                                     for a in (tok, nt, iz)))
     _, voff = read_bam_header(path)
     blk = int(np.nonzero(table["coffset"] == voff >> 16)[0][0])
     start = int(iz[:blk].sum()) + (voff & 0xFFFF)
     return buf, total, start, buf.cpu().numpy()
+
+
+def k9_times(torch, path, dev) -> dict:
+    """K9's device ms at the 64-block chunk and at the main path's usual
+    17-block chunk (32 rows) of the BAM, with the plain version's, the
+    bytes of its bound (the chunk's data bytes, min(L, total), read once:
+    no output depends on a byte past total; offsets, total and the walk's
+    three scalars moved once) and its time by kernel.  Uses only what
+    every tree of the port since the device plane has, so that an earlier
+    tree (``--tree``) is timed on the same inputs."""
+    from hadoop_bam_torch.ops import inflate_device as tid
+    out = {}
+    for n in (64, 17):
+        buf, total, start, _ = bam_chunk(torch, path, dev, n)
+        L = buf.shape[0]
+        R = tid.records_cap(tid.round_pow2(n, 8), 1 << 16)
+        t = int(total)
+        copies = [(buf.clone(), total.clone()) for _ in range(4)]
+        ms = device_ms(torch, [lambda c=c: tid.walk_records_device(
+            c[0], c[1], start, t, R) for c in copies])
+        plain_ms = device_ms(torch, [
+            lambda c=c: tid.walk_records_device_plain(c[0], c[1], start, t,
+                                                      R) for c in copies])
+        got = tid.walk_records_device(buf, total, start, t, R)
+        want = tid.walk_records_device_plain(buf, total, start, t, R)
+        sync(torch, dev)
+        check(torch.equal(got[0], want[0])
+              and [int(x) for x in got[1:]] == [int(x) for x in want[1:]],
+              f"K9 at the {n}-block chunk equals plain")
+        split = kernel_split(torch, [lambda c=c: tid.walk_records_device(
+            c[0], c[1], start, t, R) for c in copies])
+        out[f"{n}-block"] = {
+            "L": L, "R": R, "total": t, "records": int(got[1]), "ms": ms,
+            "plain_ms": plain_ms,
+            "nbytes": min(L, t) + 4 * R + 16, "kernels_ms": split}
+    return out
+
+
+# ``--times KERNEL``: the timing function of each kernel that has one,
+# called as fn(torch, path, dev) -> a JSON-able dict
+TIMES = {"walk_records_device": k9_times}
 
 
 def _le32(a, p):
@@ -628,6 +697,7 @@ def phase_k9(torch, path, dev) -> dict:
     log("== phase 7: K9 walk_records_device vs plain")
     import numpy as np
     from hadoop_bam_torch.ops import inflate_device as tid
+    from hadoop_bam_torch.synth import record_flags, walk_cases
     buf, total, start, host = bam_chunk(torch, path, dev)
     L = buf.shape[0]
     R = tid.records_cap(64, 1 << 16)
@@ -649,30 +719,47 @@ def phase_k9(torch, path, dev) -> dict:
              ("block_size past L", with_bs(second, L + 1), total, start, t,
               R),
              ("n_all past R", buf, total, start, t, 16)]
+    # the tiled walk's edge cases at its tile width (8 tiles each)
+    cases += [(name, torch.from_numpy(b).to(dev), tot, st, sp, r)
+              for name, b, tot, st, sp, r in walk_cases(tid.WALK_W)]
     for name, b, tot, st, sp, r in cases:
-        got = tid.walk_records_device(b, tot, st, sp, r)
         want = tid.walk_records_device_plain(b, tot, st, sp, r)
-        sync(torch, dev)
-        check(torch.equal(got[0], want[0]), f"K9 offsets, {name}")
-        g, w = [int(x) for x in got[1:]], [int(x) for x in want[1:]]
-        check(g == w, f"K9 (n_all, tail, bad) {g} != {w}, {name}")
-        log(f"{name}: offsets and (n_all, tail, bad) = {tuple(g)} equal")
-    copies = [(buf.clone(), total.clone()) for _ in range(4)]
-    ms = device_ms(torch, [lambda c=c: tid.walk_records_device(
-        c[0], c[1], start, t, R) for c in copies])
-    plain_ms = device_ms(torch, [lambda c=c: tid.walk_records_device_plain(
-        c[0], c[1], start, t, R) for c in copies])
-    nbytes = L + 4 + 4 * R + 12
-    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
-    log(f"K9 device {ms:.4f} ms (plain {plain_ms:.4f} ms; "
-        f"{tid.walk_rounds(L)} rounds at L = {L}), bound {bound_ms:.4f} ms "
-        f"= {nbytes} B / 3.35 TB/s (buffer read once, offsets written once); "
-        f"no single PyTorch call computes this function (library_ms null)")
+        w = [int(x) for x in want[1:]]
+        for _ in range(2):   # twice in a row: the scratch is reused
+            got = tid.walk_records_device(b, tot, st, sp, r)
+            sync(torch, dev)
+            check(torch.equal(got[0], want[0]), f"K9 offsets, {name}")
+            g = [int(x) for x in got[1:]]
+            check(g == w, f"K9 (n_all, tail, bad) {g} != {w}, {name}")
+        log(f"{name}: offsets and (n_all, tail, bad) = {tuple(g)} equal, "
+            f"twice")
+    times = k9_times(torch, path, dev)
+    for shape, x in times.items():
+        lw = tid.walk_launch(x["L"])
+        chunk = bam_chunk(torch, path, dev, int(shape.split("-")[0]))[3]
+        n_c = int(record_flags(chunk, x["total"])[1].sum())
+        x["bound_ms"] = x["nbytes"] / H100_BYTES_PER_S * 1e3
+        log(f"K9 at the {shape} chunk (L = {x['L']}, total {x['total']}, "
+            f"R = {x['R']}, {x['records']} records, |C| = {n_c} "
+            f"candidates): {lw.tiles} tiles of {lw.W}, {lw.rounds} phase-B "
+            f"rounds, {lw.rounds + 3} launches; device {x['ms']:.4f} ms "
+            f"(plain {x['plain_ms']:.4f} ms), bound {x['bound_ms']:.6f} ms = "
+            f"{x['nbytes']} B / 3.35 TB/s (min(L, total) data bytes read "
+            f"once, offsets written once), {100 * x['bound_ms'] / x['ms']:.2f}"
+            f"% of it; by kernel (ms per call): {x['kernels_ms']}")
+    for line in kernels_report("record_walk"):
+        log(f"  ptxas: {line}")
+    log("no single PyTorch call computes this function (library_ms null)")
+    big, main = times["64-block"], times["17-block"]
     return {"name": "walk_records_device", "route": "cuda",
             "source": "hadoop_bam_torch/csrc/record_walk.cu",
             "replaces": "hadoop_bam_tpu/ops/inflate_device.py:176",
-            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+            "max_abs_err": 0, "ms": big["ms"], "plain_ms": big["plain_ms"],
+            "bound_ms": big["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "main_path_shape": _shape_row(
+                f"17-block chunk: [{main['L']}] u8, {main['R']} offsets", 0,
+                main["ms"], main["plain_ms"], main["nbytes"])}
 
 
 def phase_k10p(torch, path, dev) -> dict:
@@ -917,7 +1004,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reads", type=int, default=2_000_000)
+    ap.add_argument("--times", choices=sorted(TIMES), default=None,
+                    help="only build, then check and time this kernel at "
+                    "its shapes; print them as one JSON line")
+    ap.add_argument("--tree", default=None,
+                    help="with --times: import hadoop_bam_torch from this "
+                    "checkout (an earlier tree, timed on the same inputs)")
     args = ap.parse_args(argv)
+    if args.tree and not args.times:
+        ap.error("--tree needs --times")
+    if args.tree:
+        sys.path.insert(0, os.path.abspath(args.tree))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -933,6 +1030,12 @@ def main(argv=None) -> int:
     phase_build()
     path, truth = make_bam(args)
     dev = torch.device("cuda", 0)
+    if args.times:
+        import hadoop_bam_torch
+        print(json.dumps({"tree": os.path.dirname(hadoop_bam_torch.__file__),
+                          "card": card, "kernel": args.times,
+                          "times": TIMES[args.times](torch, path, dev)}))
+        return 0
     k1 = phase_k1(torch, path, dev)
     k2 = phase_k2(torch, path, dev)
     native_launches, native_walls = phase_main(torch, path, truth, card, dev)

@@ -11,7 +11,8 @@ Everything after that runs here, on one chunk of at most 64 blocks:
 - ``resolve_pack`` (K7+K8, ``csrc/lz77_resolve.cu``): tokens -> each
   block's bytes by pointer doubling, packed into one contiguous buffer;
 - ``walk_records_device`` (K9, ``csrc/record_walk.cu``): the BAM record
-  chain over that buffer by pointer doubling over per-byte successors;
+  chain over that buffer by pointer doubling over the positions that can
+  start a complete record, tile by tile;
 - ``unpack_fixed_fields`` (K1) at the walk's offsets;
 - ``payload_gather`` (K10p, ``csrc/payload_gather.cu``): each record's
   packed bases and quals into the fixed-stride tiles K2 reads.
@@ -29,7 +30,7 @@ from __future__ import annotations
 
 import time
 import zlib
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -54,9 +55,12 @@ SPAN_CHUNK_BLOCKS = 64
 # inflated bytes of the synthetic block probe_device_plane times
 PROBE_BLOCK_BYTES = 1 << 16
 
-# positions per block of the walk's count and write passes (kTile in
-# csrc/record_walk.cu)
-WALK_TILE = 1024
+# positions per tile of the record walk (kW in csrc/record_walk.cu)
+WALK_W = 1 << 13
+
+# least distance between two records of a chain: a 4-byte block_size
+# and a 32-byte core
+MIN_RECORD = 36
 
 Scalar = Union[int, torch.Tensor]
 
@@ -85,14 +89,43 @@ def records_cap(B: int, P: int) -> int:
     return round_pow2(max(16, (B * P) // 32), 16)
 
 
-def walk_rounds(L: int) -> int:
-    """Pointer-doubling rounds that always reach the end of the record
-    chain of an L-byte buffer: the least k with 2^k >= L / 36 + 2 (chain
-    nodes are at least 36 bytes apart)."""
-    k = 0
-    while (1 << k) * 36 < L + 72:
-        k += 1
-    return k
+class WalkLaunch(NamedTuple):
+    """The arithmetic of one K9 launch over an L-byte buffer (see
+    ``csrc/record_walk.cu`` for the phases)."""
+    L: int
+    W: int          # positions per tile
+    tiles: int
+    rounds: int     # phase B: the least k with 4^k >= tiles
+    path_cap: int   # chain nodes one tile can hold
+    entries: int    # positions the scratch indexes (W per tile), and
+                    # its u8 marks
+    words: int      # int32 scratch words, in the kernel's layout
+
+
+def walk_launch(L: int) -> WalkLaunch:
+    """Launch arithmetic of the tiled record walk over an L-byte buffer,
+    at the kernel's tile width ``WALK_W``; ``hbam_record_walk`` takes
+    these sizes and checks them.  Every jump of phase B leaves its tile
+    for a later one, so a path holds at most ``tiles`` candidates there
+    and 4^rounds >= tiles radix-4 rounds mark all of them; chain nodes
+    are at least MIN_RECORD bytes apart, so a tile holds at most
+    (W - 1) // MIN_RECORD + 1 of them.  The int32 scratch is, in order:
+    two jump arrays and the live candidates [entries each], per-tile live
+    counts, entries, kept counts and kept bases [tiles each], the kept
+    positions [tiles * path_cap], the rounds' change flags [rounds + 1]
+    and a ticket [1]."""
+    if L < 1 or L >= (1 << 31) - WALK_W:
+        raise ValueError(f"buffer of {L} bytes: K9 needs 1 <= L < 2^31 - "
+                         f"{WALK_W} (int32 positions)")
+    W = WALK_W
+    tiles = -(-L // W)
+    rounds = 0
+    while 4 ** rounds < tiles:
+        rounds += 1
+    path_cap = (W - 1) // MIN_RECORD + 1
+    entries = tiles * W
+    words = 3 * entries + 4 * tiles + tiles * path_cap + rounds + 2
+    return WalkLaunch(L, W, tiles, rounds, path_cap, entries, words)
 
 
 def _stream(dev: torch.device) -> int:
@@ -307,23 +340,18 @@ def walk_records_device(buf: torch.Tensor, total: Scalar, start: int,
     if not _cuda_or_cpu(buf):
         return walk_records_device_plain(buf, total, start, stop, R)
     dev = buf.device
-    L = buf.shape[0]
-    if L >= (1 << 31) - 8:
-        raise ValueError(f"buffer of {L} bytes exceeds int32 positions")
+    lw = walk_launch(buf.shape[0])
     total = _i32_scalar(total, dev)
-    rounds = walk_rounds(L)
-    tiles = -(-L // WALK_TILE)
     offs = torch.empty(R, dtype=torch.int32, device=dev)
     walk = torch.empty(3, dtype=torch.int32, device=dev)
-    jumps = torch.empty(2 * (L + 1), dtype=torch.int32, device=dev)
-    flag_bytes = torch.empty(2 * L + 1, dtype=torch.uint8, device=dev)
-    words = torch.empty(rounds + 1 + tiles, dtype=torch.int32, device=dev)
+    words = torch.empty(lw.words, dtype=torch.int32, device=dev)
+    marks = torch.empty(lw.entries, dtype=torch.uint8, device=dev)
     fn = kernels.kernel("record_walk")
     with torch.cuda.device(dev):
-        rc = fn(buf.data_ptr(), L, total.data_ptr(), int(start), int(stop),
-                int(R), rounds, offs.data_ptr(), walk.data_ptr(),
-                jumps.data_ptr(), flag_bytes.data_ptr(), words.data_ptr(),
-                _stream(dev))
+        rc = fn(buf.data_ptr(), lw.L, total.data_ptr(), int(start),
+                int(stop), int(R), offs.data_ptr(), walk.data_ptr(),
+                words.data_ptr(), lw.words, marks.data_ptr(), lw.entries,
+                lw.W, lw.tiles, lw.rounds, lw.path_cap, _stream(dev))
     kernels.check_launch("walk_records_device", rc)
     walk_records_device.launches += 1
     return offs, walk[0], walk[1], walk[2]

@@ -39,8 +39,8 @@ KERNELS: Dict[str, tuple] = {
     "lz77_resolve": ("hbam_lz77_resolve",
                      [_VP, _I64, _I64, _I64, _VP, _VP, _VP, _VP, _VP]),
     "record_walk": ("hbam_record_walk",
-                    [_VP, _I64, _VP, _I64, _I64, _I64, _I64, _VP, _VP, _VP,
-                     _VP, _VP, _VP]),
+                    [_VP, _I64, _VP, _I64, _I64, _I64, _VP, _VP, _VP, _I64,
+                     _VP, _I64, _I64, _I64, _I64, _I64, _VP]),
     "payload_gather": ("hbam_payload_gather",
                        [_VP, _I64, _VP, _VP, _VP, _VP, _VP, _I64, _I64,
                         _I64, _I64, _VP, _VP, _VP]),

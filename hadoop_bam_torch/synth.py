@@ -207,3 +207,100 @@ def write_synthetic_bam(path: str, n_reads: int, seed: int,
     n = max(n_reads, 1)
     return SynthTruth(n_reads=n_reads, flagstat=counters, base_hist=hist,
                       mean_gc=gc_sum / n, mean_qual=q_sum / n)
+
+
+def record_flags(buf: np.ndarray, total: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """(block_size as int64, complete) at every position of ``buf``, with
+    the record walk's rules: the little-endian int32 at p (zeros past
+    L), complete when p + 4 + bs <= total and 32 <= bs <= L."""
+    L = buf.size
+    b = np.concatenate([buf, np.zeros(3, np.uint8)]).astype(np.int64)
+    bs = b[:L] | b[1:L + 1] << 8 | b[2:L + 2] << 16 | b[3:L + 3] << 24
+    bs = np.where(bs >= 1 << 31, bs - (1 << 32), bs)
+    pos = np.arange(L)
+    return bs, (bs >= 32) & (bs <= L) & (pos + 4 + bs <= total)
+
+
+def block_size_chain(L: int, sizes, at: int = 0, seed: int = 0,
+                     zero_share: float = 0.6) -> Tuple[np.ndarray, int]:
+    """An L-byte buffer holding a chain of records from ``at``, record i
+    ``sizes[i]`` bytes long (its block_size ``sizes[i] - 4``), and the
+    position where the chain's last record ends.  Body bytes are random,
+    a ``zero_share`` of them zero, so that many positions off the chain
+    also read as a plausible block_size, as in real BAM bytes."""
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(0, 256, L, dtype=np.uint8)
+    buf[rng.random(L) < zero_share] = 0
+    p = at
+    for s in sizes:
+        buf[p:p + 4] = np.frombuffer(np.int32(s - 4).tobytes(), np.uint8)
+        p += s
+    return buf, p
+
+
+def _fill_sizes(rng: np.random.Generator, room: int, lo: int = 36,
+                hi: int = 400):
+    """Random record sizes in [lo, hi) summing to at most ``room``."""
+    out = []
+    while room >= hi:
+        out.append(int(rng.integers(lo, hi)))
+        room -= out[-1]
+    return out
+
+
+def walk_cases(W: int, seed: int = 0):
+    """Inputs for the record walk's edge rules at a tile of W positions
+    (the tiled walk's unit of work; ``ops.inflate_device.walk_launch``):
+    a list of (name, buf [8W] u8, total, start, stop, R).  Covers records
+    longer than a tile, a term in a tile entered by such a jump, dense
+    candidates at two phases of ``start``, a chain ending exactly at L,
+    ``start`` off the chain, ``stop`` before ``start``, R = 0, records
+    starting on tile boundaries, and ``total`` well below L (tiles past
+    it hold no candidate), with ``start`` before it and in a tile past
+    it."""
+    L = 8 * W
+    rng = np.random.default_rng(seed)
+    cap = L // 36 + 16
+    cases = []
+    sizes = _fill_sizes(rng, L - 7)
+    buf, end = block_size_chain(L, sizes, 7, seed)
+    cases.append(("random chain", buf, end, 7, L, cap))
+    sizes = [60, 3 * W + 17, 80] + _fill_sizes(rng, L - 3 * W - 170)
+    buf, end = block_size_chain(L, sizes, 0, seed + 1)
+    cases.append(("record longer than a tile", buf, end, 0, L, cap))
+    buf, end = block_size_chain(L, [60, 2 * W + 40], 3, seed + 2)
+    buf[end:end + 4] = np.frombuffer(np.int32(5).tobytes(), np.uint8)
+    cases.append(("bad term after a long jump", buf, L, 3, L, cap))
+    buf, end = block_size_chain(L, [60, 2 * W + 40, 100], 3, seed + 3)
+    cases.append(("cut record after a long jump", buf, end - 10, 3, L,
+                  cap))
+    dense = np.tile(np.array([32, 0, 0, 0], np.uint8), L // 4)
+    cases.append(("dense, start 0", dense, L, 0, L, cap))
+    cases.append(("dense, start 20", dense, L, 20, L - 3 * W + 5, cap))
+    sizes = _fill_sizes(rng, L - 11 - 36)
+    sizes.append(L - 11 - sum(sizes))
+    buf, end = block_size_chain(L, sizes, 11, seed + 4)
+    cases.append(("chain ends at L", buf, L, 11, L, cap))
+    sizes = _fill_sizes(rng, L)
+    buf, end = block_size_chain(L, sizes, 0, seed + 5)
+    complete = record_flags(buf, end)[1]
+    off_chain = int(np.nonzero(~complete[W // 2:])[0][0]) + W // 2
+    cases.append(("start off the chain", buf, end, off_chain, L, cap))
+    nodes = np.cumsum([0] + sizes)
+    mid = int(nodes[np.searchsorted(nodes, 2 * W)])
+    cases.append(("stop before start", buf, end, mid, W, cap))
+    cases.append(("R = 0", buf, end, 0, L, 0))
+    sizes = [W - 100, 100, 2 * W, 36] + _fill_sizes(rng, L - 3 * W - 36)
+    buf, end = block_size_chain(L, sizes, 0, seed + 6)
+    cases.append(("records on tile boundaries", buf, end, 0, L, cap))
+    buf, end = block_size_chain(L, [W, 36] + _fill_sizes(rng, L - 2 * W - 36),
+                                W, seed + 7)
+    cases.append(("start on a tile boundary", buf, end, W, L, cap))
+    sizes = _fill_sizes(rng, L - 5)
+    buf, end = block_size_chain(L, sizes, 5, seed + 8)
+    cut = 2 * W + W // 3
+    cases.append(("total well below L", buf, cut, 5, L, cap))
+    cases.append(("start in a tile past total", buf, cut, 5 * W + 3, L,
+                  cap))
+    return cases

@@ -213,17 +213,22 @@ def _walk_cases(data):
 
 
 def test_k9_walk_matches_plain(cuda, tmp_path):
+    """The BAM cases and the tiled walk's edge cases at the kernel's tile
+    width (``synth.walk_cases``), each twice in a row (scratch reuse)."""
     from hadoop_bam_torch.ops import inflate_device as tid
-    for name, buf, total, start, stop, R in _walk_cases(
-            _walk_buffer(tmp_path)):
+    from hadoop_bam_torch.synth import walk_cases
+    for name, buf, total, start, stop, R in (
+            _walk_cases(_walk_buffer(tmp_path)) + walk_cases(tid.WALK_W)):
         b = torch.from_numpy(buf).to(cuda)
-        before = tid.walk_records_device.launches
-        got = tid.walk_records_device(b, total, start, stop, R)
         want = tid.walk_records_device_plain(b, total, start, stop, R)
-        torch.cuda.synchronize()
-        assert tid.walk_records_device.launches == before + 1
-        assert torch.equal(got[0], want[0]), name
-        assert [int(x) for x in got[1:]] == [int(x) for x in want[1:]], name
+        for _ in range(2):
+            before = tid.walk_records_device.launches
+            got = tid.walk_records_device(b, total, start, stop, R)
+            torch.cuda.synchronize()
+            assert tid.walk_records_device.launches == before + 1
+            assert torch.equal(got[0], want[0]), name
+            assert ([int(x) for x in got[1:]]
+                    == [int(x) for x in want[1:]]), name
 
 
 def test_k10p_payload_gather_matches_plain(cuda):

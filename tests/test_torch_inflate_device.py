@@ -21,6 +21,7 @@ from hadoop_bam_tpu.utils import native as jnative
 from hadoop_bam_torch.formats import bgzf as tbgzf
 from hadoop_bam_torch.ops import inflate_device as tid
 from hadoop_bam_torch.ops.inflate import inflate_span
+from hadoop_bam_torch.synth import walk_cases
 from hadoop_bam_torch.utils import native as tnative
 from hadoop_bam_torch.utils.errors import PlanError
 
@@ -213,14 +214,21 @@ def _walk_case(name: str, data: np.ndarray):
     return buf, L + 2, 0, L, 4096
 
 
+# the tiled walk's edge cases at the kernel's tile width
+# (synth.walk_cases: chains written by synth.block_size_chain)
+TILE_CASES = {c[0]: c[1:] for c in walk_cases(tid.walk_launch(1).W)}
+
 WALK_CASES = ["full", "cut final record", "start past L", "stop mid-chunk",
               "n_all over R", "bs < 32", "bs > L", "negative bs",
-              "total past L"]
+              "total past L"] + list(TILE_CASES)
 
 
 @pytest.mark.parametrize("name", WALK_CASES)
 def test_walk_matches_jax(bam_bytes, name):
-    buf, total, start, stop, R = _walk_case(name, bam_bytes[0])
+    if name in TILE_CASES:
+        buf, total, start, stop, R = TILE_CASES[name]
+    else:
+        buf, total, start, stop, R = _walk_case(name, bam_bytes[0])
     want = jid._walk_records_device(jnp.asarray(buf), jnp.int32(total),
                                     jnp.int32(start), jnp.int32(stop), R)
     got = tid.walk_records_device(torch.from_numpy(buf), total, start, stop,
@@ -414,9 +422,13 @@ def test_shape_helpers_match_jax():
     assert tid.records_cap(64, 1 << 16) == 131_072
     assert tid.BGZF_MAX_ISIZE == jid.BGZF_MAX_ISIZE
     assert tid.P_LADDER == jid.P_LADDER
-    for L in (1, 36, 71, 72, 73, 4 << 20, 64 << 16):
-        k = tid.walk_rounds(L)
-        assert 2 ** k >= L / 36 + 2 and (k == 0 or 2 ** (k - 1) < L / 36 + 2)
+    for L in (1, 36, 8192, 8193, 4 << 20, 64 << 16):
+        lw = tid.walk_launch(L)
+        assert lw.W == tid.WALK_W and lw.tiles == max(1, -(-L // lw.W))
+        assert 4 ** lw.rounds >= lw.tiles
+        assert lw.rounds == 0 or 4 ** (lw.rounds - 1) < lw.tiles
+        assert lw.entries == lw.tiles * lw.W
+    assert tid.walk_launch(64 << 16)[2:4] == (512, 5)
 
 
 def test_probe_measures_each_plane():
