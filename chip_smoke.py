@@ -23,8 +23,14 @@ Phases (any failure raises and exits non-zero):
    span-mode ``.flagstat(mode="span")`` on cuda:0, checked against the
    generator's own counts, with each kernel's launch count from that run;
 6. K7+K8 (LZ77 resolve + pack) against its plain version and zlib's
-   bytes: the BAM's first 63 BGZF blocks and one run-length block at
-   B = 64, P = 65,536, and a chunk on each smaller rung (8 KiB, 1 KiB);
+   bytes, each case twice in a row: the BAM's first 63 BGZF blocks and
+   one run-length block at B = 64, P = 65,536 (full and narrow token
+   rows), the main path's chunk (the first 17 blocks in 32 rows of
+   narrow token rows, pad rows uninitialised) and the same blocks stored,
+   and a chunk on each smaller rung (8 KiB, 1 KiB); its launch and ptxas
+   lines, its time at the 64-block, 17-block and stored chunks beside
+   the plain version's, its bound and doubling passes, at each cluster
+   width with a phase split (``k7_times``);
 7. K9 (record walk) against its plain version on a 64-block chunk of the
    BAM and on a cut final record, start past the buffer, stop mid-chunk,
    a block_size below 32, one past the buffer, and more records than R,
@@ -48,10 +54,11 @@ The last lines are the kernels' JSON summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 
 ``--times KERNEL`` stops after the build: it only checks and times that
-kernel at its shapes (``TIMES``: K9 at both chunk shapes) and prints
-them as one JSON line; with ``--tree DIR`` it does so for the port in
-another checkout (an earlier tree unpacked by ``git archive``), so that
-two trees' kernels can be timed in turns on the same card and inputs.
+kernel at its shapes (``TIMES``: K9 at both chunk shapes, K7+K8 at its
+three chunks) and prints them as one JSON line; with ``--tree DIR`` it
+does so for the port in another checkout (an earlier tree unpacked by
+``git archive``), so that two trees' kernels can be timed in turns on
+the same card and inputs.
 """
 from __future__ import annotations
 
@@ -115,10 +122,11 @@ def device_ms(torch, calls, reps: int = 32) -> float:
     """Mean device time per call: the CUDA activity (kernels, memsets,
     copies) torch.profiler records over ``reps`` calls, cycling through
     ``calls`` (each over its own copy of the inputs, together larger than
-    the 50 MB L2, so every call reads device memory).  Unlike event
-    timing around one call, host launch overhead does not count.  Falls
-    back to event timing (``time_ms``) when three profiler sessions in a
-    row record no device activity, and says so."""
+    the 50 MB L2, so every call reads device memory), the median of three
+    profiler sessions (one session once recorded a sixth of what the
+    others did).  Unlike event timing around one call, host launch
+    overhead does not count.  Falls back to event timing (``time_ms``) when five
+    profiler sessions record no device activity, and says so."""
     if not torch.cuda.is_available():
         return float("nan")   # a rehearsal on the CPU measures nothing
     from torch.autograd import DeviceType
@@ -126,7 +134,8 @@ def device_ms(torch, calls, reps: int = 32) -> float:
     for call in calls:
         call()
     torch.cuda.synchronize()
-    for _ in range(3):   # a profiler session now and then records nothing
+    readings = []
+    for _ in range(5):   # a profiler session now and then records nothing
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for i in range(reps):
@@ -135,8 +144,12 @@ def device_ms(torch, calls, reps: int = 32) -> float:
         us = sum(e.time_range.elapsed_us() for e in prof.events()
                  if e.device_type == DeviceType.CUDA)
         if us > 0:
-            return us / reps / 1e3
-    log("torch.profiler recorded no device time in 3 sessions: event "
+            readings.append(us / reps / 1e3)
+        if len(readings) == 3:
+            return statistics.median(readings)
+    if readings:
+        return statistics.median(readings)
+    log("torch.profiler recorded no device time in 5 sessions: event "
         "timing instead")
     return time_ms(torch, calls[0], torch.empty(
         64 << 20, dtype=torch.uint8, device="cuda"))
@@ -465,15 +478,16 @@ def phase_main(torch, path, truth, card, dev):
 
 
 def log_busy(torch, name, fn, card) -> None:
-    """Profile one more run of a driver: device busy share and the four
-    busiest kernels."""
+    """Profile one more run of a driver: device busy share, the totals of
+    K2, K7+K8 and K9, and the four busiest kernels."""
     wall, busy, by_name = device_busy(torch, fn)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     k2 = sum(v for k, v in by_name.items() if "seq_stats_kernel" in k)
+    k7 = sum(v for k, v in by_name.items() if "lz77_resolve" in k)
     k9 = sum(v for k, v in by_name.items() if "walk_" in k)
     log(f"{name} profiled: {wall:.3f} s wall, device busy {busy:.4f} s "
-        f"({100 * busy / wall:.2f}%); K2 {k2 * 1e3:.3f} ms; K9 "
-        f"{k9 * 1e3:.3f} ms; top: "
+        f"({100 * busy / wall:.2f}%); K2 {k2 * 1e3:.3f} ms; K7+K8 "
+        f"{k7 * 1e3:.3f} ms; K9 {k9 * 1e3:.3f} ms; top: "
         + "; ".join(f"{k[:60]} {v * 1e3:.2f} ms" for k, v in top)
         + f" [{card}]")
 
@@ -546,19 +560,28 @@ def pad_tokens(out, B):
     return tok, nt_p, iz_p
 
 
-def _k7_check(torch, dev, tok, nt, iz, want: bytes) -> None:
+def _k7_check(torch, dev, tok, nt, iz, want: bytes, P=None) -> None:
+    """K7+K8 on one chunk against its plain version and zlib's bytes,
+    twice in a row; pad rows (isize 0) hold uninitialised tokens, as on
+    the device plane."""
+    import numpy as np
     from hadoop_bam_torch.ops import inflate_device as tid
-    args = [torch.from_numpy(a).to(dev) for a in (tok, nt, iz)]
-    got, total = tid.resolve_pack(*args)
+    P = tok.shape[1] if P is None else P
+    used = int(np.count_nonzero(iz))
+    tokens = torch.empty(tok.shape, dtype=torch.int32, device=dev)
+    tokens[:used] = torch.from_numpy(tok[:used]).to(dev)
+    args = [tokens] + [torch.from_numpy(a).to(dev) for a in (nt, iz)]
     plain, plain_total = tid.pack_contiguous_plain(
-        tid.resolve_tokens_plain(args[0], args[1], tok.shape[1]), args[2])
-    sync(torch, dev)
-    check(torch.equal(got, plain), "K7+K8 bit-equal to plain")
-    check(int(total) == int(plain_total) == len(want), "K7+K8 total")
-    host = got.cpu().numpy()
-    check(host[:len(want)].tobytes() == want, "K7+K8 equal to zlib's bytes")
-    check(not host[len(want):].any(), "K7+K8 zeros past the total")
-    return args
+        tid.resolve_tokens_plain(args[0], args[1], P), args[2])
+    for _ in range(2):
+        got, total = tid.resolve_pack(*args, P=P)
+        sync(torch, dev)
+        check(torch.equal(got, plain), "K7+K8 bit-equal to plain")
+        check(int(total) == int(plain_total) == len(want), "K7+K8 total")
+        host = got.cpu().numpy()
+        check(host[:len(want)].tobytes() == want,
+              "K7+K8 equal to zlib's bytes")
+        check(not host[len(want):].any(), "K7+K8 zeros past the total")
 
 
 def phase_k7(torch, path, dev) -> dict:
@@ -566,60 +589,67 @@ def phase_k7(torch, path, dev) -> dict:
     import zlib
     import numpy as np
     from hadoop_bam_torch.ops import inflate_device as tid
-    from hadoop_bam_torch.utils import native
     raw, table = first_blocks(path, 63)
-    src = np.frombuffer(raw, np.uint8)
-    blocks = [zlib.decompress(raw[o:o + n], wbits=-15) for o, n in
-              zip(table["cdata_off"], table["cdata_len"])]
-    rle = b"A" * 65536                    # dist-1 chains 64 K deep
-    co = zlib.compressobj(6, zlib.DEFLATED, -15)
-    rle_c = co.compress(rle) + co.flush()
-    both = np.concatenate([src, np.frombuffer(rle_c, np.uint8)])
-    off = np.append(table["cdata_off"], src.size).astype(np.int64)
-    ln = np.append(table["cdata_len"], len(rle_c)).astype(np.int32)
-    tok, nt, iz = pad_tokens(native.deflate_tokenize_batch(
-        both, off, ln, 1 << 16), 64)
-    args = _k7_check(torch, dev, tok, nt, iz, b"".join(blocks) + rle)
-    log(f"B = 64, P = 65536 (63 BAM blocks + 1 run-length block, "
-        f"{int(iz.sum())} bytes, {int(nt.sum())} tokens): bit-equal to "
-        f"plain and to zlib, zeros past the total")
+    data = [zlib.decompress(raw[o:o + n], wbits=-15) for o, n in
+            zip(table["cdata_off"], table["cdata_len"])]
+    chunks = k7_chunks(path)
+    tok, nt, iz, P = chunks["64-block"]
     T = -(-int(nt.max()) // 256) * 256        # the device plane's narrow rows
-    narrow = torch.from_numpy(np.ascontiguousarray(tok[:, :T])).to(dev)
-    check(torch.equal(tid.resolve_pack(narrow, *args[1:], P=1 << 16)[0],
-                      tid.resolve_pack(*args)[0]),
-          f"K7+K8 on [64, {T}] token rows equals [64, 65536]")
-    log(f"the same chunk as [64, {T}] token rows (as the device plane "
-        f"ships it): equal")
-    data = b"".join(blocks)
+    cases = [("64-block chunk (63 BAM blocks + 1 run-length block)", tok, nt,
+              iz, P, b"".join(data) + b"A" * 65536),
+             (f"the same chunk as [64, {T}] token rows",
+              np.ascontiguousarray(tok[:, :T]), nt, iz, P,
+              b"".join(data) + b"A" * 65536)]
+    for name in ("17-block", "17-block stored"):
+        tok, nt, iz, P = chunks[name]
+        cases.append((f"{name} chunk in 32 rows of {tok.shape[1]} tokens "
+                      f"(the main path's shape)", tok, nt, iz, P,
+                      b"".join(data[:17])))
+    flat = b"".join(data)
     for P, sizes, B in ((1 << 13, [8192, 5000, 1025, 8000, 7777] * 2 + [0],
                          16), (1 << 10, [1024, 1, 700, 1000, 0], 8)):
         pieces, p = [], 0
         for n in sizes:
-            pieces.append(data[p:p + n])
+            pieces.append(flat[p:p + n])
             p += n
-        _k7_check(torch, dev, *tokenize(pieces, P, B), b"".join(pieces))
-        log(f"B = {B}, P = {P} ({len(pieces)} blocks, an empty one "
-            f"included): bit-equal to plain and to zlib")
-    copies = [tuple(a.clone() for a in args) for _ in range(4)]
-    ms = device_ms(torch, [lambda c=c: tid.resolve_pack(*c)
-                           for c in copies])
-    plain_ms = device_ms(torch, [lambda c=c: tid.pack_contiguous_plain(
-        tid.resolve_tokens_plain(c[0], c[1], 1 << 16), c[2])
-        for c in copies])
-    nbytes = int(4 * np.minimum(nt, 1 << 16).sum() + 8 * 64 + 64 * 65536
-                 + 4)
-    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
-    log(f"K7+K8 device {ms:.4f} ms (plain {plain_ms:.4f} ms), bound "
-        f"{bound_ms:.4f} ms = {nbytes} B / 3.35 TB/s (tokens read once, "
-        f"the [64 x 65536] buffer written once); no single PyTorch call "
-        f"computes this function (library_ms null)")
+        cases.append((f"B = {B}, P = {P} ({len(pieces)} blocks, an empty "
+                      f"one included)", *tokenize(pieces, P, B), P,
+                      b"".join(pieces)))
+    for name, tok, nt, iz, P, want in cases:
+        _k7_check(torch, dev, tok, nt, iz, want, P)
+        lr = tid.resolve_launch(*tok.shape, P)
+        log(f"{name}: {int(iz.sum())} bytes, {int(nt.sum())} tokens; "
+            f"clusters of {lr.C} CTAs x {lr.threads} threads, segments of "
+            f"{lr.S}, {lr.smem} B shared memory; bit-equal to plain and to "
+            f"zlib, zeros past the total, twice in a row")
     for line in kernels_report("lz77_resolve"):
         log(f"  ptxas: {line}")
+    times = k7_times(torch, path, dev)
+    for shape, x in times.items():
+        x["bound_ms"] = x["nbytes"] / H100_BYTES_PER_S * 1e3
+        log(f"K7+K8 at the {shape} chunk ([{x['B']}, {x['T']}] tokens, P = "
+            f"{x['P']}, {x['blocks']} blocks, {x['tokens']} tokens, "
+            f"{x['passes']} doubling passes in the plain version; launch "
+            f"{x.get('launch')}): device {x['ms']:.4f} ms (plain "
+            f"{x['plain_ms']:.4f} ms), bound {x['bound_ms']:.6f} ms = "
+            f"{x['nbytes']} B / 3.35 TB/s (tokens read once, counts and "
+            f"sizes, the [{x['B']} x {x['P']}] buffer written once, the "
+            f"total), {100 * x['bound_ms'] / x['ms']:.2f}% of it")
+        for name, v in x.get("cluster_ms", {}).items():
+            log(f"  launched as {name}: {v['ms']:.4f} ms; phases (mean, "
+                f"largest cycles over the CTAs with data): {v['phases']}")
+    log("no single PyTorch call computes this function (library_ms null)")
+    big, main = times["64-block"], times["17-block"]
     return {"name": "resolve_pack", "route": "cuda",
             "source": "hadoop_bam_torch/csrc/lz77_resolve.cu",
             "replaces": "hadoop_bam_tpu/ops/inflate_device.py:98",
-            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+            "max_abs_err": 0, "ms": big["ms"], "plain_ms": big["plain_ms"],
+            "bound_ms": big["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "main_path_shape": _shape_row(
+                f"17-block chunk: [{main['B']}, {main['T']}] tokens, P = "
+                f"{main['P']}", 0, main["ms"], main["plain_ms"],
+                main["nbytes"])}
 
 
 def kernels_report(name):
@@ -684,9 +714,173 @@ def k9_times(torch, path, dev) -> dict:
     return out
 
 
+def doubling_passes(tok, nt, P) -> int:
+    """Passes of the plain resolve's pointer doubling over a [B, T] token
+    chunk (numpy, on the host), the final pass that changes nothing
+    included: the plain version doubles every row together, so this is
+    the most any row needs."""
+    import numpy as np
+    w = tok.view(np.uint32).astype(np.int64)
+    B, T = w.shape
+    copy = (w >> 31) == 1
+    ln = np.where(copy, (w >> 16) & 0x1FF, 1)
+    ln = np.where(np.arange(T)[None, :] < nt[:, None], ln, 0)
+    starts = np.cumsum(ln, 1) - ln
+    src = np.tile(np.arange(P, dtype=np.int64), (B, 1))
+    for b in range(B):
+        keep = (ln[b] > 0) & (starts[b] < P)
+        idx = np.repeat(np.nonzero(keep)[0],
+                        np.minimum(ln[b][keep], P - starts[b][keep]))
+        p = np.arange(idx.size)
+        src[b, :idx.size] = np.where(
+            copy[b, idx], np.maximum(p - (w[b, idx] & 0xFFFF) - 1, 0), p)
+    passes = 0
+    while True:
+        passes += 1
+        s2 = np.take_along_axis(src, src, 1)
+        if np.array_equal(s2, src):
+            return passes
+        src = s2
+
+
+def k7_chunks(path):
+    """K7+K8's timing chunks as numpy (tokens as int32 bits, n_tokens,
+    isize, P): phase 6's 64-block chunk (63 BAM blocks and a run-length
+    block, rows 65,536 tokens wide); the main path's chunk (the BAM's
+    first 17 blocks in 32 rows, the tokens only as wide as the longest
+    row rounded up to 256, as ``_TokenRing.stage`` ships them); and the
+    same 17 blocks stored (all literals), where doubling ends after one
+    pass, so the difference to the main path's chunk is the doubling."""
+    import zlib
+    import numpy as np
+    from hadoop_bam_torch.utils import native
+    P = 1 << 16
+
+    def narrow(tok, nt, iz):
+        T = min(P, -(-max(int(nt.max()), 1) // 256) * 256)
+        return np.ascontiguousarray(tok[:, :T]), nt, iz
+
+    raw, table = first_blocks(path, 63)
+    src = np.frombuffer(raw, np.uint8)
+    rle = zlib.compressobj(6, zlib.DEFLATED, -15)
+    rle_c = rle.compress(b"A" * P) + rle.flush()
+    both = np.concatenate([src, np.frombuffer(rle_c, np.uint8)])
+    off = np.append(table["cdata_off"], src.size).astype(np.int64)
+    ln = np.append(table["cdata_len"], len(rle_c)).astype(np.int32)
+    big = pad_tokens(native.deflate_tokenize_batch(both, off, ln, P), 64)
+    main = narrow(*pad_tokens(native.deflate_tokenize_batch(
+        src, table["cdata_off"][:17], table["cdata_len"][:17], P), 32))
+    data = [zlib.decompress(raw[o:o + n], wbits=-15) for o, n in
+            zip(table["cdata_off"][:17], table["cdata_len"][:17])]
+    stored = []
+    for d in data:
+        co = zlib.compressobj(0, zlib.DEFLATED, -15)
+        stored.append(co.compress(d) + co.flush())
+    s_src = np.frombuffer(b"".join(stored), np.uint8)
+    s_off = np.cumsum([0] + [len(c) for c in stored[:-1]]).astype(np.int64)
+    s_ln = np.array([len(c) for c in stored], np.int32)
+    st = narrow(*pad_tokens(native.deflate_tokenize_batch(
+        s_src, s_off, s_ln, P), 32))
+    return {"64-block": (*big, P), "17-block": (*main, P),
+            "17-block stored": (*st, P)}
+
+
+def k7_times(torch, path, dev) -> dict:
+    """K7+K8's device ms at its three timing chunks (``k7_chunks``), with
+    the plain version's, the bytes of its bound (each row's tokens read
+    once, counts and sizes, the [B x P] buffer written once, the total)
+    and the plain version's doubling passes.  Pad rows (isize 0) hold
+    uninitialised tokens, as on the main path.  Uses only
+    ``resolve_pack``'s signature, so that an earlier tree (``--tree``) is
+    timed on the same inputs."""
+    import numpy as np
+    from hadoop_bam_torch.ops import inflate_device as tid
+    out = {}
+    for name, (tok, nt, iz, P) in k7_chunks(path).items():
+        B, T = tok.shape
+        used = int(np.count_nonzero(iz))
+        tokens = torch.empty((B, T), dtype=torch.int32, device=dev)
+        tokens[:used] = torch.from_numpy(tok[:used]).to(dev)
+        args = (tokens, torch.from_numpy(nt).to(dev),
+                torch.from_numpy(iz).to(dev))
+        got, total = tid.resolve_pack(*args, P=P)
+        want, want_total = tid.pack_contiguous_plain(
+            tid.resolve_tokens_plain(args[0], args[1], P), args[2])
+        sync(torch, dev)
+        check(torch.equal(got, want) and int(total) == int(want_total),
+              f"K7+K8 at the {name} chunk equals plain")
+        copies = [tuple(a.clone() for a in args) for _ in range(4)]
+        ms = device_ms(torch, [lambda c=c: tid.resolve_pack(*c, P=P)
+                               for c in copies])
+        plain_ms = device_ms(torch, [lambda c=c: tid.pack_contiguous_plain(
+            tid.resolve_tokens_plain(c[0], c[1], P), c[2]) for c in copies])
+        n_tok = int(np.minimum(nt, T).sum())
+        out[name] = {"B": B, "T": T, "P": P, "blocks": used,
+                     "tokens": n_tok, "total": int(total), "ms": ms,
+                     "plain_ms": plain_ms,
+                     "nbytes": 4 * n_tok + 8 * B + B * P + 4,
+                     "passes": doubling_passes(tok[:used], nt[:used], P)}
+        if hasattr(tid, "resolve_launch"):   # the clustered kernel
+            out[name]["launch"] = tid.resolve_launch(B, T, P)._asdict()
+        if hasattr(tid, "resolve_launch") and dev.type == "cuda":
+            out[name]["cluster_ms"] = k7_cluster_variants(
+                torch, tid, copies, want, P)
+    return out
+
+
+def k7_cluster_variants(torch, tid, copies, want, P) -> dict:
+    """The clustered K7+K8's device ms at each cluster width (CTAs x
+    threads) on one chunk (``copies`` of its inputs), each checked
+    against the plain version's buffer ``want`` first, each with its
+    phase split; the variants are timed twice, in order and in reverse
+    order."""
+    out = {}
+    B, T = copies[0][0].shape
+    variants = []
+    for c, n in ((2, 0), (4, 0), (4, 512), (8, 0), (8, 256), (16, 0)):
+        lr = tid.resolve_launch(B, T, P, cluster=c)
+        if n and lr.S % n == 0 and lr.S // n <= 64:
+            lr = lr._replace(threads=n)
+        variants.append((f"{lr.C}x{lr.threads}", lr))
+    # then again in reverse, to see the spread between runs
+    variants += [(f"{name} again", lr) for name, lr in variants[::-1]]
+    for name, lr in variants:
+        got, _ = tid.launch_resolve(*copies[0], lr)
+        sync(torch, got.device)
+        check(torch.equal(got, want), f"K7+K8 launched as {name} equals "
+              f"plain")
+        out[name] = {"ms": device_ms(torch, [
+            lambda x=x, lr=lr: tid.launch_resolve(*x, lr) for x in copies]),
+            "phases": k7_phases(torch, tid, copies[0], lr)}
+    return out
+
+
+K7_PHASES = ("sizes+zeros", "tokens+exchange", "writes", "local doubling",
+             "window wait", "resolve+push", "pack", "final barrier")
+
+
+def k7_phases(torch, tid, args, lr) -> dict:
+    """K7+K8's phase split from one launch with clock64() stamps: the
+    mean and the largest cycles of each phase over the CTAs of rows with
+    data (the pad rows' CTAs stop after the zeros), and the whole."""
+    import numpy as np
+    clocks = torch.full((lr.B * lr.C, 9), -1, dtype=torch.int64,
+                        device=args[0].device)
+    tid.launch_resolve(*args, lr, clocks)
+    c = clocks.cpu().numpy()
+    c = c[c[:, 8] >= 0]
+    d = np.diff(c, axis=1)
+    out = {k: [float(d[:, i].mean()), int(d[:, i].max())]
+           for i, k in enumerate(K7_PHASES)}
+    out["whole"] = [float((c[:, 8] - c[:, 0]).mean()),
+                    int((c[:, 8] - c[:, 0]).max())]
+    out["ctas"] = int(c.shape[0])
+    return out
+
+
 # ``--times KERNEL``: the timing function of each kernel that has one,
 # called as fn(torch, path, dev) -> a JSON-able dict
-TIMES = {"walk_records_device": k9_times}
+TIMES = {"walk_records_device": k9_times, "resolve_pack": k7_times}
 
 
 def _le32(a, p):

@@ -2,8 +2,10 @@
 
 ``config_from_dict`` and ``geometry_from_dict`` take ``dataclasses.asdict``
 of the reference's ``HBamConfig`` / ``PayloadGeometry`` /
-``DecodeGeometry`` (keys the slice does not read are ignored), so a test
-can run both packages on the same settings.
+``DecodeGeometry``, so a test can run both packages on the same settings.
+Keys the slice does not read are ignored, except the reference settings
+that change what the drivers return and that the port does not implement
+(``UNSUPPORTED``): a non-default value of one of those is refused.
 """
 from __future__ import annotations
 
@@ -61,9 +63,30 @@ def resolve_inflate_backend(config: Optional[HBamConfig]) -> str:
     return "native" if backend == "auto" else backend
 
 
+# reference settings that change the drivers' results (which records
+# count, or whether a bad span raises) and that the port does not
+# implement, each with the test that its value is the reference's
+# default (the reference reads a falsy interval string as "no filter"
+# and io_read_retries <= 0 as "no read-level retries")
+UNSUPPORTED = {
+    "bam_intervals": lambda v: not v,
+    "skip_bad_spans": lambda v: not v,
+    "io_read_retries": lambda v: int(v or 0) <= 0,
+}
+
+
 def config_from_dict(d: dict) -> HBamConfig:
     """The port's config from a dict of reference config fields; every
-    decode plane name, "auto" and "device" included, carries over."""
+    decode plane name, "auto" and "device" included, carries over.
+    Raises PlanError naming the field when the dict sets one of
+    ``UNSUPPORTED`` to anything but its default: the drivers would
+    otherwise return what the reference would not, with no sign that a
+    setting was lost."""
+    for name, is_default in UNSUPPORTED.items():
+        if name in d and not is_default(d[name]):
+            raise PlanError(f"reference setting {name}={d[name]!r} is not "
+                            f"implemented by the port; leave it at its "
+                            f"default")
     return HBamConfig(
         check_crc=bool(d.get("check_crc", DEFAULT_CONFIG.check_crc)),
         inflate_backend=d.get("inflate_backend",

@@ -128,6 +128,65 @@ def walk_launch(L: int) -> WalkLaunch:
     return WalkLaunch(L, W, tiles, rounds, path_cap, entries, words)
 
 
+# K7+K8's widest cluster (CTAs that share one token row; of 2, 4, 8 and
+# 16, 4 ran fastest at the main path's chunk, PERF.md), the threads an
+# H100 keeps resident at once at the kernel's 64 registers a thread (132
+# SMs x 1,024), the tokens each thread takes per pass (kTok in
+# csrc/lz77_resolve.cu) and the least segment
+RESOLVE_CLUSTER = 4
+RESOLVE_WAVE_THREADS = 132 * 1024
+RESOLVE_TOKENS_PER_THREAD = 8
+RESOLVE_MIN_SEGMENT = 64
+
+
+class ResolveLaunch(NamedTuple):
+    """The arithmetic of one K7+K8 launch over a [B, T] token chunk of
+    P-byte rows (see ``csrc/lz77_resolve.cu`` for the phases)."""
+    B: int
+    T: int
+    P: int
+    C: int          # CTAs per row: one thread block cluster
+    S: int          # positions each CTA owns, a power of two
+    threads: int    # per CTA; S / threads positions each (<= 64)
+    tokens: int     # the most tokens one CTA's share holds
+    window: int     # the row's bytes before the last segment, which its
+                    # CTA receives from the earlier ones
+    smem: int       # dynamic shared memory: u16 source + u8 byte per
+                    # owned position, and the window
+
+
+def resolve_launch(B: int, T: int, P: int,
+                   cluster: Optional[int] = None) -> ResolveLaunch:
+    """Launch arithmetic of the clustered LZ77 resolve: row b's positions
+    [0, P) are cut into C segments of S bytes (S the least power of two
+    >= max(P / cluster, RESOLVE_MIN_SEGMENT), C = ceil(P / S) <= cluster),
+    one CTA each; CTA r takes the r-th of C equal shares of the row's
+    tokens.  ``cluster`` defaults to RESOLVE_CLUSTER, or 2 where the
+    card would not hold the B * C CTAs in one wave (a second wave costs
+    more than the narrower cluster's longer segments: the 64-block chunk
+    runs fastest at 2, the main path's 32-row chunk at 4; PERF.md).
+    ``hbam_lz77_resolve`` takes these sizes and checks them."""
+    if B < 1 or T < 1 or not 1 <= P <= BGZF_MAX_ISIZE:
+        raise ValueError(f"K7+K8 needs B >= 1, T >= 1 and 1 <= P <= "
+                         f"{BGZF_MAX_ISIZE}, got B={B} T={T} P={P}")
+    if cluster is None:
+        for cluster in (RESOLVE_CLUSTER, 2):
+            lr = resolve_launch(B, T, P, cluster)
+            if B * lr.C * lr.threads <= RESOLVE_WAVE_THREADS:
+                break
+        return lr
+    if cluster not in (1, 2, 4, 8, 16):
+        raise ValueError(f"cluster of {cluster} CTAs: K7+K8 takes 1, 2, 4, "
+                         f"8 or 16")
+    S = round_pow2(max(-(-P // cluster), RESOLVE_MIN_SEGMENT))
+    C = -(-P // S)
+    threads = min(1024, max(64, S // 16))
+    tokens = -(-T // C)
+    window = (C - 1) * S
+    return ResolveLaunch(B, T, P, C, S, threads, tokens, window,
+                         3 * S + window)
+
+
 def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
@@ -254,20 +313,33 @@ def resolve_pack(tokens: torch.Tensor, n_tokens: torch.Tensor,
             resolve_tokens_plain(tokens, n_tokens, P), isize)
     if not 1 <= P <= BGZF_MAX_ISIZE:
         raise ValueError(f"P = {P} outside [1, {BGZF_MAX_ISIZE}]")
-    dev = tokens.device
-    out = torch.empty(B * P, dtype=torch.uint8, device=dev)
-    total = torch.empty(1, dtype=torch.int32, device=dev)
-    fn = kernels.kernel("lz77_resolve")
-    with torch.cuda.device(dev):
-        rc = fn(tokens.data_ptr(), B, T, P, n_tokens.data_ptr(),
-                isize.data_ptr(), out.data_ptr(), total.data_ptr(),
-                _stream(dev))
-    kernels.check_launch("resolve_pack", rc)
+    out = launch_resolve(tokens, n_tokens, isize, resolve_launch(B, T, P))
     resolve_pack.launches += 1
-    return out, total[0]
+    return out
 
 
 resolve_pack.launches = 0
+
+
+def launch_resolve(tokens: torch.Tensor, n_tokens: torch.Tensor,
+                   isize: torch.Tensor, lr: ResolveLaunch,
+                   clocks: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One K7+K8 launch with the given arithmetic (``resolve_pack``'s,
+    or another cluster width when variants are timed); counts nothing.
+    ``clocks`` (int64 [B * C, 9], or None) receives each CTA's clock64()
+    at its phase boundaries, for the phase split."""
+    dev = tokens.device
+    out = torch.empty(lr.B * lr.P, dtype=torch.uint8, device=dev)
+    total = torch.empty(1, dtype=torch.int32, device=dev)
+    fn = kernels.kernel("lz77_resolve")
+    with torch.cuda.device(dev):
+        rc = fn(tokens.data_ptr(), lr.B, lr.T, lr.P, n_tokens.data_ptr(),
+                isize.data_ptr(), out.data_ptr(), total.data_ptr(), lr.C,
+                lr.S, lr.threads, lr.tokens, lr.smem,
+                None if clocks is None else clocks.data_ptr(), _stream(dev))
+    kernels.check_launch("resolve_pack", rc)
+    return out, total[0]
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,8 @@ KERNELS: Dict[str, tuple] = {
                   [_VP, _I64, _VP, _I64, _VP, _I64, _VP, _VP, _VP, _VP,
                    _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _VP]),
     "lz77_resolve": ("hbam_lz77_resolve",
-                     [_VP, _I64, _I64, _I64, _VP, _VP, _VP, _VP, _VP]),
+                     [_VP, _I64, _I64, _I64, _VP, _VP, _VP, _VP, _I64,
+                      _I64, _I64, _I64, _I64, _VP, _VP]),
     "record_walk": ("hbam_record_walk",
                     [_VP, _I64, _VP, _I64, _I64, _I64, _VP, _VP, _VP, _I64,
                      _VP, _I64, _I64, _I64, _I64, _I64, _VP]),

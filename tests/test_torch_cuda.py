@@ -157,25 +157,112 @@ def _payloads(n, size, seed):
     return out
 
 
-@pytest.mark.parametrize("P,n,B", [(1 << 16, 64, 64), (1 << 16, 5, 8),
-                                   (1 << 13, 13, 16), (1 << 10, 3, 8)])
-def test_k7_resolve_pack_matches_plain_and_zlib(cuda, P, n, B):
+def _straddle_rows(P, S):
+    """Token rows whose copies straddle segment boundaries (S bytes) and
+    end exactly on one, with 258-byte copies, and a row whose tokens end
+    before its size (the tail takes the last token): (tokens, n_tokens,
+    isize, bytes)."""
+    rows = []
+    for edge in (S, 2 * S, P - S):
+        toks, data = [], bytearray()
+        for i in range(edge - 3):
+            toks.append(97 + i % 26)
+            data.append(97 + i % 26)
+        for length, dist in ((10, 7), (258, 1), (3, 3)):   # straddles
+            toks.append((1 << 31) | (length << 16) | (dist - 1))
+            for _ in range(length):
+                data.append(data[-dist])
+        while len(data) % S != S - 6:
+            toks.append(65 + len(data) % 7)
+            data.append(65 + len(data) % 7)
+        toks.append((1 << 31) | (6 << 16) | (200 - 1))     # ends on S
+        for _ in range(6):
+            data.append(data[-200])
+        while len(data) + 258 <= P:
+            toks.append((1 << 31) | (258 << 16) | (S + 5 - 1))
+            for _ in range(258):
+                data.append(data[-(S + 5)])
+        rows.append((toks, bytes(data)))
+    toks, data = rows[-1]
+    rows.append((toks[:len(toks) // 2], None))   # tail: the last copy on
+    B = 8
+    tok = np.zeros((B, P), np.uint32)
+    nt = np.zeros(B, np.int32)
+    iz = np.zeros(B, np.int32)
+    for i, (t, d) in enumerate(rows):
+        tok[i, :len(t)] = t
+        nt[i] = len(t)
+        iz[i] = len(d) if d is not None else P - 100
+    return tok, nt, iz, [d for _, d in rows]
+
+
+def _k7_case(name, tmp_path):
+    """(tokens [B, T] u32, n_tokens, isize, P, the rows' bytes or None
+    where only the plain version knows them) of one K7+K8 card case."""
+    if name.startswith("P"):
+        P, n, B = (int(x) for x in name[1:].split("/"))
+        payloads = _payloads(n, P, P + n)
+        return (*_token_chunk(payloads, P, B), P, payloads)
+    P = 1 << 16
+    if name == "main path":
+        # the BAM's first 17 blocks in 32 rows, tokens only as wide as
+        # the longest row rounded up to 256, as _TokenRing.stage ships
+        import zlib
+        from hadoop_bam_torch.formats import bgzf
+        from hadoop_bam_torch.synth import write_synthetic_bam
+        path = str(tmp_path / "k7.bam")
+        write_synthetic_bam(path, 20_000, seed=6)
+        raw = open(path, "rb").read()
+        payloads, off = [], 0
+        while len(payloads) < 17:
+            info = bgzf.parse_block_header(raw, off)
+            payloads.append(zlib.decompress(raw[
+                info.cdata_offset:info.cdata_offset + info.cdata_size],
+                wbits=-15))
+            off = info.next_coffset
+        tok, nt, iz = _token_chunk(payloads, P, 32)
+        T = -(-int(nt.max()) // 256) * 256
+        assert T < P
+        return np.ascontiguousarray(tok[:, :T]), nt, iz, P, payloads
+    if name == "258-byte copies":
+        rng = np.random.default_rng(11)
+        unit = rng.integers(0, 256, 1000, dtype=np.uint8).tobytes()
+        payloads = [b"A" * P, (unit * 66)[:P], (unit[:300] * 219)[:P - 3]]
+        return (*_token_chunk(payloads, P, 8), P, payloads)
     from hadoop_bam_torch.ops import inflate_device as tid
-    payloads = _payloads(n, P, P + n)
-    tok, nt, iz = _token_chunk(payloads, P, B)
-    args = [torch.from_numpy(a).to(cuda)
-            for a in (tok.view(np.int32), nt, iz)]
-    before = tid.resolve_pack.launches
-    buf, total = tid.resolve_pack(*args)
+    tok, nt, iz, rows = _straddle_rows(P, tid.resolve_launch(8, P, P).S)
+    return tok, nt, iz, P, rows
+
+
+@pytest.mark.parametrize("name", ["P65536/64/64", "P65536/5/8",
+                                  "P8192/13/16", "P1024/3/8", "main path",
+                                  "straddling segments", "258-byte copies"])
+def test_k7_resolve_pack_matches_plain_and_zlib(cuda, tmp_path, name):
+    """K7+K8 against its plain version and zlib's bytes, twice in a row;
+    pad rows hold uninitialised tokens, as on the device plane."""
+    from hadoop_bam_torch.ops import inflate_device as tid
+    tok, nt, iz, P, payloads = _k7_case(name, tmp_path)
+    used = int(np.count_nonzero(iz))
+    tokens = torch.empty(tok.shape, dtype=torch.int32, device=cuda)
+    tokens[:used] = torch.from_numpy(tok[:used].view(np.int32)).to(cuda)
+    args = [tokens, torch.from_numpy(nt).to(cuda),
+            torch.from_numpy(iz).to(cuda)]
     want, want_total = tid.pack_contiguous_plain(
         tid.resolve_tokens_plain(args[0], args[1], P), args[2])
-    torch.cuda.synchronize()
-    assert tid.resolve_pack.launches == before + 1
-    assert int(total) == int(want_total) == sum(len(d) for d in payloads)
-    assert torch.equal(buf, want)
-    got = buf.cpu().numpy()
-    assert got[:int(total)].tobytes() == b"".join(payloads)
-    assert not got[int(total):].any()
+    for _ in range(2):
+        before = tid.resolve_pack.launches
+        buf, total = tid.resolve_pack(*args, P=P)
+        torch.cuda.synchronize()
+        assert tid.resolve_pack.launches == before + 1
+        assert int(total) == int(want_total) == int(iz.clip(0, P).sum())
+        assert torch.equal(buf, want)
+        got = buf.cpu().numpy()
+        assert not got[int(total):].any()
+        at = 0
+        for d, size in zip(payloads, iz[:len(payloads)]):
+            if d is not None:
+                assert got[at:at + size].tobytes() == d
+            at += int(size)
 
 
 def _walk_buffer(tmp_path, n_reads=6000):

@@ -124,6 +124,27 @@ def test_config_and_geometry_from_jax_dicts():
     assert (pg.seq_stride, pg.qual_stride) == (96, 160)
 
 
+@pytest.mark.parametrize("field,value", [
+    ("bam_intervals", "chr20:1-1000"), ("skip_bad_spans", True),
+    ("io_read_retries", 2)])
+def test_config_refuses_reference_settings_it_cannot_honour(field, value):
+    """A reference config that sets a field the port does not implement,
+    and that changes the drivers' results, is refused with PlanError
+    naming the field; the same field at its default, and every other
+    setting, still carries over."""
+    bad = dataclasses.replace(JAX_CONFIG, **{field: value},
+                              inflate_backend="zlib", check_crc=True)
+    with pytest.raises(PlanError, match=field):
+        tconfig.config_from_dict(dataclasses.asdict(bad))
+    assert set(tconfig.UNSUPPORTED) <= set(dataclasses.asdict(JAX_CONFIG))
+    default = getattr(JAX_CONFIG, field)
+    ok = dataclasses.replace(bad, **{field: default})
+    cfg = tconfig.config_from_dict(dataclasses.asdict(ok))
+    assert (cfg.inflate_backend, cfg.check_crc) == ("zlib", True)
+    if field == "bam_intervals":   # the reference reads "" as no filter
+        assert tconfig.config_from_dict({field: ""}) == tconfig.HBamConfig()
+
+
 def test_entry_points_default_to_cuda_and_never_fall_back(bam, monkeypatch):
     """With no card, an entry point that was not given device="cpu"
     raises instead of moving to the CPU."""
