@@ -38,7 +38,15 @@ Phases (any failure raises and exits non-zero):
    in a row; its time at that chunk and at the main path's usual
    17-block chunk, with |C|, tiles, rounds and its ptxas lines;
 8. K10p (payload gather) against its plain version on that chunk's walk
-   at the default payload geometry, and on random edge rows; then K1 and
+   and on the edge rows of ``synth.payload_rows`` (in ``buf`` and in a
+   view 3 bytes off 16, and at n_all -1, 0, 1, R and R + 7), each at
+   strides (96, 160) and (17, 33) with the allocator poisoned first; its
+   launch and ptxas lines, and ``k10p_times``: its time at the 64-block
+   and the main path's 17-block chunk beside its bound and plain
+   version's, with n_all = 0, with L2 flushed before each launch (by a
+   read and by a write of another buffer), inside
+   the device plane's step on the 17-block chunk, the store floor and
+   the K10p -> K2 pair; then (8b) K1 and
    K2 at the shapes the device plane gives them (that chunk's walk
    offsets at ``records_cap`` rows, and its payload tiles) against their
    plain versions, with their times and bounds there;
@@ -54,8 +62,9 @@ The last lines are the kernels' JSON summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 
 ``--times KERNEL`` stops after the build: it only checks and times that
-kernel at its shapes (``TIMES``: K9 at both chunk shapes, K7+K8 at its
-three chunks) and prints them as one JSON line; with ``--tree DIR`` it
+kernel at its shapes (``TIMES``: K9 and K10p at both chunk shapes, K7+K8
+at its three chunks; ``device_plane``: the profiled device-plane
+``seq_stats()`` by kernel) and prints them as one JSON line; with ``--tree DIR`` it
 does so for the port in another checkout (an earlier tree unpacked by
 ``git archive``), so that two trees' kernels can be timed in turns on
 the same card and inputs.
@@ -477,17 +486,29 @@ def phase_main(torch, path, truth, card, dev):
     return launches, walls
 
 
+# kernel function names of each hand kernel, as the profiler shows them
+KERNEL_NAMES = {"K2": ("seq_stats_kernel",), "K7+K8": ("lz77_resolve",),
+                "K9": ("walk_",), "K10p": ("payload_gather",)}
+
+
+def kernel_totals(by_name) -> dict:
+    """ms of device time of each hand kernel in a profile's
+    {kernel name: device s}."""
+    return {k: 1e3 * sum(v for n, v in by_name.items()
+                         if any(p in n for p in pats))
+            for k, pats in KERNEL_NAMES.items()}
+
+
 def log_busy(torch, name, fn, card) -> None:
     """Profile one more run of a driver: device busy share, the totals of
-    K2, K7+K8 and K9, and the four busiest kernels."""
+    K2, K7+K8, K9 and K10p, and the four busiest kernels."""
     wall, busy, by_name = device_busy(torch, fn)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-    k2 = sum(v for k, v in by_name.items() if "seq_stats_kernel" in k)
-    k7 = sum(v for k, v in by_name.items() if "lz77_resolve" in k)
-    k9 = sum(v for k, v in by_name.items() if "walk_" in k)
     log(f"{name} profiled: {wall:.3f} s wall, device busy {busy:.4f} s "
-        f"({100 * busy / wall:.2f}%); K2 {k2 * 1e3:.3f} ms; K7+K8 "
-        f"{k7 * 1e3:.3f} ms; K9 {k9 * 1e3:.3f} ms; top: "
+        f"({100 * busy / wall:.2f}%); "
+        + "; ".join(f"{k} {v:.3f} ms"
+                    for k, v in kernel_totals(by_name).items())
+        + "; top: "
         + "; ".join(f"{k[:60]} {v * 1e3:.2f} ms" for k, v in top)
         + f" [{card}]")
 
@@ -878,9 +899,168 @@ def k7_phases(torch, tid, args, lr) -> dict:
     return out
 
 
-# ``--times KERNEL``: the timing function of each kernel that has one,
-# called as fn(torch, path, dev) -> a JSON-able dict
-TIMES = {"walk_records_device": k9_times, "resolve_pack": k7_times}
+def k10p_bytes(R, S, Q, use) -> int:
+    """Bytes of K10p's bound: the [R, S] and [R, Q] tiles written once,
+    n_all and the valid records' four int32 columns read once (rows past
+    n_valid are zero whatever their columns hold), and their payload
+    bytes (``use`` their clipped lengths) read once."""
+    return int(R * (S + Q) + 16 * use.size + 4 + ((use + 1) // 2).sum()
+               + use.sum())
+
+
+def k10p_step_chunk(torch, path, dev, n):
+    """The BAM's first ``n`` blocks as the device plane's step takes them:
+    (tokens, n_tokens, isize) on ``dev``, rows padded to a power of two
+    >= 8 and the tokens only as wide as the longest row rounded up to 256
+    (as ``_TokenRing.stage`` ships them)."""
+    import numpy as np
+    from hadoop_bam_torch.ops import inflate_device as tid
+    from hadoop_bam_torch.utils import native
+    raw, table = first_blocks(path, n)
+    tok, nt, iz = pad_tokens(native.deflate_tokenize_batch(
+        np.frombuffer(raw, np.uint8), table["cdata_off"],
+        table["cdata_len"], 1 << 16), tid.round_pow2(n, 8))
+    T = min(1 << 16, -(-max(int(nt.max()), 1) // 256) * 256)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (tok[:, :T], nt, iz))
+
+
+def k10p_kernel_ms(split) -> float:
+    """K10p's ms per call in a ``kernel_split`` reading (nan where there
+    is no card)."""
+    if not split:
+        return float("nan")
+    return sum(v for k, v in split.items()
+               if any(p in k for p in KERNEL_NAMES["K10p"]))
+
+
+def k10p_times(torch, path, dev) -> dict:
+    """K10p at the 64-block chunk and at the main path's usual 17-block
+    chunk (32 token rows) of the BAM, its inputs the walk's offsets and
+    K1's columns there: its device ms beside the plain version's; with
+    n_all = 0 (every row zero); on the live rows alone (the first n_all
+    rows, every one valid); the store floor (``torch.zeros`` of the
+    same two tiles: a yardstick the port never calls); and the K10p -> K2
+    pair of ``device_seq_stats_step`` (the tiles into K2 with the step's
+    lengths), by kernel, so that a K10p gain that K2 gives back shows.
+    Also K10p's own kernel time with L2 flushed before each launch, by a
+    128 MiB read (``l2_clean_ms``) or write (``l2_dirty_ms``) of another
+    buffer, and, at the 17-block chunk, inside ``device_seq_stats_step`` as the device plane
+    runs it on that chunk's tokens (resolve, walk and K1 before it, K2
+    after: ``step_ms``).  Each with the bytes of its bound.  Checks K10p bit-equal to plain at
+    both n_all first.  Uses only what every tree of the port since the
+    device plane has, so that an earlier tree (``--tree``) is timed on
+    the same inputs."""
+    import numpy as np
+    from hadoop_bam_torch.ops import inflate_device as tid
+    from hadoop_bam_torch.ops.seq_stats import seq_qual_stats
+    from hadoop_bam_torch.ops.unpack_bam import unpack_fixed_fields
+    from hadoop_bam_torch.parallel.pipeline import (
+        PayloadGeometry, device_seq_stats_step,
+    )
+    g = PayloadGeometry()
+    S, Q = g.seq_stride, g.qual_stride
+    geo = (g.max_len, S, Q)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    out = {}
+    for n in (64, 17):
+        buf, total, start, _ = bam_chunk(torch, path, dev, n)
+        R = tid.records_cap(tid.round_pow2(n, 8), 1 << 16)
+        offs, n_all, _, _ = tid.walk_records_device(buf, total, start,
+                                                    int(total), R)
+        cols = unpack_fixed_fields(buf, offs)
+        args = (buf, offs, cols["l_seq"], cols["l_read_name"],
+                cols["n_cigar"])
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        for nv_t, what in ((n_all.reshape(1), "the walk's count"),
+                           (zero, "n_all 0")):
+            got = tid.payload_gather(*args, nv_t, *geo)
+            want = tid.payload_gather_plain(*args, nv_t, *geo)
+            sync(torch, dev)
+            check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                  f"K10p at the {n}-block chunk, {what}, equals plain")
+        nv = min(int(n_all), R)
+        valid = torch.arange(R, device=dev) < nv
+        lengths = torch.where(valid, torch.clamp(cols["l_seq"], 0,
+                                                 g.max_len),
+                              0).to(torch.int32)
+        copies = [tuple(t.clone() for t in args) + (n_all.reshape(1).clone(),
+                                                    lengths.clone())
+                  for _ in range(4)]
+        gather = [lambda c=c: tid.payload_gather(*c[:6], *geo)
+                  for c in copies]
+        ms = device_ms(torch, gather)
+        plain_ms = device_ms(torch, [lambda c=c: tid.payload_gather_plain(
+            *c[:6], *geo) for c in copies])
+        zero_ms = device_ms(torch, [lambda c=c: tid.payload_gather(
+            *c[:5], zero, *geo) for c in copies])
+        # the live rows alone: the first nv rows, every one valid
+        live_ms = device_ms(torch, [lambda c=c: tid.payload_gather(
+            c[0], *(t[:nv] for t in c[1:5]), c[5], *geo) for c in copies])
+        floor_ms = device_ms(torch, [lambda: (
+            torch.zeros((R, S), dtype=torch.uint8, device=dev),
+            torch.zeros((R, Q), dtype=torch.uint8, device=dev))])
+
+        def pair(c):
+            seq, qual = tid.payload_gather(*c[:6], *geo)
+            return seq_qual_stats(seq, qual, c[6])
+
+        pair_ms = device_ms(torch, [lambda c=c: pair(c) for c in copies])
+        split = kernel_split(torch, [lambda c=c: pair(c) for c in copies])
+        # L2 flushed before each launch: by a read (clean lines, which
+        # K10p's stores replace for free) and by a write (dirty lines of
+        # another buffer, which K10p's stores must first write back)
+        clean_ms = k10p_kernel_ms(kernel_split(torch, [
+            lambda c=c: (flush.max(), tid.payload_gather(*c[:6], *geo))
+            for c in copies]))
+        dirty_ms = k10p_kernel_ms(kernel_split(torch, [
+            lambda c=c: (flush.fill_(1), tid.payload_gather(*c[:6], *geo))
+            for c in copies]))
+        use = np.clip(cols["l_seq"][:nv].cpu().numpy().astype(np.int64), 0,
+                      g.max_len)
+        out[f"{n}-block"] = {
+            "L": buf.shape[0], "R": R, "records": nv, "ms": ms,
+            "plain_ms": plain_ms, "nbytes": k10p_bytes(R, S, Q, use),
+            "zero_ms": zero_ms, "zero_nbytes": R * (S + Q) + 4,
+            "live_ms": live_ms, "live_nbytes": k10p_bytes(nv, S, Q, use),
+            "store_floor_ms": floor_ms, "store_floor_nbytes": R * (S + Q),
+            "pair_ms": pair_ms, "pair_kernels_ms": split,
+            "l2_clean_ms": clean_ms, "l2_dirty_ms": dirty_ms}
+        if n == 17:
+            steps = [k10p_step_chunk(torch, path, dev, n) for _ in range(4)]
+            walk = device_seq_stats_step(*steps[0], start, int(total), g,
+                                         P=1 << 16)[2]
+            check(int(walk[0]) == int(n_all),
+                  "the device plane's step walked the walk's count")
+            out[f"{n}-block"]["step_ms"] = k10p_kernel_ms(kernel_split(
+                torch, [lambda c=c: device_seq_stats_step(
+                    *c, start, int(total), g, P=1 << 16) for c in steps]))
+    return out
+
+
+def device_plane_times(torch, path, dev) -> dict:
+    """The device plane's ``seq_stats()`` over the BAM, once to warm up
+    and checked against the generator's counts, then once profiled: wall,
+    device-busy s and each hand kernel's total ms (``kernel_totals``) with
+    its launches.  Uses only what every tree of the port since the device
+    plane has, so that an earlier tree (``--tree``) is profiled on the
+    same file."""
+    from hadoop_bam_torch.api import open_bam
+    from hadoop_bam_torch.config import HBamConfig
+    ds = open_bam(path, config=HBamConfig(inflate_backend="device"))
+    n_reads = ds.seq_stats()["n_reads"]
+    check(n_reads > 0, "device-plane seq_stats counted reads")
+    reset_launches()
+    wall, busy, by_name = device_busy(torch, ds.seq_stats)
+    return {"reads": n_reads, "wall_s": wall, "busy_s": busy,
+            "kernels_ms": kernel_totals(by_name),
+            "launches": read_launches()}
+
+
+# ``--times KERNEL``: the timing function of each kernel (or path) that
+# has one, called as fn(torch, path, dev) -> a JSON-able dict
+TIMES = {"walk_records_device": k9_times, "resolve_pack": k7_times,
+         "payload_gather": k10p_times, "device_plane": device_plane_times}
 
 
 def _le32(a, p):
@@ -958,59 +1138,92 @@ def phase_k9(torch, path, dev) -> dict:
 
 def phase_k10p(torch, path, dev) -> dict:
     log("== phase 8: K10p payload_gather vs plain")
-    import numpy as np
     from hadoop_bam_torch.ops import inflate_device as tid
     from hadoop_bam_torch.ops.unpack_bam import unpack_fixed_fields
     from hadoop_bam_torch.parallel.pipeline import PayloadGeometry
+    from hadoop_bam_torch.synth import (
+        PAYLOAD_CASES, payload_rows, poison_allocator,
+    )
     g = PayloadGeometry()
-    geo = (g.max_len, g.seq_stride, g.qual_stride)
     buf, total, start, _ = bam_chunk(torch, path, dev)
     R = tid.records_cap(64, 1 << 16)
     offs, n_all, _, _ = tid.walk_records_device(buf, total, start,
                                                 int(total), R)
     cols = unpack_fixed_fields(buf, offs)
-    args = (buf, offs, cols["l_seq"], cols["l_read_name"], cols["n_cigar"],
-            n_all.reshape(1))
-    rng = np.random.default_rng(5)
-    L, n = 1 << 20, 4096
-    edge = [torch.from_numpy(rng.integers(0, 256, L, dtype=np.uint8)).to(dev)]
-    l_seq = rng.integers(-3, 400, n).astype(np.int32)
-    l_seq[:3] = [2**31 - 1, 0, 161]
-    for a in (rng.integers(-50, L + 50, n).astype(np.int32), l_seq,
-              rng.integers(0, 256, n).astype(np.int32),
-              rng.integers(0, 70_000, n).astype(np.int32)):
-        edge.append(torch.from_numpy(a).to(dev))
-    for name, a, nv in (("chunk", args[:5], args[5]),
-                        ("random edge rows", edge, 1000)):
-        got = tid.payload_gather(*a, nv, *geo)
-        want = tid.payload_gather_plain(*a, nv, *geo)
-        sync(torch, dev)
-        for x, y, what in zip(got, want, ("seq", "qual")):
-            check(torch.equal(x, y), f"K10p {what}, {name}")
-        rows = R if name == "chunk" else n
-        log(f"{name}: seq and qual tiles bit-equal ({rows} rows, "
-            f"{int(nv)} valid)")
-    copies = [tuple(t.clone() for t in args) for _ in range(4)]
-    ms = device_ms(torch, [lambda c=c: tid.payload_gather(*c, *geo)
-                           for c in copies])
-    plain_ms = device_ms(torch, [lambda c=c: tid.payload_gather_plain(
-        *c, *geo) for c in copies])
-    nv = min(int(n_all), R)
-    use = np.clip(cols["l_seq"][:nv].cpu().numpy().astype(np.int64), 0,
-                  g.max_len)
-    nbytes = int(R * (g.seq_stride + g.qual_stride) + 16 * R + 4
-                 + ((use + 1) // 2).sum() + use.sum())
-    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
-    log(f"K10p device {ms:.4f} ms (plain {plain_ms:.4f} ms), bound "
-        f"{bound_ms:.4f} ms = {nbytes} B / 3.35 TB/s (the [{R}, 96 + 160] "
-        f"tiles written once, columns and the {nv} records' payload bytes "
-        f"read once); no single PyTorch call computes this function "
-        f"(library_ms null)")
+    chunk = (buf, offs, cols["l_seq"], cols["l_read_name"], cols["n_cigar"])
+    cases = [("64-block chunk", chunk, n_all.reshape(1))]
+    L, n = 1 << 16, 8192
+    for name in PAYLOAD_CASES:
+        rows = [torch.from_numpy(a).to(dev)
+                for a in payload_rows(name, L, n, 5)]
+        cases.append((name, rows, n - 5))
+        # the same rows in a view of buf 3 bytes off 16
+        view = torch.empty(L + 3, dtype=torch.uint8, device=dev)[3:]
+        view.copy_(rows[0])
+        cases.append((f"{name}, buf[3:]", [view] + rows[1:], n - 5))
+    rows = [torch.from_numpy(a).to(dev)
+            for a in payload_rows("random", L, n, 3)]
+    cases += [(f"random, n_all {v}", rows, v)
+              for v in (-1, 0, 1, n, n + 7)]
+    for name, a, nv in cases:
+        nv_t = torch.tensor([int(nv)], dtype=torch.int32, device=dev)
+        for strides in ((g.seq_stride, g.qual_stride), (17, 33)):
+            geo = (g.max_len, *strides)
+            poison_allocator(dev)
+            got = tid.payload_gather(*a, nv_t, *geo)
+            want = tid.payload_gather_plain(*a, nv_t, *geo)
+            sync(torch, dev)
+            for x, y, what in zip(got, want, ("seq", "qual")):
+                check(torch.equal(x, y), f"K10p {what}, {name}, strides "
+                      f"{strides}")
+        log(f"{name}: seq and qual tiles bit-equal at strides (96, 160) "
+            f"and (17, 33), allocator poisoned ({a[1].shape[0]} rows, "
+            f"n_all {int(nv)})")
+    if dev.type == "cuda":
+        lp = tid.payload_launch(R, g.seq_stride, g.qual_stride,
+                                torch.cuda.get_device_properties(dev)
+                                .multi_processor_count)
+        log(f"K10p launch: one wave of {lp.grid} CTAs x {lp.threads} "
+            f"threads")
+    for line in kernels_report("payload_gather"):
+        log(f"  ptxas: {line}")
+    times = k10p_times(torch, path, dev)
+    for shape, x in times.items():
+        for k in ("", "zero_", "live_", "store_floor_"):
+            x[f"{k}bound_ms"] = x[f"{k}nbytes"] / H100_BYTES_PER_S * 1e3
+        log(f"K10p at the {shape} chunk (R = {x['R']}, {x['records']} "
+            f"records): device {x['ms']:.4f} ms (plain {x['plain_ms']:.4f} "
+            f"ms), bound {x['bound_ms']:.4f} ms = {x['nbytes']} B / 3.35 "
+            f"TB/s (the [{x['R']}, 96 + 160] tiles written once, columns "
+            f"and the records' payload bytes read once), "
+            f"{100 * x['bound_ms'] / x['ms']:.1f}% of it; n_all 0 "
+            f"{x['zero_ms']:.4f} ms (bound {x['zero_bound_ms']:.4f}); the "
+            f"live rows alone {x['live_ms']:.4f} ms (bound "
+            f"{x['live_bound_ms']:.4f}); store "
+            f"floor (torch.zeros of the two tiles) {x['store_floor_ms']:.4f} "
+            f"ms; K10p -> K2 pair {x['pair_ms']:.4f} ms, by kernel "
+            f"{x['pair_kernels_ms']}; K10p with L2 flushed before each "
+            f"launch by a read {x['l2_clean_ms']:.4f} ms, by a write "
+            f"{x['l2_dirty_ms']:.4f} ms; inside the device plane's step "
+            f"{x.get('step_ms', float('nan')):.4f} ms")
+    log("no single PyTorch call computes this function (library_ms null)")
+    big, main = times["64-block"], times["17-block"]
     return {"name": "payload_gather", "route": "cuda",
             "source": "hadoop_bam_torch/csrc/payload_gather.cu",
             "replaces": "hadoop_bam_tpu/ops/inflate_device.py:320",
-            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+            "max_abs_err": 0, "ms": big["ms"], "plain_ms": big["plain_ms"],
+            "bound_ms": big["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "zero_ms": big["zero_ms"],
+            "l2_clean_ms": big["l2_clean_ms"],
+            "l2_dirty_ms": big["l2_dirty_ms"],
+            "store_floor_ms": big["store_floor_ms"],
+            "main_path_shape": dict(_shape_row(
+                f"17-block chunk: {main['R']} rows", 0, main["ms"],
+                main["plain_ms"], main["nbytes"]),
+                zero_ms=main["zero_ms"], l2_clean_ms=main["l2_clean_ms"],
+                l2_dirty_ms=main["l2_dirty_ms"],
+                step_ms=main["step_ms"],
+                store_floor_ms=main["store_floor_ms"])}
 
 
 def phase_plane_shapes(torch, path, dev, rows) -> None:

@@ -28,6 +28,7 @@ record capacity ``records_cap(B, P)`` is fixed per rung.
 """
 from __future__ import annotations
 
+import functools
 import time
 import zlib
 from typing import Dict, NamedTuple, Optional, Tuple, Union
@@ -61,6 +62,13 @@ WALK_W = 1 << 13
 # least distance between two records of a chain: a 4-byte block_size
 # and a 32-byte core
 MIN_RECORD = 36
+
+# K10p's CTA width and CTAs per SM (kThreads and kMinBlocks in
+# csrc/payload_gather.cu; its launch bounds hold the kernel to them), and
+# the least tile bytes per CTA (8 16-byte words per zero-stream thread)
+PAYLOAD_THREADS = 256
+PAYLOAD_CTAS_PER_SM = 4
+PAYLOAD_CTA_BYTES = 4096
 
 Scalar = Union[int, torch.Tensor]
 
@@ -185,6 +193,30 @@ def resolve_launch(B: int, T: int, P: int,
     window = (C - 1) * S
     return ResolveLaunch(B, T, P, C, S, threads, tokens, window,
                          3 * S + window)
+
+
+class PayloadLaunch(NamedTuple):
+    """The grid of one K10p launch (see ``csrc/payload_gather.cu``)."""
+    grid: int
+    threads: int
+
+
+def payload_launch(R: int, seq_stride: int, qual_stride: int,
+                   sms: int) -> PayloadLaunch:
+    """K10p's one persistent wave over [R, seq_stride] and [R, qual_stride]
+    tiles on a card of ``sms`` SMs: ``PAYLOAD_CTAS_PER_SM`` CTAs an SM
+    (what the kernel's launch bounds keep resident), or one per
+    ``PAYLOAD_CTA_BYTES`` of tile where the tiles are smaller, never fewer
+    than one.  The kernel reads n_valid on the card, so the grid is sized
+    for R rows."""
+    per_bytes = -(-R * (seq_stride + qual_stride) // PAYLOAD_CTA_BYTES)
+    grid = min(sms * PAYLOAD_CTAS_PER_SM, per_bytes)
+    return PayloadLaunch(max(1, grid), PAYLOAD_THREADS)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _stream(dev: torch.device) -> int:
@@ -473,8 +505,9 @@ def payload_gather(buf: torch.Tensor, offs: torch.Tensor,
     [R, qual_stride] u8 tiles (rows r >= min(n_all, R) and bytes past a
     read's clipped length zero), with ``resolve_walk_payload``'s rules.
 
-    CUDA tensors launch the K10p kernel on the current stream (``n_all``
-    may be a device int32); CPU tensors take ``payload_gather_plain``."""
+    CUDA tensors launch the K10p kernel on the current stream as one
+    persistent wave (``payload_launch``; ``n_all`` may be a device int32,
+    read there); CPU tensors take ``payload_gather_plain``."""
     if buf.dtype != torch.uint8 or buf.dim() != 1 or buf.shape[0] < 1:
         raise ValueError(f"buf must be uint8 [L], got {buf.dtype} "
                          f"{tuple(buf.shape)}")
@@ -489,8 +522,12 @@ def payload_gather(buf: torch.Tensor, offs: torch.Tensor,
     if not _cuda_or_cpu(buf):
         return payload_gather_plain(buf, offs, l_seq, l_read_name, n_cigar,
                                     n_all, max_len, seq_stride, qual_stride)
+    if not buf.is_contiguous():   # the kernel reads buf as bytes
+        raise ValueError("buf must be contiguous on the card")
     dev = buf.device
     n_all = _i32_scalar(n_all, dev)
+    lp = payload_launch(R, int(seq_stride), int(qual_stride),
+                        _sm_count(dev.index))
     seq = torch.empty((R, seq_stride), dtype=torch.uint8, device=dev)
     qual = torch.empty((R, qual_stride), dtype=torch.uint8, device=dev)
     fn = kernels.kernel("payload_gather")
@@ -498,8 +535,8 @@ def payload_gather(buf: torch.Tensor, offs: torch.Tensor,
         rc = fn(buf.data_ptr(), buf.shape[0], offs.data_ptr(),
                 l_seq.data_ptr(), l_read_name.data_ptr(), n_cigar.data_ptr(),
                 n_all.data_ptr(), R, int(max_len), int(seq_stride),
-                int(qual_stride), seq.data_ptr(), qual.data_ptr(),
-                _stream(dev))
+                int(qual_stride), seq.data_ptr(), qual.data_ptr(), lp.grid,
+                lp.threads, _stream(dev))
     kernels.check_launch("payload_gather", rc)
     payload_gather.launches += 1
     return seq, qual

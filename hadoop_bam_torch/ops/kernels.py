@@ -44,7 +44,7 @@ KERNELS: Dict[str, tuple] = {
                      _VP, _I64, _I64, _I64, _I64, _I64, _VP]),
     "payload_gather": ("hbam_payload_gather",
                        [_VP, _I64, _VP, _VP, _VP, _VP, _VP, _I64, _I64,
-                        _I64, _I64, _VP, _VP, _VP]),
+                        _I64, _I64, _VP, _VP, _I64, _I64, _VP]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

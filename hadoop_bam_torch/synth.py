@@ -304,3 +304,61 @@ def walk_cases(W: int, seed: int = 0):
     cases.append(("start in a tile past total", buf, cut, 5 * W + 3, L,
                   cap))
     return cases
+
+
+PAYLOAD_CASES = ("random", "window at byte 0", "window at byte L - 1",
+                 "l_seq above max_len", "int32 wrap")
+
+
+def _wrap32(a) -> np.ndarray:
+    return ((np.asarray(a, np.int64) + (1 << 31)) % (1 << 32)
+            - (1 << 31)).astype(np.int32)
+
+
+def payload_rows(name: str, L: int, R: int, seed: int = 0):
+    """Inputs for the payload gather's edge rules (``PAYLOAD_CASES``): a
+    tuple (buf [L] u8, offs, l_seq, l_read_name, n_cigar [R] int32) whose
+    rows' seq_off = offs + 36 + l_read_name + 4 * n_cigar land where the
+    case says: anywhere, from 20 bytes before byte 0 to 20 after it, or
+    with the qual window ending from 20 bytes before L to 20 past it;
+    l_seq from max_len + 1 to 2^31 - 1 (MAX_LEN: the default geometry's);
+    offsets near 2^31 - 1 and 4 * n_cigar = 2^31, so that the int32 sums
+    wrap.  "random" mixes negative and huge lengths with offsets off both
+    ends."""
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(0, 256, L, dtype=np.uint8)
+    rn = rng.integers(0, 256, R).astype(np.int32)
+    nc = rng.integers(0, 9, R).astype(np.int32)
+    l_seq = rng.integers(0, MAX_LEN + 1, R).astype(np.int32)
+    if name == "random":
+        offs = rng.integers(-100, L + 100, R).astype(np.int32)
+        l_seq = rng.integers(-5, 400, R).astype(np.int32)
+        l_seq[:3] = [(1 << 31) - 1, 0, MAX_LEN + 1][:R]
+        return buf, offs, l_seq, rn, nc
+    if name == "int32 wrap":
+        offs = (1 << 31) - 41 - rng.integers(0, 60, R)
+        nc[:R // 2] = 1 << 29
+        return buf, _wrap32(offs), l_seq, rn, nc
+    if name == "window at byte 0":
+        target = np.arange(R) % 41 - 20
+    elif name == "window at byte L - 1":
+        target = L - (l_seq + 1) // 2 - l_seq + np.arange(R) % 41 - 20
+    elif name == "l_seq above max_len":
+        l_seq = rng.integers(MAX_LEN + 1, 5000, R).astype(np.int32)
+        l_seq[:2] = [(1 << 31) - 1, 1 << 30][:R]
+        target = rng.integers(0, L // 2, R)
+    else:
+        raise ValueError(f"unknown payload case {name!r}")
+    return buf, _wrap32(target - 36 - rn - 4 * nc), l_seq, rn, nc
+
+
+def poison_allocator(dev) -> None:
+    """Leave 0xAB in the torch caching allocator's free blocks on ``dev``
+    (its large pool and its small one), so that a byte of a later
+    ``torch.empty`` tensor that a kernel does not write reads 0xAB, not a
+    zero left by an earlier tensor."""
+    import torch
+    held = [torch.full((256 << 20,), 0xAB, dtype=torch.uint8, device=dev)]
+    held += [torch.full((1 << 19,), 0xAB, dtype=torch.uint8, device=dev)
+             for _ in range(32)]
+    del held

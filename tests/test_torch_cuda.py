@@ -340,6 +340,89 @@ def test_k10p_payload_gather_matches_plain(cuda):
                 assert torch.equal(g, w), (n_all, strides)
 
 
+def _k10p_main_chunk(tmp_path):
+    """The main path's usual chunk: a synthetic BAM's first 17 BGZF blocks
+    packed into a [32 x 65,536] buffer, the walk's offsets at R =
+    records_cap(32, 65,536) = 65,536 rows and K1's columns there (plain
+    versions, on the host)."""
+    import zlib
+    from hadoop_bam_torch.formats import bgzf
+    from hadoop_bam_torch.formats.bamio import read_bam_header
+    from hadoop_bam_torch.ops import inflate_device as tid
+    from hadoop_bam_torch.synth import write_synthetic_bam
+    path = str(tmp_path / "k10p.bam")
+    write_synthetic_bam(path, 20_000, seed=6)
+    raw = open(path, "rb").read()
+    data, off = [], 0
+    for _ in range(17):
+        info = bgzf.parse_block_header(raw, off)
+        data.append(zlib.decompress(raw[
+            info.cdata_offset:info.cdata_offset + info.cdata_size],
+            wbits=-15))
+        off = info.next_coffset
+    flat = np.frombuffer(b"".join(data), np.uint8)
+    buf = np.zeros(32 << 16, np.uint8)
+    buf[:flat.size] = flat
+    _, voff = read_bam_header(path)
+    R = tid.records_cap(32, 1 << 16)
+    b = torch.from_numpy(buf)
+    offs, n_all, _, _ = tid.walk_records_device_plain(
+        b, flat.size, voff & 0xFFFF, flat.size, R)
+    cols = tub.unpack_fixed_fields_plain(b, offs)
+    return (buf, offs.numpy(), cols["l_seq"].numpy(),
+            cols["l_read_name"].numpy(), cols["n_cigar"].numpy()), int(n_all)
+
+
+def _k10p_case(name, tmp_path):
+    """(buf, offs, l_seq, l_read_name, n_cigar as numpy, n_all, the
+    offset of buf in the tensor the kernel is handed) of one K10p card
+    case."""
+    from hadoop_bam_torch.synth import payload_rows
+    L, R = 1 << 16, 8192
+    if name.startswith("n_all"):
+        n_all = {"-1": -1, "0": 0, "1": 1, "R": R, "R + 7": R + 7}[name[6:]]
+        return payload_rows("random", L, R, 3), n_all, 0
+    if name == "buf[3:]":
+        # windows at both ends of a view whose address is 3 off 16 bytes
+        lo = payload_rows("window at byte 0", L, R // 2, 4)
+        hi = payload_rows("window at byte L - 1", L, R // 2, 4)
+        return ((lo[0],) + tuple(np.concatenate([a, b])
+                                 for a, b in zip(lo[1:], hi[1:])), R, 3)
+    if name == "17-block chunk":
+        rows, n_all = _k10p_main_chunk(tmp_path)
+        return rows, n_all, 0
+    return payload_rows(name, L, R, 5), R - 5, 0
+
+
+@pytest.mark.parametrize("strides", [(96, 160), (17, 33)])
+@pytest.mark.parametrize("name", ["n_all -1", "n_all 0", "n_all 1",
+                                  "n_all R", "n_all R + 7", "buf[3:]",
+                                  "window at byte 0", "window at byte L - 1",
+                                  "l_seq above max_len", "int32 wrap",
+                                  "17-block chunk"])
+def test_k10p_payload_gather_cases(cuda, tmp_path, name, strides):
+    """K10p's edge rules with the allocator poisoned before the launch
+    (an unwritten byte reads 0xAB) and n_all a device int32: bit-equal
+    to plain, one launch."""
+    from hadoop_bam_torch.ops import inflate_device as tid
+    from hadoop_bam_torch.synth import poison_allocator
+    (buf, *cols), n_all, shift = _k10p_case(name, tmp_path)
+    held = torch.empty(buf.size + shift, dtype=torch.uint8, device=cuda)
+    b = held[shift:]
+    b.copy_(torch.from_numpy(buf))
+    assert b.data_ptr() % 16 == shift
+    cols = [torch.from_numpy(a).to(cuda) for a in cols]
+    nv = torch.tensor([n_all], dtype=torch.int32, device=cuda)
+    poison_allocator(cuda)
+    before = tid.payload_gather.launches
+    got = tid.payload_gather(b, *cols, nv, 160, *strides)
+    torch.cuda.synchronize()
+    assert tid.payload_gather.launches == before + 1
+    want = tid.payload_gather_plain(b, *cols, nv, 160, *strides)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), (name, strides)
+
+
 def test_device_plane_drivers_on_card_match_truth(cuda, tmp_path):
     """flagstat and seq-stats through the device decode plane on the card
     equal the synthesizer's counts, with every kernel of the path
