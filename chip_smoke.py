@@ -56,7 +56,19 @@ Phases (any failure raises and exits non-zero):
    checked against the generator's counts, with every kernel of that
    path launched, walls, rates and device-busy shares beside the native
    plane's, and the plane's host stages timed alone (the span plan at
-   the plane's 512 KiB grain and at the native flagstat's 4 MiB).
+   the plane's 512 KiB grain and at the native flagstat's 4 MiB);
+10. resilience and intervals through the entry points, on the same BAM:
+   (a) ``bam_intervals`` set to two regions (~10% and ~50% of the
+   reads) on the native plane and with the device plane named (the
+   gate sends it to the native plane), against the generator's interval
+   truth; (b) seeded ``device.step`` faults on the device plane: the
+   run demotes to the host planes with the whole-file truth, and after
+   the breaker's cooldown (an injected clock) a run heals the device
+   plane, launching every device-plane kernel; (c) seeded transient
+   ``decode.native`` faults: retried, the truth, retries > 0; (d) a copy
+   with one BGZF block flipped under ``skip_bad_spans``: equal counters
+   and quarantine manifests (one span) on cuda:0 and on the CPU, and
+   without it the CORRUPT class raised.  Each run's wall and reads/s.
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -64,10 +76,19 @@ limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 ``--times KERNEL`` stops after the build: it only checks and times that
 kernel at its shapes (``TIMES``: K9 and K10p at both chunk shapes, K7+K8
 at its three chunks; ``device_plane``: the profiled device-plane
-``seq_stats()`` by kernel) and prints them as one JSON line; with ``--tree DIR`` it
+``seq_stats()`` by kernel; ``native_plane``: the native plane's three
+drivers of phase 5, warmed up, five rounds in turn) and prints them as
+one JSON line; with ``--tree DIR`` it
 does so for the port in another checkout (an earlier tree unpacked by
 ``git archive``), so that two trees' kernels can be timed in turns on
-the same card and inputs.
+the same card and inputs.  A timing run builds only kernels that are
+missing or stale and reuses the BAM an earlier one wrote.
+
+``--turns N --tree DIR [--tree DIR ...]`` times the native plane in
+turns: N rounds of one ``--times native_plane`` process for this
+checkout and for each tree, the order reversed every other round, and
+prints every process's medians and each tree's per-round ratios to this
+checkout's as one JSON line.
 """
 from __future__ import annotations
 
@@ -219,12 +240,12 @@ def phase_env(torch) -> str:
     return card
 
 
-def phase_build() -> None:
+def phase_build(force: bool = True) -> None:
     log("== phase 2: kernel build")
     from hadoop_bam_torch.ops import kernels
     from hadoop_bam_torch.utils import native
     t0 = time.perf_counter()
-    kernels.build(force=True)
+    kernels.build(force=force)
     log(f"nvcc (all sources in parallel): {time.perf_counter() - t0:.2f} s")
     for name in kernels.KERNELS:
         for line in kernels.ptxas_report(name).splitlines():
@@ -241,8 +262,12 @@ def make_bam(args):
     out = os.path.join(BUILD_DIR, "smoke")
     os.makedirs(out, exist_ok=True)
     path = os.path.join(out, f"synth_{args.seed}_{args.reads}.bam")
+    if args.times and os.path.exists(path):
+        return path, None   # timing runs need no truth
     t0 = time.perf_counter()
-    truth = write_synthetic_bam(path, args.reads, args.seed)
+    # --times runs earlier trees too, whose generator has no regions
+    regions = {} if args.times else {"regions": REGIONS}
+    truth = write_synthetic_bam(path, args.reads, args.seed, **regions)
     log(f"synthesized {args.reads} reads (seed {args.seed}) -> "
         f"{os.path.getsize(path)} bytes in {time.perf_counter() - t0:.1f} s")
     return path, truth
@@ -1057,10 +1082,63 @@ def device_plane_times(torch, path, dev) -> dict:
             "launches": read_launches()}
 
 
+def native_plane_times(torch, path, dev, reps: int = 5) -> dict:
+    """The native plane's three drivers of phase 5 over the BAM, once
+    each to warm up, then ``reps`` rounds of the three in turn: every
+    wall and their medians.  Uses only what every tree of the port has,
+    so that an earlier tree (``--tree``) is timed on the same file."""
+    from hadoop_bam_torch.api import open_bam
+    from hadoop_bam_torch.config import HBamConfig
+    ds = open_bam(path, config=HBamConfig(inflate_backend="native"))
+    runs = {"flagstat": ds.flagstat, "seq_stats": ds.seq_stats,
+            "flagstat_span": lambda: ds.flagstat(mode="span")}
+    for fn in runs.values():
+        fn()
+    walls = {k: [] for k in runs}
+    for _ in range(reps):
+        for k, fn in runs.items():
+            t0 = time.perf_counter()
+            fn()
+            walls[k].append(time.perf_counter() - t0)
+    return {"walls_s": walls,
+            "median_s": {k: statistics.median(v) for k, v in walls.items()}}
+
+
 # ``--times KERNEL``: the timing function of each kernel (or path) that
 # has one, called as fn(torch, path, dev) -> a JSON-able dict
 TIMES = {"walk_records_device": k9_times, "resolve_pack": k7_times,
-         "payload_gather": k10p_times, "device_plane": device_plane_times}
+         "payload_gather": k10p_times, "device_plane": device_plane_times,
+         "native_plane": native_plane_times}
+
+
+def native_turns(args) -> dict:
+    """``--turns``: ``--times native_plane`` processes in turns for this
+    checkout and each ``--tree`` (ABC, CBA, ...); every process's medians
+    and, for each tree, its per-round median ratios to this checkout's
+    with their median and how many rounds exceed 1."""
+    trees = ["."] + [os.path.abspath(t) for t in args.tree]
+    runs = {t: [] for t in trees}
+    for r in range(args.turns):
+        for t in (trees if r % 2 == 0 else trees[::-1]):
+            cmd = [sys.executable, os.path.abspath(__file__), "--times",
+                   "native_plane", "--reads", str(args.reads),
+                   "--seed", str(args.seed)]
+            if t != ".":
+                cmd += ["--tree", t]
+            out = subprocess.run(cmd, check=True, capture_output=True,
+                                 text=True, timeout=900).stdout
+            med = json.loads(out.strip().splitlines()[-1])["times"][
+                "median_s"]
+            runs[t].append(med)
+            log(f"round {r} {t}: {med}")
+    ratios = {}
+    for t in trees[1:]:
+        per = {k: [b[k] / a[k] for a, b in zip(runs["."], runs[t])]
+               for k in runs["."][0]}
+        ratios[t] = {k: {"per_round": v, "median": statistics.median(v),
+                         "rounds_above_1": sum(x > 1 for x in v)}
+                     for k, v in per.items()}
+    return {"medians_s": runs, "ratio_to_this_checkout": ratios}
 
 
 def _le32(a, p):
@@ -1396,6 +1474,190 @@ def device_plane_stages(torch, path, dev, card) -> None:
         f"({os.cpu_count()} CPUs) [{card}]")
 
 
+# phase 10's interval filters: about 10% and about 50% of the reads
+# (chr20 is 64.4 Mb of the generator's two contigs, chr21 the other half)
+REGIONS = ("chr20:1-13000000", "chr21")
+
+
+class FakeClock:
+    """The breakers' clock in phase 10: advanced by hand past a cooldown,
+    so the heal run needs no wait."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def _log_wall(what, wall, n, card, extra="") -> None:
+    log(f"{what}: {wall:.3f} s wall, {n / wall:,.0f} reads/s{extra} "
+        f"[{card}]")
+
+
+def _entries(q):
+    """A manifest's entries without the message text, in span order."""
+    return sorted(({k: e[k] for k in ("path", "span_start", "span_end",
+                                      "error_class", "attempts")}
+                   for e in q), key=lambda e: e["span_start"])
+
+
+def phase_resilience(torch, path, truth, card, dev, native_walls, seed):
+    """Phase 10: intervals, seeded faults, demotion and quarantine on
+    the card, through the entry points; returns the launches of its
+    runs."""
+    log("== phase 10: resilience and intervals on cuda:0")
+    import dataclasses
+
+    import numpy as np
+    from hadoop_bam_torch import resilience
+    from hadoop_bam_torch.api import open_bam
+    from hadoop_bam_torch.config import HBamConfig
+    from hadoop_bam_torch.plan.executor import select_plane
+    from hadoop_bam_torch.resilience import chaos
+    from hadoop_bam_torch.split.intervals import parse_intervals
+    from hadoop_bam_torch.synth import flip_block
+    from hadoop_bam_torch.utils.errors import CORRUPT, classify_error
+    from hadoop_bam_torch.utils.metrics import METRICS
+    from hadoop_bam_torch.utils.resilient import QuarantineManifest
+    reset_launches()
+    # (a) intervals: native plane, then the device plane named (the gate
+    # sends it to a host plane)
+    for region in REGIONS:
+        want = truth.regions[region]
+        for backend in ("native", "device"):
+            cfg = HBamConfig(inflate_backend=backend, bam_intervals=region)
+            d = select_plane(cfg, intervals=parse_intervals(region))
+            check(d.plane == "native", f"{region} on {backend} runs native")
+            ds = open_bam(path, config=cfg)
+            flag, wf = _timed(ds.flagstat)
+            stats, ws = _timed(ds.seq_stats)
+            check_truth(flag, stats, want)
+            note = "" if backend == "native" else \
+                f" (device plane named: {dict(d.rejected)['device']})"
+            log(f"(a) {region} on {backend}: {want.n_reads} of "
+                f"{truth.n_reads} reads ({100 * want.n_reads / truth.n_reads:.1f}%) "
+                f"equal the interval truth{note}")
+            for name, wall in (("flagstat", wf), ("seq_stats", ws)):
+                _log_wall(f"(a) {name} {region} {backend}", wall,
+                          truth.n_reads, card,
+                          f"; no intervals {native_walls[name]:.3f} s")
+    # (b) seeded device.step faults: demotion, then a heal after the
+    # cooldown on an injected clock
+    clk = FakeClock()
+    resilience.reset(clock=clk)
+    METRICS.reset()
+    cfg = HBamConfig(inflate_backend="device", breaker_failure_threshold=1.0)
+    faults = chaos.seeded_point_faults(seed, "device.step",
+                                       ["transient", "corrupt"], 2,
+                                       max_call=64)
+    log(f"(b) device.step schedule (seed {seed}): "
+        f"{[(f.kind, f.at_call) for f in faults]}")
+    ds = open_bam(path, config=cfg)
+    with chaos.fault_points_on("device.step", faults):
+        flag, wf = _timed(ds.flagstat)
+        stats, ws = _timed(ds.seq_stats)
+    check_truth(flag, stats, truth)
+    check(METRICS.get("resilience.demotions") >= 1, "a demotion ticked")
+    check(METRICS.get("chaos.point_faults") >= 1, "a device.step fault fired")
+    key = f"decode/device/{os.path.abspath(path)}"
+    check(resilience.registry().states()[key]["state"] == resilience.OPEN,
+          "the device domain's breaker is open")
+    log(f"(b) demoted runs equal the truth; counters "
+        f"{METRICS.snapshot()['counters']}")
+    _log_wall("(b) flagstat demoted mid-run (device -> native)", wf,
+              truth.n_reads, card,
+              f"; native plane {native_walls['flagstat']:.3f} s")
+    _log_wall("(b) seq_stats on the host planes (breaker open)", ws,
+              truth.n_reads, card,
+              f"; native plane {native_walls['seq_stats']:.3f} s")
+    clk.t += cfg.breaker_cooldown_s + 0.1
+    before = read_launches()
+    flag, wf = _timed(ds.flagstat)
+    stats, ws = _timed(ds.seq_stats)
+    check_truth(flag, stats, truth)
+    healed = {k: v - before[k] for k, v in read_launches().items()}
+    for name, n in healed.items():
+        check(n > 0, f"{name} launched on the healed device plane")
+    state = resilience.registry().states()[key]
+    check(state["state"] == resilience.CLOSED and state["healed_total"] == 1,
+          f"the device domain healed: {state}")
+    check(METRICS.get("resilience.heals") == 1, "resilience.heals ticked")
+    _log_wall("(b) flagstat after the cooldown (device plane, heals)", wf,
+              truth.n_reads, card)
+    _log_wall("(b) seq_stats after the heal (device plane)", ws,
+              truth.n_reads, card)
+    resilience.reset()
+    # (c) seeded transient decode.native faults under the default policy
+    METRICS.reset()
+    faults = chaos.seeded_point_faults(seed, "decode.native", ["transient"],
+                                       3, max_call=40)
+    ds = open_bam(path, config=HBamConfig(inflate_backend="native"))
+    with chaos.fault_points_on("decode.native", faults):
+        flag, wf = _timed(ds.flagstat)
+    with chaos.fault_points_on("decode.native", [
+            dataclasses.replace(f, count=1) for f in faults]):
+        stats, ws = _timed(ds.seq_stats)
+    check_truth(flag, stats, truth)
+    retries = METRICS.get("pipeline.transient_retries")
+    check(retries > 0, "pipeline.transient_retries > 0")
+    log(f"(c) decode.native schedule {[f.at_call for f in faults]}: "
+        f"{retries} transient retries, results equal the truth")
+    _log_wall("(c) flagstat with transient faults", wf, truth.n_reads, card)
+    _log_wall("(c) seq_stats with transient faults", ws, truth.n_reads, card)
+    # (d) one flipped block: quarantine on the card and on the CPU
+    bad = path + ".flipped.bam"
+    victim = flip_block(path, bad, os.path.getsize(path) // 2)
+    skip = HBamConfig(skip_bad_spans=True)
+    got = {}
+    for where in (None, "cpu"):
+        ds = open_bam(bad, device=where, config=skip)
+        qf, qs = QuarantineManifest(), QuarantineManifest()
+        (flag, wf) = _timed(lambda: ds.flagstat(quarantine=qf))
+        (stats, ws) = _timed(lambda: ds.seq_stats(quarantine=qs))
+        got[where] = (flag, stats, _entries(qf.to_dicts()),
+                      _entries(qs.to_dicts()))
+        label = "cuda:0" if where is None else "cpu"
+        _log_wall(f"(d) flagstat skip_bad_spans on {label}", wf,
+                  flag["total"], card)
+        _log_wall(f"(d) seq_stats skip_bad_spans on {label}", ws,
+                  stats["n_reads"], card)
+    (fc, sc, qfc, qsc), (fh, sh, qfh, qsh) = got[None], got["cpu"]
+    check(fc == fh, "flagstat on the card equals the CPU's")
+    check(sc["n_reads"] == sh["n_reads"] and np.array_equal(
+        sc["base_hist"], sh["base_hist"]), "seq_stats card == CPU")
+    for k in ("mean_gc", "mean_qual"):
+        check(abs(sc[k] - sh[k]) <= 1e-6 * abs(sh[k]), f"{k} card == CPU")
+    check(qfc == qfh and qsc == qsh, "manifests equal on card and CPU")
+    check(len(qfc) == 1 and len(qsc) == 1, "the manifest names one span")
+    e = qfc[0]
+    check(e["error_class"] == CORRUPT and
+          e["span_start"] >> 16 <= victim <= e["span_end"] >> 16,
+          f"the entry covers the flipped block at {victim}: {e}")
+    check(0 < fc["total"] < truth.n_reads, "the other spans still count")
+    log(f"(d) block at {victim} flipped: manifest {qfc} (flagstat) and "
+        f"{qsc} (seq_stats) on both devices; {fc['total']} and "
+        f"{sc['n_reads']} reads counted")
+    for name in ("flagstat", "seq_stats"):
+        try:
+            getattr(open_bam(bad), name)()
+        except ValueError as exc:
+            check(classify_error(exc) == CORRUPT,
+                  f"{name} raised {type(exc).__name__}")
+            log(f"(d) {name} without skip_bad_spans raises "
+                f"{type(exc).__name__} (class {classify_error(exc)})")
+        else:
+            check(False, f"{name} without skip_bad_spans raised")
+    os.remove(bad)
+    return read_launches()
+
+
 def check_truth(flag, stats, truth) -> None:
     import numpy as np
     check(flag == truth.flagstat, f"flagstat {flag} != {truth.flagstat}")
@@ -1414,14 +1676,22 @@ def main(argv=None) -> int:
     ap.add_argument("--times", choices=sorted(TIMES), default=None,
                     help="only build, then check and time this kernel at "
                     "its shapes; print them as one JSON line")
-    ap.add_argument("--tree", default=None,
+    ap.add_argument("--tree", action="append", default=[],
                     help="with --times: import hadoop_bam_torch from this "
-                    "checkout (an earlier tree, timed on the same inputs)")
+                    "checkout (an earlier tree, timed on the same inputs); "
+                    "with --turns: one of the trees timed in turns")
+    ap.add_argument("--turns", type=int, default=0,
+                    help="rounds of the native plane's times in turns "
+                    "with each --tree")
     args = ap.parse_args(argv)
-    if args.tree and not args.times:
-        ap.error("--tree needs --times")
-    if args.tree:
-        sys.path.insert(0, os.path.abspath(args.tree))
+    if args.tree and not (args.times or args.turns):
+        ap.error("--tree needs --times or --turns")
+    if args.times and len(args.tree) > 1:
+        ap.error("--times takes one --tree")
+    if args.turns and (args.times or not args.tree):
+        ap.error("--turns needs --tree and no --times")
+    if args.times and args.tree:
+        sys.path.insert(0, os.path.abspath(args.tree[0]))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1434,7 +1704,10 @@ def main(argv=None) -> int:
         return 2
     t_start = time.perf_counter()
     card = phase_env(torch)
-    phase_build()
+    if args.turns:
+        print(json.dumps({"card": card, "turns": native_turns(args)}))
+        return 0
+    phase_build(force=not args.times)
     path, truth = make_bam(args)
     dev = torch.device("cuda", 0)
     if args.times:
@@ -1455,9 +1728,12 @@ def main(argv=None) -> int:
     phase_plane_shapes(torch, path, dev, rows)
     device_launches = phase_device_main(torch, path, truth, card, dev,
                                         native_walls)
+    resilience_launches = phase_resilience(torch, path, truth, card, dev,
+                                           native_walls, args.seed)
     for name, row in rows.items():
         by_path = {"native": native_launches.get(name, 0),
-                   "device": device_launches[name]}
+                   "device": device_launches[name],
+                   "resilience": resilience_launches[name]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["share_of_bound"] = row["bound_ms"] / row["ms"]

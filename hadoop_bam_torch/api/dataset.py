@@ -5,6 +5,11 @@ hadoop_bam_tpu/api/dataset.py, slice 1: ``flagstat`` and ``seq_stats``).
     ds = open_bam("sample.bam", device="cpu")
     ds.flagstat()
     ds.seq_stats()
+
+    ds = open_bam("sample.bam", config=HBamConfig(
+        bam_intervals="chr20:1-1000000", skip_bad_spans=True))
+    q = QuarantineManifest()
+    ds.flagstat(quarantine=q)            # q lists the spans skipped
 """
 from __future__ import annotations
 
@@ -25,20 +30,25 @@ class BamDataset:
         self.config = config
         self.header, self.first_voffset = read_bam_header(path)
 
-    def flagstat(self, geometry=None, mode: str = "tile") -> Dict[str, int]:
-        """The 16 samtools flagstat counters (parallel/pipeline.flagstat_file)."""
+    def flagstat(self, geometry=None, mode: str = "tile",
+                 quarantine=None) -> Dict[str, int]:
+        """The 16 samtools flagstat counters (parallel/pipeline.flagstat_file);
+        spans skipped under ``skip_bad_spans`` go into ``quarantine`` (a
+        ``utils.resilient.QuarantineManifest``) and the result."""
         from hadoop_bam_torch.parallel.pipeline import flagstat_file
         return flagstat_file(self.path, device=self.device,
                              config=self.config, geometry=geometry,
-                             header=self.header, mode=mode)
+                             header=self.header, mode=mode,
+                             quarantine=quarantine)
 
-    def seq_stats(self, geometry=None) -> Dict[str, object]:
+    def seq_stats(self, geometry=None, quarantine=None) -> Dict[str, object]:
         """Mean GC fraction, mean per-read quality and the base-code
-        histogram (parallel/pipeline.seq_stats_file, K2 kernel)."""
+        histogram (parallel/pipeline.seq_stats_file, K2 kernel);
+        ``quarantine`` as for ``flagstat``."""
         from hadoop_bam_torch.parallel.pipeline import seq_stats_file
         return seq_stats_file(self.path, device=self.device,
                               config=self.config, geometry=geometry,
-                              header=self.header)
+                              header=self.header, quarantine=quarantine)
 
 
 def open_bam(path: str, device=None,

@@ -3,15 +3,16 @@
 ``config_from_dict`` and ``geometry_from_dict`` take ``dataclasses.asdict``
 of the reference's ``HBamConfig`` / ``PayloadGeometry`` /
 ``DecodeGeometry``, so a test can run both packages on the same settings.
-Keys the slice does not read are ignored, except the reference settings
-that change what the drivers return and that the port does not implement
-(``UNSUPPORTED``): a non-default value of one of those is refused.
+Keys the slice does not read are ignored, except reference settings that
+would change what the drivers return and that the port does not
+implement (``UNSUPPORTED``, empty since the failure policy and interval
+filters were ported): a non-default value of one of those is refused.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 from hadoop_bam_torch.utils.errors import PlanError
 
@@ -26,6 +27,32 @@ class HBamConfig:
     check_crc: bool = False               # verify BGZF CRC32 footers
     inflate_backend: str = "auto"         # decode plane, INFLATE_BACKENDS
     decode_pool_workers: Optional[int] = None  # span decode threads
+
+    # interval filter: "chr20:1-100000,chr21" (samtools grammar, 1-based
+    # inclusive); None or "" = no filtering (split/intervals.py)
+    bam_intervals: Optional[str] = None
+
+    # span failure policy (parallel/pipeline.decode_with_retry): only
+    # TRANSIENT faults are re-attempted, CORRUPT fails fast, PLAN always
+    # raises (utils/errors.classify_error)
+    span_retries: int = 2                 # TRANSIENT re-decodes per span
+    skip_bad_spans: bool = False          # True: quarantine + skip a span
+    #                                       the policy gave up on
+    max_bad_span_fraction: float = 1.0    # abort past this quarantined
+    #                                       share of the plan (1.0: never)
+    retry_backoff_base_s: float = 0.05    # first transient-retry delay
+    retry_backoff_max_s: float = 2.0      # backoff ceiling
+    io_read_retries: int = 0              # > 0: reads go through a
+    #                                       RetryingByteSource
+    io_read_deadline_s: Optional[float] = None  # per-read deadline
+
+    # adaptive planes (resilience/): oracle-confirmed plane faults demote
+    # device -> native -> zlib and heal back through half-open probes
+    adaptive_planes: bool = True
+    breaker_failure_threshold: float = 3.0  # decayed failures that OPEN
+    breaker_window_s: float = 30.0        # failure-rate decay window
+    breaker_cooldown_s: float = 5.0       # OPEN -> HALF_OPEN delay
+    breaker_half_open_probes: int = 1     # probes HALF_OPEN admits
 
     def __post_init__(self):
         if self.inflate_backend not in INFLATE_BACKENDS:
@@ -63,21 +90,20 @@ def resolve_inflate_backend(config: Optional[HBamConfig]) -> str:
     return "native" if backend == "auto" else backend
 
 
-# reference settings that change the drivers' results (which records
-# count, or whether a bad span raises) and that the port does not
+# reference settings that would change the drivers' results (which
+# records count, or whether a bad span raises) and that the port does not
 # implement, each with the test that its value is the reference's
-# default (the reference reads a falsy interval string as "no filter"
-# and io_read_retries <= 0 as "no read-level retries")
-UNSUPPORTED = {
-    "bam_intervals": lambda v: not v,
-    "skip_bad_spans": lambda v: not v,
-    "io_read_retries": lambda v: int(v or 0) <= 0,
-}
+# default; none is left
+UNSUPPORTED: Dict[str, Callable[[object], bool]] = {}
+
+# reference fields the port carries over as they are
+CARRIED = tuple(f.name for f in dataclasses.fields(HBamConfig))
 
 
 def config_from_dict(d: dict) -> HBamConfig:
-    """The port's config from a dict of reference config fields; every
-    decode plane name, "auto" and "device" included, carries over.
+    """The port's config from a dict of reference config fields: every
+    field of ``HBamConfig`` carries over as it is (every decode plane
+    name, "auto" and "device" included).
     Raises PlanError naming the field when the dict sets one of
     ``UNSUPPORTED`` to anything but its default: the drivers would
     otherwise return what the reference would not, with no sign that a
@@ -87,11 +113,7 @@ def config_from_dict(d: dict) -> HBamConfig:
             raise PlanError(f"reference setting {name}={d[name]!r} is not "
                             f"implemented by the port; leave it at its "
                             f"default")
-    return HBamConfig(
-        check_crc=bool(d.get("check_crc", DEFAULT_CONFIG.check_crc)),
-        inflate_backend=d.get("inflate_backend",
-                              DEFAULT_CONFIG.inflate_backend),
-        decode_pool_workers=d.get("decode_pool_workers"))
+    return HBamConfig(**{k: d[k] for k in CARRIED if k in d})
 
 
 def geometry_from_dict(d: dict):

@@ -9,12 +9,13 @@ records; each record starts with a 36-byte fixed prefix::
     next_pos i32 | tlen i32
 
 then read name, CIGAR, 4-bit packed bases, qualities and tags.
+``BamBatch`` is the columnar view the interval filter reads.
 """
 from __future__ import annotations
 
 import struct
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -115,3 +116,83 @@ def walk_record_offsets(buf, start: int = 0, end: Optional[int] = None
         offs.append(p)
         p += 4 + bs
     return np.asarray(offs, dtype=np.int64)
+
+
+def _gather_le(data: np.ndarray, offs: np.ndarray, nbytes: int, signed: bool
+               ) -> np.ndarray:
+    """Vectorized little-endian integer gather at arbitrary byte offsets."""
+    acc = np.zeros(offs.shape, dtype=np.uint64)
+    for i in range(nbytes):
+        acc |= data[offs + i].astype(np.uint64) << np.uint64(8 * i)
+    if signed:
+        bits = 8 * nbytes
+        acc = acc.astype(np.int64)
+        sign = np.int64(1) << np.int64(bits - 1)
+        return (acc ^ sign) - sign if nbytes < 8 else acc
+    return acc.astype(np.int64) if nbytes < 8 else acc
+
+
+class BamBatch:
+    """Structure-of-arrays view over the records of one inflated span: the
+    part of the reference's ``BamBatch`` (formats/bam.py:219) that the
+    interval filter reads.  Columns are gathered lazily from the bytes."""
+
+    def __init__(self, data: np.ndarray, offsets: np.ndarray,
+                 header: Optional[SAMHeader] = None):
+        self.data = np.asarray(data, dtype=np.uint8)
+        self.offsets = np.asarray(offsets, dtype=np.int64)
+        self.header = header
+        self._cache: Dict[str, np.ndarray] = {}
+
+    def __len__(self) -> int:
+        return int(self.offsets.size)
+
+    def _col(self, name: str, off: int, nbytes: int, signed: bool
+             ) -> np.ndarray:
+        if name not in self._cache:
+            self._cache[name] = _gather_le(self.data, self.offsets + off,
+                                           nbytes, signed)
+        return self._cache[name]
+
+    # fixed fields [SPEC layout offsets]
+    @property
+    def refid(self): return self._col("refid", 4, 4, True)
+    @property
+    def pos(self): return self._col("pos", 8, 4, True)
+    @property
+    def l_read_name(self): return self._col("l_read_name", 12, 1, False)
+    @property
+    def n_cigar(self): return self._col("n_cigar", 16, 2, False)
+    @property
+    def l_seq(self): return self._col("l_seq", 20, 4, True)
+
+    @property
+    def cigar_offset(self):
+        return self.offsets + FIXED_RECORD_PREFIX + self.l_read_name
+
+    def reference_span(self) -> np.ndarray:
+        """Per-record alignment span on the reference (bases consumed by
+        M/D/N/=/X CIGAR ops), vectorized over the ragged cigar arrays.
+        Records with a '*' CIGAR fall back to l_seq (htsjdk's convention
+        for computing an end when no cigar is present)."""
+        if "ref_span" in self._cache:
+            return self._cache["ref_span"]
+        counts = self.n_cigar.astype(np.int64)
+        total = int(counts.sum())
+        span = np.where(self.l_seq > 0, self.l_seq, 0).astype(np.int64)
+        if total:
+            firsts = np.cumsum(counts) - counts
+            flat = np.arange(total, dtype=np.int64) - np.repeat(firsts,
+                                                                counts)
+            offs = np.repeat(self.cigar_offset, counts) + 4 * flat
+            vals = _gather_le(self.data, offs, 4, False)
+            oplen = vals >> 4
+            op = vals & 0xF
+            consumes = (op == 0) | (op == 2) | (op == 3) | (op == 7) | \
+                (op == 8)
+            seg = np.repeat(np.arange(counts.size), counts)
+            cig_span = np.zeros(counts.size, dtype=np.int64)
+            np.add.at(cig_span, seg, (oplen * consumes).astype(np.int64))
+            span = np.where(counts > 0, cig_span, span)
+        self._cache["ref_span"] = span
+        return span

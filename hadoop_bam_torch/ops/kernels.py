@@ -18,7 +18,7 @@ import threading
 import time
 from typing import Dict, Iterable, Optional
 
-from hadoop_bam_torch.utils.errors import HBamError
+from hadoop_bam_torch.utils.errors import BackendError
 
 _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG_ROOT, "csrc")
@@ -54,11 +54,11 @@ _lock = threading.Lock()
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 
 
-class KernelBuildError(HBamError, RuntimeError):
+class KernelBuildError(BackendError):
     """nvcc is missing or refused a kernel source."""
 
 
-class KernelLaunchError(HBamError, RuntimeError):
+class KernelLaunchError(BackendError):
     """A kernel launch returned a CUDA error."""
 
 

@@ -16,13 +16,21 @@ whole inflated spans through the K1 gather kernel) and ``seq_stats_file``
 drivers run the device decode plane instead: the host only
 tokenizes, and LZ77 resolve, record walk, fixed-field unpack and the
 reduction run on the card (section "The device decode plane" below).
-Retry/quarantine, interval filters and fused streaming decode are later
-slices: a corrupt span raises its error class, on every plane.
+
+Every span decodes under the reference's failure policy
+(``decode_with_retry``): transient faults retry, corrupt spans demote
+along the device -> native -> zlib ladder (resilience/domains.py) and
+are quarantined or raised per ``skip_bad_spans``; ``bam_intervals``
+filters records on the host planes (``select_plane`` keeps the device
+plane off then).  Fused streaming decode is a later slice.
 """
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import dataclasses
+import logging
+import os
 from collections import deque
 from typing import (
     Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple,
@@ -36,7 +44,8 @@ from hadoop_bam_torch.config import (
 )
 from hadoop_bam_torch.device import DataAxis, data_axis
 from hadoop_bam_torch.formats import bgzf
-from hadoop_bam_torch.formats.bam import SAMHeader
+from hadoop_bam_torch.formats.bam import BAMError, BamBatch, SAMHeader
+from hadoop_bam_torch.formats.bamio import read_bam_header
 from hadoop_bam_torch.ops import inflate as inflate_ops
 from hadoop_bam_torch.ops.flagstat import FLAGSTAT_FIELDS, flagstat_vector
 from hadoop_bam_torch.ops.inflate_device import (
@@ -51,11 +60,27 @@ from hadoop_bam_torch.ops.unpack_bam import (
 from hadoop_bam_torch.parallel.staging import (
     FeedPipeline, StagingRing, TileSpec,
 )
+from hadoop_bam_torch.plan.executor import PlaneDecision, select_plane
+from hadoop_bam_torch.resilience import chaos
+from hadoop_bam_torch.resilience.domains import (
+    DemotionLadder, check_quarantine_gate, decode_ladder, quarantine_run_ok,
+)
+from hadoop_bam_torch.split.intervals import (
+    batch_overlap_mask, parse_intervals,
+)
 from hadoop_bam_torch.split.planners import iter_bam_spans
 from hadoop_bam_torch.split.spans import FileVirtualSpan
 from hadoop_bam_torch.utils import native
-from hadoop_bam_torch.utils.errors import CorruptDataError, PlanError
+from hadoop_bam_torch.utils.errors import (
+    CORRUPT, PLAN, TRANSIENT, CorruptDataError, PlanError, classify_error,
+)
+from hadoop_bam_torch.utils.metrics import METRICS
+from hadoop_bam_torch.utils.resilient import (
+    QuarantineManifest, RetryingByteSource, RetryPolicy, span_retry_policy,
+)
 from hadoop_bam_torch.utils.seekable import as_byte_source
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,15 +246,26 @@ def decode_span_host(source, span: FileVirtualSpan, geometry: DecodeGeometry,
     return data, offs.astype(np.int32), voffs
 
 
+def _interval_mask(data: np.ndarray, offs: np.ndarray, header, intervals
+                   ) -> np.ndarray:
+    """Row keep-mask of the interval filter: overlap of pos + CIGAR
+    reference span with any interval (split/intervals.py)."""
+    return batch_overlap_mask(
+        BamBatch(data, offs.astype(np.int64), header=header), intervals,
+        header)
+
+
 def decode_span_prefix_host(source, span: FileVirtualSpan,
                             check_crc: bool = False,
                             backend: str = "native",
                             projection: Tuple[str, ...] = ALL_FIELDS,
                             want_voffs: bool = True,
+                            intervals=None, header=None,
                             ) -> Tuple[np.ndarray, np.ndarray]:
     """Prefix mode: each owned record's projected prefix bytes packed
     densely.  Returns (rows[n, row_bytes] uint8, voffsets[n]).  The
-    native plane walks and packs in one C++ pass."""
+    native plane walks and packs in one C++ pass.  With ``intervals``,
+    only records overlapping one of them are kept."""
     row_bytes = projection_row_bytes(projection)
     ranges = projection_ranges(projection)
     walker = None
@@ -246,6 +282,11 @@ def decode_span_prefix_host(source, span: FileVirtualSpan,
         tile = data[offs[:, None] + np.arange(PREFIX)[None, :]] \
             if offs.size else np.empty((0, PREFIX), np.uint8)
         rows = np.concatenate([tile[:, o:o + w] for o, w in ranges], axis=1)
+    if intervals and offs.size:
+        keep = _interval_mask(data, offs, header, intervals)
+        rows = rows[keep]
+        if voffs.size:
+            voffs = voffs[keep]
     return rows, voffs
 
 
@@ -283,11 +324,13 @@ def decode_span_payload_host(source, span: FileVirtualSpan,
                              geometry: PayloadGeometry,
                              check_crc: bool = False,
                              backend: str = "native",
-                             want_voffs: bool = False):
+                             want_voffs: bool = False,
+                             intervals=None, header=None):
     """Payload mode: prefix + 4-bit seq + qual packed into dense rows.
     Returns (prefix[n, 36], seq[n, seq_stride], qual[n, qual_stride],
     voffsets[n]).  The native plane packs in one C++ pass
-    (hbam_walk_bam_payload)."""
+    (hbam_walk_bam_payload).  With ``intervals``, only records
+    overlapping one of them are kept."""
     g = geometry
     out: Dict[str, np.ndarray] = {}
     walker = None
@@ -305,8 +348,14 @@ def decode_span_payload_host(source, span: FileVirtualSpan,
         want_voffs=want_voffs)
     n = int(offs.size)
     if rows is not None:
-        return rows, out["seq"][:n], out["qual"][:n], voffs
-    prefix, seq, qual = _pack_payload_numpy(data, offs, g)
+        prefix, seq, qual = rows, out["seq"][:n], out["qual"][:n]
+    else:
+        prefix, seq, qual = _pack_payload_numpy(data, offs, g)
+    if intervals and n:
+        keep = _interval_mask(data, offs, header, intervals)
+        prefix, seq, qual = prefix[keep], seq[keep], qual[keep]
+        if voffs.size:
+            voffs = voffs[keep]
     return prefix, seq, qual, voffs
 
 
@@ -344,6 +393,198 @@ def _plan(path: str, header: Optional[SAMHeader], n_dev: int,
         size = src.size
     n_spans = max(n_dev, int(np.ceil(size / span_bytes)))
     return iter_bam_spans(path, num_spans=n_spans, header=header)
+
+
+# ---------------------------------------------------------------------------
+# Span failure policy, plane demotion and interval filters
+# ---------------------------------------------------------------------------
+
+def parse_config_intervals(config: HBamConfig, header):
+    """config.bam_intervals -> the parsed Interval list (None when unset).
+    A string that does not parse is a PlanError, as the reference's
+    planner makes it (split/planners.py:253-262)."""
+    if not config.bam_intervals:
+        return None
+    try:
+        return parse_intervals(config.bam_intervals,
+                               header.ref_names if header else None)
+    except ValueError as e:
+        raise PlanError(f"bad bam_intervals {config.bam_intervals!r}: "
+                        f"{e}") from e
+
+
+def _resilient_source(path, config: HBamConfig):
+    """What the decode stages read through: one source a driver call
+    (through any installed chaos), or one RetryingByteSource when
+    ``config.io_read_retries`` asks for read-level retries (backoff +
+    per-read deadline under the span grain).  The reference opens a
+    source per span; on an H100 machine one shared descriptor took
+    5-10% off the native plane's walls (PERF.md, measured with
+    ``chip_smoke.py --turns``)."""
+    if not isinstance(path, (str, os.PathLike)):
+        return path
+    r = int(config.io_read_retries or 0)
+    if r <= 0:
+        return as_byte_source(path)
+    return RetryingByteSource(path, RetryPolicy(
+        retries=r,
+        backoff_base_s=float(config.retry_backoff_base_s),
+        backoff_max_s=float(config.retry_backoff_max_s),
+        deadline_s=config.io_read_deadline_s))
+
+
+@contextlib.contextmanager
+def _reading(path, config: HBamConfig):
+    """``_resilient_source`` for the length of a driver call."""
+    src = _resilient_source(path, config)
+    try:
+        yield src
+    finally:
+        if src is not path:
+            src.close()
+
+
+def decode_with_retry(fn: Callable, span: FileVirtualSpan,
+                      config: HBamConfig,
+                      quarantine: Optional[QuarantineManifest] = None,
+                      policy: Optional[RetryPolicy] = None,
+                      ladder: Optional[DemotionLadder] = None):
+    """The span failure policy (the reference's, fault-classified by
+    utils/errors.classify_error):
+
+    - TRANSIENT: re-attempted up to ``config.span_retries`` times with
+      jittered exponential backoff (``policy`` injectable);
+    - CORRUPT: no re-decode on the same plane;
+    - PLAN (backend build/launch and CUDA faults included): raised.
+
+    With a ``ladder`` ``fn`` takes ``(span, plane)``, and a CORRUPT
+    failure on plane P re-decodes on the next plane down; P's fault
+    domain is charged only when that lower plane succeeds (if every
+    plane fails the bytes are bad and no domain is charged).  Once the
+    policy is spent, ``skip_bad_spans`` decides: raise, or record the
+    span in ``quarantine`` (checking its ``max_bad_span_fraction``
+    circuit) and return None.  Counters: ``pipeline.transient_retries``,
+    ``pipeline.corrupt_spans``, ``pipeline.span_demotions``, and
+    ``pipeline.bad_spans`` on a skip only."""
+    if policy is None:
+        policy = span_retry_policy(config)
+    last: Optional[BaseException] = None
+    kind = CORRUPT
+    attempts = 0
+    transient_tries = 0
+    plane = ladder.host_plane() if ladder is not None else None
+    blamed: List[Tuple[str, BaseException]] = []
+    while attempts <= policy.retries + len(blamed):
+        attempts += 1
+        try:
+            out = fn(span) if ladder is None else fn(span, plane)
+            if ladder is not None:
+                for bad_plane, exc in blamed:
+                    # a lower plane just decoded these bytes: the upper
+                    # plane's failure was its own
+                    ladder.confirm_failure(bad_plane, exc)
+                    METRICS.count("pipeline.span_demotions")
+                ladder.record_success(plane)
+            return out
+        except Exception as e:  # noqa: BLE001 -- policy boundary
+            last = e
+            kind = classify_error(e)
+            if kind == PLAN:
+                raise
+            if kind != TRANSIENT:
+                if ladder is not None:
+                    nxt = ladder.next_lower(plane)
+                    if nxt is not None and ladder.demotable(plane, e):
+                        logger.warning(
+                            "span %s failed on the %s plane (%s); "
+                            "re-decoding on %s", span, plane, e, nxt)
+                        blamed.append((plane, e))
+                        plane = nxt
+                        continue
+                METRICS.count("pipeline.corrupt_spans")
+                break
+            if transient_tries < policy.retries:
+                METRICS.count("pipeline.transient_retries")
+                d = policy.delay(transient_tries)
+                transient_tries += 1
+                policy.sleep(d)
+                continue
+            break
+    if config.skip_bad_spans:
+        METRICS.count("pipeline.bad_spans")
+        logger.warning("skipping bad span %s after %d attempt(s) [%s]: %s",
+                       span, attempts, kind, last)
+        if quarantine is not None:
+            quarantine.add(span, last, kind, attempts)
+            quarantine.check_circuit(config)  # may raise
+        return None
+    raise last
+
+
+def _span_policy(decode_fn: Callable, config: HBamConfig,
+                 quarantine: Optional[QuarantineManifest],
+                 ladder: Optional[DemotionLadder], host_backend: str,
+                 empty: Callable) -> Callable:
+    """``decode(span)`` of a host plane: ``decode_fn(span, plane)`` under
+    ``decode_with_retry`` along ``ladder``; a skipped span gives
+    ``empty()``.  The ``decode.native`` chaos point fires inside the
+    boundary on the native rung, so its faults retry and demote like
+    real ones."""
+    def inner(s, plane=None):
+        hb = host_backend if plane is None else plane
+        if hb == "native":
+            chaos.fire("decode.native", span=str(s))
+        return decode_fn(s, hb)
+
+    def decode(span):
+        out = decode_with_retry(inner, span, config, quarantine=quarantine,
+                                ladder=ladder)
+        return empty() if out is None else out
+    return decode
+
+
+def _attach_quarantine(result: Dict,
+                       quarantine: Optional[QuarantineManifest]) -> Dict:
+    """The manifest rides the result dict only when it is not empty, so
+    clean runs keep their exact result shape."""
+    if quarantine:
+        result["quarantine"] = quarantine.to_dicts()
+    return result
+
+
+def _planned(spans: Iterable[FileVirtualSpan], config: HBamConfig,
+             quarantine: Optional[QuarantineManifest]
+             ) -> Iterable[FileVirtualSpan]:
+    """The spans to decode, with ``quarantine.total_spans`` set to the
+    plan's length as the reference sets it.  Under ``skip_bad_spans``
+    the fraction circuit reads that total while the run goes on, so the
+    plan is listed first; otherwise the plan keeps streaming (later
+    boundaries are guessed while the first spans decode) and the total
+    is set once the last span has been handed out."""
+    if quarantine is None or quarantine.total_spans is not None:
+        return spans
+    if config.skip_bad_spans:
+        spans = list(spans)
+        quarantine.total_spans = len(spans)
+        return spans
+
+    def counted():
+        n = 0
+        for s in spans:
+            n += 1
+            yield s
+        if quarantine.total_spans is None:
+            quarantine.total_spans = n
+    return counted()
+
+
+def _header_for(path: str, header: Optional[SAMHeader],
+                config: HBamConfig) -> Optional[SAMHeader]:
+    """The header, read when an interval filter needs its reference
+    names and the caller gave none."""
+    if header is None and config.bam_intervals:
+        header, _ = read_bam_header(path)
+    return header
 
 
 def _copy_to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -499,13 +740,18 @@ class _TokenChunk:
                                self.span.end_voffset)
 
 
-def _tokenize_span_tokens(src, span: FileVirtualSpan,
+def _tokenize_span_tokens(source, span: FileVirtualSpan,
                           check_crc: bool = False) -> Optional[_TokenChunk]:
     """Host half of the device plane for one span: fetch, block table and
     the threaded native tokenize.  DEFLATE, ISIZE and CRC faults raise
     BGZFError here, as the host planes raise them.  None for an empty
-    span."""
-    raw, end_block_size, _ = _fetch_span_raw(src, span)
+    span.  ``source`` is a path (opened here) or an open ByteSource."""
+    src = as_byte_source(source)
+    try:
+        raw, end_block_size, _ = _fetch_span_raw(src, span)
+    finally:
+        if src is not source:
+            src.close()
     if not raw:
         return None
     table = inflate_ops.block_table(raw)
@@ -641,28 +887,37 @@ class _TokenRing:
 def _device_plane(path: str, axis: DataAxis, config: HBamConfig,
                   header: Optional[SAMHeader],
                   spans: Optional[Sequence[FileVirtualSpan]], prefetch: int,
-                  step: Callable) -> List[FileVirtualSpan]:
+                  step: Callable,
+                  quarantine: Optional[QuarantineManifest] = None
+                  ) -> List[FileVirtualSpan]:
     """Run every span's token chunk through ``step(tokens, n_tokens,
     isize, start, stop, P)`` (which keeps its own totals and returns the
     chunk's int32 [3] walk scalars) and return the spans the host must
-    finish.  Raises PlanError without the native tokenizer, BGZFError for
-    a bad block, CorruptDataError for a malformed record chain or a chunk
-    with more records than its capacity."""
+    finish.  Each span's fetch + tokenize runs under
+    ``decode_with_retry``; the ``device.step`` chaos point fires at each
+    chunk's step.  Raises PlanError without the native tokenizer,
+    BGZFError for a bad block, CorruptDataError for a malformed record
+    chain or a chunk with more records than its capacity."""
     require_tokenizer()
     if spans is None:
         spans = _plan(path, header, axis.n_dev, DEVICE_PLANE_SPAN_BYTES)
     ring = _TokenRing(pin_memory=axis.devices[0].type == "cuda")
     pending: List[Tuple[torch.Tensor, _TokenChunk, int]] = []
-    with as_byte_source(path) as src, cf.ThreadPoolExecutor(
-            config.pool_size(), thread_name_prefix="hbam-tokenize") as pool:
-        stream = iter_windowed(
-            pool, spans,
+
+    def tokenize(span):
+        return decode_with_retry(
             lambda s: _tokenize_span_tokens(src, s, config.check_crc),
-            max(1, prefetch) * config.pool_size())
+            span, config, quarantine=quarantine)
+
+    with _reading(path, config) as src, cf.ThreadPoolExecutor(
+            config.pool_size(), thread_name_prefix="hbam-tokenize") as pool:
+        stream = iter_windowed(pool, spans, tokenize,
+                               max(1, prefetch) * config.pool_size())
         try:
             for chunk in stream:
                 if chunk is None:
                     continue
+                chaos.fire("device.step", blocks=chunk.used)
                 dev = axis.devices[len(pending) % axis.n_dev]
                 walk = step(*ring.stage(chunk, dev), chunk.start, chunk.stop,
                             chunk.P)
@@ -691,31 +946,83 @@ def _device_plane(path: str, axis: DataAxis, config: HBamConfig,
     return fixups
 
 
+def _fixup_policy(decode_fn: Callable, config: HBamConfig,
+                  quarantine: Optional[QuarantineManifest],
+                  empty: Callable) -> Callable:
+    """``decode(span)`` of the device plane's host fixups: the native
+    plane under ``decode_with_retry``, with no ladder and no chaos point
+    (the reference's fixup decode)."""
+    def decode(span):
+        out = decode_with_retry(lambda s: decode_fn(s, "native"), span,
+                                config, quarantine=quarantine)
+        return empty() if out is None else out
+    return decode
+
+
+def _device_data_fault(exc: BaseException) -> bool:
+    """May a device-plane failure demote?  Only the data faults the
+    plane's own checks raise: a bad block or record chain
+    (CorruptDataError, BAMError) or a read that failed (TRANSIENT).
+    Anything else -- a kernel wrapper refusing its inputs, a device
+    mismatch, a CUDA fault, a bug -- is the port's own and raises, since
+    moving the work to the host would hide it (a deliberate difference:
+    the reference demotes every non-PLAN fault)."""
+    if isinstance(exc, (CorruptDataError, BAMError)):
+        return True
+    return classify_error(exc) == TRANSIENT
+
+
+def _run_planes(path: str, config: HBamConfig,
+                decision: PlaneDecision, ladder: Optional[DemotionLadder],
+                device_run: Callable, host_run: Callable):
+    """The plane sequence of both drivers: the device plane when
+    ``decision`` selected it, demoted to the host planes on a data fault
+    (``_device_data_fault``), with the device domain charged only after
+    the host run completes (oracle confirmation)."""
+    device_blame: Optional[BaseException] = None
+    if decision.plane == "device":
+        try:
+            out = device_run()
+            if ladder is not None:
+                ladder.record_success("device")
+            quarantine_run_ok(path, config)
+            return out
+        except Exception as e:  # noqa: BLE001 -- plane policy boundary
+            if (ladder is None or not _device_data_fault(e)
+                    or not ladder.demotable("device", e)):
+                raise
+            logger.warning("device decode plane failed (%s: %s); "
+                           "demoting to the host planes for %s",
+                           type(e).__name__, e, path)
+            device_blame = e
+    out = host_run()
+    if device_blame is not None:
+        ladder.confirm_failure("device", device_blame)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Drivers
 # ---------------------------------------------------------------------------
 
-def iter_payload_tile_groups(path: str, spans: Sequence[FileVirtualSpan],
-                             geometry: PayloadGeometry, axis: DataAxis,
-                             dispatch_fn: Callable,
-                             config: HBamConfig = DEFAULT_CONFIG,
-                             prefetch: int = 2) -> int:
-    """Decode spans on the pool, pack (prefix, seq, qual) row tiles and
-    hand each group to ``dispatch_fn(tensors, counts)`` (the FeedPipeline
-    contract).  Returns the number of groups."""
+def _payload_empty(geometry: PayloadGeometry) -> Callable:
     widths = (PREFIX, geometry.seq_stride, geometry.qual_stride)
-    backend = config.host_backend
+    return lambda: tuple(np.empty((0, w), np.uint8) for w in widths)
 
-    def decode(span):
-        prefix, seq, qual, _ = decode_span_payload_host(
-            src, span, geometry, config.check_crc, backend)
-        return prefix, seq, qual
 
+def _feed_payload(spans: Iterable[FileVirtualSpan],
+                  geometry: PayloadGeometry, axis: DataAxis,
+                  dispatch_fn: Callable, config: HBamConfig, prefetch: int,
+                  decode: Callable) -> int:
+    """``decode(span)`` -> (prefix, seq, qual) on the pool, packed into
+    row tiles and handed to ``dispatch_fn(tensors, counts)`` (the
+    FeedPipeline contract).  Returns the number of groups."""
+    widths = (PREFIX, geometry.seq_stride, geometry.qual_stride)
     fp = FeedPipeline(axis.n_dev, geometry.tile_records,
                       [TileSpec((w,), np.uint8) for w in widths],
                       block_n=geometry.block_n,
                       pin_memory=axis.devices[0].type == "cuda")
-    with as_byte_source(path) as src, cf.ThreadPoolExecutor(
+    with cf.ThreadPoolExecutor(
             config.pool_size(), thread_name_prefix="hbam-decode") as pool:
         stream = iter_windowed(pool, spans, decode,
                                max(1, prefetch) * config.pool_size())
@@ -725,11 +1032,43 @@ def iter_payload_tile_groups(path: str, spans: Sequence[FileVirtualSpan],
             stream.close()
 
 
-def _seq_stats_tiles(path: str, axis: DataAxis, config: HBamConfig,
-                     geometry: PayloadGeometry,
-                     spans: Sequence[FileVirtualSpan], prefetch: int,
-                     totals: "_StatTotals") -> None:
-    """Host-plane payload tiles through K2, added into ``totals``."""
+def iter_payload_tile_groups(path: str, spans: Iterable[FileVirtualSpan],
+                             geometry: PayloadGeometry, axis: DataAxis,
+                             dispatch_fn: Callable,
+                             config: HBamConfig = DEFAULT_CONFIG,
+                             prefetch: int = 2, header=None,
+                             quarantine: Optional[QuarantineManifest] = None
+                             ) -> int:
+    """Decode spans on the pool under the span failure policy (retry,
+    the native -> zlib ladder, quarantine; intervals applied), pack
+    (prefix, seq, qual) row tiles and hand each group to
+    ``dispatch_fn(tensors, counts)``.  Sheds at the file's quarantine
+    gate first; heals a half-open gate once every span is through.
+    Returns the number of groups."""
+    intervals = parse_config_intervals(config, header)
+    check_quarantine_gate(path, config)
+    spans = _planned(spans, config, quarantine)
+    decision = select_plane(config, intervals=intervals)
+    ladder = decode_ladder(path, decision.backend, config) \
+        if config.adaptive_planes else None
+
+    def payload(span, backend):
+        return decode_span_payload_host(
+            src, span, geometry, config.check_crc, backend,
+            intervals=intervals, header=header)[:3]
+
+    with _reading(path, config) as src:
+        groups = _feed_payload(
+            spans, geometry, axis, dispatch_fn, config, prefetch,
+            _span_policy(payload, config, quarantine, ladder,
+                         decision.host_backend, _payload_empty(geometry)))
+    quarantine_run_ok(path, config)
+    return groups
+
+
+def _stats_dispatch(axis: DataAxis, geometry: PayloadGeometry,
+                    totals: "_StatTotals") -> Callable:
+    """Payload tile groups through K2, added into ``totals``."""
     def dispatch(tensors, counts):
         parts = []
         copies = _CopiesDone()
@@ -741,9 +1080,38 @@ def _seq_stats_tiles(path: str, axis: DataAxis, config: HBamConfig,
         totals.add(axis.sum([p[0] for p in parts]),
                    axis.sum([p[1] for p in parts]))
         return copies.handle()
+    return dispatch
 
-    iter_payload_tile_groups(path, spans, geometry, axis, dispatch, config,
-                             prefetch)
+
+def _seq_stats_device(path: str, axis: DataAxis, config: HBamConfig,
+                      geometry: PayloadGeometry, header,
+                      spans: Optional[Sequence[FileVirtualSpan]],
+                      prefetch: int,
+                      quarantine: Optional[QuarantineManifest]):
+    """seq_stats on the device decode plane: token chunks through
+    K7+K8, K9, K1, K10p and K2; cut tails and over-wide spans through
+    the host payload path."""
+    totals = _StatTotals()
+
+    def step(tokens, n_tokens, isize, start, stop, P):
+        fvec, ivec, walk = device_seq_stats_step(
+            tokens, n_tokens, isize, start, stop, geometry, P)
+        totals.add(fvec.to(axis.devices[0]), ivec.to(axis.devices[0]))
+        return walk
+
+    fixups = _device_plane(path, axis, config, header, spans, prefetch,
+                           step, quarantine)
+    if fixups:
+        def payload(span, backend):
+            return decode_span_payload_host(src, span, geometry,
+                                            config.check_crc, backend)[:3]
+
+        with _reading(path, config) as src:
+            _feed_payload(fixups, geometry, axis,
+                          _stats_dispatch(axis, geometry, totals), config,
+                          prefetch, _fixup_policy(payload, config, quarantine,
+                                                  _payload_empty(geometry)))
+    return _attach_quarantine(_payload_stats_result(totals), quarantine)
 
 
 def seq_stats_file(path: str, device=None,
@@ -751,46 +1119,60 @@ def seq_stats_file(path: str, device=None,
                    geometry: Optional[PayloadGeometry] = None,
                    header: Optional[SAMHeader] = None,
                    spans: Optional[Sequence[FileVirtualSpan]] = None,
-                   prefetch: int = 2) -> Dict[str, object]:
+                   prefetch: int = 2,
+                   quarantine: Optional[QuarantineManifest] = None
+                   ) -> Dict[str, object]:
     """Sequence/quality stats over a whole BAM: mean GC fraction, mean
     per-read quality and the 4-bit base-code histogram, computed by the
     K2 kernel on each device of the axis (``cuda:0`` unless ``device``
     says otherwise).  On the device decode plane the payload tiles are
-    cut from the inflated bytes on the card (K7+K8, K9, K1, K10p)."""
+    cut from the inflated bytes on the card (K7+K8, K9, K1, K10p).
+
+    The reference's sequence: plane selection (``select_plane``, the
+    device breaker consulted last), the quarantine gate and the device
+    plane when selected, demotion to the host planes on a demotable
+    fault, the host run (gate, span policy, ``quarantine_run_ok``), then
+    the device blame.  A non-empty ``quarantine`` rides the result."""
     axis = data_axis(device)
     geometry = geometry if geometry is not None else PayloadGeometry()
-    totals = _StatTotals()
-    if resolve_inflate_backend(config) == "device":
-        def step(tokens, n_tokens, isize, start, stop, P):
-            fvec, ivec, walk = device_seq_stats_step(
-                tokens, n_tokens, isize, start, stop, geometry, P)
-            totals.add(fvec.to(axis.devices[0]), ivec.to(axis.devices[0]))
-            return walk
+    spans = list(spans) if spans is not None else None
+    header = _header_for(path, header, config)
+    intervals = parse_config_intervals(config, header)
+    ladder = decode_ladder(path, resolve_inflate_backend(config), config) \
+        if config.adaptive_planes else None
+    decision = select_plane(config, intervals=intervals, ladder=ladder)
+    if decision.plane == "device":
+        check_quarantine_gate(path, config)
 
-        spans = _device_plane(path, axis, config, header, spans, prefetch,
-                              step)
-    elif spans is None:
-        spans = _plan(path, header, axis.n_dev, 8 << 20)
-    if spans:
-        _seq_stats_tiles(path, axis, config, geometry, spans, prefetch,
-                         totals)
-    return _payload_stats_result(totals)
+    def host_run():
+        nonlocal quarantine
+        host_spans = spans if spans is not None \
+            else _plan(path, header, axis.n_dev, 8 << 20)
+        totals = _StatTotals()
+        if quarantine is None:
+            quarantine = QuarantineManifest()
+        iter_payload_tile_groups(path, host_spans, geometry, axis,
+                                 _stats_dispatch(axis, geometry, totals),
+                                 config, prefetch, header=header,
+                                 quarantine=quarantine)
+        return _attach_quarantine(_payload_stats_result(totals), quarantine)
+
+    return _run_planes(
+        path, config, decision, ladder,
+        lambda: _seq_stats_device(path, axis, config, geometry, header,
+                                  spans, prefetch, quarantine),
+        host_run)
 
 
-def _flagstat_tiles(path: str, axis: DataAxis, config: HBamConfig,
+def _flagstat_tiles(axis: DataAxis, config: HBamConfig,
                     geometry: DecodeGeometry,
-                    spans: Sequence[FileVirtualSpan], prefetch: int
-                    ) -> Optional[torch.Tensor]:
-    """Projected-row tiles: 11 bytes per record cross the link."""
+                    spans: Iterable[FileVirtualSpan], prefetch: int,
+                    decode: Callable) -> Optional[torch.Tensor]:
+    """Projected-row tiles (``decode(span)`` -> rows): 11 bytes per
+    record cross the link."""
     projection = FLAGSTAT_PROJECTION
     row_bytes = projection_row_bytes(projection)
     total: List[Optional[torch.Tensor]] = [None]
-
-    def decode(span):
-        rows, _ = decode_span_prefix_host(
-            src, span, config.check_crc, config.host_backend,
-            projection, want_voffs=False)
-        return (rows,)
 
     def dispatch(tensors, counts):
         parts = []
@@ -807,9 +1189,9 @@ def _flagstat_tiles(path: str, axis: DataAxis, config: HBamConfig,
     fp = FeedPipeline(axis.n_dev, geometry.tile_records,
                       [TileSpec((row_bytes,), np.uint8)],
                       pin_memory=axis.devices[0].type == "cuda")
-    with as_byte_source(path) as src, cf.ThreadPoolExecutor(
+    with cf.ThreadPoolExecutor(
             config.pool_size(), thread_name_prefix="hbam-decode") as pool:
-        stream = iter_windowed(pool, spans, decode,
+        stream = iter_windowed(pool, spans, lambda s: (decode(s),),
                                max(1, prefetch) * config.pool_size())
         try:
             fp.feed(stream, dispatch)
@@ -818,27 +1200,49 @@ def _flagstat_tiles(path: str, axis: DataAxis, config: HBamConfig,
     return total[0]
 
 
+def _flagstat_rows(src, config: HBamConfig, intervals=None, header=None
+                   ) -> Callable:
+    """``rows(span, backend)``: a span's flagstat-projection rows."""
+    def rows(span, backend):
+        return decode_span_prefix_host(
+            src, span, config.check_crc, backend, FLAGSTAT_PROJECTION,
+            want_voffs=False, intervals=intervals, header=header)[0]
+    return rows
+
+
+def _flagstat_empty():
+    return np.empty((0, projection_row_bytes(FLAGSTAT_PROJECTION)),
+                    np.uint8)
+
+
 def _flagstat_spans(path: str, axis: DataAxis, config: HBamConfig,
                     geometry: DecodeGeometry,
-                    spans: Sequence[FileVirtualSpan], prefetch: int
+                    spans: Iterable[FileVirtualSpan], prefetch: int,
+                    quarantine: QuarantineManifest
                     ) -> Optional[torch.Tensor]:
     """Span mode: each span's inflated bytes and record offsets go to the
     device whole, padded to the geometry (D = bytes_cap, N = records_cap,
     the reference's static span-batch shapes), and the K1 kernel gathers
-    the fixed fields there."""
+    the fixed fields there.  Spans decode under the span failure policy
+    and the native -> zlib ladder."""
     g = geometry
     ring = StagingRing(1, 1, [TileSpec((g.bytes_cap,), np.uint8),
                               TileSpec((g.records_cap,), np.int32)],
                        pin_memory=axis.devices[0].type == "cuda")
     parts: List[Optional[torch.Tensor]] = [None] * axis.n_dev
+    ladder = decode_ladder(path, config.host_backend, config) \
+        if config.adaptive_planes else None
 
-    def decode(span):
+    def span_bytes(span, backend):
         data, offs, _ = decode_span_host(src, span, g, config.check_crc,
-                                         config.host_backend)
+                                         backend)
         return data, offs
 
-    with as_byte_source(path) as src, cf.ThreadPoolExecutor(
+    with _reading(path, config) as src, cf.ThreadPoolExecutor(
             config.pool_size(), thread_name_prefix="hbam-decode") as pool:
+        decode = _span_policy(
+            span_bytes, config, quarantine, ladder, config.host_backend,
+            lambda: (np.empty(0, np.uint8), np.empty(0, np.int32)))
         stream = iter_windowed(pool, spans, decode,
                                max(1, prefetch) * config.pool_size())
         try:
@@ -872,12 +1276,56 @@ def _flagstat_spans(path: str, axis: DataAxis, config: HBamConfig,
     return axis.sum(live) if live else None
 
 
+def _flagstat_device(path: str, axis: DataAxis, config: HBamConfig,
+                     geometry: DecodeGeometry, header,
+                     spans: Optional[Sequence[FileVirtualSpan]],
+                     prefetch: int,
+                     quarantine: Optional[QuarantineManifest]
+                     ) -> Optional[torch.Tensor]:
+    """flagstat counters on the device decode plane: token chunks that
+    the card resolves, walks, unpacks and reduces; cut tails and
+    over-wide spans through the host projected-row path."""
+    parts: List[torch.Tensor] = []
+
+    def step(tokens, n_tokens, isize, start, stop, P):
+        counts, walk = device_flagstat_step(tokens, n_tokens, isize,
+                                            start, stop, P)
+        counts = counts.to(axis.devices[0])
+        parts[:] = [counts + parts[0] if parts else counts]
+        return walk
+
+    fixups = _device_plane(path, axis, config, header, spans, prefetch,
+                           step, quarantine)
+    vec = parts[0] if parts else None
+    if fixups:
+        with _reading(path, config) as src:
+            host = _flagstat_tiles(
+                axis, config, geometry, fixups, prefetch,
+                _fixup_policy(_flagstat_rows(src, config), config,
+                              quarantine, _flagstat_empty))
+        if host is not None:
+            vec = host if vec is None else vec + host
+    return vec
+
+
+def _flagstat_result(vec: Optional[torch.Tensor],
+                     quarantine: Optional[QuarantineManifest]
+                     ) -> Dict[str, int]:
+    host = np.zeros(len(FLAGSTAT_FIELDS), np.int64) if vec is None \
+        else vec.cpu().numpy()
+    return _attach_quarantine(
+        {k: int(host[i]) for i, k in enumerate(FLAGSTAT_FIELDS)},
+        quarantine)
+
+
 def flagstat_file(path: str, device=None,
                   config: HBamConfig = DEFAULT_CONFIG,
                   geometry: Optional[DecodeGeometry] = None,
                   header: Optional[SAMHeader] = None,
                   spans: Optional[Sequence[FileVirtualSpan]] = None,
-                  prefetch: int = 2, mode: str = "tile") -> Dict[str, int]:
+                  prefetch: int = 2, mode: str = "tile",
+                  quarantine: Optional[QuarantineManifest] = None
+                  ) -> Dict[str, int]:
     """samtools-style flagstat over a whole BAM: plan -> inflate -> pack
     -> device reduce, on ``cuda:0`` unless ``device`` says otherwise.
 
@@ -887,37 +1335,59 @@ def flagstat_file(path: str, device=None,
     inflated spans and gathers the fixed fields on the device with the K1
     kernel (the reference's span-mode step), planning smaller spans to
     fit ``geometry.bytes_cap``; it inflates on the host whatever the
-    plane."""
+    plane, and has no interval filter (PlanError).
+
+    The reference's sequence: the file's quarantine gate, plane
+    selection (the device breaker consulted last), the device plane when
+    selected, demotion to the host planes on a demotable fault, the host
+    run under the span failure policy, the device blame, then
+    ``quarantine_run_ok``.  A non-empty ``quarantine`` rides the
+    result."""
     axis = data_axis(device)
     geometry = geometry if geometry is not None else DecodeGeometry()
-    if mode == "tile":
-        vec = None
-        if resolve_inflate_backend(config) == "device":
-            parts: List[torch.Tensor] = []
-
-            def step(tokens, n_tokens, isize, start, stop, P):
-                counts, walk = device_flagstat_step(tokens, n_tokens, isize,
-                                                    start, stop, P)
-                counts = counts.to(axis.devices[0])
-                parts[:] = [counts + parts[0] if parts else counts]
-                return walk
-
-            spans = _device_plane(path, axis, config, header, spans,
-                                  prefetch, step)
-            vec = parts[0] if parts else None
-        elif spans is None:
-            spans = _plan(path, header, axis.n_dev, 4 << 20)
-        if spans:
-            host = _flagstat_tiles(path, axis, config, geometry, spans,
-                                   prefetch)
-            if host is not None:
-                vec = host if vec is None else vec + host
-    elif mode == "span":
+    if mode not in ("tile", "span"):
+        raise PlanError(f"unknown flagstat mode {mode!r}")
+    if mode == "span" and config.bam_intervals:
+        raise PlanError("flagstat mode='span' has no interval filter; use "
+                        "mode='tile' with bam_intervals")
+    spans = list(spans) if spans is not None else None
+    check_quarantine_gate(path, config)
+    if mode == "span":
         if spans is None:
             spans = _plan(path, header, axis.n_dev, geometry.bytes_cap // 8)
-        vec = _flagstat_spans(path, axis, config, geometry, spans, prefetch)
-    else:
-        raise PlanError(f"unknown flagstat mode {mode!r}")
-    host = np.zeros(len(FLAGSTAT_FIELDS), np.int64) if vec is None \
-        else vec.cpu().numpy()
-    return {k: int(host[i]) for i, k in enumerate(FLAGSTAT_FIELDS)}
+        if quarantine is None:
+            quarantine = QuarantineManifest()
+        vec = _flagstat_spans(path, axis, config, geometry,
+                              _planned(spans, config, quarantine), prefetch,
+                              quarantine)
+        quarantine_run_ok(path, config)
+        return _flagstat_result(vec, quarantine)
+
+    header = _header_for(path, header, config)
+    intervals = parse_config_intervals(config, header)
+    ladder = decode_ladder(path, resolve_inflate_backend(config), config) \
+        if config.adaptive_planes else None
+    decision = select_plane(config, intervals=intervals, ladder=ladder)
+
+    def host_run():
+        nonlocal quarantine
+        host_spans = spans if spans is not None \
+            else _plan(path, header, axis.n_dev, 4 << 20)
+        if quarantine is None:
+            quarantine = QuarantineManifest()
+        with _reading(path, config) as src:
+            vec = _flagstat_tiles(
+                axis, config, geometry,
+                _planned(host_spans, config, quarantine), prefetch,
+                _span_policy(_flagstat_rows(src, config, intervals, header),
+                             config, quarantine, ladder,
+                             decision.host_backend, _flagstat_empty))
+        quarantine_run_ok(path, config)
+        return _flagstat_result(vec, quarantine)
+
+    return _run_planes(
+        path, config, decision, ladder,
+        lambda: _flagstat_result(
+            _flagstat_device(path, axis, config, geometry, header, spans,
+                             prefetch, quarantine), quarantine),
+        host_run)

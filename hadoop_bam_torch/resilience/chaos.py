@@ -1,0 +1,167 @@
+"""Named chaos fault points past the byte-source layer, with seeded
+schedules (trimmed copy of hadoop_bam_tpu/resilience/chaos.py).
+
+An instrumented call site calls ``fire(point)``: one load of a module
+global when nothing is installed; otherwise the point's schedule may
+raise or delay.  ``KNOWN_POINTS`` is the reference's list; the port
+instruments two of them:
+
+========================  =================================================
+point                     instrumented at (``parallel/pipeline.py``)
+========================  =================================================
+``decode.native``         the ladder-aware host span decode closures,
+                          native rung only, inside the retry boundary
+``device.step``           each token chunk's device step on the device
+                          decode plane
+========================  =================================================
+
+Faults raise the taxonomy (``TransientIOError`` for "transient",
+``CorruptDataError`` for "corrupt", ``ConnectionResetError`` for
+"disconnect"), so every policy boundary treats them like real ones.  A
+``PointFault`` fires by 0-based call index (``at_call``) with a firing
+``count`` budget; ``seeded_point_faults`` derives the indices from one
+integer seed, so a seed reproduces its fault timeline.
+"""
+from __future__ import annotations
+
+import dataclasses
+import random
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Sequence
+
+from hadoop_bam_torch.utils.errors import CorruptDataError, TransientIOError
+from hadoop_bam_torch.utils.metrics import METRICS
+
+KNOWN_POINTS = ("pool.submit", "pool.task", "decode.native",
+                "device.step", "write.deflate", "serve.transport",
+                "serve.peer")
+
+@dataclasses.dataclass
+class PointFault:
+    """One scheduled fault at a named point.  ``at_call`` matches the
+    point's 0-based call index (None = every call); ``count`` is the
+    firing budget, shared across threads hitting the point."""
+
+    kind: str                       # transient|corrupt|disconnect|delay
+    at_call: Optional[int] = None
+    count: int = 1
+    delay_s: float = 0.005
+
+
+class _PointState:
+    def __init__(self, faults: Sequence[PointFault],
+                 sleep: Callable[[float], None]):
+        self.faults = list(faults)
+        self.sleep = sleep
+        self.calls = 0
+        self.fired: Dict[str, int] = {}
+
+
+_LOCK = threading.Lock()
+_POINTS: Dict[str, _PointState] = {}
+# fast path: None unless at least one point is installed, so `fire`
+# costs a single global load on production paths
+_ACTIVE: Optional[Dict[str, _PointState]] = None
+
+
+def install_fault_points(point: str, faults: Sequence[PointFault],
+                         sleep: Callable[[float], None] = time.sleep
+                         ) -> None:
+    """Arm ``point`` with a fault schedule (replacing any existing one).
+    Unknown point names are accepted — a test may instrument its own —
+    but the production sites are ``KNOWN_POINTS``."""
+    global _ACTIVE
+    with _LOCK:
+        _POINTS[str(point)] = _PointState(faults, sleep)
+        _ACTIVE = _POINTS
+
+
+def clear_fault_points(point: Optional[str] = None) -> None:
+    global _ACTIVE
+    with _LOCK:
+        if point is None:
+            _POINTS.clear()
+        else:
+            _POINTS.pop(str(point), None)
+        if not _POINTS:
+            _ACTIVE = None
+
+
+def injected_counts(point: str) -> Dict[str, int]:
+    """Faults fired so far at ``point``, by kind (test assertions)."""
+    with _LOCK:
+        st = _POINTS.get(point)
+        return dict(st.fired) if st is not None else {}
+
+
+class fault_points_on:
+    """``with fault_points_on(point, faults):`` — scoped install."""
+
+    def __init__(self, point: str, faults: Sequence[PointFault],
+                 sleep: Callable[[float], None] = time.sleep):
+        self._point = point
+        install_fault_points(point, faults, sleep)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        clear_fault_points(self._point)
+
+
+def fire(point: str, **ctx) -> None:
+    """The instrumented-site call: no-op (one global load) when no
+    chaos is installed; otherwise consult ``point``'s schedule and
+    raise/delay per the matching fault."""
+    active = _ACTIVE
+    if active is None:
+        return
+    with _LOCK:
+        st = active.get(point)
+        if st is None:
+            return
+        idx = st.calls
+        st.calls += 1
+        hits: List[PointFault] = []
+        for f in st.faults:
+            if f.count <= 0:
+                continue
+            if f.at_call is not None and idx != f.at_call:
+                continue
+            f.count -= 1
+            st.fired[f.kind] = st.fired.get(f.kind, 0) + 1
+            METRICS.count("chaos.point_faults")
+            METRICS.count(f"chaos.{point}.{f.kind}")
+            hits.append(f)
+        sleep = st.sleep
+    for f in hits:
+        if f.kind == "delay":
+            sleep(f.delay_s)
+    for f in hits:
+        if f.kind == "transient":
+            raise TransientIOError(
+                f"injected transient fault at {point} (call {idx})")
+        if f.kind == "corrupt":
+            raise CorruptDataError(
+                f"injected corrupt fault at {point} (call {idx})")
+        if f.kind == "disconnect":
+            raise ConnectionResetError(
+                f"injected disconnect at {point} (call {idx})")
+
+
+def seeded_point_faults(seed: int, point: str, kinds: Sequence[str],
+                        n_faults: int, max_call: int = 64,
+                        delay_s: float = 0.005) -> List[PointFault]:
+    """A deterministic fault schedule for ``point`` derived from
+    ``seed``: ``n_faults`` single-shot faults at distinct call indices
+    in ``[0, max_call)``, kinds cycled from the seeded shuffle.  Same
+    (seed, point, args) -> same schedule, every run, every host."""
+    rng = random.Random(f"{int(seed)}:{point}")
+    n = min(int(n_faults), int(max_call))
+    calls = rng.sample(range(int(max_call)), n)
+    ks = list(kinds)
+    rng.shuffle(ks)
+    return [PointFault(kind=ks[i % len(ks)], at_call=c, count=1,
+                       delay_s=delay_s)
+            for i, c in enumerate(sorted(calls))]

@@ -1,0 +1,276 @@
+"""Fault domains and the decode-plane demotion ladder (copy of
+hadoop_bam_tpu/resilience/domains.py, less the flight-recorder dump).
+
+A *fault domain* is one ``(subsystem, backend, file_identity)`` triple
+-- e.g. ``("decode", "native", <abspath of f.bam>)`` -- holding a
+half-open ``CircuitBreaker`` over a decayed failure window.
+
+``DemotionLadder``: every decode plane of ``device -> native -> zlib``
+returns the same results, so when one plane's breaker opens, the run
+demotes to the next plane and keeps returning correct answers; after
+the cooldown a half-open probe retries the faster plane and heals it.
+Blame is only **confirmed on the oracle**: a span that fails on plane P
+counts against P's domain only when a lower plane decodes the same bytes
+(if every plane fails, the data is bad and no domain is charged).
+
+``registry()`` is what the drivers consult; ``reset()`` restores a
+pristine state (tests).  The domain count is bounded (LRU).
+"""
+from __future__ import annotations
+
+import os
+import threading
+import time
+from collections import OrderedDict
+from typing import Callable, Dict, Optional, Tuple
+
+from hadoop_bam_torch.resilience.breaker import CircuitBreaker
+from hadoop_bam_torch.utils.errors import (
+    CircuitBreakerError, PLAN, classify_error,
+)
+from hadoop_bam_torch.utils.metrics import METRICS
+
+# fast -> safe; every rung is byte-identical, each one slower and more
+# battle-tested than the one above it
+PLANES = ("device", "native", "zlib")
+
+_MAX_DOMAINS = 256          # LRU bound on tracked domains
+
+
+def file_ident(path) -> str:
+    """Domain key component for a path-ish input: the absolute path.
+    (Identity by abspath, not (size, mtime): a fault domain should
+    survive the file being atomically republished — the environment
+    around the path is what faults, and a healed republish closes the
+    breaker through the normal half-open probe.)"""
+    if isinstance(path, (str, os.PathLike)):
+        return os.path.abspath(os.fspath(path))
+    return repr(path)
+
+
+class FaultDomain:
+    """One (subsystem, backend, ident) tracker: breaker + counters."""
+
+    def __init__(self, key: Tuple[str, str, str], config=None,
+                 clock: Callable[[], float] = time.monotonic):
+        self.key = key
+        self.breaker = CircuitBreaker(
+            failure_threshold=float(getattr(
+                config, "breaker_failure_threshold", 3.0)),
+            window_s=float(getattr(config, "breaker_window_s", 30.0)),
+            cooldown_s=float(getattr(config, "breaker_cooldown_s", 5.0)),
+            half_open_probes=int(getattr(
+                config, "breaker_half_open_probes", 1)),
+            clock=clock, name="/".join(key[:2]))
+        self.failures_total = 0
+        self.successes_total = 0
+
+    def record_failure(self, exc: Optional[BaseException] = None,
+                       weight: float = 1.0) -> None:
+        self.failures_total += 1
+        METRICS.count("resilience.domain_failures")
+        self.breaker.record_failure(weight)
+
+    def record_success(self) -> None:
+        self.successes_total += 1
+        self.breaker.record_success()
+
+    def snapshot(self) -> dict:
+        d = self.breaker.snapshot()
+        d.update(subsystem=self.key[0], backend=self.key[1],
+                 failures_total=self.failures_total,
+                 successes_total=self.successes_total)
+        return d
+
+
+class FaultDomainRegistry:
+    """Process-wide domain table (module docstring)."""
+
+    def __init__(self, clock: Callable[[], float] = time.monotonic):
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._domains: "OrderedDict[Tuple, FaultDomain]" = OrderedDict()
+
+    @property
+    def clock(self) -> Callable[[], float]:
+        return self._clock
+
+    def domain(self, subsystem: str, backend: str, ident: str,
+               config=None) -> FaultDomain:
+        key = (str(subsystem), str(backend), str(ident))
+        with self._lock:
+            d = self._domains.get(key)
+            if d is not None:
+                self._domains.move_to_end(key)
+                return d
+            while len(self._domains) >= _MAX_DOMAINS:
+                self._domains.popitem(last=False)
+            d = FaultDomain(key, config=config, clock=self._clock)
+            self._domains[key] = d
+            return d
+
+    def states(self) -> Dict[str, dict]:
+        """Health-surface snapshot: domain key string -> breaker state
+        (only NON-TRIVIAL domains: something recorded or non-closed)."""
+        with self._lock:
+            items = list(self._domains.items())
+        out: Dict[str, dict] = {}
+        for key, d in items:
+            snap = d.snapshot()
+            if d.failures_total or snap["state"] != "closed":
+                out["/".join(key)] = snap
+        return out
+
+    def reset(self, clock: Optional[Callable[[], float]] = None) -> None:
+        with self._lock:
+            self._domains.clear()
+            if clock is not None:
+                self._clock = clock
+
+
+_REGISTRY = FaultDomainRegistry()
+
+
+def registry() -> FaultDomainRegistry:
+    return _REGISTRY
+
+
+def reset(clock: Optional[Callable[[], float]] = None) -> None:
+    """Restore pristine process state (tests): domains, breakers, and —
+    when given — the registry clock for fake-time transition tests."""
+    _REGISTRY.reset(clock=clock if clock is not None else time.monotonic)
+
+
+# ---------------------------------------------------------------------------
+# Decode-backend demotion ladder
+# ---------------------------------------------------------------------------
+
+class DemotionLadder:
+    """Adaptive plane selection for ONE file's decode (module
+    docstring).  Thread-safe: pool workers decoding spans concurrently
+    share one ladder per driver call.
+
+    - ``host_plane()``: the best currently-allowed host rung (may
+      consume a half-open probe slot — the caller that gets the healed
+      plane is the probe); ``allow_plane(p)`` gates one rung.
+    - ``next_lower(p)``: the rung below ``p``, or None at the bottom.
+    - ``confirm_failure(p, exc)``: charge plane ``p``'s domain — call
+      ONLY after a lower rung succeeded on the same bytes (oracle-
+      confirmed plane-local fault).
+    - ``record_success(p)``: ticks the domain; a success on a HALF_OPEN
+      rung heals it (closed again for everyone).
+    """
+
+    def __init__(self, ident: str, start_plane: str,
+                 config=None, subsystem: str = "decode",
+                 reg: Optional[FaultDomainRegistry] = None):
+        if start_plane not in PLANES:
+            # a plane outside the ladder (a future backend) gets a
+            # one-rung ladder: nothing to demote to, nothing breaks
+            self.planes: Tuple[str, ...] = (start_plane,)
+        else:
+            self.planes = PLANES[PLANES.index(start_plane):]
+        self.ident = ident
+        self.subsystem = subsystem
+        self.config = config
+        self._reg = reg if reg is not None else registry()
+
+    def _domain(self, plane: str) -> FaultDomain:
+        return self._reg.domain(self.subsystem, plane, self.ident,
+                                config=self.config)
+
+    def host_plane(self) -> str:
+        """The best allowed rung that is not 'device' -- what the
+        span-level host decode closures consult.  The terminal rung is
+        always allowed: a fully-open ladder still serves, just slowly."""
+        for p in self.planes[:-1]:
+            if p == "device":
+                continue
+            if self._domain(p).breaker.allow():
+                return p
+        return self.planes[-1]
+
+    def allow_plane(self, plane: str) -> bool:
+        """Gate ONE plane's breaker (consumes a half-open probe slot —
+        call only when the caller will actually attempt the plane and
+        report the outcome; use ``states()`` for display)."""
+        if plane not in self.planes:
+            return False
+        return self._domain(plane).breaker.allow()
+
+    def next_lower(self, plane: str) -> Optional[str]:
+        try:
+            i = self.planes.index(plane)
+        except ValueError:
+            return None
+        return self.planes[i + 1] if i + 1 < len(self.planes) else None
+
+    def demotable(self, plane: str, exc: BaseException) -> bool:
+        """May a fault of this class on this rung demote?  PLAN-class
+        (misconfiguration) and breaker errors never demote — they are
+        not the plane's fault."""
+        if isinstance(exc, CircuitBreakerError):
+            return False
+        if classify_error(exc) == PLAN:
+            return False
+        return self.next_lower(plane) is not None
+
+    def confirm_failure(self, plane: str, exc: BaseException) -> None:
+        # the reference also records the demotion in its flight recorder
+        # and dumps a snapshot; the port has no obs/ layer yet
+        METRICS.count("resilience.demotions")
+        METRICS.count(f"resilience.demoted_from_{plane}")
+        self._domain(plane).record_failure(exc)
+
+    def record_success(self, plane: str) -> None:
+        d = self._domain(plane)
+        healed_before = d.breaker.healed_total
+        d.record_success()
+        if d.breaker.healed_total > healed_before:
+            METRICS.count("resilience.heals")
+
+    def states(self) -> Dict[str, dict]:
+        return {p: self._domain(p).snapshot() for p in self.planes}
+
+
+def decode_ladder(path, start_plane: str, config=None) -> DemotionLadder:
+    """The decode-plane ladder for one file (drivers' entry point)."""
+    return DemotionLadder(file_ident(path), start_plane, config=config)
+
+
+# ---------------------------------------------------------------------------
+# Quarantine circuit (the per-file breaker behind max_bad_span_fraction)
+# ---------------------------------------------------------------------------
+
+def quarantine_breaker(path, config=None) -> CircuitBreaker:
+    """The per-file quarantine circuit: ``QuarantineManifest``'s
+    fraction trip force-opens it, runs that finish clean record success
+    (closing a HALF_OPEN probe).  Threshold 1 — the fraction check IS
+    the threshold; the breaker adds the open/half-open/heal lifecycle
+    the old one-way trip lacked."""
+    d = _REGISTRY.domain("quarantine", "spans", file_ident(path),
+                         config=config)
+    return d.breaker
+
+
+def check_quarantine_gate(path, config=None) -> None:
+    """Fast-fail gate drivers call before planning a run: while the
+    path's quarantine circuit is OPEN the run is refused immediately
+    (``CircuitBreakerError`` with a retry-after hint) instead of
+    re-decoding a file that just quarantined past the threshold; after
+    the cooldown, HALF_OPEN lets one probe run through — a clean finish
+    heals the circuit."""
+    br = quarantine_breaker(path, config=config)
+    if not br.allow():
+        METRICS.count("resilience.quarantine_gate_shed")
+        raise CircuitBreakerError(
+            f"quarantine circuit for {file_ident(path)} is open "
+            f"(tripped {br.opened_total}x) — retry in "
+            f"{br.retry_after_s():.3g}s",
+            retry_after_s=br.retry_after_s())
+
+
+def quarantine_run_ok(path, config=None) -> None:
+    """A run over ``path`` finished without tripping the fraction
+    breaker: heal a half-open quarantine circuit."""
+    quarantine_breaker(path, config=config).record_success()

@@ -15,7 +15,7 @@ sides of 5).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
@@ -47,12 +47,75 @@ RECORD = np.dtype([
 
 @dataclasses.dataclass
 class SynthTruth:
-    """What the generator knows about the file it wrote."""
+    """What the generator knows about the file it wrote; ``regions``
+    holds the same numbers over the reads that overlap each region
+    string asked for (``write_synthetic_bam(regions=...)``)."""
     n_reads: int
     flagstat: Dict[str, int]
     base_hist: np.ndarray          # int64 [16]
     mean_gc: float
     mean_qual: float
+    regions: Dict[str, "SynthTruth"] = dataclasses.field(
+        default_factory=dict)
+
+
+class _Tally:
+    """Running sums of the truth over the reads a row mask keeps."""
+
+    def __init__(self):
+        self.n = 0
+        self.counters = dict.fromkeys(FLAGSTAT_FIELDS, 0)
+        self.hist = np.zeros(16, np.int64)
+        self.gc_sum = 0.0
+        self.q_sum = 0.0
+
+    def add(self, keep: np.ndarray, codes, qual, cols) -> None:
+        use = min(READ_LEN, MAX_LEN)
+        self.n += int(keep.sum())
+        for key, v in flagstat_oracle(**{k: c[keep] for k, c in
+                                         cols.items()}).items():
+            self.counters[key] += v
+        kept = codes[keep, :use]
+        self.hist += np.bincount(kept.reshape(-1), minlength=16)
+        gc = np.isin(kept, (2, 4, 6)).sum(1)
+        qs = qual[keep, :use].astype(np.int64).sum(1)
+        denom = np.float32(max(use, 1))
+        self.gc_sum += float((gc.astype(np.float32) / denom)
+                             .astype(np.float64).sum())
+        self.q_sum += float((qs.astype(np.float32) / denom)
+                            .astype(np.float64).sum())
+
+    def truth(self) -> SynthTruth:
+        n = max(self.n, 1)
+        return SynthTruth(n_reads=self.n, flagstat=self.counters,
+                          base_hist=self.hist, mean_gc=self.gc_sum / n,
+                          mean_qual=self.q_sum / n)
+
+
+def region_mask(region: str, refid: np.ndarray, pos: np.ndarray
+                ) -> np.ndarray:
+    """Reads of the generator's columns that overlap ``region`` (a
+    comma-separated list of "name", "name:pos", "name:start-" or
+    "name:start-end", 1-based inclusive, as in "chr20:1-100000,chr21"):
+    every read is 151M, so its reference span is [pos + 1, pos + 151].
+    Parsed and counted here, independent of the port's interval parser
+    and of any decode; an unknown name raises ValueError."""
+    names = [n for n, _ in CONTIGS]
+    lengths = dict(CONTIGS)
+    pos1 = pos.astype(np.int64) + 1
+    end1 = pos1 + READ_LEN - 1
+    keep = np.zeros(refid.shape, bool)
+    for item in region.split(","):
+        name, _, rng = item.strip().partition(":")
+        if name not in lengths:
+            raise ValueError(f"unknown contig {name!r} in {region!r}")
+        lo, dash, hi = rng.partition("-")
+        start = int(lo) if lo else 1
+        end = int(hi) if hi else (lengths[name] if dash or not lo
+                                  else start)
+        keep |= (refid == names.index(name)) & (pos1 <= end) & \
+            (end1 >= start)
+    return keep
 
 
 def header() -> SAMHeader:
@@ -177,36 +240,47 @@ def _chunk(rng: np.random.Generator, first_pair: int, n_pairs: int):
 
 
 def write_synthetic_bam(path: str, n_reads: int, seed: int,
-                        chunk_pairs: int = 1 << 16) -> SynthTruth:
+                        chunk_pairs: int = 1 << 16,
+                        regions: Sequence[str] = ()) -> SynthTruth:
     """Write ``n_reads`` (even) paired reads to ``path``; return the
-    truth, with seq-stats at the default payload geometry's max_len."""
+    truth, with seq-stats at the default payload geometry's max_len, and
+    the truth over the reads overlapping each of ``regions``."""
     if n_reads % 2:
         raise ValueError("n_reads must be even (reads come in pairs)")
     rng = np.random.default_rng(seed)
-    use = min(READ_LEN, MAX_LEN)
-    counters = dict.fromkeys(FLAGSTAT_FIELDS, 0)
-    hist = np.zeros(16, np.int64)
-    gc_sum = 0.0
-    q_sum = 0.0
+    whole = _Tally()
+    by_region = {r: _Tally() for r in regions}
     with BamWriter(path, header()) as w:
         for p0 in range(0, n_reads // 2, chunk_pairs):
             k = min(chunk_pairs, n_reads // 2 - p0)
             rec, codes, qual, cols = _chunk(rng, p0, k)
             w.write_raw(rec.tobytes(), rec.size)
-            for key, v in flagstat_oracle(**cols).items():
-                counters[key] += v
-            kept = codes[:, :use]
-            hist += np.bincount(kept.reshape(-1), minlength=16)
-            gc = np.isin(kept, (2, 4, 6)).sum(1)
-            qs = qual[:, :use].astype(np.int64).sum(1)
-            denom = np.float32(max(use, 1))
-            gc_sum += float((gc.astype(np.float32) / denom)
-                            .astype(np.float64).sum())
-            q_sum += float((qs.astype(np.float32) / denom)
-                           .astype(np.float64).sum())
-    n = max(n_reads, 1)
-    return SynthTruth(n_reads=n_reads, flagstat=counters, base_hist=hist,
-                      mean_gc=gc_sum / n, mean_qual=q_sum / n)
+            whole.add(np.ones(rec.size, bool), codes, qual, cols)
+            for r, tally in by_region.items():
+                tally.add(region_mask(r, cols["refid"], rec["pos"]), codes,
+                          qual, cols)
+    truth = whole.truth()
+    truth.regions = {r: t.truth() for r, t in by_region.items()}
+    return truth
+
+
+def flip_block(src: str, dst: str, near: int) -> int:
+    """Write a copy of ``src`` to ``dst`` with 30 bytes of the DEFLATE
+    data of one BGZF block XOR-ed with 0xFF: the data block (ISIZE > 0)
+    whose compressed offset is nearest ``near``.  Returns that block's
+    compressed offset."""
+    from hadoop_bam_torch.ops.inflate import block_table
+    with open(src, "rb") as f:
+        raw = bytearray(f.read())
+    table = block_table(bytes(raw))
+    data = np.nonzero(table["isize"] > 0)[0]
+    i = int(data[np.argmin(np.abs(table["coffset"][data] - near))])
+    start = int(table["cdata_off"][i])
+    for p in range(start + 10, start + 40):
+        raw[p] ^= 0xFF
+    with open(dst, "wb") as f:
+        f.write(bytes(raw))
+    return int(table["coffset"][i])
 
 
 def record_flags(buf: np.ndarray, total: int

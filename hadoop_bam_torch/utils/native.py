@@ -17,7 +17,7 @@ from typing import Optional
 
 import numpy as np
 
-from hadoop_bam_torch.utils.errors import HBamError
+from hadoop_bam_torch.utils.errors import BackendError
 
 _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(os.path.dirname(_PKG_ROOT), "native", "hbam_native.cpp")
@@ -28,7 +28,7 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
-class NativeBuildError(HBamError, RuntimeError):
+class NativeBuildError(BackendError):
     """The host C++ library could not be built or loaded."""
 
 

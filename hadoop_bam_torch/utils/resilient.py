@@ -1,0 +1,492 @@
+"""Resilient byte sources, fault injection and the quarantine manifest
+(counterpart of hadoop_bam_tpu/utils/resilient.py).
+
+- ``RetryPolicy`` / ``call_with_retry`` / ``RetryingByteSource``: jittered
+  exponential backoff on TRANSIENT failures with an optional deadline;
+  clock, sleep and RNG are injectable, so tests assert exact schedules
+  without real sleeps.
+- ``FaultInjectingByteSource`` and the registry (``install_chaos``,
+  ``chaos_on``): deterministic read faults (transient, slow, truncate,
+  bitflip) for every source ``as_byte_source`` opens for a path.
+- ``QuarantineManifest``: what ``decode_with_retry`` skipped under
+  ``skip_bad_spans`` (file, virtual-offset range, error class,
+  attempts), with the ``max_bad_span_fraction`` circuit, JSON serde and
+  the multi-host merge.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import json
+import os
+import random
+import threading
+import time
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+
+from hadoop_bam_torch.utils import seekable
+from hadoop_bam_torch.utils.errors import (
+    CircuitBreakerError, TRANSIENT, TransientIOError, classify_error,
+)
+from hadoop_bam_torch.utils.metrics import METRICS
+from hadoop_bam_torch.utils.seekable import ByteSource
+
+
+@dataclasses.dataclass
+class RetryPolicy:
+    """Backoff schedule + injectable time primitives.
+
+    ``delay(attempt)`` is capped exponential with multiplicative jitter in
+    ``[1 - jitter, 1]`` — jitter shrinks the delay (never extends it) so a
+    deadline bound computed from the nominal schedule stays valid.  All
+    time functions are injectable: tests pass a fake clock/sleep and assert
+    the exact schedule; ``jitter=0`` gives every host an identical
+    schedule."""
+
+    retries: int = 3
+    backoff_base_s: float = 0.05
+    backoff_max_s: float = 2.0
+    jitter: float = 0.5
+    deadline_s: Optional[float] = None
+    sleep: Callable[[float], None] = time.sleep
+    clock: Callable[[], float] = time.monotonic
+    rng: Optional[random.Random] = None
+
+    def delay(self, attempt: int) -> float:
+        d = min(self.backoff_max_s, self.backoff_base_s * (2.0 ** attempt))
+        if self.jitter > 0.0:
+            r = (self.rng or random).random()
+            d *= 1.0 - self.jitter * r
+        return d
+
+
+def span_retry_policy(config) -> "RetryPolicy":
+    """The one way to derive a span-grain RetryPolicy from config —
+    decode spans, deflate workers, and shard-concat reads must agree on
+    the knob names (and their fallbacks) or they silently diverge."""
+    return RetryPolicy(
+        retries=max(0, int(getattr(config, "span_retries", 2))),
+        backoff_base_s=float(getattr(config, "retry_backoff_base_s", 0.05)),
+        backoff_max_s=float(getattr(config, "retry_backoff_max_s", 2.0)))
+
+
+def call_with_retry(fn: Callable[[], object], policy: RetryPolicy,
+                    what: str = "operation",
+                    counter: str = "resilient.retries"):
+    """Run ``fn`` retrying ONLY transient-classified failures per ``policy``.
+
+    Corrupt/plan failures raise immediately.  On exhaustion (retry budget or
+    deadline) the last transient error is wrapped in ``TransientIOError``
+    so callers upstream see one classified type."""
+    deadline = (policy.clock() + policy.deadline_s
+                if policy.deadline_s is not None else None)
+    last: Optional[BaseException] = None
+    attempts = 0
+    for attempt in range(policy.retries + 1):
+        try:
+            attempts = attempt + 1
+            return fn()
+        except Exception as e:  # noqa: BLE001 — policy boundary
+            if classify_error(e) != TRANSIENT:
+                raise
+            last = e
+            if attempt >= policy.retries:
+                break
+            d = policy.delay(attempt)
+            if deadline is not None and policy.clock() + d > deadline:
+                break
+            METRICS.count(counter)
+            policy.sleep(d)
+    raise TransientIOError(
+        f"{what} failed after {attempts} attempt(s) "
+        f"(budget {policy.retries + 1}"
+        + (f", deadline {policy.deadline_s:g}s" if deadline is not None
+           else "") + f"): {last}") from last
+
+
+class RetryingByteSource(ByteSource):
+    """Transient-retrying wrapper: ``pread`` failures classified TRANSIENT
+    are re-attempted with jittered exponential backoff and an optional
+    per-read deadline; corrupt/plan failures pass straight through."""
+
+    def __init__(self, inner, policy: Optional[RetryPolicy] = None):
+        self.inner = seekable.as_byte_source(inner)
+        self.policy = policy or RetryPolicy()
+        self.size = self.inner.size
+        self.path = getattr(self.inner, "path", None)
+
+    def pread(self, offset: int, size: int) -> bytes:
+        return call_with_retry(
+            lambda: self.inner.pread(offset, size), self.policy,
+            what=f"pread({offset}, {size}) on {self.path or self.inner!r}",
+            counter="io.read_retries")
+
+    def close(self) -> None:
+        self.inner.close()
+
+
+# ---------------------------------------------------------------------------
+# Chaos injection
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FaultSpec:
+    """One scheduled fault.  Matching: ``at_read`` fires on a source's
+    reads from index N on (0-based — so ``at_read=0, count=2`` fails the
+    first two attempts and lets the third through: the
+    transient-then-success shape), ``offset_range`` on any read overlapping
+    ``[lo, hi)``; with neither set the spec matches every read.  ``count``
+    is the firing budget — specs are shared mutable state when one schedule
+    wraps many sources (every source opened for the path), so the budget
+    is global across them.  The port's drivers read through one source a
+    call, so their ``at_read`` counts the call's reads."""
+
+    kind: str                                   # transient|slow|truncate|bitflip
+    at_read: Optional[int] = None
+    offset_range: Optional[Tuple[int, int]] = None
+    count: int = 1
+    delay_s: float = 0.01                       # slow
+    truncate_to: int = 0                        # truncate: bytes kept
+    xor_mask: int = 0x01                        # bitflip
+
+
+_FAULT_LOCK = threading.Lock()
+
+
+class SeededFaultSchedule:
+    """A deterministic chaos schedule derived from ONE integer seed
+    — the reproducibility contract for chaos /
+    soak runs: the same seed produces the same fault timeline on every
+    run, every host, regardless of thread interleaving or how many
+    source instances a run opens.
+
+    Decisions are therefore keyed on the READ'S OFFSET, not a read
+    counter: ``roll(kind, offset)`` hashes ``(seed, kind, offset)`` into
+    [0, 1) and fires when it lands under that kind's rate.  ``once``
+    (default) gives each (kind, offset) a single firing budget shared
+    across all sources on the schedule — so a transient fault at offset
+    X heals when the retry re-reads X, exactly the transient-then-
+    success shape, while a re-run with the same seed faults at the same
+    offsets again."""
+
+    def __init__(self, seed: int, transient_rate: float = 0.0,
+                 slow_rate: float = 0.0, bitflip_rate: float = 0.0,
+                 delay_s: float = 0.005, xor_mask: int = 0x01,
+                 once: bool = True):
+        self.seed = int(seed)
+        self.rates = {"transient": float(transient_rate),
+                      "slow": float(slow_rate),
+                      "bitflip": float(bitflip_rate)}
+        self.delay_s = float(delay_s)
+        self.xor_mask = int(xor_mask)
+        self.once = bool(once)
+        self._fired: set = set()
+        self._lock = threading.Lock()
+
+    def roll(self, kind: str, offset: int) -> bool:
+        import zlib
+        h = zlib.crc32(f"{self.seed}:{kind}:{int(offset)}".encode())
+        return (h / 2.0 ** 32) < self.rates.get(kind, 0.0)
+
+    def faults_for(self, offset: int, size: int) -> List[FaultSpec]:
+        """Fault specs firing on a ``pread(offset, size)`` (consumes the
+        once-budget for each)."""
+        hits: List[FaultSpec] = []
+        for kind, rate in self.rates.items():
+            if rate <= 0.0 or not self.roll(kind, offset):
+                continue
+            if self.once:
+                with self._lock:
+                    if (kind, offset) in self._fired:
+                        continue
+                    self._fired.add((kind, offset))
+            hits.append(FaultSpec(kind, count=1, delay_s=self.delay_s,
+                                  xor_mask=self.xor_mask))
+        return hits
+
+
+class FaultInjectingByteSource(ByteSource):
+    """Deterministic chaos wrapper over an intact source.
+
+    Faults fire by per-source read index or by offset overlap (see
+    ``FaultSpec``), or by a seed-derived offset-keyed schedule
+    (``SeededFaultSchedule``); injected transients raise
+    ``TransientIOError`` so the retry layer treats them exactly like
+    real ones.  ``injected`` counts firings by kind for assertions."""
+
+    def __init__(self, inner, faults: Sequence[FaultSpec] = (),
+                 sleep: Callable[[float], None] = time.sleep,
+                 schedule: Optional[SeededFaultSchedule] = None):
+        self.inner = seekable.as_byte_source(inner)
+        self.faults = list(faults)
+        self.schedule = schedule
+        self.size = self.inner.size
+        self.path = getattr(self.inner, "path", None)
+        self.reads = 0
+        self.injected: "collections.Counter[str]" = collections.Counter()
+        self._sleep = sleep
+
+    def pread(self, offset: int, size: int) -> bytes:
+        with _FAULT_LOCK:
+            idx = self.reads
+            self.reads += 1
+            hits: List[FaultSpec] = []
+            for f in self.faults:
+                if f.count <= 0:
+                    continue
+                if f.at_read is None and f.offset_range is None:
+                    match = True
+                else:
+                    match = f.at_read is not None and idx >= f.at_read
+                    if not match and f.offset_range is not None:
+                        lo, hi = f.offset_range
+                        match = offset < hi and offset + size > lo
+                if match:
+                    f.count -= 1
+                    self.injected[f.kind] += 1
+                    METRICS.count("chaos.injected_faults")
+                    hits.append(f)
+            if self.schedule is not None:
+                for f in self.schedule.faults_for(offset, size):
+                    self.injected[f.kind] += 1
+                    METRICS.count("chaos.injected_faults")
+                    hits.append(f)
+        for f in hits:
+            if f.kind == "slow":
+                self._sleep(f.delay_s)
+            elif f.kind == "transient":
+                raise TransientIOError(
+                    f"injected transient fault at pread({offset}, {size})")
+        data = self.inner.pread(offset, size)
+        for f in hits:
+            if f.kind == "truncate":
+                data = data[:f.truncate_to]
+            elif f.kind == "bitflip" and data:
+                lo, hi = f.offset_range or (offset, offset + len(data))
+                buf = bytearray(data)
+                s = max(lo - offset, 0)
+                e = min(hi - offset, len(buf))
+                for i in range(s, e):
+                    buf[i] ^= f.xor_mask
+                data = bytes(buf)
+        return data
+
+    def close(self) -> None:
+        self.inner.close()
+
+
+# Registry hook: install_chaos(path, ...) makes every ByteSource that
+# as_byte_source() opens for that path go through a FaultInjectingByteSource
+# — zero plumbing through the drivers, usable from tests and chip_smoke.py.
+_CHAOS: Dict[str, Tuple[List[FaultSpec], Callable[[float], None],
+                        Optional[SeededFaultSchedule]]] = {}
+
+
+def install_chaos(path, faults: Sequence[FaultSpec] = (),
+                  sleep: Callable[[float], None] = time.sleep,
+                  schedule: Optional[SeededFaultSchedule] = None) -> None:
+    _CHAOS[os.path.abspath(os.fspath(path))] = (list(faults), sleep,
+                                                schedule)
+    seekable._SOURCE_WRAPPER = _wrap_registered
+
+
+def install_chaos_seeded(path, seed: int, *,
+                         transient_rate: float = 0.0,
+                         slow_rate: float = 0.0,
+                         bitflip_rate: float = 0.0,
+                         delay_s: float = 0.005,
+                         sleep: Callable[[float], None] = time.sleep
+                         ) -> SeededFaultSchedule:
+    """The one-knob chaos entry: a ``SeededFaultSchedule`` derived from
+    ``seed`` installed for ``path``.  Returns
+    the schedule so callers can assert on / share it."""
+    schedule = SeededFaultSchedule(
+        seed, transient_rate=transient_rate, slow_rate=slow_rate,
+        bitflip_rate=bitflip_rate, delay_s=delay_s)
+    install_chaos(path, (), sleep=sleep, schedule=schedule)
+    return schedule
+
+
+def clear_chaos(path=None) -> None:
+    if path is None:
+        _CHAOS.clear()
+    else:
+        _CHAOS.pop(os.path.abspath(os.fspath(path)), None)
+    if not _CHAOS:
+        seekable._SOURCE_WRAPPER = None
+
+
+class chaos_on:
+    """``with chaos_on(path, faults):`` — scoped install_chaos."""
+
+    def __init__(self, path, faults: Sequence[FaultSpec] = (),
+                 sleep: Callable[[float], None] = time.sleep,
+                 schedule: Optional[SeededFaultSchedule] = None):
+        self._path = path
+        install_chaos(path, faults, sleep, schedule=schedule)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        clear_chaos(self._path)
+
+
+def _wrap_registered(src: ByteSource) -> ByteSource:
+    hit = _CHAOS.get(os.path.abspath(getattr(src, "path", "") or ""))
+    if hit is None:
+        return src
+    faults, sleep, schedule = hit
+    return FaultInjectingByteSource(src, faults, sleep, schedule=schedule)
+
+
+# ---------------------------------------------------------------------------
+# Quarantine manifest + circuit breaker
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class QuarantineEntry:
+    """One skipped span: which bytes were excluded from the run and why.
+    ``span_start``/``span_end`` are packed virtual offsets."""
+
+    path: str
+    span_start: int
+    span_end: int
+    error_class: str        # errors.TRANSIENT / CORRUPT
+    error: str
+    attempts: int
+    host: int = 0
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "QuarantineEntry":
+        return cls(str(d["path"]), int(d["span_start"]), int(d["span_end"]),
+                   str(d["error_class"]), str(d["error"]),
+                   int(d["attempts"]), int(d.get("host", 0)))
+
+
+def _span_bounds(span) -> Tuple[str, int, int]:
+    start = getattr(span, "start_voffset", None)
+    if start is not None:
+        return span.path, int(start), int(span.end_voffset)
+    return span.path, int(span.start), int(span.end)
+
+
+class QuarantineManifest:
+    """Thread-safe record of every span a run skipped, plus the circuit
+    breaker: once ``len(entries) / total_spans`` exceeds the config's
+    ``max_bad_span_fraction``, ``check_circuit`` raises
+    ``CircuitBreakerError`` and the run aborts instead of quietly returning
+    an answer computed from a shrinking subset of the file."""
+
+    def __init__(self, total_spans: Optional[int] = None):
+        self._lock = threading.Lock()
+        self.entries: List[QuarantineEntry] = []
+        self.total_spans = total_spans
+
+    def add(self, span, error: BaseException, error_class: str,
+            attempts: int, host: int = 0) -> QuarantineEntry:
+        path, s, e = _span_bounds(span)
+        entry = QuarantineEntry(path, s, e, error_class,
+                                f"{type(error).__name__}: {error}",
+                                attempts, host)
+        with self._lock:
+            self.entries.append(entry)
+        # no counter here: decode_with_retry's skip branch owns the single
+        # pipeline.bad_spans tick for this event
+        return entry
+
+    def extend(self, entries: Sequence[QuarantineEntry]) -> None:
+        with self._lock:
+            self.entries.extend(entries)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self.entries)
+
+    def __bool__(self) -> bool:
+        return len(self) > 0
+
+    def __iter__(self) -> Iterator[QuarantineEntry]:
+        with self._lock:
+            return iter(list(self.entries))
+
+    def bad_fraction(self) -> float:
+        with self._lock:
+            n = len(self.entries)
+        if not self.total_spans:
+            return 0.0
+        return n / float(self.total_spans)
+
+    def check_circuit(self, config) -> None:
+        limit = float(getattr(config, "max_bad_span_fraction", 1.0))
+        frac = self.bad_fraction()
+        if frac > limit:
+            # no longer one-way: the trip force-opens the per-file
+            # quarantine circuit in the resilience registry, so future
+            # runs on the same file fast-fail at the driver's
+            # check_quarantine_gate while OPEN, get a half-open probe
+            # after the cooldown, and heal on a clean finish
+            retry_after = None
+            try:
+                from hadoop_bam_torch import resilience
+                for p in sorted({e.path for e in self}):
+                    br = resilience.quarantine_breaker(p, config=config)
+                    br.force_open()
+                    retry_after = br.retry_after_s()
+            except Exception:  # noqa: BLE001 — the abort must still fire
+                pass
+            raise CircuitBreakerError(
+                f"quarantined {len(self)}/{self.total_spans} spans "
+                f"({frac:.1%}) exceeds max_bad_span_fraction={limit:g} — "
+                "aborting instead of degrading further",
+                retry_after_s=retry_after)
+
+    def to_dicts(self) -> List[dict]:
+        with self._lock:
+            return [e.to_dict() for e in self.entries]
+
+    def to_json(self) -> str:
+        return json.dumps({"total_spans": self.total_spans,
+                           "entries": self.to_dicts()})
+
+    @classmethod
+    def from_dicts(cls, dicts: Sequence[dict],
+                   total_spans: Optional[int] = None) -> "QuarantineManifest":
+        m = cls(total_spans=total_spans)
+        m.extend([QuarantineEntry.from_dict(d) for d in dicts])
+        return m
+
+    @classmethod
+    def from_json(cls, payload: str) -> "QuarantineManifest":
+        d = json.loads(payload)
+        if isinstance(d, list):          # bare entry list (older payloads)
+            return cls.from_dicts(d)
+        return cls.from_dicts(d["entries"],
+                              total_spans=d.get("total_spans"))
+
+    def merged_with(self, others: Sequence["QuarantineManifest"]
+                    ) -> "QuarantineManifest":
+        """Union of this and other hosts' manifests, deduplicated by
+        (path, range) and canonically ordered — every host computing this
+        over the same inputs gets the identical entry list.  total_spans
+        SUMS across the inputs (hosts hold disjoint plan slices, so the
+        sum is the job-wide plan size); any unknown total makes the merged
+        total unknown rather than a wrong fraction."""
+        seen = set()
+        entries: List[QuarantineEntry] = []
+        totals: List[Optional[int]] = []
+        for m in [self, *others]:
+            totals.append(m.total_spans)
+            for e in m:
+                key = (e.path, e.span_start, e.span_end)
+                if key not in seen:
+                    seen.add(key)
+                    entries.append(e)
+        entries.sort(key=lambda e: (e.path, e.span_start, e.span_end))
+        total = None if any(t is None for t in totals) else sum(totals)
+        out = QuarantineManifest(total_spans=total)
+        out.extend(entries)
+        return out

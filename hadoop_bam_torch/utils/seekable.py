@@ -6,7 +6,12 @@ Every host layer reads through ``pread(offset, size) -> bytes`` plus
 from __future__ import annotations
 
 import os
-from typing import Union
+from typing import Callable, Optional, Union
+
+# Resilience hook (utils/resilient.py): while chaos is installed for some
+# path, every path-opened source goes through this wrapper.  None = the
+# plain fast path.
+_SOURCE_WRAPPER: Optional[Callable[["ByteSource"], "ByteSource"]] = None
 
 
 class ByteSource:
@@ -71,5 +76,6 @@ def as_byte_source(obj) -> ByteSource:
     if isinstance(obj, (bytes, bytearray, memoryview)):
         return BytesByteSource(bytes(obj))
     if isinstance(obj, (str, os.PathLike)):
-        return FileByteSource(obj)
+        src = FileByteSource(obj)
+        return _SOURCE_WRAPPER(src) if _SOURCE_WRAPPER is not None else src
     raise TypeError(f"cannot make a ByteSource from {type(obj)!r}")

@@ -444,3 +444,119 @@ def test_device_plane_drivers_on_card_match_truth(cuda, tmp_path):
     for k in ("mean_gc", "mean_qual"):
         assert abs(got[k] - getattr(truth, k)) <= 1e-6 * getattr(truth, k)
     assert all(w.launches > b for w, b in zip(wrappers, before))
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py phase 10 on the card, at a small size
+# ---------------------------------------------------------------------------
+
+REGIONS = ("chr20:1-13000000", "chr21")
+
+
+@pytest.fixture
+def phase10(cuda, tmp_path):
+    """A 40,000-read synthetic BAM with its whole-file and interval
+    truths, and pristine breakers, chaos points and counters."""
+    from hadoop_bam_torch import resilience
+    from hadoop_bam_torch.synth import write_synthetic_bam
+    from hadoop_bam_torch.utils.metrics import METRICS
+    resilience.reset()
+    resilience.chaos.clear_fault_points()
+    METRICS.reset()
+    path = str(tmp_path / "p10.bam")
+    yield path, write_synthetic_bam(path, 40_000, seed=5, regions=REGIONS)
+    resilience.reset()
+    resilience.chaos.clear_fault_points()
+
+
+def _check_truth(flag, stats, truth):
+    assert flag == truth.flagstat
+    assert stats["n_reads"] == truth.n_reads
+    assert np.array_equal(stats["base_hist"], truth.base_hist)
+    for k in ("mean_gc", "mean_qual"):
+        assert abs(stats[k] - getattr(truth, k)) <= \
+            1e-6 * abs(getattr(truth, k))
+
+
+@pytest.mark.parametrize("backend", ["native", "device"])
+@pytest.mark.parametrize("region", REGIONS)
+def test_phase10a_intervals_on_card(phase10, region, backend):
+    from hadoop_bam_torch.api import open_bam
+    from hadoop_bam_torch.config import HBamConfig
+    path, truth = phase10
+    ds = open_bam(path, config=HBamConfig(inflate_backend=backend,
+                                          bam_intervals=region))
+    before = tss.seq_qual_stats.launches
+    _check_truth(ds.flagstat(), ds.seq_stats(), truth.regions[region])
+    assert tss.seq_qual_stats.launches > before
+    assert 0 < truth.regions[region].n_reads < truth.n_reads
+
+
+def test_phase10b_device_step_faults_demote_then_heal(phase10):
+    from hadoop_bam_torch import resilience
+    from hadoop_bam_torch.api import open_bam
+    from hadoop_bam_torch.config import HBamConfig
+    from hadoop_bam_torch.ops import inflate_device as tid
+    from hadoop_bam_torch.resilience import chaos
+    from hadoop_bam_torch.utils.metrics import METRICS
+    path, truth = phase10
+    clk = [0.0]
+    resilience.reset(clock=lambda: clk[0])
+    cfg = HBamConfig(inflate_backend="device", breaker_failure_threshold=1.0)
+    ds = open_bam(path, config=cfg)
+    faults = chaos.seeded_point_faults(5, "device.step",
+                                       ["transient", "corrupt"], 2,
+                                       max_call=4)
+    with chaos.fault_points_on("device.step", faults):
+        _check_truth(ds.flagstat(), ds.seq_stats(), truth)
+    assert METRICS.get("resilience.demotions") == 1
+    clk[0] += cfg.breaker_cooldown_s + 0.1
+    before = tid.resolve_pack.launches
+    _check_truth(ds.flagstat(), ds.seq_stats(), truth)
+    assert tid.resolve_pack.launches > before
+    assert METRICS.get("resilience.heals") == 1
+
+
+def test_phase10c_native_transient_faults_retry(phase10):
+    from hadoop_bam_torch.api import open_bam
+    from hadoop_bam_torch.resilience import chaos
+    from hadoop_bam_torch.utils.metrics import METRICS
+    path, truth = phase10
+    ds = open_bam(path)
+    for name in ("flagstat", "seq_stats"):
+        with chaos.fault_points_on("decode.native", chaos.seeded_point_faults(
+                5, "decode.native", ["transient"], 1, max_call=1)):
+            out = getattr(ds, name)()
+        assert "quarantine" not in out
+    _check_truth(ds.flagstat(), ds.seq_stats(), truth)
+    assert METRICS.get("pipeline.transient_retries") == 2
+
+
+def test_phase10d_flipped_block_card_equals_cpu(phase10, tmp_path):
+    from hadoop_bam_torch.api import open_bam
+    from hadoop_bam_torch.config import HBamConfig
+    from hadoop_bam_torch.parallel import pipeline as tp
+    from hadoop_bam_torch.synth import flip_block
+    from hadoop_bam_torch.utils.errors import CORRUPT, classify_error
+    from hadoop_bam_torch.utils.resilient import QuarantineManifest
+    path, truth = phase10
+    bad = str(tmp_path / "flipped.bam")
+    import os
+    flip_block(path, bad, os.path.getsize(path) // 2)
+    spans = tp._plan(path, None, 1, 1 << 20)
+    spans = list(spans)
+    cfg = HBamConfig(skip_bad_spans=True)
+    out = {}
+    for dev in (None, "cpu"):
+        q = QuarantineManifest()
+        flag = tp.flagstat_file(bad, device=dev, config=cfg, spans=spans,
+                                quarantine=q)
+        stats = open_bam(bad, device=dev, config=cfg).seq_stats()
+        out[dev] = (flag, stats["n_reads"], stats["base_hist"].tolist(),
+                    q.to_dicts(), stats["quarantine"])
+    assert out[None] == out["cpu"]
+    assert len(out[None][3]) == 1 and 0 < out[None][0]["total"] < 40_000
+    for name in ("flagstat", "seq_stats"):
+        with pytest.raises(ValueError) as e:
+            getattr(open_bam(bad), name)()
+        assert classify_error(e.value) == CORRUPT

@@ -148,8 +148,11 @@ def _class(o):
 
 def test_corrupt_chain_same_class(bam, tmp_path):
     """A block_size of 5 mid-file: CorruptDataError on the port's device
-    plane, and the same builtin class on the JAX device plane and the
-    port's native plane."""
+    plane (adaptive planes off), and the same builtin class on the JAX
+    device plane and the port's native plane.  With the default adaptive
+    planes the device plane's fault demotes to the host planes, which
+    fail too, and both packages raise a ValueError (the reference's host
+    planes name it after their fused decode, which the port lacks)."""
     from hadoop_bam_tpu.formats.bamio import read_bam_header
     from hadoop_bam_tpu.ops.inflate import inflate_span, walk_records
     data, _ = inflate_span(open(bam, "rb").read())
@@ -160,13 +163,19 @@ def test_corrupt_chain_same_class(bam, tmp_path):
     def edit(b):
         b[victim:victim + 4] = (5).to_bytes(4, "little")
     bad = _rewrite(bam, str(tmp_path / "chain.bam"), edit)
+    static = dataclasses.replace(DEVICE, adaptive_planes=False)
     for fn in (tp.flagstat_file, tp.seq_stats_file):
-        got = _outcome(lambda: fn(bad, device="cpu", config=DEVICE))
+        got = _outcome(lambda: fn(bad, device="cpu", config=static))
         assert got == ("err", "ValueError", "CorruptDataError")
         nat = _outcome(lambda: fn(bad, device="cpu", config=NATIVE))
         assert _class(nat) == _class(got)
-    for fn in (jp.flagstat_file, jp.seq_stats_file):
-        assert _class(_outcome(lambda: fn(bad, config=_jax_cfg()))) == \
+    for tfn, jfn in ((tp.flagstat_file, jp.flagstat_file),
+                     (tp.seq_stats_file, jp.seq_stats_file)):
+        got = _outcome(lambda: tfn(bad, device="cpu", config=DEVICE))
+        assert _class(got) == _class(_outcome(
+            lambda: jfn(bad, config=_jax_cfg()))) == ("err", "ValueError")
+        assert _class(_outcome(lambda: jfn(
+            bad, config=_jax_cfg(adaptive_planes=False)))) == \
             ("err", "ValueError")
 
 

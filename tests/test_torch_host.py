@@ -105,11 +105,22 @@ def test_config_and_geometry_from_jax_dicts():
     cfg = tconfig.config_from_dict(dataclasses.asdict(JAX_CONFIG))
     assert cfg == tconfig.HBamConfig(inflate_backend="auto")
     assert tconfig.resolve_inflate_backend(cfg) == "native"
+    # every field the port carries has the reference's default
+    ref = dataclasses.asdict(JAX_CONFIG)
+    assert {k: ref[k] for k in tconfig.CARRIED} == dataclasses.asdict(cfg)
+    assert (cfg.span_retries, cfg.adaptive_planes) == (2, True)
     z = dataclasses.replace(JAX_CONFIG, inflate_backend="zlib",
-                            check_crc=True, decode_pool_workers=3)
+                            check_crc=True, decode_pool_workers=3,
+                            span_retries=5, adaptive_planes=False,
+                            max_bad_span_fraction=0.25,
+                            breaker_cooldown_s=0.5, chaos_seed=11)
     cfg = tconfig.config_from_dict(dataclasses.asdict(z))
     assert (cfg.inflate_backend, cfg.check_crc, cfg.pool_size()) == \
         ("zlib", True, 3)
+    ref = dataclasses.asdict(z)
+    assert {k: ref[k] for k in tconfig.CARRIED} == dataclasses.asdict(cfg)
+    # the chaos seed is an argument of install_chaos_seeded, not a setting
+    assert "chaos_seed" not in tconfig.CARRIED
     assert tconfig.config_from_dict(
         {"inflate_backend": "device"}).inflate_backend == "device"
     with pytest.raises(PlanError):
@@ -124,25 +135,48 @@ def test_config_and_geometry_from_jax_dicts():
     assert (pg.seq_stride, pg.qual_stride) == (96, 160)
 
 
+@pytest.fixture(scope="module")
+def synth_bam(tmp_path_factory):
+    from hadoop_bam_torch.synth import write_synthetic_bam
+    path = str(tmp_path_factory.mktemp("th") / "s.bam")
+    truth = write_synthetic_bam(path, 4000, 3, regions=("chr20:1-1000",))
+    return path, truth
+
+
 @pytest.mark.parametrize("field,value", [
     ("bam_intervals", "chr20:1-1000"), ("skip_bad_spans", True),
     ("io_read_retries", 2)])
-def test_config_refuses_reference_settings_it_cannot_honour(field, value):
-    """A reference config that sets a field the port does not implement,
-    and that changes the drivers' results, is refused with PlanError
-    naming the field; the same field at its default, and every other
-    setting, still carries over."""
-    bad = dataclasses.replace(JAX_CONFIG, **{field: value},
+def test_config_refuses_reference_settings_it_cannot_honour(
+        synth_bam, field, value):
+    """The port refuses (PlanError) only reference settings it cannot
+    honour; ``UNSUPPORTED`` is empty since the failure policy and the
+    interval filter were ported.  These three fields, which it used to
+    refuse, now carry over beside every other setting, and both drivers
+    return what the reference returns with them set."""
+    path, truth = synth_bam
+    assert tconfig.UNSUPPORTED == {}
+    ref = dataclasses.replace(JAX_CONFIG, **{field: value},
                               inflate_backend="zlib", check_crc=True)
-    with pytest.raises(PlanError, match=field):
-        tconfig.config_from_dict(dataclasses.asdict(bad))
-    assert set(tconfig.UNSUPPORTED) <= set(dataclasses.asdict(JAX_CONFIG))
-    default = getattr(JAX_CONFIG, field)
-    ok = dataclasses.replace(bad, **{field: default})
-    cfg = tconfig.config_from_dict(dataclasses.asdict(ok))
+    cfg = tconfig.config_from_dict(dataclasses.asdict(ref))
+    assert getattr(cfg, field) == value
     assert (cfg.inflate_backend, cfg.check_crc) == ("zlib", True)
+    geom = jp.PayloadGeometry(tile_records=1 << 10)
+    got = tp.flagstat_file(path, device="cpu", config=cfg)
+    assert got == jp.flagstat_file(path, config=ref)
+    stats = tp.seq_stats_file(path, device="cpu", config=cfg,
+                              geometry=tconfig.geometry_from_dict(
+                                  dataclasses.asdict(geom)))
+    want = jp.seq_stats_file(path, config=ref, geometry=geom)
+    assert stats["n_reads"] == want["n_reads"]
+    np.testing.assert_array_equal(stats["base_hist"], want["base_hist"])
+    whole = truth.regions[value] if field == "bam_intervals" else truth
+    assert got == whole.flagstat and stats["n_reads"] == whole.n_reads
     if field == "bam_intervals":   # the reference reads "" as no filter
-        assert tconfig.config_from_dict({field: ""}) == tconfig.HBamConfig()
+        assert tconfig.config_from_dict({field: ""}) == \
+            tconfig.HBamConfig(bam_intervals="")
+        assert tp.flagstat_file(path, device="cpu", config=tconfig.
+                                config_from_dict({field: ""})) == \
+            truth.flagstat
 
 
 def test_entry_points_default_to_cuda_and_never_fall_back(bam, monkeypatch):
