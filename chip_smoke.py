@@ -68,7 +68,31 @@ Phases (any failure raises and exits non-zero):
    ``decode.native`` faults: retried, the truth, retries > 0; (d) a copy
    with one BGZF block flipped under ``skip_bad_spans``: equal counters
    and quarantine manifests (one span) on cuda:0 and on the CPU, and
-   without it the CORRUPT class raised.  Each run's wall and reads/s.
+   without it the CORRUPT class raised.  Each run's wall and reads/s;
+11. span planning and the fused decode through the entry points, on a
+   hard link to the same BAM (its sidecars never sit next to the file of
+   phases 5-10) and on a coordinate-sorted copy of the same reads (a
+   ``.bai`` indexes a sorted BAM): (a) the ``.splitting-bai``
+   (granularity 4096) and ``.bai`` writers, timed; (b) the native
+   drivers and the device plane planned from the ``.splitting-bai``:
+   the truth, plan walls against phase 9's guessed plan, span counts,
+   the largest span in blocks and the spans past 64 blocks; (c) second
+   calls hit the plan memo (warm walls), and a rewritten sidecar plans
+   again; (b2) a splitting index coarser than the grains (every
+   65,536th read): the device plane's and span mode's plans cut back
+   within their grains (no device-plane span past 64 blocks), and both
+   drivers equal the truth; (d) phase 10's two regions on the native
+   plane with the ``.bai``: the interval truth, the compressed bytes
+   read against the file size, the reference's trimmed plan and the
+   spans the drivers cut it into, walls beside the same regions without
+   it and phase 10 (a)'s, and each call's peak resident set size; (e) the three native drivers with ``use_fused_decode`` on and
+   off in turns, each equal to the truth, and the share of spans that
+   took the two-pass tail.
+
+The plan memo would let a repeated call skip planning, so every timed
+driver call of phases 5, 9 and 11 and of ``--times`` / ``--turns``
+clears it first (``cold``): those walls stay comparable with trees that
+had no memo; warm walls are phase 11 (c)'s.
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -77,7 +101,9 @@ limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 kernel at its shapes (``TIMES``: K9 and K10p at both chunk shapes, K7+K8
 at its three chunks; ``device_plane``: the profiled device-plane
 ``seq_stats()`` by kernel; ``native_plane``: the native plane's three
-drivers of phase 5, warmed up, five rounds in turn) and prints them as
+drivers of phase 5, warmed up, five rounds in turn; ``bai_regions``:
+phase 11 (d)'s ``.bai`` runs on a sorted copy of the reads kept beside
+the BAM, with walls and peak resident set sizes) and prints them as
 one JSON line; with ``--tree DIR`` it
 does so for the port in another checkout (an earlier tree unpacked by
 ``git archive``), so that two trees' kernels can be timed in turns on
@@ -110,6 +136,15 @@ def log(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def cold() -> None:
+    """Forget the port's memoized span plans, so that the next driver
+    call plans again (a no-op for trees without the memo)."""
+    from hadoop_bam_torch.split import planners
+    clear = getattr(planners, "clear_plan_cache", None)
+    if clear is not None:
+        clear()
 
 
 def run_text(cmd) -> str:
@@ -480,12 +515,15 @@ def phase_main(torch, path, truth, card, dev):
     check(ds.device == dev, f"dataset device is {dev}")
     reset_launches()
     walls = {}
+    cold()
     t0 = time.perf_counter()
     flag = ds.flagstat()
     walls["flagstat"] = time.perf_counter() - t0
+    cold()
     t0 = time.perf_counter()
     stats = ds.seq_stats()
     walls["seq_stats"] = time.perf_counter() - t0
+    cold()
     t0 = time.perf_counter()
     flag_span = ds.flagstat(mode="span")
     walls["flagstat_span"] = time.perf_counter() - t0
@@ -1076,6 +1114,7 @@ def device_plane_times(torch, path, dev) -> dict:
     n_reads = ds.seq_stats()["n_reads"]
     check(n_reads > 0, "device-plane seq_stats counted reads")
     reset_launches()
+    cold()
     wall, busy, by_name = device_busy(torch, ds.seq_stats)
     return {"reads": n_reads, "wall_s": wall, "busy_s": busy,
             "kernels_ms": kernel_totals(by_name),
@@ -1084,9 +1123,10 @@ def device_plane_times(torch, path, dev) -> dict:
 
 def native_plane_times(torch, path, dev, reps: int = 5) -> dict:
     """The native plane's three drivers of phase 5 over the BAM, once
-    each to warm up, then ``reps`` rounds of the three in turn: every
-    wall and their medians.  Uses only what every tree of the port has,
-    so that an earlier tree (``--tree``) is timed on the same file."""
+    each to warm up, then ``reps`` rounds of the three in turn, the plan
+    memo cleared before each call: every wall and their medians.  Uses
+    only what every tree of the port has, so that an earlier tree
+    (``--tree``) is timed on the same file."""
     from hadoop_bam_torch.api import open_bam
     from hadoop_bam_torch.config import HBamConfig
     ds = open_bam(path, config=HBamConfig(inflate_backend="native"))
@@ -1097,18 +1137,12 @@ def native_plane_times(torch, path, dev, reps: int = 5) -> dict:
     walls = {k: [] for k in runs}
     for _ in range(reps):
         for k, fn in runs.items():
+            cold()
             t0 = time.perf_counter()
             fn()
             walls[k].append(time.perf_counter() - t0)
     return {"walls_s": walls,
             "median_s": {k: statistics.median(v) for k, v in walls.items()}}
-
-
-# ``--times KERNEL``: the timing function of each kernel (or path) that
-# has one, called as fn(torch, path, dev) -> a JSON-able dict
-TIMES = {"walk_records_device": k9_times, "resolve_pack": k7_times,
-         "payload_gather": k10p_times, "device_plane": device_plane_times,
-         "native_plane": native_plane_times}
 
 
 def native_turns(args) -> dict:
@@ -1404,9 +1438,11 @@ def phase_device_main(torch, path, truth, card, dev, native_walls):
     ds = open_bam(path, config=HBamConfig(inflate_backend="device"))
     reset_launches()
     walls = {}
+    cold()
     t0 = time.perf_counter()
     flag = ds.flagstat()
     walls["flagstat"] = time.perf_counter() - t0
+    cold()
     t0 = time.perf_counter()
     stats = ds.seq_stats()
     walls["seq_stats"] = time.perf_counter() - t0
@@ -1424,26 +1460,29 @@ def phase_device_main(torch, path, truth, card, dev, native_walls):
             f"compressed MB/s; native plane {native_walls[name]:.3f} s, "
             f"{truth.n_reads / native_walls[name]:,.0f} reads/s [{card}]")
     for name, fn in (("flagstat", ds.flagstat), ("seq_stats", ds.seq_stats)):
+        cold()
         log_busy(torch, f"{name} (device plane)", fn, card)
-    device_plane_stages(torch, path, dev, card)
-    return launches
+    plan_s = device_plane_stages(torch, path, dev, card)
+    return launches, walls, plan_s
 
 
-def device_plane_stages(torch, path, dev, card) -> None:
+def device_plane_stages(torch, path, dev, card) -> float:
     """The device plane's host stages, each alone over the whole file:
-    the span plan (at the plane's grain and at the native flagstat's),
-    the native tokenize of every span on the decode pool, and the plane
-    with a step that does nothing on the device (tokenize, pinned staging
-    and token copies)."""
+    the span plan (at the plane's grain and at the native flagstat's,
+    memo cleared), the native tokenize of every span on the decode pool,
+    and the plane with a step that does nothing on the device (tokenize,
+    pinned staging and token copies).  Returns the plan's wall."""
     import concurrent.futures as cf
     from hadoop_bam_torch.config import HBamConfig
     from hadoop_bam_torch.device import data_axis
     from hadoop_bam_torch.parallel import pipeline as tp
     from hadoop_bam_torch.utils.seekable import as_byte_source
     cfg = HBamConfig(inflate_backend="device")
+    cold()
     t0 = time.perf_counter()
     spans = list(tp._plan(path, None, 1, tp.DEVICE_PLANE_SPAN_BYTES))
     plan_s = time.perf_counter() - t0
+    cold()
     t0 = time.perf_counter()
     coarse = list(tp._plan(path, None, 1, 4 << 20))
     coarse_s = time.perf_counter() - t0
@@ -1472,6 +1511,7 @@ def device_plane_stages(torch, path, dev, card) -> None:
         f"{cfg.pool_size()} threads {tok_s:.3f} s; tokenize + staging + "
         f"token copies with no device step {null_s:.3f} s "
         f"({os.cpu_count()} CPUs) [{card}]")
+    return plan_s
 
 
 # phase 10's interval filters: about 10% and about 50% of the reads
@@ -1496,6 +1536,97 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
+def _rss() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def _timed_rss(fn):
+    """``fn()``, its wall, and this process's resident set size before
+    the call and at its peak during it (sampled every 2 ms from
+    /proc/self/statm on a thread)."""
+    import threading
+    base = _rss()
+    peak = [base]
+    stop = threading.Event()
+
+    def sample():
+        while not stop.wait(0.002):
+            peak[0] = max(peak[0], _rss())
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        out, wall = _timed(fn)
+    finally:
+        stop.set()
+        t.join()
+    return out, wall, base, max(peak[0], _rss())
+
+
+def _mb(n: int) -> str:
+    return f"{n / 1e6:,.1f} MB"
+
+
+def _piece_bound(grain: int) -> int:
+    """The drivers' cut (``pipeline._grain_cut``): a planned span of at
+    most two grains is kept, a longer one cut into pieces of at most a
+    grain plus one block."""
+    from hadoop_bam_torch.formats.bgzf import MAX_BLOCK_SIZE
+    return max(2 * grain, grain + MAX_BLOCK_SIZE)
+
+
+def bai_region_runs(torch, path, card, *, truths=None) -> dict:
+    """The native flagstat and seq_stats over each of REGIONS on a
+    coordinate-sorted BAM with its ``.bai``, the plan memo cleared before
+    each call: walls, the resident set size before and at the peak of
+    each call, the reference's trimmed plan (spans, the longest) and the
+    spans each driver decoded (``pipeline.spans``).  With ``truths``
+    each result is checked against its region's truth.  Uses only what
+    every tree of the port since the ``.bai`` has, so that an earlier
+    tree (``--tree``) is measured on the same file."""
+    from hadoop_bam_torch.api import open_bam
+    from hadoop_bam_torch.config import HBamConfig
+    from hadoop_bam_torch.split import planners
+    from hadoop_bam_torch.utils.metrics import METRICS
+    out = {}
+    for region in REGIONS:
+        cfg = HBamConfig(inflate_backend="native", bam_intervals=region)
+        plan = list(planners.plan_spans_maybe_intervals(path, None, cfg))
+        row = {"trimmed_spans": len(plan),
+               "trimmed_bytes": sum(s.compressed_size for s in plan),
+               "longest_trimmed": max(s.compressed_size for s in plan)}
+        ds = open_bam(path, config=cfg)
+        got = {}
+        for name in ("flagstat", "seq_stats"):
+            cold()
+            METRICS.reset()
+            got[name], wall, base, peak = _timed_rss(getattr(ds, name))
+            row[name] = {"wall_s": wall, "rss_before": base,
+                         "rss_peak": peak,
+                         "spans": METRICS.get("pipeline.spans"),
+                         "inflated_bytes":
+                             METRICS.get("pipeline.inflated_bytes")}
+        if truths is not None:
+            check_truth(got["flagstat"], got["seq_stats"], truths[region])
+        out[region] = row
+    return out
+
+
+def bai_regions_times(torch, path, dev) -> dict:
+    """``--times bai_regions``: ``bai_region_runs`` on a coordinate-sorted
+    copy of the BAM's reads (written once beside it, with its ``.bai``,
+    and reused)."""
+    from hadoop_bam_torch.split.bai import write_bai
+    from hadoop_bam_torch.synth import write_synthetic_bam
+    srt = path[:-len(".bam")] + "_sorted.bam"
+    if not os.path.exists(srt + ".bai"):
+        base = os.path.basename(path)[:-len(".bam")].split("_")
+        write_synthetic_bam(srt, int(base[2]), int(base[1]),
+                            coordinate_sorted=True)
+        write_bai(srt)
+    return bai_region_runs(torch, srt, None)
+
+
 def _log_wall(what, wall, n, card, extra="") -> None:
     log(f"{what}: {wall:.3f} s wall, {n / wall:,.0f} reads/s{extra} "
         f"[{card}]")
@@ -1508,10 +1639,12 @@ def _entries(q):
                    for e in q), key=lambda e: e["span_start"])
 
 
-def phase_resilience(torch, path, truth, card, dev, native_walls, seed):
+def phase_resilience(torch, path, truth, card, dev, native_walls, seed,
+                     interval_walls):
     """Phase 10: intervals, seeded faults, demotion and quarantine on
     the card, through the entry points; returns the launches of its
-    runs."""
+    runs and fills ``interval_walls`` with (a)'s native walls by
+    (region, driver)."""
     log("== phase 10: resilience and intervals on cuda:0")
     import dataclasses
 
@@ -1548,6 +1681,8 @@ def phase_resilience(torch, path, truth, card, dev, native_walls, seed):
                 _log_wall(f"(a) {name} {region} {backend}", wall,
                           truth.n_reads, card,
                           f"; no intervals {native_walls[name]:.3f} s")
+                if backend == "native":
+                    interval_walls[(region, name)] = wall
     # (b) seeded device.step faults: demotion, then a heal after the
     # cooldown on an injected clock
     clk = FakeClock()
@@ -1658,6 +1793,305 @@ def phase_resilience(torch, path, truth, card, dev, native_walls, seed):
     return read_launches()
 
 
+def _block_starts(path):
+    import numpy as np
+    from hadoop_bam_torch.formats import bgzf
+    with open(path, "rb") as f:
+        raw = f.read()
+    return np.array([b.coffset for b in bgzf.scan_blocks(raw)], np.int64)
+
+
+def _span_blocks(starts, spans):
+    """Each span's BGZF blocks (the block at a mid-block end counted)."""
+    import numpy as np
+    return [int(np.searchsorted(starts, s.end[0])
+                - np.searchsorted(starts, s.start[0]) + (s.end[1] > 0))
+            for s in spans]
+
+
+def _sidecars(path):
+    return [path + suf for suf in (".splitting-bai", ".sbi", ".bai",
+                                   ".csi")]
+
+
+def phase_planning(torch, path, truth, card, dev, args, native_walls,
+                   device_walls, guessed_plan_s, interval_walls):
+    """Phase 11: the splitting index, the plan memo, .bai trimming and
+    the fused decode through the entry points; returns the launches of
+    its runs."""
+    log("== phase 11: span planning and fused decode on cuda:0")
+    import numpy as np
+    from hadoop_bam_torch.api import open_bam
+    from hadoop_bam_torch.config import HBamConfig
+    from hadoop_bam_torch.parallel import pipeline as tp
+    from hadoop_bam_torch.split import planners
+    from hadoop_bam_torch.split.bai import write_bai
+    from hadoop_bam_torch.split.splitting_index import (
+        SplittingIndex, write_splitting_index,
+    )
+    from hadoop_bam_torch.synth import write_synthetic_bam
+    from hadoop_bam_torch.utils.metrics import METRICS
+    reset_launches()
+    size = os.path.getsize(path)
+    work = os.path.join(os.path.dirname(path), "phase11")
+    os.makedirs(work, exist_ok=True)
+    link = os.path.join(work, "linked.bam")
+    srt = os.path.join(work, "sorted.bam")
+    for p in [link, srt] + _sidecars(link) + _sidecars(srt):
+        if os.path.exists(p):
+            os.remove(p)
+    try:
+        os.link(path, link)
+    except OSError:
+        import shutil
+        shutil.copyfile(path, link)
+    native = HBamConfig(inflate_backend="native")
+    device = HBamConfig(inflate_backend="device")
+    try:
+        # (a) the writers
+        _, w_sbai = _timed(lambda: write_splitting_index(link, 4096))
+        idx = SplittingIndex.load_for(link)
+        check(len(idx.voffsets) == -(-truth.n_reads // 4096) + 1,
+              "the splitting index samples every 4096th read")
+        _, w_synth = _timed(lambda: write_synthetic_bam(
+            srt, args.reads, args.seed, regions=REGIONS,
+            coordinate_sorted=True))
+        _, w_bai = _timed(lambda: write_bai(srt))
+        log(f"(a) .splitting-bai of {size} bytes: {len(idx.voffsets)} "
+            f"offsets, {os.path.getsize(link + '.splitting-bai')} bytes in "
+            f"{w_sbai:.3f} s; the reads coordinate-sorted "
+            f"({os.path.getsize(srt)} bytes, {w_synth:.1f} s), its .bai "
+            f"{os.path.getsize(srt + '.bai')} bytes in {w_bai:.3f} s "
+            f"[{card}]")
+
+        # (b) plans snapped to the splitting index
+        grains = {"device plane": tp.DEVICE_PLANE_SPAN_BYTES,
+                  "flagstat": 4 << 20, "seq_stats": 8 << 20,
+                  "span mode": (1 << 24) // 8}
+        plans = {}
+        starts = _block_starts(link)
+        for what, grain in grains.items():
+            cold()
+            plan, wall = _timed(lambda: list(tp._plan(link, None, 1, grain,
+                                                      native)))
+            plans[what] = plan
+            blocks = _span_blocks(starts, plan)
+            over = sum(b > tp.DEVICE_PLANE_MAX_BLOCKS for b in blocks)
+            log(f"(b) {what} plan at {grain} bytes from the index: "
+                f"{len(plan)} spans in {wall:.4f} s; largest "
+                f"{max(blocks)} blocks, {over} spans past "
+                f"{tp.DEVICE_PLANE_MAX_BLOCKS}"
+                + (f"; guessed (phase 9) {guessed_plan_s:.3f} s"
+                   if what == "device plane" else "") + f" [{card}]")
+        sampled = set(idx.voffsets)
+        check(all(s.start_voffset in sampled
+                  for s in plans["device plane"][1:]),
+              "the device plane's spans start at sampled records")
+        cold_walls = {}
+        for plane, cfg in (("native", native), ("device", device)):
+            ds = open_bam(link, config=cfg)
+            cold()
+            flag, wf = _timed(ds.flagstat)
+            cold()
+            stats, ws = _timed(ds.seq_stats)
+            check_truth(flag, stats, truth)
+            earlier = native_walls if plane == "native" else device_walls
+            for name, wall in (("flagstat", wf), ("seq_stats", ws)):
+                cold_walls[(plane, name)] = wall
+                _log_wall(f"(b) {name} on the {plane} plane, "
+                          f".splitting-bai plan", wall, truth.n_reads, card,
+                          f"; guessed plan {earlier[name]:.3f} s")
+        ds = open_bam(link, config=native)
+        cold()
+        check(ds.flagstat(mode="span") == truth.flagstat,
+              "span-mode flagstat from the index equals the truth")
+
+        # (c) the memo: a second call plans nothing
+        for plane, cfg in (("native", native), ("device", device)):
+            ds = open_bam(link, config=cfg)
+            flag, wf = _timed(ds.flagstat)
+            stats, ws = _timed(ds.seq_stats)
+            check_truth(flag, stats, truth)
+            for name, wall in (("flagstat", wf), ("seq_stats", ws)):
+                _log_wall(f"(c) {name} on the {plane} plane, memo hit",
+                          wall, truth.n_reads, card,
+                          f"; cold {cold_walls[(plane, name)]:.3f} s")
+        hit, hit_s = _timed(lambda: tp._plan(
+            link, None, 1, tp.DEVICE_PLANE_SPAN_BYTES, device))
+        check(isinstance(hit, list), "a repeated plan is a memo hit")
+        log(f"(c) device plane plan from the memo: {hit_s * 1e3:.3f} ms, "
+            f"{len(planners._PLAN_CACHE)} plans held [{card}]")
+        write_splitting_index(link, 4096)
+        again = tp._plan(link, None, 1, tp.DEVICE_PLANE_SPAN_BYTES, device)
+        check(not isinstance(again, list),
+              "a rewritten sidecar makes the next call plan again")
+        check([s.to_dict() for s in again] == [s.to_dict() for s in hit],
+              "the replanned spans equal the memo's")
+        flag, wf = _timed(open_bam(link, config=device).flagstat)
+        check(flag == truth.flagstat, "flagstat after the rewrite")
+        _log_wall("(c) device plane flagstat after the sidecar rewrite", wf,
+                  truth.n_reads, card)
+
+        # (b2) a splitting index sampled more coarsely than the grains
+        # (every 65,536th read): the drivers cut the snapped spans back
+        write_splitting_index(link, 1 << 16)
+        for what, grain in (("device plane", tp.DEVICE_PLANE_SPAN_BYTES),
+                            ("span mode", (1 << 24) // 8)):
+            cold()
+            snapped = list(planners.plan_spans_cached(
+                link, None, native, num_spans=-(-size // grain)))
+            cold()
+            plan, wall = _timed(lambda: list(tp._plan(link, None, 1, grain,
+                                                      native)))
+            blocks = _span_blocks(starts, plan)
+            check(max(s.compressed_size for s in plan)
+                  <= _piece_bound(grain),
+                  f"{what}: spans from a coarse index stay within the "
+                  f"grain's bound")
+            if what == "device plane":
+                check(max(blocks) <= tp.DEVICE_PLANE_MAX_BLOCKS,
+                      "no device-plane span from a coarse index passes "
+                      "the chunk's blocks")
+            log(f"(b2) {what} plan at {grain} bytes from a coarse index: "
+                f"{len(snapped)} snapped spans (longest "
+                f"{max(s.compressed_size for s in snapped)} bytes) cut to "
+                f"{len(plan)} in {wall:.3f} s; largest {max(blocks)} "
+                f"blocks [{card}]")
+        cold()
+        flag, wf = _timed(open_bam(link, config=device).flagstat)
+        check(flag == truth.flagstat, "device plane over a coarse index")
+        _log_wall("(b2) device plane flagstat over the coarse index", wf,
+                  truth.n_reads, card)
+        cold()
+        flag, wf = _timed(lambda: open_bam(link, config=native).flagstat(
+            mode="span"))
+        check(flag == truth.flagstat, "span mode over a coarse index")
+        _log_wall("(b2) flagstat(mode=\"span\") over the coarse index", wf,
+                  truth.n_reads, card)
+
+        # (d) .bai trimming on the coordinate-sorted copy: full scans
+        # (the .bai moved away), then the trimmed runs; the resident set
+        # size at each call's peak
+        bai = srt + ".bai"
+        full = {}
+        os.rename(bai, bai + ".off")
+        for region in REGIONS:
+            ds = open_bam(srt, config=HBamConfig(inflate_backend="native",
+                                                 bam_intervals=region))
+            got = {}
+            for name in ("flagstat", "seq_stats"):
+                cold()
+                METRICS.reset()
+                got[name], wall, base, peak = _timed_rss(getattr(ds, name))
+                full[(region, name)] = (wall, base, peak, METRICS.get(
+                    "pipeline.inflated_bytes"))
+            check_truth(got["flagstat"], got["seq_stats"],
+                        truth.regions[region])
+        os.rename(bai + ".off", bai)
+        trimmed = bai_region_runs(torch, srt, card, truths=truth.regions)
+        srt_size = os.path.getsize(srt)
+        for region, row in trimmed.items():
+            want = truth.regions[region]
+            cfg = HBamConfig(inflate_backend="native", bam_intervals=region)
+            cuts = {}
+            for name, grain in (("flagstat", tp.FLAGSTAT_SPAN_BYTES),
+                                ("seq_stats", tp.SEQ_STATS_SPAN_BYTES)):
+                cold()
+                pieces = list(tp._plan(srt, None, 1, grain, cfg))
+                check(max(s.compressed_size for s in pieces)
+                      <= _piece_bound(grain),
+                      f"{region}: the {name} driver's spans stay within "
+                      f"its grain's bound")
+                check(row[name]["spans"] == len(pieces),
+                      f"{region}: {name} decoded the cut plan")
+                cuts[name] = (len(pieces),
+                              max(s.compressed_size for s in pieces))
+                check(row[name]["inflated_bytes"] < full[(region, name)][3],
+                      f"the .bai run inflates less ({region}, {name})")
+            log(f"(d) {region}: {want.n_reads} reads equal the interval "
+                f"truth with and without the .bai; the trimmed plan is "
+                f"{row['trimmed_spans']} span(s) over "
+                f"{row['trimmed_bytes']} of {srt_size} compressed bytes "
+                f"({100 * row['trimmed_bytes'] / srt_size:.1f}%), the "
+                f"longest {row['longest_trimmed']} bytes; decoded as "
+                f"{cuts['flagstat'][0]} spans (longest {cuts['flagstat'][1]}"
+                f" bytes) by flagstat, {cuts['seq_stats'][0]} (longest "
+                f"{cuts['seq_stats'][1]}) by seq_stats")
+            for name in ("flagstat", "seq_stats"):
+                r = row[name]
+                fw, fbase, fpeak, finfl = full[(region, name)]
+                _log_wall(f"(d) {name} {region} with the .bai",
+                          r["wall_s"], want.n_reads, card,
+                          f"; full scan of the sorted copy {fw:.3f} s; "
+                          f"phase 10 (a) "
+                          f"{interval_walls[(region, name)]:.3f} s")
+                log(f"(d) {name} {region}: resident set peak "
+                    f"{_mb(r['rss_peak'])} (+{_mb(r['rss_peak'] - r['rss_before'])}"
+                    f" over the call's start), inflated {r['inflated_bytes']}"
+                    f" bytes; full scan peak {_mb(fpeak)} "
+                    f"(+{_mb(fpeak - fbase)}), inflated {finfl} bytes "
+                    f"[{card}]")
+
+        # (e) fused against two-pass, in turns, memo cleared each call
+        ds_on = open_bam(path, config=native)
+        ds_off = open_bam(path, config=HBamConfig(inflate_backend="native",
+                                                  use_fused_decode=False))
+        runs = {"flagstat": lambda d: d.flagstat(),
+                "seq_stats": lambda d: d.seq_stats(),
+                "flagstat_span": lambda d: d.flagstat(mode="span")}
+        walls = {(k, f): [] for k in runs for f in ("fused", "two-pass")}
+        tails = spans = 0
+        for r in range(3):
+            order = (("fused", ds_on), ("two-pass", ds_off))
+            for name, fn in runs.items():
+                for label, d in (order if r % 2 == 0 else order[::-1]):
+                    cold()
+                    METRICS.reset()
+                    out, wall = _timed(lambda: fn(d))
+                    if name == "seq_stats":
+                        check(out["n_reads"] == truth.n_reads and
+                              np.array_equal(out["base_hist"],
+                                             truth.base_hist),
+                              f"seq_stats {label}")
+                    else:
+                        check(out == truth.flagstat, f"{name} {label}")
+                    walls[(name, label)].append(wall)
+                    if label == "fused":
+                        tails += METRICS.get("pipeline.fused_tail_fallbacks")
+                        spans += METRICS.get("pipeline.spans")
+        for name in runs:
+            on, off = walls[(name, "fused")], walls[(name, "two-pass")]
+            log(f"(e) {name}: fused {', '.join(f'{w:.3f}' for w in on)} s, "
+                f"two-pass {', '.join(f'{w:.3f}' for w in off)} s; medians "
+                f"{statistics.median(on):.3f} / {statistics.median(off):.3f}"
+                f" s, {truth.n_reads / statistics.median(on):,.0f} / "
+                f"{truth.n_reads / statistics.median(off):,.0f} reads/s "
+                f"[{card}]")
+        log(f"(e) fused spans finished by the two-pass tail: {tails} of "
+            f"{spans} ({100 * tails / max(spans, 1):.2f}%)")
+    finally:
+        for p in [link, srt] + _sidecars(link) + _sidecars(srt) + \
+                [srt + ".bai.off"]:
+            if os.path.exists(p):
+                os.remove(p)
+        if not os.listdir(work):
+            os.rmdir(work)
+        cold()
+    launches = read_launches()
+    log(f"launches in phase 11: {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} launched in phase 11")
+    return launches
+
+
+# ``--times KERNEL``: the timing function of each kernel (or path) that
+# has one, called as fn(torch, path, dev) -> a JSON-able dict
+TIMES = {"walk_records_device": k9_times, "resolve_pack": k7_times,
+         "payload_gather": k10p_times, "device_plane": device_plane_times,
+         "native_plane": native_plane_times,
+         "bai_regions": bai_regions_times}
+
+
 def check_truth(flag, stats, truth) -> None:
     import numpy as np
     check(flag == truth.flagstat, f"flagstat {flag} != {truth.flagstat}")
@@ -1726,14 +2160,20 @@ def main(argv=None) -> int:
             "resolve_pack": k7, "walk_records_device": k9,
             "payload_gather": k10}
     phase_plane_shapes(torch, path, dev, rows)
-    device_launches = phase_device_main(torch, path, truth, card, dev,
-                                        native_walls)
+    device_launches, device_walls, plan_s = phase_device_main(
+        torch, path, truth, card, dev, native_walls)
+    interval_walls = {}
     resilience_launches = phase_resilience(torch, path, truth, card, dev,
-                                           native_walls, args.seed)
+                                           native_walls, args.seed,
+                                           interval_walls)
+    planning_launches = phase_planning(torch, path, truth, card, dev, args,
+                                       native_walls, device_walls, plan_s,
+                                       interval_walls)
     for name, row in rows.items():
         by_path = {"native": native_launches.get(name, 0),
                    "device": device_launches[name],
-                   "resilience": resilience_launches[name]}
+                   "resilience": resilience_launches[name],
+                   "planning": planning_launches[name]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["share_of_bound"] = row["bound_ms"] / row["ms"]

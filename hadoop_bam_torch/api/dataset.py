@@ -10,10 +10,11 @@ hadoop_bam_tpu/api/dataset.py, slice 1: ``flagstat`` and ``seq_stats``).
         bam_intervals="chr20:1-1000000", skip_bad_spans=True))
     q = QuarantineManifest()
     ds.flagstat(quarantine=q)            # q lists the spans skipped
+    ds.spans(num_spans=8)                # the dataset's span plan
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional
 
 from hadoop_bam_torch.config import DEFAULT_CONFIG, HBamConfig
 from hadoop_bam_torch.device import resolve_device
@@ -29,6 +30,28 @@ class BamDataset:
         self.device = resolve_device(device)
         self.config = config
         self.header, self.first_voffset = read_bam_header(path)
+        self._plan: Optional[List] = None
+        self._plan_num_spans: Optional[int] = None
+
+    def spans(self, num_spans: Optional[int] = None) -> List:
+        """The dataset's record-aligned spans (``FileVirtualSpan``),
+        planned once (``split/planners.plan_spans_maybe_intervals``:
+        trimmed to a ``.bai``'s chunks under intervals, snapped to a
+        splitting index, or guessed).  Asking again with another
+        ``num_spans`` raises ValueError: open a new dataset to re-plan."""
+        if self._plan is not None and num_spans is not None \
+                and num_spans != self._plan_num_spans:
+            raise ValueError(
+                f"span plan already built with num_spans="
+                f"{self._plan_num_spans}; open a new dataset to re-plan")
+        if self._plan is None:
+            from hadoop_bam_torch.split.planners import (
+                plan_spans_maybe_intervals,
+            )
+            self._plan = list(plan_spans_maybe_intervals(
+                self.path, self.header, self.config, num_spans=num_spans))
+            self._plan_num_spans = num_spans
+        return self._plan
 
     def flagstat(self, geometry=None, mode: str = "tile",
                  quarantine=None) -> Dict[str, int]:

@@ -54,6 +54,21 @@ class HBamConfig:
     breaker_cooldown_s: float = 5.0       # OPEN -> HALF_OPEN delay
     breaker_half_open_probes: int = 1     # probes HALF_OPEN admits
 
+    # span planning (split/planners.py): byte ranges of split_size (when
+    # the caller asks for no span count), snapped to a .splitting-bai /
+    # .sbi sidecar when one sits next to the BAM and use_splitting_index
+    # is on, and moved past a shared query name when
+    # keep_paired_reads_together is on (queryname-grouped BAMs)
+    split_size: int = 128 * 1024 * 1024
+    use_splitting_index: bool = True
+    keep_paired_reads_together: bool = False
+
+    # host decode (parallel/pipeline.py): the fused native inflate + walk
+    # + pack of each span, streamed in chunks of decode_chunk_blocks BGZF
+    # blocks; False runs the two-pass path (inflate, then walk)
+    use_fused_decode: bool = True
+    decode_chunk_blocks: int = 32
+
     def __post_init__(self):
         if self.inflate_backend not in INFLATE_BACKENDS:
             raise PlanError(f"unknown inflate backend "

@@ -9,7 +9,8 @@ records; each record starts with a 36-byte fixed prefix::
     next_pos i32 | tlen i32
 
 then read name, CIGAR, 4-bit packed bases, qualities and tags.
-``BamBatch`` is the columnar view the interval filter reads.
+``BamBatch`` is the columnar view the interval filter, the BAI build
+and the planner read.
 """
 from __future__ import annotations
 
@@ -135,13 +136,16 @@ def _gather_le(data: np.ndarray, offs: np.ndarray, nbytes: int, signed: bool
 class BamBatch:
     """Structure-of-arrays view over the records of one inflated span: the
     part of the reference's ``BamBatch`` (formats/bam.py:219) that the
-    interval filter reads.  Columns are gathered lazily from the bytes."""
+    interval filter, the BAI build and the planner's name groups read.
+    Columns are gathered lazily from the bytes."""
 
     def __init__(self, data: np.ndarray, offsets: np.ndarray,
-                 header: Optional[SAMHeader] = None):
+                 header: Optional[SAMHeader] = None,
+                 voffsets: Optional[np.ndarray] = None):
         self.data = np.asarray(data, dtype=np.uint8)
         self.offsets = np.asarray(offsets, dtype=np.int64)
         self.header = header
+        self.voffsets = voffsets   # each record's start virtual offset
         self._cache: Dict[str, np.ndarray] = {}
 
     def __len__(self) -> int:
@@ -165,6 +169,11 @@ class BamBatch:
     def n_cigar(self): return self._col("n_cigar", 16, 2, False)
     @property
     def l_seq(self): return self._col("l_seq", 20, 4, True)
+
+    def read_name(self, i: int) -> str:
+        o = int(self.offsets[i]) + FIXED_RECORD_PREFIX
+        return self.data[o:o + int(self.l_read_name[i]) - 1].tobytes(
+        ).decode()
 
     @property
     def cigar_offset(self):

@@ -280,3 +280,19 @@ class BGZFWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def compress_bytes(data: bytes, level: int = 6, write_eof: bool = True
+                   ) -> bytes:
+    """One-shot: BGZF-compress ``data`` into a sequence of blocks."""
+    import io
+    sink = io.BytesIO()
+    with BGZFWriter(sink, level=level, write_eof=write_eof) as w:
+        w.write(data)
+    return sink.getvalue()
+
+
+def decompress_bytes(data: bytes, check_crc: bool = True) -> bytes:
+    """One-shot: inflate a whole BGZF byte string."""
+    return b"".join(inflate_block(data, info, check_crc=check_crc)
+                    for info in scan_blocks(data))

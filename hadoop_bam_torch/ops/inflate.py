@@ -12,17 +12,21 @@ Three backends for ``inflate_span``:
 
 All give the same bytes, offsets and error classes for a bad block
 (BGZFError).  ``config.resolve_inflate_backend`` picks among them.
+
+``FusedSpanDecode`` is the native plane's single streamed pass (inflate,
+walk, pack and CRC fold in one visit of each chunk of blocks); the
+two-pass ``inflate_span`` + ``walk_records`` stays as its oracle.
 """
 from __future__ import annotations
 
 import zlib
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
 from hadoop_bam_torch.formats import bgzf
 from hadoop_bam_torch.utils import native
-from hadoop_bam_torch.utils.errors import PlanError
+from hadoop_bam_torch.utils.errors import CorruptDataError, PlanError
 
 BACKENDS = ("native", "zlib", "device")
 
@@ -141,3 +145,138 @@ def walk_records(data: np.ndarray, start: int = 0, backend: str = "native"
     last = int(offs[-1])
     bs = int.from_bytes(data[last:last + 4].tobytes(), "little", signed=True)
     return offs, last + 4 + bs
+
+
+# ---------------------------------------------------------------------------
+# Fused single-pass span decode (native/hbam_native.cpp hbam_fused_*)
+# ---------------------------------------------------------------------------
+
+def fused_available() -> bool:
+    """Are the native fused decode entry points loadable?"""
+    return native.fused_available()
+
+
+def _raise_fused_error(rc: int, index: int) -> None:
+    """A fused rc -> the exception class the two-pass path raises for the
+    same corruption: BGZF faults BGZFError, record-chain faults
+    CorruptDataError (the two-pass walkers' ValueError classifies the
+    same, CORRUPT)."""
+    kind = -rc
+    if kind == 1:
+        raise bgzf.BGZFError(f"corrupt DEFLATE payload in block {index}")
+    if kind == 2:
+        raise bgzf.BGZFError(f"ISIZE mismatch in block {index}")
+    if kind == 3:
+        raise bgzf.BGZFError(f"CRC32 mismatch in block(s) [{index}]")
+    if kind == 5:
+        raise CorruptDataError(
+            f"record count exceeds capacity at offset {index}")
+    raise CorruptDataError("malformed BAM record chain")
+
+
+class FusedSpanDecode:
+    """One span's fused native inflate + walk + pack (+ CRC fold) job::
+
+        dec = FusedSpanDecode(raw, table, start=s, stop=e, mode="rows",
+                              sel=ranges, row_stride=w, check_crc=True)
+        for lo, hi in dec.chunks():
+            consume(dec.rows[lo:hi])      # packed while cache-hot
+        n, tail = dec.finish()
+
+    ``chunks()`` yields ``[row_lo, row_hi)`` as the native walk publishes
+    them, so tiles pack before the span's last blocks are inflated.
+    After ``finish()``: ``data`` is the inflated span, ``offsets[:n]``
+    the record starts, and ``rows`` or ``prefix`` / ``seq`` / ``qual``
+    the packed outputs.  Corruption raises what the two-pass path
+    raises; closing ``chunks()`` early joins the native workers.
+
+    Modes: ``"offsets"`` (walk only), ``"rows"`` (the ``sel`` ranges of
+    each fixed prefix in ``row_stride``-byte rows), ``"payload"``
+    (prefix, seq and qual tiles, ``hbam_walk_bam_payload``'s layout)."""
+
+    def __init__(self, raw: bytes, table: Optional[dict] = None, *,
+                 start: int = 0, stop: Optional[int] = None,
+                 mode: str = "offsets",
+                 sel: Optional[Sequence[Tuple[int, int]]] = None,
+                 row_stride: int = 0, max_len: int = 0, seq_stride: int = 0,
+                 qual_stride: int = 0, check_crc: bool = False,
+                 chunk_blocks: int = 32, n_threads: int = 0):
+        if table is None:
+            table = block_table(raw)
+        isize = table["isize"]
+        ubase = np.zeros(isize.size + 1, dtype=np.int64)
+        np.cumsum(isize, out=ubase[1:])
+        total = int(ubase[-1])
+        self.data = np.empty(total, dtype=np.uint8)
+        self.ubase = ubase[:-1]
+        self.stop = total if stop is None else min(int(stop), total)
+        self.rows = self.prefix = self.seq = self.qual = None
+        src = np.frombuffer(raw, dtype=np.uint8)
+        expect = footer_crcs(src, table) if check_crc else None
+        cap = max(16, (self.stop - start) // 36 + 1)
+        self.offsets = np.empty(cap, dtype=np.int64)
+        mode_id = {"offsets": native.FUSED_OFFSETS,
+                   "rows": native.FUSED_ROWS,
+                   "payload": native.FUSED_PAYLOAD}[mode]
+        sel_off = sel_len = out_rows = out_seq = out_qual = None
+        if mode == "rows":
+            sel_off = np.asarray([o for o, _ in sel], dtype=np.int32)
+            sel_len = np.asarray([w for _, w in sel], dtype=np.int32)
+            self.rows = out_rows = np.empty((cap, row_stride),
+                                            dtype=np.uint8)
+        elif mode == "payload":
+            # zeroed as the two-pass wrappers zero them: the native pass
+            # writes only each row's payload bytes
+            self.prefix = out_rows = np.zeros((cap, 36), dtype=np.uint8)
+            self.seq = out_seq = np.zeros((cap, seq_stride), dtype=np.uint8)
+            self.qual = out_qual = np.zeros((cap, qual_stride),
+                                            dtype=np.uint8)
+        self.n_blocks = int(isize.size)
+        self.n_rows: Optional[int] = None
+        self.tail: Optional[int] = None
+        if self.n_blocks == 0:
+            self._job = None
+            self.n_rows, self.tail = 0, int(start)
+            return
+        self._job = native.FusedJob(
+            src, table["cdata_off"], table["cdata_len"], isize, expect,
+            self.data, self.ubase, start, self.stop, mode_id, sel_off,
+            sel_len, row_stride, out_rows, out_seq, out_qual, max_len,
+            seq_stride, qual_stride, self.offsets, chunk_blocks, n_threads)
+
+    def chunks(self) -> Iterator[Tuple[int, int]]:
+        """``(row_lo, row_hi)`` as the native walk completes them; raises
+        on corruption.  Closing the generator early cancels and joins
+        the workers."""
+        if self._job is None:
+            return
+        try:
+            while True:
+                c = self._job.next_chunk()
+                if c is None:
+                    if self._job.rc < 0:
+                        _raise_fused_error(self._job.rc,
+                                           self._job.err_index)
+                    return
+                yield c
+        finally:
+            if self.n_rows is None:
+                self.finish(check=False)
+
+    def finish(self, check: bool = True) -> Tuple[int, int]:
+        """Join the job; returns (n_rows, tail).  ``check=False`` skips
+        raising (the cancellation path)."""
+        if self._job is not None:
+            rc = self._job.finish()
+            self.n_rows, self.tail = self._job.n_rows, self._job.tail
+            idx = self._job.err_index
+            self._job = None
+            if check and rc < 0:
+                _raise_fused_error(rc, idx)
+        return self.n_rows, self.tail
+
+    def run(self) -> Tuple[int, int]:
+        """Not streamed: drain every chunk, then finish."""
+        for _ in self.chunks():
+            pass
+        return self.finish()

@@ -1,9 +1,13 @@
 """The decode pipeline: spans -> host inflate -> device batches -> reduce.
 
-Counterpart of hadoop_bam_tpu/parallel/pipeline.py for the first slice:
+Counterpart of hadoop_bam_tpu/parallel/pipeline.py:
 
-    plan record-aligned spans            split/planners.plan_bam_spans
+    plan record-aligned spans, once      split/planners.plan_spans_cached
+    a file and request (sidecar-snapped
+    or guessed; .bai-trimmed intervals)
     inflate + walk each span (threads)   ops/inflate (native C++ or zlib)
+    -- the native plane's fused pass     ops/inflate.FusedSpanDecode
+    streams chunks of rows
     pack fixed-stride row tiles          FeedPipeline / StagingRing
     copy tiles to the device             pinned memory, non_blocking
     unpack + reduce there                the step functions below
@@ -22,7 +26,17 @@ Every span decodes under the reference's failure policy
 along the device -> native -> zlib ladder (resilience/domains.py) and
 are quarantined or raised per ``skip_bad_spans``; ``bam_intervals``
 filters records on the host planes (``select_plane`` keeps the device
-plane off then).  Fused streaming decode is a later slice.
+plane off then).  On the native plane each span decodes in one fused
+native pass (section "Fused single-pass span decode"), streamed into the
+staging ring chunk by chunk unless intervals or ``skip_bad_spans`` need
+the whole span; the two-pass path stays as its oracle and runs with
+``use_fused_decode=False``, on the zlib plane, for empty spans and for
+a final record cut at the span's last block.
+
+Counters (utils/metrics.py): ``pipeline.spans``, ``pipeline.blocks``,
+``pipeline.inflated_bytes`` and ``pipeline.records`` of the host planes'
+span decodes, as the reference counts them; ``pipeline.fused_tail_
+fallbacks``, the fused spans finished by the two-pass path.
 """
 from __future__ import annotations
 
@@ -60,7 +74,9 @@ from hadoop_bam_torch.ops.unpack_bam import (
 from hadoop_bam_torch.parallel.staging import (
     FeedPipeline, StagingRing, TileSpec,
 )
-from hadoop_bam_torch.plan.executor import PlaneDecision, select_plane
+from hadoop_bam_torch.plan.executor import (
+    PlaneDecision, _use_fused, select_plane,
+)
 from hadoop_bam_torch.resilience import chaos
 from hadoop_bam_torch.resilience.domains import (
     DemotionLadder, check_quarantine_gate, decode_ladder, quarantine_run_ok,
@@ -68,7 +84,8 @@ from hadoop_bam_torch.resilience.domains import (
 from hadoop_bam_torch.split.intervals import (
     batch_overlap_mask, parse_intervals,
 )
-from hadoop_bam_torch.split.planners import iter_bam_spans
+from hadoop_bam_torch.split.bam_guesser import BAMSplitGuesser
+from hadoop_bam_torch.split.planners import iter_bam_spans, plan_spans_cached
 from hadoop_bam_torch.split.spans import FileVirtualSpan
 from hadoop_bam_torch.utils import native
 from hadoop_bam_torch.utils.errors import (
@@ -155,10 +172,13 @@ def _decode_span_src(src, span: FileVirtualSpan, check_crc: bool,
                      want_voffs: bool):
     start_u = span.start[1]
     end_u = span.end[1]
+    METRICS.count("pipeline.spans")
     raw, end_block_size, next_c = _fetch_span_raw(src, span)
     if raw:
         table = inflate_ops.block_table(raw)
         data, ubase = inflate_ops.inflate_span(raw, table, backend=backend)
+        METRICS.count("pipeline.blocks", int(table["isize"].size))
+        METRICS.count("pipeline.inflated_bytes", int(data.size))
         if check_crc:
             inflate_ops.verify_crcs(raw, table, data, ubase, backend)
         abs_coffs = table["coffset"] + span.start[0]
@@ -221,23 +241,249 @@ def _decode_span_src(src, span: FileVirtualSpan, check_crc: bool,
     offs = offs[:keep]
     if rows is not None:
         rows = rows[:keep]
-    if offs.size and want_voffs:
-        blk = np.searchsorted(ubase, offs, side="right") - 1
-        voffs = (abs_coffs[blk].astype(np.uint64) << np.uint64(16)) | \
-            (offs - ubase[blk]).astype(np.uint64)
-    else:
-        voffs = np.empty(0, dtype=np.uint64)
+    METRICS.count("pipeline.records", int(offs.size))
+    voffs = _voffsets(offs, ubase, abs_coffs) if want_voffs \
+        else np.empty(0, dtype=np.uint64)
     return data, offs, voffs, rows
+
+
+def _voffsets(offs: np.ndarray, ubase: np.ndarray, abs_coffs: np.ndarray
+              ) -> np.ndarray:
+    """Inflated-span record offsets -> packed virtual offsets, given each
+    block's inflated start and absolute compressed offset; an offset at
+    a block's end maps to the next block's start (htsjdk's normal
+    form)."""
+    if not offs.size:
+        return np.empty(0, dtype=np.uint64)
+    blk = np.searchsorted(ubase, offs, side="right") - 1
+    return (abs_coffs[blk].astype(np.uint64) << np.uint64(16)) | \
+        (offs - ubase[blk]).astype(np.uint64)
+
+# ---------------------------------------------------------------------------
+# Fused single-pass span decode (ops/inflate.FusedSpanDecode over the
+# native hbam_fused_*): native workers inflate runs of
+# config.decode_chunk_blocks blocks, and the record walk, the row pack and
+# the CRC fold consume those bytes while they are cache-hot, where the
+# two-pass path (_decode_span_core) inflates the span to memory and walks
+# it again.  The two-pass path stays as the oracle the fused outputs equal
+# byte for byte, and runs for use_fused_decode=False, the zlib plane,
+# empty spans and a final record cut at the span's last block.
+# ---------------------------------------------------------------------------
+
+def _close_stream(item) -> None:
+    """``iter_windowed``'s cleanup: join a fused chunk stream's native
+    workers; buffered results need nothing."""
+    close = getattr(item, "close", None)
+    if close is not None:
+        close()
+
+
+def _flatten_span_stream(items) -> Iterator[Tuple[np.ndarray, ...]]:
+    """FeedPipeline input from mixed decode results: an array or a tuple
+    of arrays is one span's item; a fused chunk stream gives its chunks'
+    tuples."""
+    for item in items:
+        if isinstance(item, np.ndarray):
+            yield (item,)
+        elif isinstance(item, tuple):
+            yield item
+        else:
+            yield from item
+
+
+def _stream_window(window: int) -> int:
+    """The in-flight window of streamed fused decode: each windowed span
+    is a live native job of up to one thread per CPU (the pool task
+    only fetches and starts it), so the pool-sized window would
+    oversubscribe the host several times over."""
+    return min(window, max(2, 2 * (os.cpu_count() or 1)))
+
+
+def _fused_off(config: Optional[HBamConfig]) -> HBamConfig:
+    """``config`` with the fused path off: what a streamed span's
+    cut-tail fallback decodes with (the two-pass oracle, not the fused
+    decode that just stopped short)."""
+    cfg = config if config is not None else DEFAULT_CONFIG
+    return dataclasses.replace(cfg, use_fused_decode=False)
+
+
+def _start_fused_span(src, span: FileVirtualSpan, mode: str, *,
+                      sel=None, row_bytes: int = 0,
+                      geometry: Optional["PayloadGeometry"] = None,
+                      check_crc: bool = False,
+                      config: Optional[HBamConfig] = None):
+    """Fetch one span and start its fused native job.  The fetch runs on
+    the caller's thread, so a transient read fault surfaces inside
+    ``decode_with_retry`` even when the chunks are consumed later.
+    Returns (dec, end_inflated, next_c, table), or None for an empty
+    span (the two-pass path handles those)."""
+    raw, end_block_size, next_c = _fetch_span_raw(src, span)
+    if not raw:
+        return None
+    table = inflate_ops.block_table(raw)
+    isize = table["isize"]
+    total = int(isize.sum())
+    end_inflated = (total - int(isize[-1]) + span.end[1]) \
+        if end_block_size else total
+    cfg = config if config is not None else DEFAULT_CONFIG
+    kwargs = {}
+    if mode == "rows":
+        kwargs = dict(sel=sel, row_stride=row_bytes)
+    elif mode == "payload":
+        kwargs = dict(max_len=geometry.max_len,
+                      seq_stride=geometry.seq_stride,
+                      qual_stride=geometry.qual_stride)
+    dec = inflate_ops.FusedSpanDecode(
+        raw, table, start=span.start[1], stop=end_inflated, mode=mode,
+        check_crc=check_crc,
+        chunk_blocks=max(1, int(cfg.decode_chunk_blocks)), **kwargs)
+    return dec, end_inflated, next_c, table
+
+
+def _fused_span_counts(dec, table, n: int) -> None:
+    """A fused span's counters once it succeeded (the two-pass path
+    counts its own; a span that falls back is counted there, once)."""
+    METRICS.count("pipeline.spans")
+    METRICS.count("pipeline.blocks", int(table["isize"].size))
+    METRICS.count("pipeline.inflated_bytes", int(dec.data.size))
+    METRICS.count("pipeline.records", n)
+
+
+def _decode_span_fused(source, span: FileVirtualSpan, mode: str, *,
+                       check_crc: bool = False, sel=None, row_bytes: int = 0,
+                       geometry: Optional["PayloadGeometry"] = None,
+                       want_voffs: bool = True,
+                       config: Optional[HBamConfig] = None):
+    """One span's fused decode, not streamed: (data, offs, voffs, outs)
+    with ``outs`` the mode's rows, (prefix, seq, qual) or None; or None
+    when the span needs the two-pass path (empty, or its final owned
+    record runs past the span's last block: ``pipeline.fused_tail_
+    fallbacks``)."""
+    src = as_byte_source(source)
+    try:
+        started = _start_fused_span(src, span, mode, sel=sel,
+                                    row_bytes=row_bytes, geometry=geometry,
+                                    check_crc=check_crc, config=config)
+        if started is None:
+            return None
+        dec, end_inflated, next_c, table = started
+        try:
+            n, tail = dec.run()
+        except Exception:
+            # the two-pass path counts a span on entry, failed or not
+            METRICS.count("pipeline.spans")
+            raise
+        if tail < end_inflated and next_c < src.size:
+            METRICS.count("pipeline.fused_tail_fallbacks")
+            return None
+    finally:
+        if src is not source:
+            src.close()
+    _fused_span_counts(dec, table, n)
+    offs = dec.offsets[:n]
+    voffs = _voffsets(offs, dec.ubase, table["coffset"] + span.start[0]) \
+        if want_voffs else np.empty(0, dtype=np.uint64)
+    if mode == "rows":
+        outs = dec.rows[:n]
+    elif mode == "payload":
+        outs = (dec.prefix[:n], dec.seq[:n], dec.qual[:n])
+    else:
+        outs = None
+    return dec.data, offs, voffs, outs
+
+
+class _FusedChunkStream:
+    """One span's streamed fused decode: iterate it for row-array tuples;
+    ``close()`` joins the native workers, whether or not iteration ever
+    started."""
+
+    __slots__ = ("_dec", "_gen")
+
+    def __init__(self, dec, gen):
+        self._dec = dec
+        self._gen = gen
+
+    def __iter__(self):
+        return self._gen
+
+    def close(self) -> None:
+        self._gen.close()
+        self._dec.finish(check=False)
+
+
+def _iter_fused_span_chunks(src, span: FileVirtualSpan, mode: str, *,
+                            sel=None, row_bytes: int = 0,
+                            geometry: Optional["PayloadGeometry"] = None,
+                            check_crc: bool = False,
+                            config: Optional[HBamConfig] = None,
+                            fallback_fn: Optional[Callable] = None):
+    """Streamed fused decode: fetch the span and start its native job
+    now (on the caller's thread, inside the retry boundary), and return
+    an iterable of row-array tuples in record order -- ``(rows,)`` in
+    mode "rows", ``(prefix, seq, qual)`` in "payload" -- each handed out
+    as the native walk publishes it, so staging tiles pack before the
+    span's last blocks are inflated.
+
+    A span whose final owned record is cut at its last block finishes
+    through ``fallback_fn`` (the two-pass oracle under its own
+    ``decode_with_retry``, returning the whole span's tuple): its rows
+    past the fused count follow, so the stream equals the buffered
+    paths byte for byte.  Corruption raises from the iterator, on the
+    consumer's thread, outside ``decode_with_retry``; its counters are
+    ticked here as the two-pass path would tick them."""
+    started = _start_fused_span(src, span, mode, sel=sel,
+                                row_bytes=row_bytes, geometry=geometry,
+                                check_crc=check_crc, config=config)
+    if started is None:
+        METRICS.count("pipeline.spans")     # an empty span, still planned
+        return iter(())
+    dec, end_inflated, next_c, table = started
+    src_size = src.size
+
+    def slices(lo: int, hi: int) -> Tuple[np.ndarray, ...]:
+        if mode == "rows":
+            return (dec.rows[lo:hi],)
+        return (dec.prefix[lo:hi], dec.seq[lo:hi], dec.qual[lo:hi])
+
+    def gen():
+        try:
+            for lo, hi in dec.chunks():
+                yield slices(lo, hi)
+            n, tail = dec.finish()
+        except GeneratorExit:
+            dec.finish(check=False)
+            raise
+        except Exception as e:  # noqa: BLE001 -- counters, then re-raised
+            METRICS.count("pipeline.spans")
+            if classify_error(e) == CORRUPT:
+                METRICS.count("pipeline.corrupt_spans")
+            raise
+        if tail < end_inflated and next_c < src_size:
+            METRICS.count("pipeline.fused_tail_fallbacks")
+            rest = tuple(a[n:] for a in fallback_fn())
+            if rest[0].shape[0]:
+                yield rest
+        else:
+            _fused_span_counts(dec, table, n)
+
+    return _FusedChunkStream(dec, gen())
 
 
 def decode_span_host(source, span: FileVirtualSpan, geometry: DecodeGeometry,
                      check_crc: bool = False, backend: str = "native",
+                     config: Optional[HBamConfig] = None,
                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Span mode: the span's inflated bytes and its owned record offsets
-    (int32), unpadded.  Returns (data, offsets, voffsets); a span over
-    the geometry's caps raises PlanError (plan smaller spans)."""
-    data, offs, voffs, _ = _decode_span_core(source, span, check_crc,
-                                             backend)
+    (int32), unpadded, from the fused pass in offsets mode on the native
+    plane (``config.use_fused_decode``).  Returns (data, offsets,
+    voffsets); a span over the geometry's caps raises PlanError (plan
+    smaller spans)."""
+    got = _decode_span_fused(source, span, "offsets", check_crc=check_crc,
+                             config=config) \
+        if _use_fused(config, backend) else None
+    if got is None:
+        got = _decode_span_core(source, span, check_crc, backend)
+    data, offs, voffs, _ = got
     g = geometry
     if data.size > g.bytes_cap or offs.size > g.records_cap:
         raise PlanError(
@@ -261,21 +507,27 @@ def decode_span_prefix_host(source, span: FileVirtualSpan,
                             projection: Tuple[str, ...] = ALL_FIELDS,
                             want_voffs: bool = True,
                             intervals=None, header=None,
+                            config: Optional[HBamConfig] = None,
                             ) -> Tuple[np.ndarray, np.ndarray]:
     """Prefix mode: each owned record's projected prefix bytes packed
     densely.  Returns (rows[n, row_bytes] uint8, voffsets[n]).  The
-    native plane walks and packs in one C++ pass.  With ``intervals``,
-    only records overlapping one of them are kept."""
+    native plane inflates, walks and packs in the fused pass (two-pass
+    with ``use_fused_decode`` off: walk and pack in one C++ pass).  With
+    ``intervals``, only records overlapping one of them are kept."""
     row_bytes = projection_row_bytes(projection)
     ranges = projection_ranges(projection)
+    got = _decode_span_fused(source, span, "rows", check_crc=check_crc,
+                             sel=ranges, row_bytes=row_bytes,
+                             want_voffs=want_voffs, config=config) \
+        if _use_fused(config, backend) else None
     walker = None
-    if backend == "native":
+    if got is None and backend == "native":
         def walker(data, start, end_limit):
             stop = min(int(end_limit), data.size)
             cap = max(16, (stop - start) // 36 + 1)
             return native.walk_bam_packed(np.ascontiguousarray(data), start,
                                           cap, ranges, row_bytes, stop=stop)
-    data, offs, voffs, rows = _decode_span_core(
+    data, offs, voffs, rows = got if got is not None else _decode_span_core(
         source, span, check_crc, backend, packed_walker=walker,
         want_voffs=want_voffs)
     if rows is None:
@@ -325,16 +577,21 @@ def decode_span_payload_host(source, span: FileVirtualSpan,
                              check_crc: bool = False,
                              backend: str = "native",
                              want_voffs: bool = False,
-                             intervals=None, header=None):
+                             intervals=None, header=None,
+                             config: Optional[HBamConfig] = None):
     """Payload mode: prefix + 4-bit seq + qual packed into dense rows.
     Returns (prefix[n, 36], seq[n, seq_stride], qual[n, qual_stride],
-    voffsets[n]).  The native plane packs in one C++ pass
-    (hbam_walk_bam_payload).  With ``intervals``, only records
-    overlapping one of them are kept."""
+    voffsets[n]).  The native plane packs in the fused pass (two-pass
+    with ``use_fused_decode`` off: hbam_walk_bam_payload).  With
+    ``intervals``, only records overlapping one of them are kept."""
     g = geometry
+    got = _decode_span_fused(source, span, "payload", check_crc=check_crc,
+                             geometry=g, want_voffs=want_voffs,
+                             config=config) \
+        if _use_fused(config, backend) else None
     out: Dict[str, np.ndarray] = {}
     walker = None
-    if backend == "native":
+    if got is None and backend == "native":
         def walker(data, start, end_limit):
             stop = min(int(end_limit), data.size)
             cap = max(16, (stop - start) // 36 + 1)
@@ -343,14 +600,18 @@ def decode_span_payload_host(source, span: FileVirtualSpan,
                 g.seq_stride, g.qual_stride, stop=stop)
             out["seq"], out["qual"] = seq, qual
             return prefix, offs, tail
-    data, offs, voffs, rows = _decode_span_core(
-        source, span, check_crc, backend, packed_walker=walker,
-        want_voffs=want_voffs)
-    n = int(offs.size)
-    if rows is not None:
-        prefix, seq, qual = rows, out["seq"][:n], out["qual"][:n]
+    if got is not None:
+        data, offs, voffs, (prefix, seq, qual) = got
     else:
-        prefix, seq, qual = _pack_payload_numpy(data, offs, g)
+        data, offs, voffs, rows = _decode_span_core(
+            source, span, check_crc, backend, packed_walker=walker,
+            want_voffs=want_voffs)
+        if rows is not None:
+            n = int(offs.size)
+            prefix, seq, qual = rows, out["seq"][:n], out["qual"][:n]
+        else:
+            prefix, seq, qual = _pack_payload_numpy(data, offs, g)
+    n = int(offs.size)
     if intervals and n:
         keep = _interval_mask(data, offs, header, intervals)
         prefix, seq, qual = prefix[keep], seq[keep], qual[keep]
@@ -360,11 +621,14 @@ def decode_span_payload_host(source, span: FileVirtualSpan,
 
 
 def iter_windowed(pool: cf.ThreadPoolExecutor, items: Iterable,
-                  fn: Callable, window: int) -> Iterator:
+                  fn: Callable, window: int,
+                  cleanup: Optional[Callable] = None) -> Iterator:
     """``fn(item)`` on the pool with at most ``window`` futures in
     flight; results in order.  Closing the generator early cancels the
-    futures that have not started and closes ``items`` when it is a
-    generator."""
+    futures that have not started, hands every result that is or will
+    be ready but was never yielded to ``cleanup`` (a fused chunk stream
+    holds a live native job: closing it joins the workers), and closes
+    ``items`` when it is a generator."""
     it = iter(items)
     dq: "deque[cf.Future]" = deque()
     try:
@@ -380,19 +644,146 @@ def iter_windowed(pool: cf.ThreadPoolExecutor, items: Iterable,
             yield fut.result()
     finally:
         for f in dq:
-            f.cancel()
+            if not f.cancel() and cleanup is not None:
+                f.add_done_callback(_reaper(cleanup))
         if hasattr(it, "close"):
             it.close()
 
 
+def _reaper(cleanup: Callable) -> Callable:
+    """A done-callback that hands a future's result to ``cleanup``: it
+    runs at once for a finished future, and on the worker thread when a
+    running one finishes."""
+    def reap(f: cf.Future) -> None:
+        if f.cancelled():
+            return
+        try:
+            cleanup(f.result())
+        except Exception:  # noqa: BLE001 -- best-effort teardown
+            pass
+    return reap
+
+
+@contextlib.contextmanager
+def _span_stream(pool: cf.ThreadPoolExecutor, spans: Iterable,
+                 decode: Callable, window: int):
+    """FeedPipeline input of ``decode(span)`` results (arrays, tuples or
+    fused chunk streams) decoded on ``pool`` ``window`` spans ahead.  On
+    exit the stream in hand is closed, then the window: no native job
+    outlives it."""
+    windowed = iter_windowed(pool, spans, decode, window,
+                             cleanup=_close_stream)
+    flat = _flatten_span_stream(windowed)
+    try:
+        yield flat
+    finally:
+        flat.close()
+        windowed.close()
+
+
+# compressed span grains the host drivers plan at (the reference's:
+# tile flagstat 4 MiB, seq-stats 8 MiB; span mode plans at a bytes_cap
+# eighth, the device plane at DEVICE_PLANE_SPAN_BYTES)
+FLAGSTAT_SPAN_BYTES = 4 << 20
+SEQ_STATS_SPAN_BYTES = 8 << 20
+# the index builders' grain (map_file_spans)
+INDEX_SPAN_BYTES = 4 << 20
+
+
 def _plan(path: str, header: Optional[SAMHeader], n_dev: int,
-          span_bytes: int) -> Iterator[FileVirtualSpan]:
+          span_bytes: int, config: HBamConfig = DEFAULT_CONFIG
+          ) -> Iterable[FileVirtualSpan]:
     """Spans of about ``span_bytes`` compressed bytes, at least one per
-    device, yielded while later boundaries are still being guessed."""
+    device, through the plan memo (``plan_spans_cached``): snapped to a
+    splitting index, trimmed to a ``.bai``'s chunks under intervals, or
+    guessed, and then streamed while later boundaries are guessed.  A
+    planned span longer than twice the grain is cut (``_grain_cut``)."""
     with as_byte_source(path) as src:
         size = src.size
     n_spans = max(n_dev, int(np.ceil(size / span_bytes)))
-    return iter_bam_spans(path, num_spans=n_spans, header=header)
+    return _grain_cut(path, header, plan_spans_cached(
+        path, header, config, num_spans=n_spans), span_bytes)
+
+
+def _grain_cut(path, header: Optional[SAMHeader],
+               spans: Iterable[FileVirtualSpan], grain: int
+               ) -> Iterable[FileVirtualSpan]:
+    """The plan with every span whose compressed extent passes
+    ``2 * grain`` cut at guessed record starts ``grain`` bytes apart
+    (the guesses on one background thread; a piece is at most a grain
+    plus one block).  The reference decodes such spans whole: a
+    ``.bai``'s merged chunks (a chromosome can be one span of
+    gigabytes) and spans snapped to a splitting index sampled more
+    coarsely than the grain, which outgrow the host's memory, the span
+    mode's ``bytes_cap`` and the device plane's 64 blocks.  A span
+    snapped to a finer index is at most a grain plus one sample gap and
+    stays as the index made it.  The memo keeps the reference's plan;
+    the bytes read are the same.  A plan with no long span is returned
+    as it is (a memo hit stays a list)."""
+    if isinstance(spans, list) and all(
+            s.compressed_size <= 2 * grain for s in spans):
+        return spans
+    return _iter_grain_cut(path, header, spans, grain)
+
+
+def _iter_grain_cut(path, header, spans, grain):
+    pool = src = guesser = None
+    try:
+        for span in spans:
+            if span.compressed_size <= 2 * grain:
+                yield span
+                continue
+            start, end = span.start_voffset, span.end_voffset
+            if guesser is None:
+                src = as_byte_source(path)
+                if header is None:
+                    header, _ = read_bam_header(src)
+                guesser = BAMSplitGuesser(src, header)
+                pool = cf.ThreadPoolExecutor(1, thread_name_prefix="hbam-plan")
+            cuts = [pool.submit(guesser.guess_next_record_start, b)
+                    for b in range((start >> 16) + grain, end >> 16, grain)]
+            for fut in cuts:
+                v = fut.result()
+                if v is None or v >= end:
+                    break
+                if v > start:
+                    yield FileVirtualSpan(span.path, start, v)
+                    start = v
+            yield FileVirtualSpan(span.path, start, end)
+    finally:
+        if hasattr(spans, "close"):
+            spans.close()
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+        if src is not None and src is not path:
+            src.close()
+
+
+def map_file_spans(path: str, fn: Callable) -> List:
+    """``fn(data, offsets, voffsets)`` over every span of the whole file
+    (the two-pass native host decode, spans guessed at
+    ``INDEX_SPAN_BYTES`` with no sidecar read), on the decode pool; the
+    results in file order.  What the index builders read their columns
+    from."""
+    cfg = DEFAULT_CONFIG
+    with as_byte_source(path) as src:
+        size = src.size
+    plan = iter_bam_spans(
+        path, num_spans=max(1, int(np.ceil(size / INDEX_SPAN_BYTES))),
+        config=dataclasses.replace(cfg, use_splitting_index=False))
+
+    def one(span):
+        data, offs, voffs, _ = _decode_span_core(src, span, False,
+                                                 cfg.host_backend)
+        return fn(data, offs, voffs)
+
+    with _reading(path, cfg) as src, cf.ThreadPoolExecutor(
+            cfg.pool_size(), thread_name_prefix="hbam-index") as pool:
+        stream = iter_windowed(pool, plan, one, 2 * cfg.pool_size())
+        try:
+            return list(stream)
+        finally:
+            stream.close()
 
 
 # ---------------------------------------------------------------------------
@@ -900,7 +1291,8 @@ def _device_plane(path: str, axis: DataAxis, config: HBamConfig,
     chain or a chunk with more records than its capacity."""
     require_tokenizer()
     if spans is None:
-        spans = _plan(path, header, axis.n_dev, DEVICE_PLANE_SPAN_BYTES)
+        spans = _plan(path, header, axis.n_dev, DEVICE_PLANE_SPAN_BYTES,
+                      config)
     ring = _TokenRing(pin_memory=axis.devices[0].type == "cuda")
     pending: List[Tuple[torch.Tensor, _TokenChunk, int]] = []
 
@@ -1013,23 +1405,23 @@ def _payload_empty(geometry: PayloadGeometry) -> Callable:
 def _feed_payload(spans: Iterable[FileVirtualSpan],
                   geometry: PayloadGeometry, axis: DataAxis,
                   dispatch_fn: Callable, config: HBamConfig, prefetch: int,
-                  decode: Callable) -> int:
-    """``decode(span)`` -> (prefix, seq, qual) on the pool, packed into
-    row tiles and handed to ``dispatch_fn(tensors, counts)`` (the
-    FeedPipeline contract).  Returns the number of groups."""
+                  decode: Callable, stream_fused: bool = False) -> int:
+    """``decode(span)`` -> (prefix, seq, qual), or a fused chunk stream
+    of such tuples, on the pool, packed into row tiles and handed to
+    ``dispatch_fn(tensors, counts)`` (the FeedPipeline contract).
+    Returns the number of groups."""
     widths = (PREFIX, geometry.seq_stride, geometry.qual_stride)
     fp = FeedPipeline(axis.n_dev, geometry.tile_records,
                       [TileSpec((w,), np.uint8) for w in widths],
                       block_n=geometry.block_n,
                       pin_memory=axis.devices[0].type == "cuda")
+    window = max(1, prefetch) * config.pool_size()
+    if stream_fused:
+        window = _stream_window(window)
     with cf.ThreadPoolExecutor(
-            config.pool_size(), thread_name_prefix="hbam-decode") as pool:
-        stream = iter_windowed(pool, spans, decode,
-                               max(1, prefetch) * config.pool_size())
-        try:
-            return fp.feed(stream, dispatch_fn)
-        finally:
-            stream.close()
+            config.pool_size(), thread_name_prefix="hbam-decode") as pool, \
+            _span_stream(pool, spans, decode, window) as stream:
+        return fp.feed(stream, dispatch_fn)
 
 
 def iter_payload_tile_groups(path: str, spans: Iterable[FileVirtualSpan],
@@ -1042,26 +1434,39 @@ def iter_payload_tile_groups(path: str, spans: Iterable[FileVirtualSpan],
     """Decode spans on the pool under the span failure policy (retry,
     the native -> zlib ladder, quarantine; intervals applied), pack
     (prefix, seq, qual) row tiles and hand each group to
-    ``dispatch_fn(tensors, counts)``.  Sheds at the file's quarantine
-    gate first; heals a half-open gate once every span is through.
-    Returns the number of groups."""
+    ``dispatch_fn(tensors, counts)``.  On the native plane each span's
+    fused decode streams its chunks into the tiles when
+    ``select_plane`` allows it.  Sheds at the file's quarantine gate
+    first; heals a half-open gate once every span is through.  Returns
+    the number of groups."""
     intervals = parse_config_intervals(config, header)
     check_quarantine_gate(path, config)
     spans = _planned(spans, config, quarantine)
     decision = select_plane(config, intervals=intervals)
     ladder = decode_ladder(path, decision.backend, config) \
         if config.adaptive_planes else None
+    check_crc = config.check_crc
 
     def payload(span, backend):
+        if decision.stream_fused and backend == "native":
+            return _iter_fused_span_chunks(
+                src, span, "payload", geometry=geometry,
+                check_crc=check_crc, config=config,
+                fallback_fn=lambda: decode_with_retry(
+                    lambda s: decode_span_payload_host(
+                        src, s, geometry, check_crc, "native",
+                        config=_fused_off(config))[:3],
+                    span, config))
         return decode_span_payload_host(
-            src, span, geometry, config.check_crc, backend,
-            intervals=intervals, header=header)[:3]
+            src, span, geometry, check_crc, backend,
+            intervals=intervals, header=header, config=config)[:3]
 
     with _reading(path, config) as src:
         groups = _feed_payload(
             spans, geometry, axis, dispatch_fn, config, prefetch,
             _span_policy(payload, config, quarantine, ladder,
-                         decision.host_backend, _payload_empty(geometry)))
+                         decision.host_backend, _payload_empty(geometry)),
+            stream_fused=decision.stream_fused)
     quarantine_run_ok(path, config)
     return groups
 
@@ -1104,7 +1509,8 @@ def _seq_stats_device(path: str, axis: DataAxis, config: HBamConfig,
     if fixups:
         def payload(span, backend):
             return decode_span_payload_host(src, span, geometry,
-                                            config.check_crc, backend)[:3]
+                                            config.check_crc, backend,
+                                            config=config)[:3]
 
         with _reading(path, config) as src:
             _feed_payload(fixups, geometry, axis,
@@ -1147,7 +1553,8 @@ def seq_stats_file(path: str, device=None,
     def host_run():
         nonlocal quarantine
         host_spans = spans if spans is not None \
-            else _plan(path, header, axis.n_dev, 8 << 20)
+            else _plan(path, header, axis.n_dev, SEQ_STATS_SPAN_BYTES,
+                         config)
         totals = _StatTotals()
         if quarantine is None:
             quarantine = QuarantineManifest()
@@ -1167,9 +1574,10 @@ def seq_stats_file(path: str, device=None,
 def _flagstat_tiles(axis: DataAxis, config: HBamConfig,
                     geometry: DecodeGeometry,
                     spans: Iterable[FileVirtualSpan], prefetch: int,
-                    decode: Callable) -> Optional[torch.Tensor]:
-    """Projected-row tiles (``decode(span)`` -> rows): 11 bytes per
-    record cross the link."""
+                    decode: Callable, stream_fused: bool = False
+                    ) -> Optional[torch.Tensor]:
+    """Projected-row tiles (``decode(span)`` -> rows, or a fused chunk
+    stream of ``(rows,)``): 11 bytes per record cross the link."""
     projection = FLAGSTAT_PROJECTION
     row_bytes = projection_row_bytes(projection)
     total: List[Optional[torch.Tensor]] = [None]
@@ -1189,24 +1597,39 @@ def _flagstat_tiles(axis: DataAxis, config: HBamConfig,
     fp = FeedPipeline(axis.n_dev, geometry.tile_records,
                       [TileSpec((row_bytes,), np.uint8)],
                       pin_memory=axis.devices[0].type == "cuda")
+    window = max(1, prefetch) * config.pool_size()
+    if stream_fused:
+        window = _stream_window(window)
     with cf.ThreadPoolExecutor(
-            config.pool_size(), thread_name_prefix="hbam-decode") as pool:
-        stream = iter_windowed(pool, spans, lambda s: (decode(s),),
-                               max(1, prefetch) * config.pool_size())
-        try:
-            fp.feed(stream, dispatch)
-        finally:
-            stream.close()
+            config.pool_size(), thread_name_prefix="hbam-decode") as pool, \
+            _span_stream(pool, spans, decode, window) as stream:
+        fp.feed(stream, dispatch)
     return total[0]
 
 
-def _flagstat_rows(src, config: HBamConfig, intervals=None, header=None
-                   ) -> Callable:
-    """``rows(span, backend)``: a span's flagstat-projection rows."""
+def _flagstat_rows(src, config: HBamConfig, intervals=None, header=None,
+                   stream_fused: bool = False) -> Callable:
+    """``rows(span, backend)``: a span's flagstat-projection rows, or on
+    the native plane with ``stream_fused`` its fused chunk stream (the
+    cut-tail fallback under its own ``decode_with_retry``)."""
+    ranges = projection_ranges(FLAGSTAT_PROJECTION)
+    row_bytes = projection_row_bytes(FLAGSTAT_PROJECTION)
+    check_crc = config.check_crc
+
     def rows(span, backend):
+        if stream_fused and backend == "native":
+            return _iter_fused_span_chunks(
+                src, span, "rows", sel=ranges, row_bytes=row_bytes,
+                check_crc=check_crc, config=config,
+                fallback_fn=lambda: decode_with_retry(
+                    lambda s: (decode_span_prefix_host(
+                        src, s, check_crc, "native", FLAGSTAT_PROJECTION,
+                        want_voffs=False, config=_fused_off(config))[0],),
+                    span, config))
         return decode_span_prefix_host(
-            src, span, config.check_crc, backend, FLAGSTAT_PROJECTION,
-            want_voffs=False, intervals=intervals, header=header)[0]
+            src, span, check_crc, backend, FLAGSTAT_PROJECTION,
+            want_voffs=False, intervals=intervals, header=header,
+            config=config)[0]
     return rows
 
 
@@ -1235,7 +1658,7 @@ def _flagstat_spans(path: str, axis: DataAxis, config: HBamConfig,
 
     def span_bytes(span, backend):
         data, offs, _ = decode_span_host(src, span, g, config.check_crc,
-                                         backend)
+                                         backend, config=config)
         return data, offs
 
     with _reading(path, config) as src, cf.ThreadPoolExecutor(
@@ -1354,7 +1777,8 @@ def flagstat_file(path: str, device=None,
     check_quarantine_gate(path, config)
     if mode == "span":
         if spans is None:
-            spans = _plan(path, header, axis.n_dev, geometry.bytes_cap // 8)
+            spans = _plan(path, header, axis.n_dev, geometry.bytes_cap // 8,
+                          config)
         if quarantine is None:
             quarantine = QuarantineManifest()
         vec = _flagstat_spans(path, axis, config, geometry,
@@ -1372,16 +1796,19 @@ def flagstat_file(path: str, device=None,
     def host_run():
         nonlocal quarantine
         host_spans = spans if spans is not None \
-            else _plan(path, header, axis.n_dev, 4 << 20)
+            else _plan(path, header, axis.n_dev, FLAGSTAT_SPAN_BYTES,
+                         config)
         if quarantine is None:
             quarantine = QuarantineManifest()
         with _reading(path, config) as src:
             vec = _flagstat_tiles(
                 axis, config, geometry,
                 _planned(host_spans, config, quarantine), prefetch,
-                _span_policy(_flagstat_rows(src, config, intervals, header),
+                _span_policy(_flagstat_rows(src, config, intervals, header,
+                                            decision.stream_fused),
                              config, quarantine, ladder,
-                             decision.host_backend, _flagstat_empty))
+                             decision.host_backend, _flagstat_empty),
+                stream_fused=decision.stream_fused)
         quarantine_run_ok(path, config)
         return _flagstat_result(vec, quarantine)
 

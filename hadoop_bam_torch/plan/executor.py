@@ -4,9 +4,16 @@
 plane a driver call runs on and why every other plane was rejected:
 the device gates of the reference (:176-194) -- the plane was named,
 no interval filter, no ``skip_bad_spans``, and the device fault
-domain's breaker lets the run through.  No IR and no fused-mode gate:
-both of the port's drivers have a device plane, and fused streaming is
-not ported.
+domain's breaker lets the run through -- and the fused-decode gates
+(``_use_fused``, ``_fused_stream_gate``).  No IR: both of the port's
+drivers have a device plane.
+
+One deliberate difference: the reference's fused gate also asks whether
+the native library exports the ``hbam_fused_*`` entry points and falls
+back to the two-pass path when it does not.  The port builds that
+library from the repo's own source, so a library without them is a
+build fault: the fused decode raises NativeBuildError
+(``utils/native.FusedJob``) instead of running the other path.
 """
 from __future__ import annotations
 
@@ -25,7 +32,28 @@ class PlaneDecision:
     plane: str            # "device" | "native" | "zlib"
     backend: str          # resolve_inflate_backend(config)
     host_backend: str     # what host span decoders pass as backend
-    rejected: Tuple[Tuple[str, str], ...]   # (plane, reason)
+    stream_fused: bool    # host spans decode as fused chunk streams
+    rejected: Tuple[Tuple[str, str], ...]   # (plane or mode, reason)
+
+
+def _use_fused(config: Optional[HBamConfig],
+               backend: str = "native") -> bool:
+    """Does a host span decode on ``backend`` take the fused native
+    inflate + walk + pack?  ``config.use_fused_decode`` (default on) and
+    a native backend; the span decoders consult it directly, below the
+    plan grain, since the demotion ladder moves spans between planes."""
+    cfg = config if config is not None else DEFAULT_CONFIG
+    return bool(cfg.use_fused_decode) and backend == "native"
+
+
+def _fused_stream_gate(config: Optional[HBamConfig], intervals) -> bool:
+    """May the drivers stream fused chunks into the staging ring?  Fused
+    on, no interval filter (the row mask needs the whole span's
+    offsets) and no ``skip_bad_spans`` (quarantine is span-granular: a
+    streamed span's early chunks are already dispatched when a late one
+    turns out corrupt)."""
+    cfg = config if config is not None else DEFAULT_CONFIG
+    return _use_fused(cfg) and intervals is None and not cfg.skip_bad_spans
 
 
 def select_plane(config: Optional[HBamConfig], *, intervals=None,
@@ -39,6 +67,19 @@ def select_plane(config: Optional[HBamConfig], *, intervals=None,
     backend = resolve_inflate_backend(cfg)
     host_backend = "zlib" if backend == "zlib" else "native"
     rejected = []
+    fused = _use_fused(cfg, host_backend)
+    if not cfg.use_fused_decode:
+        rejected.append(("fused", "config.use_fused_decode is off"))
+    elif not fused:
+        rejected.append(("fused", f"backend {host_backend!r} disables the "
+                                  f"native fused sweep"))
+    stream = fused and _fused_stream_gate(cfg, intervals)
+    if fused and not stream:
+        rejected.append(
+            ("fused-stream",
+             "interval filtering needs the whole span's offsets"
+             if intervals is not None
+             else "skip_bad_spans needs span-granular quarantine"))
     plane = None
     if backend != "device":
         rejected.append(
@@ -62,5 +103,5 @@ def select_plane(config: Optional[HBamConfig], *, intervals=None,
                            "plane"))
         plane = host_backend
     return PlaneDecision(plane=plane, backend=backend,
-                         host_backend=host_backend,
+                         host_backend=host_backend, stream_fused=stream,
                          rejected=tuple(rejected))

@@ -23,3 +23,13 @@ class FileVirtualSpan:
     @property
     def end(self) -> Tuple[int, int]:
         return split_voffset(self.end_voffset)
+
+    @property
+    def compressed_size(self) -> int:
+        """Compressed bytes from the start block to the end block."""
+        return max(0, self.end[0] - self.start[0])
+
+    def to_dict(self) -> dict:
+        return {"path": self.path, "start": int(self.start_voffset),
+                "end": int(self.end_voffset),
+                "locations": list(self.locations)}

@@ -118,8 +118,8 @@ def region_mask(region: str, refid: np.ndarray, pos: np.ndarray
     return keep
 
 
-def header() -> SAMHeader:
-    text = "@HD\tVN:1.6\tSO:unsorted\n" + "".join(
+def header(sort_order: str = "unsorted") -> SAMHeader:
+    text = f"@HD\tVN:1.6\tSO:{sort_order}\n" + "".join(
         f"@SQ\tSN:{n}\tLN:{l}\n" for n, l in CONTIGS)
     return SAMHeader(text=text, ref_names=[n for n, _ in CONTIGS],
                      ref_lengths=[l for _, l in CONTIGS])
@@ -241,24 +241,43 @@ def _chunk(rng: np.random.Generator, first_pair: int, n_pairs: int):
 
 def write_synthetic_bam(path: str, n_reads: int, seed: int,
                         chunk_pairs: int = 1 << 16,
-                        regions: Sequence[str] = ()) -> SynthTruth:
+                        regions: Sequence[str] = (),
+                        coordinate_sorted: bool = False) -> SynthTruth:
     """Write ``n_reads`` (even) paired reads to ``path``; return the
     truth, with seq-stats at the default payload geometry's max_len, and
-    the truth over the reads overlapping each of ``regions``."""
+    the truth over the reads overlapping each of ``regions``.  Mates are
+    adjacent and pairs at random places; ``coordinate_sorted`` writes
+    the same reads ordered by (contig, pos), unplaced reads last, as an
+    indexed (``.bai``) BAM must be (held in memory: ~277 B a read)."""
     if n_reads % 2:
         raise ValueError("n_reads must be even (reads come in pairs)")
     rng = np.random.default_rng(seed)
     whole = _Tally()
     by_region = {r: _Tally() for r in regions}
-    with BamWriter(path, header()) as w:
+    held = []
+    order = "coordinate" if coordinate_sorted else "unsorted"
+    with BamWriter(path, header(order)) as w:
         for p0 in range(0, n_reads // 2, chunk_pairs):
             k = min(chunk_pairs, n_reads // 2 - p0)
             rec, codes, qual, cols = _chunk(rng, p0, k)
-            w.write_raw(rec.tobytes(), rec.size)
+            if coordinate_sorted:
+                held.append(rec)
+            else:
+                w.write_raw(rec.tobytes(), rec.size)
             whole.add(np.ones(rec.size, bool), codes, qual, cols)
             for r, tally in by_region.items():
                 tally.add(region_mask(r, cols["refid"], rec["pos"]), codes,
                           qual, cols)
+        if held:
+            rec = np.concatenate(held)
+            del held
+            refid = rec["refid"].astype(np.int64)
+            key = (np.where(refid < 0, len(CONTIGS), refid) << 32) + \
+                rec["pos"].astype(np.int64) + 1
+            rec = rec[np.argsort(key, kind="stable")]
+            step = 2 * chunk_pairs
+            for i in range(0, rec.size, step):
+                w.write_raw(rec[i:i + step].tobytes(), rec[i:i + step].size)
     truth = whole.truth()
     truth.regions = {r: t.truth() for r, t in by_region.items()}
     return truth

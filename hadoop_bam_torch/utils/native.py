@@ -108,6 +108,20 @@ def load() -> ctypes.CDLL:
         lib.hbam_deflate_tokenize_batch.argtypes = [
             u8p, i64p, i32p, ctypes.c_int32, u32p, ctypes.c_int64,
             i32p, i32p, u32p, ctypes.c_int32]
+        if hasattr(lib, "hbam_fused_start"):
+            lib.hbam_fused_start.restype = ctypes.c_void_p
+            lib.hbam_fused_start.argtypes = [
+                u8p, i64p, i32p, i32p, u32p, ctypes.c_int32,
+                u8p, i64p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int32, i32p, i32p, ctypes.c_int32, ctypes.c_int32,
+                u8p, u8p, u8p, ctypes.c_int32, ctypes.c_int32,
+                ctypes.c_int32, i64p, ctypes.c_int64, ctypes.c_int32,
+                ctypes.c_int32]
+            lib.hbam_fused_next.restype = ctypes.c_int
+            lib.hbam_fused_next.argtypes = [ctypes.c_void_p, i64p, i64p]
+            lib.hbam_fused_finish.restype = ctypes.c_int
+            lib.hbam_fused_finish.argtypes = [
+                ctypes.c_void_p, i64p, i64p, i64p]
         _lib = lib
         return _lib
 
@@ -293,3 +307,117 @@ def deflate_batch(payloads: "list[bytes]", level: int = 6,
         return [None] * n
     return [dst[int(o):int(o) + int(l)].tobytes() if l > 0 else None
             for o, l in zip(dst_off, out_len)]
+
+
+def fused_available() -> bool:
+    """Does the library export the fused span-decode entry points
+    (``hbam_fused_start`` / ``_next`` / ``_finish``)?"""
+    return hasattr(load(), "hbam_fused_start")
+
+
+# fused pack modes (HbamFusedJob::mode in native/hbam_native.cpp)
+FUSED_OFFSETS, FUSED_ROWS, FUSED_PAYLOAD = 0, 1, 2
+
+
+class FusedJob:
+    """One running ``hbam_fused_*`` span decode: native workers inflate
+    runs of ``chunk_blocks`` blocks while the record walk and pack follow
+    the contiguous inflated frontier.  Holds every borrowed array until
+    the workers are joined, which happens exactly once (``finish``,
+    ``close``, or garbage collection as a last resort).  Reports raw
+    (rc, err_index) pairs; ``ops/inflate.py`` maps them to exceptions.
+    One consumer; not thread-safe.
+
+    Raises NativeBuildError when the library lacks the fused entry
+    points: the port builds it from the repo's source, so that is a
+    build fault, not a reason to run another path."""
+
+    def __init__(self, src: np.ndarray, cdata_off: np.ndarray,
+                 cdata_len: np.ndarray, isize: np.ndarray,
+                 expect_crc: Optional[np.ndarray], dst: np.ndarray,
+                 ubase: np.ndarray, start: int, stop: int, mode: int,
+                 sel_off: Optional[np.ndarray], sel_len: Optional[np.ndarray],
+                 row_stride: int, out_rows: Optional[np.ndarray],
+                 out_seq: Optional[np.ndarray],
+                 out_qual: Optional[np.ndarray], max_len: int,
+                 seq_stride: int, qual_stride: int, out_off: np.ndarray,
+                 chunk_blocks: int, n_threads: int = 0):
+        self._h = None
+        lib = load()
+        if not hasattr(lib, "hbam_fused_start"):
+            raise NativeBuildError(
+                f"{_SO} lacks the fused decode entry points "
+                f"(hbam_fused_start/next/finish) of {_SRC}")
+        self._lib = lib
+        n_blocks = len(cdata_off)
+        if n_threads <= 0:
+            n_threads = min(-(-n_blocks // max(1, chunk_blocks)),
+                            os.cpu_count() or 1)
+        self._keep = (src, cdata_off, cdata_len, isize, expect_crc, dst,
+                      ubase, sel_off, sel_len, out_rows, out_seq, out_qual,
+                      out_off)
+
+        def opt(a, ctype):
+            return None if a is None else _ptr(a, ctype)
+
+        self._h = lib.hbam_fused_start(
+            _ptr(src, ctypes.c_uint8), _ptr(cdata_off, ctypes.c_int64),
+            _ptr(cdata_len, ctypes.c_int32), _ptr(isize, ctypes.c_int32),
+            opt(expect_crc, ctypes.c_uint32), n_blocks,
+            _ptr(dst, ctypes.c_uint8), _ptr(ubase, ctypes.c_int64),
+            int(dst.size), int(start), int(stop), int(mode),
+            opt(sel_off, ctypes.c_int32), opt(sel_len, ctypes.c_int32),
+            0 if sel_off is None else len(sel_off), int(row_stride),
+            opt(out_rows, ctypes.c_uint8), opt(out_seq, ctypes.c_uint8),
+            opt(out_qual, ctypes.c_uint8), int(max_len), int(seq_stride),
+            int(qual_stride), _ptr(out_off, ctypes.c_int64),
+            int(out_off.size), int(chunk_blocks), int(n_threads))
+        if not self._h:
+            raise ValueError("fused decode rejected its arguments")
+        self.rc = 0
+        self.tail = int(start)
+        self.n_rows = 0
+        self.err_index = -1
+
+    def next_chunk(self) -> "Optional[tuple[int, int]]":
+        """Block until the walk publishes the next row range: (row_lo,
+        row_hi), or None once the decode is complete.  On an error the
+        workers are joined and None comes back with ``rc < 0``."""
+        if self._h is None:
+            return None
+        lo = np.zeros(1, dtype=np.int64)
+        hi = np.zeros(1, dtype=np.int64)
+        rc = self._lib.hbam_fused_next(
+            self._h, _ptr(lo, ctypes.c_int64), _ptr(hi, ctypes.c_int64))
+        if rc == 1:
+            return int(lo[0]), int(hi[0])
+        if rc < 0:
+            self.finish()
+        return None
+
+    def finish(self) -> int:
+        """Join the workers and free the job (idempotent).  Returns the
+        final rc (0 or -kind) and sets ``tail``, ``n_rows`` and
+        ``err_index``."""
+        if self._h is None:
+            return self.rc
+        tail = np.zeros(1, dtype=np.int64)
+        n_rows = np.zeros(1, dtype=np.int64)
+        err_index = np.zeros(1, dtype=np.int64)
+        rc = self._lib.hbam_fused_finish(
+            self._h, _ptr(tail, ctypes.c_int64),
+            _ptr(n_rows, ctypes.c_int64), _ptr(err_index, ctypes.c_int64))
+        self._h = None
+        self.rc = int(rc)
+        self.tail = int(tail[0])
+        self.n_rows = int(n_rows[0])
+        self.err_index = int(err_index[0])
+        return self.rc
+
+    close = finish
+
+    def __del__(self):   # abandoned: never leave native threads running
+        try:
+            self.finish()
+        except Exception:  # noqa: BLE001 -- interpreter teardown
+            pass

@@ -560,3 +560,126 @@ def test_phase10d_flipped_block_card_equals_cpu(phase10, tmp_path):
         with pytest.raises(ValueError) as e:
             getattr(open_bam(bad), name)()
         assert classify_error(e.value) == CORRUPT
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py phase 11 on the card, at a small size
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def phase11(cuda, tmp_path):
+    """A 40,000-read synthetic BAM and its truth, with the plan memo and
+    the counters cleared."""
+    from hadoop_bam_torch.split.planners import clear_plan_cache
+    from hadoop_bam_torch.synth import write_synthetic_bam
+    from hadoop_bam_torch.utils.metrics import METRICS
+    clear_plan_cache()
+    METRICS.reset()
+    path = str(tmp_path / "p11.bam")
+    yield path, write_synthetic_bam(path, 40_000, seed=7, regions=REGIONS)
+    clear_plan_cache()
+
+
+def test_phase11_sidecar_plans_and_memo_on_card(phase11):
+    """(b), (c): both drivers on the native plane and the device plane
+    planned from a .splitting-bai equal the truth, cold and from the
+    memo; a rewritten sidecar plans again; every kernel launched."""
+    from hadoop_bam_torch.api import open_bam
+    from hadoop_bam_torch.config import HBamConfig
+    from hadoop_bam_torch.ops import inflate_device as tid
+    from hadoop_bam_torch.parallel import pipeline as tp
+    from hadoop_bam_torch.split.splitting_index import (
+        SplittingIndex, write_splitting_index,
+    )
+    path, truth = phase11
+    write_splitting_index(path, 4096)
+    wrappers = (tid.resolve_pack, tid.walk_records_device, tid.payload_gather,
+                tub.unpack_fixed_fields, tss.seq_qual_stats)
+    before = [w.launches for w in wrappers]
+    for backend in ("native", "device"):
+        ds = open_bam(path, config=HBamConfig(inflate_backend=backend))
+        for _ in range(2):                       # cold, then a memo hit
+            _check_truth(ds.flagstat(), ds.seq_stats(), truth)
+    assert ds.flagstat(mode="span") == truth.flagstat
+    assert all(w.launches > b for w, b in zip(wrappers, before))
+    cfg = HBamConfig(inflate_backend="device")
+    plan = tp._plan(path, None, 1, tp.DEVICE_PLANE_SPAN_BYTES, cfg)
+    assert isinstance(plan, list)
+    sampled = set(SplittingIndex.load_for(path).voffsets)
+    assert all(s.start_voffset in sampled for s in plan[1:])
+    write_splitting_index(path, 4096)
+    again = tp._plan(path, None, 1, tp.DEVICE_PLANE_SPAN_BYTES, cfg)
+    assert not isinstance(again, list)
+    assert [s.to_dict() for s in again] == [s.to_dict() for s in plan]
+
+
+def test_phase11_coarse_index_on_card(phase11, monkeypatch):
+    """(b2): a splitting index coarser than the grains (one sample): the
+    device plane and span mode cut the snapped span back to their grains,
+    no device-plane chunk passes its blocks, and both equal the truth."""
+    from hadoop_bam_torch.api import open_bam
+    from hadoop_bam_torch.config import HBamConfig
+    from hadoop_bam_torch.ops import inflate_device as tid
+    from hadoop_bam_torch.parallel import pipeline as tp
+    from hadoop_bam_torch.split.splitting_index import write_splitting_index
+    path, truth = phase11
+    write_splitting_index(path, 1 << 16)
+    chunks = []
+    tokenize = tp._tokenize_span_tokens
+
+    def spy(*a, **k):
+        c = tokenize(*a, **k)
+        chunks.append((c.used, c.n_blocks))
+        return c
+    monkeypatch.setattr(tp, "_tokenize_span_tokens", spy)
+    before = tid.walk_records_device.launches
+    ds = open_bam(path, config=HBamConfig(inflate_backend="device"))
+    assert ds.flagstat() == truth.flagstat
+    assert tid.walk_records_device.launches > before
+    assert len(chunks) > 1 and all(u == n for u, n in chunks)
+    ds = open_bam(path, config=HBamConfig(inflate_backend="native"))
+    assert ds.flagstat(mode="span", geometry=tp.DecodeGeometry(
+        bytes_cap=1 << 22)) == truth.flagstat
+
+
+@pytest.mark.parametrize("region", REGIONS)
+def test_phase11_bai_trimming_on_card(phase11, tmp_path, region):
+    """(d): a region on the native plane with a .bai (the same reads
+    coordinate-sorted) equals the interval truth and inflates less than
+    the full scan."""
+    from hadoop_bam_torch.api import open_bam
+    from hadoop_bam_torch.config import HBamConfig
+    from hadoop_bam_torch.split.bai import write_bai
+    from hadoop_bam_torch.split.planners import clear_plan_cache
+    from hadoop_bam_torch.synth import write_synthetic_bam
+    from hadoop_bam_torch.utils.metrics import METRICS
+    srt = str(tmp_path / "sorted.bam")
+    truth = write_synthetic_bam(srt, 40_000, seed=7, regions=REGIONS,
+                                coordinate_sorted=True)
+    ds = open_bam(srt, config=HBamConfig(bam_intervals=region))
+    _check_truth(ds.flagstat(), ds.seq_stats(), truth.regions[region])
+    full = METRICS.get("pipeline.inflated_bytes")
+    write_bai(srt)
+    clear_plan_cache()
+    METRICS.reset()
+    ds = open_bam(srt, config=HBamConfig(bam_intervals=region))
+    _check_truth(ds.flagstat(), ds.seq_stats(), truth.regions[region])
+    assert 0 < METRICS.get("pipeline.inflated_bytes") < full
+    assert truth.regions[region].n_reads == phase11[1].regions[region].n_reads
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_phase11_fused_and_two_pass_on_card(phase11, fused):
+    """(e): the three native drivers with use_fused_decode on and off
+    equal the truth, through K1 and K2."""
+    from hadoop_bam_torch.api import open_bam
+    from hadoop_bam_torch.config import HBamConfig
+    from hadoop_bam_torch.utils.metrics import METRICS
+    path, truth = phase11
+    ds = open_bam(path, config=HBamConfig(use_fused_decode=fused))
+    k1, k2 = tub.unpack_fixed_fields.launches, tss.seq_qual_stats.launches
+    _check_truth(ds.flagstat(), ds.seq_stats(), truth)
+    assert ds.flagstat(mode="span") == truth.flagstat
+    assert tub.unpack_fixed_fields.launches > k1
+    assert tss.seq_qual_stats.launches > k2
+    assert METRICS.get("pipeline.records") == 3 * truth.n_reads

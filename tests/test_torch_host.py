@@ -109,14 +109,24 @@ def test_config_and_geometry_from_jax_dicts():
     ref = dataclasses.asdict(JAX_CONFIG)
     assert {k: ref[k] for k in tconfig.CARRIED} == dataclasses.asdict(cfg)
     assert (cfg.span_retries, cfg.adaptive_planes) == (2, True)
+    # the planning and fused-decode settings, at the reference's defaults
+    assert (cfg.split_size, cfg.use_splitting_index,
+            cfg.keep_paired_reads_together, cfg.use_fused_decode,
+            cfg.decode_chunk_blocks) == (128 << 20, True, False, True, 32)
     z = dataclasses.replace(JAX_CONFIG, inflate_backend="zlib",
                             check_crc=True, decode_pool_workers=3,
                             span_retries=5, adaptive_planes=False,
                             max_bad_span_fraction=0.25,
-                            breaker_cooldown_s=0.5, chaos_seed=11)
+                            breaker_cooldown_s=0.5, chaos_seed=11,
+                            split_size=1 << 20, use_splitting_index=False,
+                            keep_paired_reads_together=True,
+                            use_fused_decode=False, decode_chunk_blocks=7)
     cfg = tconfig.config_from_dict(dataclasses.asdict(z))
     assert (cfg.inflate_backend, cfg.check_crc, cfg.pool_size()) == \
         ("zlib", True, 3)
+    assert (cfg.split_size, cfg.use_splitting_index,
+            cfg.keep_paired_reads_together, cfg.use_fused_decode,
+            cfg.decode_chunk_blocks) == (1 << 20, False, True, False, 7)
     ref = dataclasses.asdict(z)
     assert {k: ref[k] for k in tconfig.CARRIED} == dataclasses.asdict(cfg)
     # the chaos seed is an argument of install_chaos_seeded, not a setting
