@@ -87,7 +87,22 @@ Phases (any failure raises and exits non-zero):
    spans the drivers cut it into, walls beside the same regions without
    it and phase 10 (a)'s, and each call's peak resident set size; (e) the three native drivers with ``use_fused_decode`` on and
    off in turns, each equal to the truth, and the share of spans that
-   took the two-pass tail.
+   took the two-pass tail;
+12. the read formats and the tensor feeds through the entry points:
+   (a) a FASTQ of phase 5's reads (written with the BAM, one
+   generation) through ``fastq_seq_stats_file``, equal to the BAM's
+   ``seq_stats()`` (n_reads and base_hist exactly, the means within
+   rtol 1e-6) and to the generator's counts; (b) a gzipped QSEQ of the
+   first 200,000 of those reads against the generator's counts; (c)
+   ``window_tensor_batches(window=1024)`` over a synthetic FASTA of two
+   contigs of chr21's and chr22's GRCh38 lengths, each batch through
+   ``read_stats_step``, the window count checked, and K2 against its
+   plain version on every batch (``k2_window_check``: the (512, 1024)
+   strides), timed there; (d) ``BamDataset.tensor_batches()`` over the
+   BAM: 2,000,000 rows, through ``read_stats_step`` equal to
+   ``seq_stats()``, with batches/s and GB/s delivered to the card; (e)
+   ``unpack_step`` over one stacked span group equal to K1's plain
+   version.  Walls, reads/s and profiled busy shares of (a) and (d).
 
 The plan memo would let a repeated call skip planning, so every timed
 driver call of phases 5, 9 and 11 and of ``--times`` / ``--turns``
@@ -99,7 +114,8 @@ limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 
 ``--times KERNEL`` stops after the build: it only checks and times that
 kernel at its shapes (``TIMES``: K9 and K10p at both chunk shapes, K7+K8
-at its three chunks; ``device_plane``: the profiled device-plane
+at its three chunks, K2 at phase 12's FASTA window shape
+(``k2_window``); ``device_plane``: the profiled device-plane
 ``seq_stats()`` by kernel; ``native_plane``: the native plane's three
 drivers of phase 5, warmed up, five rounds in turn; ``bai_regions``:
 phase 11 (d)'s ``.bai`` runs on a sorted copy of the reads kept beside
@@ -119,6 +135,7 @@ checkout's as one JSON line.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -183,76 +200,157 @@ def time_ms(torch, fn, flush, reps: int = 25) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, calls, reps: int = 32) -> float:
+FENCE = 16   # short spin kernels on each side of a profiled run
+
+
+def _cuda_events(torch, fn, cpu: bool = False):
+    """(wall s, the CUDA activity events of one run of ``fn`` in start
+    order, whether the run was fenced whole) under torch.profiler.  The
+    profiler drops the first device records of a session (two to six in
+    most sessions of a smoke process, now and then nearly all), so the
+    run is fenced by FENCE spin kernels (``torch.cuda._sleep``) on each
+    side and only the events between the last leading and the first
+    trailing spin are ``fn``'s; a side whose fence was lost whole leaves
+    the run unfenced (its events are then all but the spins)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+
+    def fence():
+        for _ in range(FENCE):
+            torch.cuda._sleep(20_000)   # ~10 us
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        fence()
+        fn()
+        fence()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    spin = ["spin_kernel" in e.name for e in events]
+    lead = next((i for i, x in enumerate(spin) if not x), len(spin))
+    trail = next((i for i, x in enumerate(reversed(spin)) if not x),
+                 len(spin))
+    if lead and trail and lead < len(spin):
+        return wall, events[lead:len(events) - trail], True
+    return wall, [e for e, x in zip(events, spin) if not x], False
+
+
+def _launches(events, kernel):
+    """Events of ``kernel`` (a substring of its name), else all events."""
+    return sum(kernel in e.name for e in events) if kernel else len(events)
+
+
+def _whole(sessions, reps: int, kernel) -> list:
+    """The sessions (launch count, reading) that recorded every launch:
+    exactly ``reps`` of ``kernel``; without one, a multiple of ``reps``
+    device events, as many as most such sessions recorded."""
+    if kernel:
+        return [s for s in sessions if s[0] == reps]
+    full = [n for n, _ in sessions if n and n % reps == 0]
+    if not full:
+        return []
+    mode = statistics.mode(full)
+    return [s for s in sessions if s[0] == mode]
+
+
+def device_ms(torch, calls, reps: int = 32, kernel=None) -> float:
     """Mean device time per call: the CUDA activity (kernels, memsets,
     copies) torch.profiler records over ``reps`` calls, cycling through
     ``calls`` (each over its own copy of the inputs, together larger than
     the 50 MB L2, so every call reads device memory), the median of three
-    profiler sessions (one session once recorded a sixth of what the
-    others did).  Unlike event timing around one call, host launch
-    overhead does not count.  Falls back to event timing (``time_ms``) when five
-    profiler sessions record no device activity, and says so."""
+    profiler sessions fenced whole (``_cuda_events``) that recorded every
+    launch (``_whole``; ``kernel`` names the hand kernel each call
+    launches once).  A session that lost launches reads low (K2 at
+    0.0034-0.0169 ms under its bound of 0.0303 ms); such sessions are
+    logged (an unfenced one with -1 launches) and dropped.  Unlike event
+    timing around one call, host launch overhead does not count.  Falls
+    back to ``loop_ms`` when six sessions give no whole reading, and
+    says so."""
     if not torch.cuda.is_available():
         return float("nan")   # a rehearsal on the CPU measures nothing
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for call in calls:
         call()
     torch.cuda.synchronize()
-    readings = []
-    for _ in range(5):   # a profiler session now and then records nothing
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for i in range(reps):
-                calls[i % len(calls)]()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            readings.append(us / reps / 1e3)
-        if len(readings) == 3:
-            return statistics.median(readings)
-    if readings:
-        return statistics.median(readings)
-    log("torch.profiler recorded no device time in 5 sessions: event "
-        "timing instead")
-    return time_ms(torch, calls[0], torch.empty(
-        64 << 20, dtype=torch.uint8, device="cuda"))
+    sessions = []
+    for _ in range(6):
+        _, events, fenced = _cuda_events(torch, lambda: [
+            calls[i % len(calls)]() for i in range(reps)], cpu=True)
+        us = sum(e.time_range.elapsed_us() for e in events)
+        sessions.append((_launches(events, kernel) if fenced else -1,
+                         us / reps / 1e3))
+        whole = _whole(sessions, reps, kernel)
+        if len(whole) == 3:
+            break
+    if len(whole) < len(sessions):
+        log(f"profiler sessions dropped, not whole ({reps} calls"
+            f"{', kernel ' + kernel if kernel else ''}): "
+            f"{[s for s in sessions if s not in whole]}; kept {whole}")
+    if whole:
+        return statistics.median(ms for _, ms in whole)
+    log("torch.profiler gave no whole session in 6: the calls in a row "
+        "by events instead (an upper bound)")
+    return loop_ms(torch, calls)
 
 
-def kernel_split(torch, calls, reps: int = 32) -> dict:
+def loop_ms(torch, calls, reps: int = 48) -> float:
+    """Mean ms per call from CUDA events around ``reps`` back-to-back
+    calls cycling through ``calls`` (each over its own copy of the
+    inputs): launches queue behind each other, so host launch overhead
+    hides under the kernels unless they are shorter than it (then this
+    is an upper bound).  A check on the profiler's per-kernel readings."""
+    if not torch.cuda.is_available():
+        return float("nan")
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        calls[i % len(calls)]()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_split(torch, calls, reps: int = 32, kernel=None) -> dict:
     """Mean device ms per call of each kernel (its function name) over
-    ``reps`` calls cycling through ``calls``, from ``device_busy``; {}
-    where there is no card."""
+    ``reps`` calls cycling through ``calls``, from the first of five
+    profiler sessions fenced whole that recorded every launch (each
+    kernel a multiple of ``reps`` times, ``kernel`` exactly ``reps``);
+    {} where there is no card or no such session."""
     if not torch.cuda.is_available():
         return {}
-    _, _, by_name = device_busy(
-        torch, lambda: [calls[i % len(calls)]() for i in range(reps)])
-    out = {}
-    for name, sec in by_name.items():
-        name = name.replace("(anonymous namespace)::", "")
-        name = name.replace("void ", "").split("(")[0]
-        out[name] = out.get(name, 0.0) + sec * 1e3 / reps
-    return dict(sorted(out.items()))
+    for _ in range(5):
+        _, events, fenced = _cuda_events(torch, lambda: [
+            calls[i % len(calls)]() for i in range(reps)])
+        sec, count = {}, {}
+        for e in events:
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.replace("void ", "").split("(")[0]
+            sec[name] = sec.get(name, 0.0) + e.time_range.elapsed_us() / 1e6
+            count[name] = count.get(name, 0) + 1
+        if fenced and count and all(n % reps == 0 for n in count.values()) \
+                and (not kernel or _launches(events, kernel) == reps):
+            return {k: sec[k] * 1e3 / reps for k in sorted(sec)}
+        log(f"kernel_split: a session lost launches ({count}), dropped")
+    return {}
 
 
 def device_busy(torch, fn):
     """(wall s, device-busy s, {kernel name: device s}) of one run of
     ``fn`` under torch.profiler (CUDA activity only)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall, events, _ = _cuda_events(torch, fn)
     busy, by_name = 0.0, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            s = e.time_range.elapsed_us() / 1e6
-            busy += s
-            by_name[e.name] = by_name.get(e.name, 0.0) + s
+    for e in events:
+        s = e.time_range.elapsed_us() / 1e6
+        busy += s
+        by_name[e.name] = by_name.get(e.name, 0.0) + s
     return wall, busy, by_name
 
 
@@ -300,12 +398,21 @@ def make_bam(args):
     if args.times and os.path.exists(path):
         return path, None   # timing runs need no truth
     t0 = time.perf_counter()
-    # --times runs earlier trees too, whose generator has no regions
-    regions = {} if args.times else {"regions": REGIONS}
-    truth = write_synthetic_bam(path, args.reads, args.seed, **regions)
+    # --times runs earlier trees too, whose generator has no regions and
+    # no FASTQ copy; phase 12 reads the FASTQ of the same generation
+    extra = {} if args.times else {"regions": REGIONS,
+                                   "fastq": fastq_path(path)}
+    truth = write_synthetic_bam(path, args.reads, args.seed, **extra)
     log(f"synthesized {args.reads} reads (seed {args.seed}) -> "
-        f"{os.path.getsize(path)} bytes in {time.perf_counter() - t0:.1f} s")
+        f"{os.path.getsize(path)} bytes in {time.perf_counter() - t0:.1f} s"
+        + (f", and their FASTQ for phase 12 ({os.path.getsize(extra['fastq'])}"
+           f" bytes)" if extra else ""))
     return path, truth
+
+
+def fastq_path(path: str) -> str:
+    """Phase 12's FASTQ of the BAM's reads, written beside it."""
+    return os.path.splitext(path)[0] + ".fastq"
 
 
 def phase_k1(torch, path, dev) -> dict:
@@ -343,21 +450,26 @@ def phase_k1(torch, path, dev) -> dict:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     ev_ms = time_ms(torch, lambda: unpack_fixed_fields(d, o), flush)
     copies = [(d.clone(), o.clone()) for _ in range(4)]
+    looped = loop_ms(torch, [lambda c=c: unpack_fixed_fields(*c)
+                             for c in copies])
     ms = device_ms(torch, [lambda c=c: unpack_fixed_fields(*c)
-                           for c in copies])
+                           for c in copies],
+                   kernel="unpack_fixed_fields_kernel")
     plain_ms = device_ms(torch, [lambda c=c: unpack_fixed_fields_plain(*c)
                                  for c in copies])
     distinct = int(torch.unique(o).numel())
     nbytes = 4 * N + 36 * distinct + 48 * N
     bound_ms = nbytes / H100_BYTES_PER_S * 1e3
     log(f"K1 device {ms:.4f} ms (plain {plain_ms:.4f} ms; one call timed "
-        f"by events incl. launch overhead {ev_ms:.4f} ms), bound "
+        f"by events incl. launch overhead {ev_ms:.4f} ms; 48 calls in a "
+        f"row {looped:.4f} ms a call), bound "
         f"{bound_ms:.4f} ms = {nbytes} B / 3.35 TB/s; no single PyTorch "
         f"call computes this function (library_ms null)")
     return {"name": "unpack_fixed_fields", "route": "cuda",
             "source": "hadoop_bam_torch/csrc/unpack_bam.cu",
             "replaces": "hadoop_bam_tpu/ops/unpack_bam.py:113",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": ms, "loop_ms": looped,
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
 
 
@@ -475,7 +587,9 @@ def phase_k2(torch, path, dev) -> dict:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     ev_ms = time_ms(torch, lambda: seq_qual_stats(s_t, q_t, l_t), flush)
     copies = [(s_t.clone(), q_t.clone(), l_t.clone()) for _ in range(4)]
-    ms = device_ms(torch, [lambda c=c: seq_qual_stats(*c) for c in copies])
+    calls = [lambda c=c: seq_qual_stats(*c) for c in copies]
+    ms = device_ms(torch, calls, kernel="seq_stats_kernel")
+    looped = loop_ms(torch, calls)
     plain_ms = device_ms(torch, [lambda c=c: seq_qual_stats_plain(*c)
                                  for c in copies])
     # the same rows through the direct path (rows 1..n of [n + 1, W]
@@ -484,10 +598,11 @@ def phase_k2(torch, path, dev) -> dict:
     off16 = [tuple(t.new_empty((n + 1,) + t.shape[1:])[1:].copy_(t)
                    for t in c) for c in copies]
     direct_ms = device_ms(torch, [lambda c=c: seq_qual_stats(*c)
-                                  for c in off16])
+                                  for c in off16], kernel="seq_stats_kernel")
     del off16
     staged_ms = device_ms(torch, [lambda c=c: seq_qual_stats(
-        c[0], c[1], torch.zeros_like(c[2])) for c in copies])
+        c[0], c[1], torch.zeros_like(c[2])) for c in copies],
+        kernel="seq_stats_kernel")
     ln = np.maximum(lens.astype(np.int64), 0)
     nbytes = int(4 * n + np.minimum((ln + 1) // 2, g.seq_stride).sum()
                  + np.minimum(ln, g.qual_stride).sum() + 8 * n + 64)
@@ -502,7 +617,8 @@ def phase_k2(torch, path, dev) -> dict:
     return {"name": "seq_qual_stats", "route": "cuda",
             "source": "hadoop_bam_torch/csrc/seq_stats.cu",
             "replaces": "hadoop_bam_tpu/ops/seq_pallas.py:127",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": ms, "loop_ms": looped,
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
 
 
@@ -727,7 +843,8 @@ def phase_k7(torch, path, dev) -> dict:
     return {"name": "resolve_pack", "route": "cuda",
             "source": "hadoop_bam_torch/csrc/lz77_resolve.cu",
             "replaces": "hadoop_bam_tpu/ops/inflate_device.py:98",
-            "max_abs_err": 0, "ms": big["ms"], "plain_ms": big["plain_ms"],
+            "max_abs_err": 0, "ms": big["ms"], "loop_ms": big["loop_ms"],
+            "plain_ms": big["plain_ms"],
             "bound_ms": big["bound_ms"], "bound_by": "bytes",
             "library_ms": None,
             "main_path_shape": _shape_row(
@@ -778,8 +895,9 @@ def k9_times(torch, path, dev) -> dict:
         R = tid.records_cap(tid.round_pow2(n, 8), 1 << 16)
         t = int(total)
         copies = [(buf.clone(), total.clone()) for _ in range(4)]
-        ms = device_ms(torch, [lambda c=c: tid.walk_records_device(
-            c[0], c[1], start, t, R) for c in copies])
+        calls = [lambda c=c: tid.walk_records_device(c[0], c[1], start, t,
+                                                     R) for c in copies]
+        ms = device_ms(torch, calls, kernel="walk_tiles")
         plain_ms = device_ms(torch, [
             lambda c=c: tid.walk_records_device_plain(c[0], c[1], start, t,
                                                       R) for c in copies])
@@ -789,10 +907,10 @@ def k9_times(torch, path, dev) -> dict:
         check(torch.equal(got[0], want[0])
               and [int(x) for x in got[1:]] == [int(x) for x in want[1:]],
               f"K9 at the {n}-block chunk equals plain")
-        split = kernel_split(torch, [lambda c=c: tid.walk_records_device(
-            c[0], c[1], start, t, R) for c in copies])
+        split = kernel_split(torch, calls, kernel="walk_tiles")
         out[f"{n}-block"] = {
             "L": L, "R": R, "total": t, "records": int(got[1]), "ms": ms,
+            "loop_ms": loop_ms(torch, calls),
             "plain_ms": plain_ms,
             "nbytes": min(L, t) + 4 * R + 16, "kernels_ms": split}
     return out
@@ -894,13 +1012,14 @@ def k7_times(torch, path, dev) -> dict:
         check(torch.equal(got, want) and int(total) == int(want_total),
               f"K7+K8 at the {name} chunk equals plain")
         copies = [tuple(a.clone() for a in args) for _ in range(4)]
-        ms = device_ms(torch, [lambda c=c: tid.resolve_pack(*c, P=P)
-                               for c in copies])
+        calls = [lambda c=c: tid.resolve_pack(*c, P=P) for c in copies]
+        ms = device_ms(torch, calls, kernel="lz77_resolve_kernel")
         plain_ms = device_ms(torch, [lambda c=c: tid.pack_contiguous_plain(
             tid.resolve_tokens_plain(c[0], c[1], P), c[2]) for c in copies])
         n_tok = int(np.minimum(nt, T).sum())
         out[name] = {"B": B, "T": T, "P": P, "blocks": used,
                      "tokens": n_tok, "total": int(total), "ms": ms,
+                     "loop_ms": loop_ms(torch, calls),
                      "plain_ms": plain_ms,
                      "nbytes": 4 * n_tok + 8 * B + B * P + 4,
                      "passes": doubling_passes(tok[:used], nt[:used], P)}
@@ -1052,7 +1171,7 @@ def k10p_times(torch, path, dev) -> dict:
                   for _ in range(4)]
         gather = [lambda c=c: tid.payload_gather(*c[:6], *geo)
                   for c in copies]
-        ms = device_ms(torch, gather)
+        ms = device_ms(torch, gather, kernel="payload_gather_kernel")
         plain_ms = device_ms(torch, [lambda c=c: tid.payload_gather_plain(
             *c[:6], *geo) for c in copies])
         zero_ms = device_ms(torch, [lambda c=c: tid.payload_gather(
@@ -1083,6 +1202,7 @@ def k10p_times(torch, path, dev) -> dict:
                       g.max_len)
         out[f"{n}-block"] = {
             "L": buf.shape[0], "R": R, "records": nv, "ms": ms,
+            "loop_ms": loop_ms(torch, gather),
             "plain_ms": plain_ms, "nbytes": k10p_bytes(R, S, Q, use),
             "zero_ms": zero_ms, "zero_nbytes": R * (S + Q) + 4,
             "live_ms": live_ms, "live_nbytes": k10p_bytes(nv, S, Q, use),
@@ -1240,7 +1360,8 @@ def phase_k9(torch, path, dev) -> dict:
     return {"name": "walk_records_device", "route": "cuda",
             "source": "hadoop_bam_torch/csrc/record_walk.cu",
             "replaces": "hadoop_bam_tpu/ops/inflate_device.py:176",
-            "max_abs_err": 0, "ms": big["ms"], "plain_ms": big["plain_ms"],
+            "max_abs_err": 0, "ms": big["ms"], "loop_ms": big["loop_ms"],
+            "plain_ms": big["plain_ms"],
             "bound_ms": big["bound_ms"], "bound_by": "bytes",
             "library_ms": None,
             "main_path_shape": _shape_row(
@@ -1323,7 +1444,8 @@ def phase_k10p(torch, path, dev) -> dict:
     return {"name": "payload_gather", "route": "cuda",
             "source": "hadoop_bam_torch/csrc/payload_gather.cu",
             "replaces": "hadoop_bam_tpu/ops/inflate_device.py:320",
-            "max_abs_err": 0, "ms": big["ms"], "plain_ms": big["plain_ms"],
+            "max_abs_err": 0, "ms": big["ms"], "loop_ms": big["loop_ms"],
+            "plain_ms": big["plain_ms"],
             "bound_ms": big["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "zero_ms": big["zero_ms"],
             "l2_clean_ms": big["l2_clean_ms"],
@@ -1375,7 +1497,8 @@ def phase_plane_shapes(torch, path, dev, rows) -> None:
         f"L = {L}): every column equal (max_abs_err {err})")
     copies = [(buf.clone(), offs.clone()) for _ in range(4)]
     ms = device_ms(torch, [lambda c=c: unpack_fixed_fields(*c)
-                           for c in copies])
+                           for c in copies],
+                   kernel="unpack_fixed_fields_kernel")
     plain_ms = device_ms(torch, [lambda c=c: unpack_fixed_fields_plain(*c)
                                  for c in copies])
     distinct = int(torch.unique(offs).numel())
@@ -1401,7 +1524,8 @@ def phase_plane_shapes(torch, path, dev, rows) -> None:
         f"{g.qual_stride}), {nv} with a length): gc, mean_qual bit-equal, "
         f"base_hist equal")
     copies = [(seq.clone(), qual.clone(), lengths.clone()) for _ in range(4)]
-    ms = device_ms(torch, [lambda c=c: seq_qual_stats(*c) for c in copies])
+    ms = device_ms(torch, [lambda c=c: seq_qual_stats(*c) for c in copies],
+                   kernel="seq_stats_kernel")
     plain_ms = device_ms(torch, [lambda c=c: seq_qual_stats_plain(*c)
                                  for c in copies])
     ln = lengths.cpu().numpy().astype(np.int64)
@@ -2084,11 +2208,265 @@ def phase_planning(torch, path, truth, card, dev, args, native_walls,
     return launches
 
 
+# phase 12's gzipped QSEQ: the first reads of the BAM's
+QSEQ_READS = 200_000
+
+
+def _bytes_of(batch) -> int:
+    return sum(t.numel() * t.element_size() for t in batch.values())
+
+
+def _same_stats(got, want, what) -> None:
+    import numpy as np
+    check(got["n_reads"] == want["n_reads"], f"{what}: n_reads "
+          f"{got['n_reads']} != {want['n_reads']}")
+    check(np.array_equal(got["base_hist"], want["base_hist"]),
+          f"{what}: base_hist")
+    for k in ("mean_gc", "mean_qual"):
+        rel = abs(got[k] - want[k]) / abs(want[k])
+        check(rel <= 1e-6, f"{what}: {k} rel err {rel} <= 1e-6")
+
+
+def k2_window_check(torch, batches, dev, card="") -> dict:
+    """K2 against its plain version on every FASTA window batch (rows
+    past the count at length 0), and its times on the first batch's
+    tiles (65,536 x (512, 1024) at window 1024), launched as the main
+    path launches it: ``ms`` by the profiler over whole sessions
+    (``device_ms``), by kernel, the plain version's, one call and 48
+    calls in a row by events, one launch over the rows eight times over
+    by events (per 65,536 rows), and the bound."""
+    import numpy as np
+    from hadoop_bam_torch.ops.seq_stats import (
+        k2_launch, seq_qual_stats, seq_qual_stats_plain,
+    )
+    err = 0
+    for b in batches:
+        c = int(b["n_records"][0])
+        lengths = torch.where(torch.arange(b["lengths"].shape[1],
+                                           device=dev) < c,
+                              b["lengths"][0], 0).to(torch.int32)
+        args_ = (b["seq_packed"][0], b["qual"][0], lengths)
+        got = seq_qual_stats(*args_)
+        want = seq_qual_stats_plain(*args_)
+        sync(torch, dev)
+        for k in ("gc", "mean_qual", "base_hist"):
+            check(torch.equal(got[k], want[k]),
+                  f"K2 {k} at the window shape bit-equal to plain")
+        err = max(err, int((got["base_hist"].to(torch.int64)
+                            - want["base_hist"].to(torch.int64))
+                           .abs().max()))
+    b = batches[0]
+    s_t, q_t, l_t = b["seq_packed"][0], b["qual"][0], b["lengths"][0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    go = k2_launch(s_t.shape[0], s_t.shape[1], q_t.shape[1],
+                   (s_t.data_ptr(), q_t.data_ptr(), l_t.data_ptr()), sms)
+    copies = [(s_t.clone(), q_t.clone(), l_t.clone()) for _ in range(2)]
+    calls = [lambda c=c: seq_qual_stats(*c) for c in copies]
+    ms = device_ms(torch, calls, kernel="seq_stats_kernel")
+    plain_ms = device_ms(torch, [lambda c=c: seq_qual_stats_plain(*c)
+                                 for c in copies])
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    ev_ms = time_ms(torch, lambda: seq_qual_stats(*copies[0]), flush)
+    split = kernel_split(torch, calls, kernel="seq_stats_kernel")
+    looped = loop_ms(torch, calls)
+    # the same rows eight times over in one launch: the launch overhead
+    # amortized, a device time per 65,536 rows that needs no profiler
+    # (a check on ``ms``; the main path never launches this shape)
+    big = tuple(torch.cat([t] * 8) for t in (s_t, q_t, l_t))
+    big_ms = time_ms(torch, lambda: seq_qual_stats(*big), flush) / 8
+    for c in copies + [big]:   # the timed inputs give the checked results
+        got, want = seq_qual_stats(*c), seq_qual_stats_plain(*c)
+        sync(torch, dev)
+        check(all(torch.equal(got[k], want[k]) for k in want),
+              "K2 on the timed inputs equals plain")
+    del big
+    ln = l_t.to(torch.int64).clamp(min=0).cpu().numpy()
+    nbytes = int(4 * ln.size + np.minimum((ln + 1) // 2, s_t.shape[1]).sum()
+                 + np.minimum(ln, q_t.shape[1]).sum() + 8 * ln.size + 64)
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    log(f"K2 at the window shape {s_t.shape[0]} x ({s_t.shape[1]}, "
+        f"{q_t.shape[1]}) bit-equal to plain on all {len(batches)} "
+        f"batches ({'TMA rings' if go.aligned else 'direct loads'}, "
+        f"{go.tiles} tiles of {go.rows} rows on {go.grid} blocks of "
+        f"{go.warps} warps, {go.smem} B shared memory per block); "
+        f"device {ms:.4f} ms a 65,536-row launch (profiler, whole "
+        f"sessions), by kernel {split}; {big_ms:.4f} ms per 65,536 rows "
+        f"in one launch over 524,288 (events, L2 flushed); one call by "
+        f"events incl. launch overhead {ev_ms:.4f} ms; 48 calls in a row "
+        f"{looped:.4f} ms a call; plain {plain_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms = {nbytes} B / 3.35 TB/s [{card}]")
+    return {"shape": f"{s_t.shape[0]} x ({s_t.shape[1]}, {q_t.shape[1]})",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "by_kernel": split, "event_ms": ev_ms, "loop_ms": looped,
+            "amortized_ms": big_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "share_of_bound": bound_ms / ms}
+
+
+def k2_window_times(torch, path, dev) -> dict:
+    """``--times k2_window``: phase 12 (c)'s FASTA (chr21 + chr22
+    lengths) cut into windows of 1024, K2 checked and timed there."""
+    from hadoop_bam_torch import synth
+    from hadoop_bam_torch.api import open_fasta
+    from hadoop_bam_torch.utils.native import BUILD_DIR
+    fa = os.path.join(BUILD_DIR, "smoke", "k2_window.fa")
+    synth.write_synthetic_fasta(fa, 0)
+    try:
+        batches = list(open_fasta(fa, device=dev)
+                       .window_tensor_batches(window=1024))
+    finally:
+        os.remove(fa)
+    return k2_window_check(torch, batches, dev, card_line())
+
+
+def phase_reads(torch, path, truth, card, dev, args, native_walls):
+    """Phase 12: the read formats and the tensor feeds through the entry
+    points on cuda:0; returns the launches of their main paths."""
+    log("== phase 12: read formats and tensor feeds on cuda:0")
+    from hadoop_bam_torch import synth
+    from hadoop_bam_torch.api import open_bam, open_fasta
+    from hadoop_bam_torch.config import HBamConfig
+    from hadoop_bam_torch.ops.unpack_bam import (
+        FIXED_FIELDS, unpack_fixed_fields_plain, unpack_fixed_fields_tile,
+    )
+    from hadoop_bam_torch.parallel import pipeline as tp
+    from hadoop_bam_torch.split.planners import plan_bam_spans
+    from hadoop_bam_torch.utils.native import BUILD_DIR
+    work = os.path.join(BUILD_DIR, "smoke")
+    fq = fastq_path(path)     # written with the BAM (make_bam)
+    qs = os.path.join(work, f"synth_{args.seed}_{QSEQ_READS}.qseq.gz")
+    fa = os.path.join(work, f"synth_{args.seed}.fa")
+    log(f"FASTQ of the BAM's {truth.n_reads} reads: {os.path.getsize(fq)} "
+        f"bytes")
+    t0 = time.perf_counter()
+    qs_truth = synth.write_synthetic_reads(qs, args.reads, args.seed,
+                                           fmt="qseq", limit=QSEQ_READS,
+                                           compress=True)
+    log(f"gzipped QSEQ of the first {qs_truth.n_reads} reads -> "
+        f"{os.path.getsize(qs)} bytes in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    contigs = synth.write_synthetic_fasta(fa, args.seed)
+    log(f"FASTA of {contigs} -> {os.path.getsize(fa)} bytes in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ds = open_bam(path, config=HBamConfig(inflate_backend="native"))
+    bam_stats = ds.seq_stats()
+    walls, kept = {}, {}
+    try:
+        reset_launches()
+        # (a) FASTQ stats against phase 5's BAM seq_stats
+        t0 = time.perf_counter()
+        got = tp.fastq_seq_stats_file(fq)
+        walls["fastq"] = time.perf_counter() - t0
+        _same_stats(got, bam_stats, "FASTQ stats against the BAM's")
+        _same_stats(got, dataclasses.asdict(truth),
+                    "FASTQ stats against the generator's")
+        # (b) the gzipped QSEQ against the generator's counts
+        t0 = time.perf_counter()
+        got = tp.fastq_seq_stats_file(qs)
+        walls["qseq_gz"] = time.perf_counter() - t0
+        _same_stats(got, dataclasses.asdict(qs_truth), "gzipped QSEQ")
+        # (c) FASTA windows, through K2 as each batch arrives
+        windows, nbytes, fasta_totals = 0, 0, tp._StatTotals()
+        kept["fasta"] = []
+        t0 = time.perf_counter()
+        for b in open_fasta(fa).window_tensor_batches(window=1024):
+            windows += int(b["n_records"][0])
+            nbytes += _bytes_of(b)
+            fasta_totals.add(*tp.read_stats_step(
+                b["seq_packed"][0], b["qual"][0], b["lengths"][0],
+                b["n_records"][0]))
+            kept["fasta"].append(b)
+        fasta_stats = tp._payload_stats_result(fasta_totals)
+        walls["fasta_windows"] = time.perf_counter() - t0
+        want_windows = sum(synth.window_count(n, 1024)
+                           for n in contigs.values())
+        check(windows == want_windows == fasta_stats["n_reads"],
+              f"FASTA windows {windows} == {want_windows}")
+        log(f"(c) {windows} windows of 1024 in {len(kept['fasta'])} "
+            f"batches, {nbytes} B delivered in {walls['fasta_windows']:.3f}"
+            f" s ({nbytes / walls['fasta_windows'] / 1e9:.3f} GB/s), "
+            f"mean_gc {fasta_stats['mean_gc']:.6f} [{card}]")
+        # (d) BAM tensor batches through K2 against seq_stats()
+        rows, batches, nbytes, totals = 0, 0, 0, tp._StatTotals()
+        cold()
+        t0 = time.perf_counter()
+        for b in ds.tensor_batches():
+            n = b["n_records"][0]
+            cols = unpack_fixed_fields_tile(b["prefix"][0])
+            lengths = torch.clamp(cols["l_seq"], max=tp.PayloadGeometry()
+                                  .max_len).to(torch.int32)
+            totals.add(*tp.read_stats_step(b["seq_packed"][0], b["qual"][0],
+                                           lengths, n))
+            rows += int(n)
+            batches += 1
+            nbytes += _bytes_of(b)
+        feed = tp._payload_stats_result(totals)
+        walls["bam_tensor_batches"] = time.perf_counter() - t0
+        check(rows == truth.n_reads, f"BAM batches hold {rows} rows")
+        _same_stats(feed, bam_stats, "BAM tensor_batches through K2")
+        log(f"(d) BAM tensor_batches: {batches} batches, {rows} rows, "
+            f"{nbytes} B delivered to the card in "
+            f"{walls['bam_tensor_batches']:.3f} s: "
+            f"{batches / walls['bam_tensor_batches']:.2f} batches/s, "
+            f"{nbytes / walls['bam_tensor_batches'] / 1e9:.3f} GB/s, "
+            f"{rows / walls['bam_tensor_batches']:,.0f} reads/s [{card}]")
+        # (e) unpack_step over one stacked span group
+        span = plan_bam_spans(path, num_spans=max(
+            1, os.path.getsize(path) // (2 << 20)))[0]
+        g = tp.DecodeGeometry()
+        group = tp.stack_span_group(path, [span], 1, g)
+        dt, ot, ct = (torch.from_numpy(a).to(dev) for a in
+                      (group.data, group.offsets, group.n_records))
+        cols = tp.unpack_step(dt, ot, ct)
+        launches = read_launches()
+
+        def bam_feed():
+            for b in ds.tensor_batches():
+                c = unpack_fixed_fields_tile(b["prefix"][0])
+                tp.read_stats_step(b["seq_packed"][0], b["qual"][0],
+                                   torch.clamp(c["l_seq"], max=160)
+                                   .to(torch.int32), b["n_records"][0])
+
+        # profiled re-runs (after the counts were read): the busy shares
+        for name, fn in (("fastq", lambda: tp.fastq_seq_stats_file(fq)),
+                         ("bam_tensor_batches", bam_feed)):
+            log_busy(torch, name, fn, card)
+    finally:
+        for p in (fq, qs, fa):
+            if os.path.exists(p):
+                os.remove(p)
+    log(f"launches in phase 12: {launches}")
+    for name in ("unpack_fixed_fields", "seq_qual_stats"):
+        check(launches[name] > 0, f"{name} launched in phase 12")
+    # the checks against the plain versions (their launches not counted)
+    want = unpack_fixed_fields_plain(dt[0], ot[0])
+    n = int(group.n_records[0])
+    for name in FIXED_FIELDS:
+        check(torch.equal(cols[name][0], want[name]), f"unpack_step {name}")
+        check(cols[name].shape == (1, g.records_cap), f"{name} shape")
+    check(bool(cols["valid"][0, :n].all())
+          and not bool(cols["valid"][0, n:].any()), "unpack_step valid")
+    log(f"(e) unpack_step over a stacked group of one span ({n} records, "
+        f"D = {g.bytes_cap}, N = {g.records_cap}): the 12 columns equal "
+        f"K1's plain version, valid = the first {n} rows")
+    window = k2_window_check(torch, kept.pop("fasta"), dev, card)
+    for name, wall in walls.items():
+        n = {"fastq": truth.n_reads, "qseq_gz": QSEQ_READS,
+             "fasta_windows": windows,
+             "bam_tensor_batches": truth.n_reads}[name]
+        log(f"{name}: {wall:.3f} s wall, {n / wall:,.0f} "
+            f"{'windows' if name == 'fasta_windows' else 'reads'}/s "
+            f"[{card}]")
+    log(f"FASTQ stats {walls['fastq']:.3f} s beside phase 5's BAM "
+        f"seq_stats {native_walls['seq_stats']:.3f} s "
+        f"({walls['fastq'] / native_walls['seq_stats']:.2f}x) [{card}]")
+    return launches, {"window_shape": window}
+
+
 # ``--times KERNEL``: the timing function of each kernel (or path) that
 # has one, called as fn(torch, path, dev) -> a JSON-able dict
 TIMES = {"walk_records_device": k9_times, "resolve_pack": k7_times,
          "payload_gather": k10p_times, "device_plane": device_plane_times,
-         "native_plane": native_plane_times,
+         "native_plane": native_plane_times, "k2_window": k2_window_times,
          "bai_regions": bai_regions_times}
 
 
@@ -2169,11 +2547,25 @@ def main(argv=None) -> int:
     planning_launches = phase_planning(torch, path, truth, card, dev, args,
                                        native_walls, device_walls, plan_s,
                                        interval_walls)
+    reads_launches, k2_window = phase_reads(torch, path, truth, card, dev,
+                                            args, native_walls)
+    rows["seq_qual_stats"].update(k2_window)
+    for name, x in list(rows.items()) + [
+            ("seq_qual_stats at the window shape",
+             k2_window["window_shape"])]:
+        # the profiler's reading against this process's event timing of
+        # the same calls back to back (an upper bound) and the bound
+        log(f"{name}: {x['ms']:.4f} ms by the profiler, {x['loop_ms']:.4f}"
+            f" ms a call in a row by events, bound {x['bound_ms']:.4f} ms")
+        check(x["bound_ms"] <= x["ms"] <= 1.2 * x["loop_ms"],
+              f"{name}: the profiler's {x['ms']:.4f} ms lies between the "
+              f"bound and the back-to-back event time")
     for name, row in rows.items():
         by_path = {"native": native_launches.get(name, 0),
                    "device": device_launches[name],
                    "resilience": resilience_launches[name],
-                   "planning": planning_launches[name]}
+                   "planning": planning_launches[name],
+                   "reads": reads_launches[name]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["share_of_bound"] = row["bound_ms"] / row["ms"]

@@ -19,4 +19,8 @@ caller passes ``device="cpu"``.
     ds = open_bam("sample.bam")
     ds.flagstat()
     ds.seq_stats()
+    ds.tensor_batches()
+
+The read formats (``open_fastq``, ``open_qseq``, ``open_fasta``,
+``parallel.pipeline.fastq_seq_stats_file``) feed the same K2 kernel.
 """

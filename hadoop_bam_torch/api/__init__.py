@@ -1,4 +1,10 @@
-"""User entry points of the port: ``open_bam(path, device=None)``."""
+"""User entry points of the port: ``open_bam``, ``open_fastq``,
+``open_qseq`` and ``open_fasta`` (each ``(path, device=None, config)``)."""
 from hadoop_bam_torch.api.dataset import BamDataset, open_bam
+from hadoop_bam_torch.api.read_datasets import (
+    FastaDataset, FastqDataset, QseqDataset, open_fasta, open_fastq,
+    open_qseq,
+)
 
-__all__ = ["BamDataset", "open_bam"]
+__all__ = ["BamDataset", "FastaDataset", "FastqDataset", "QseqDataset",
+           "open_bam", "open_fasta", "open_fastq", "open_qseq"]

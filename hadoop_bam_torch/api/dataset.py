@@ -11,10 +11,11 @@ hadoop_bam_tpu/api/dataset.py, slice 1: ``flagstat`` and ``seq_stats``).
     q = QuarantineManifest()
     ds.flagstat(quarantine=q)            # q lists the spans skipped
     ds.spans(num_spans=8)                # the dataset's span plan
+    for b in ds.tensor_batches(): ...    # payload tiles on the device
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 from hadoop_bam_torch.config import DEFAULT_CONFIG, HBamConfig
 from hadoop_bam_torch.device import resolve_device
@@ -72,6 +73,33 @@ class BamDataset:
         return seq_stats_file(self.path, device=self.device,
                               config=self.config, geometry=geometry,
                               header=self.header, quarantine=quarantine)
+
+
+    def tensor_batches(self, geometry=None, num_spans: Optional[int] = None
+                       ) -> Iterator[Dict]:
+        """Payload batches on the dataset's device (the ML feed), n_dev =
+        1: ``prefix`` uint8 [1, rows, 36] (the fixed columns; decode with
+        ``ops.unpack_bam.unpack_fixed_fields_tile``), ``seq_packed``
+        uint8 [1, rows, seq_stride] (4-bit bases, two a byte, the first
+        in the high nibble; ``ops.seq_stats.unpack_bases``), ``qual``
+        uint8 [1, rows, qual_stride] and ``n_records`` int32 [1].
+        ``rows`` is geometry.tile_records except in the final batch,
+        which shrinks to the smallest bucket that holds it unless
+        ``PayloadGeometry(fixed_shape=True)``.  Each batch's tensors are
+        the consumer's own.  The dataset's plan (``spans``) is decoded
+        with the drivers' cut of long spans: the same rows in the same
+        order."""
+        from hadoop_bam_torch.parallel.pipeline import (
+            SEQ_STATS_SPAN_BYTES, PayloadGeometry, _batch_emit, _grain_cut,
+            data_axis, iter_payload_tile_groups,
+        )
+        geometry = geometry if geometry is not None else PayloadGeometry()
+        spans = _grain_cut(self.path, self.header, self.spans(num_spans),
+                           SEQ_STATS_SPAN_BYTES)
+        yield from iter_payload_tile_groups(
+            self.path, spans, geometry, data_axis(self.device),
+            _batch_emit(self.device, ("prefix", "seq_packed", "qual")),
+            self.config, header=self.header, balance=False)
 
 
 def open_bam(path: str, device=None,

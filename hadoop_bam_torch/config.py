@@ -11,6 +11,7 @@ filters were ported): a non-default value of one of those is refused.
 from __future__ import annotations
 
 import dataclasses
+import enum
 import os
 from typing import Callable, Dict, Optional
 
@@ -20,6 +21,31 @@ from hadoop_bam_torch.utils.errors import PlanError
 # resolve and record walk on the card); "native" and "zlib" inflate and
 # walk on the host; "auto" is "native" (see resolve_inflate_backend)
 INFLATE_BACKENDS = ("auto", "native", "zlib", "device")
+
+
+class BaseQualityEncoding(enum.Enum):
+    """FASTQ/QSEQ base-quality encodings [SPEC offsets]: Sanger is
+    Phred+33, Illumina (1.3-1.7) Phred+64."""
+
+    SANGER = 33
+    ILLUMINA = 64
+
+    @classmethod
+    def parse(cls, s, default: "BaseQualityEncoding"
+              ) -> "BaseQualityEncoding":
+        """None -> ``default``; a member of this or any other
+        ``BaseQualityEncoding`` enum (the reference's included) or a
+        name -> the member of that name."""
+        if s is None:
+            return default
+        if isinstance(s, cls):
+            return s
+        name = s.name if isinstance(s, enum.Enum) else str(s)
+        try:
+            return cls[name.upper()]
+        except KeyError:
+            raise PlanError(f"unknown base-quality encoding {s!r}; "
+                            f"expected SANGER or ILLUMINA") from None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,7 +95,23 @@ class HBamConfig:
     use_fused_decode: bool = True
     decode_chunk_blocks: int = 32
 
+    # FASTQ / QSEQ input (api/read_datasets.py): the quality encoding of
+    # the text (re-based to Sanger on read) and whether reads whose
+    # Illumina filter flag failed are dropped
+    fastq_base_quality_encoding: BaseQualityEncoding = \
+        BaseQualityEncoding.SANGER
+    fastq_filter_failed_qc: bool = False
+    qseq_base_quality_encoding: BaseQualityEncoding = \
+        BaseQualityEncoding.ILLUMINA
+    qseq_filter_failed_qc: bool = False
+
     def __post_init__(self):
+        for name, default in (
+                ("fastq_base_quality_encoding", BaseQualityEncoding.SANGER),
+                ("qseq_base_quality_encoding",
+                 BaseQualityEncoding.ILLUMINA)):
+            object.__setattr__(self, name, BaseQualityEncoding.parse(
+                getattr(self, name), default))
         if self.inflate_backend not in INFLATE_BACKENDS:
             raise PlanError(f"unknown inflate backend "
                             f"{self.inflate_backend!r}; expected one of "
@@ -118,7 +160,8 @@ CARRIED = tuple(f.name for f in dataclasses.fields(HBamConfig))
 def config_from_dict(d: dict) -> HBamConfig:
     """The port's config from a dict of reference config fields: every
     field of ``HBamConfig`` carries over as it is (every decode plane
-    name, "auto" and "device" included).
+    name, "auto" and "device" included; a quality encoding of the
+    reference's enum becomes the port's member of the same name).
     Raises PlanError naming the field when the dict sets one of
     ``UNSUPPORTED`` to anything but its default: the drivers would
     otherwise return what the reference would not, with no sign that a

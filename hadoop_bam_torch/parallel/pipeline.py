@@ -95,7 +95,9 @@ from hadoop_bam_torch.utils.metrics import METRICS
 from hadoop_bam_torch.utils.resilient import (
     QuarantineManifest, RetryingByteSource, RetryPolicy, span_retry_policy,
 )
-from hadoop_bam_torch.utils.seekable import as_byte_source
+from hadoop_bam_torch.utils.seekable import (
+    as_byte_source, scoped_byte_source,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -120,6 +122,10 @@ class PayloadGeometry:
     max_len: int = 160             # bases per read kept on device
     tile_records: int = 1 << 16    # records per device per step
     block_n: int = 256             # bucket rounding of partial tiles
+    fixed_shape: bool = False      # True: the final partial batch pads
+    #                                to tile_records instead of shrinking
+    #                                to a bucket (consumers that
+    #                                preallocate by tile_records)
 
     @property
     def seq_stride(self) -> int:
@@ -490,6 +496,42 @@ def decode_span_host(source, span: FileVirtualSpan, geometry: DecodeGeometry,
             f"span exceeds geometry: {data.size}B/{offs.size} records vs "
             f"caps {g.bytes_cap}B/{g.records_cap} — plan smaller spans")
     return data, offs.astype(np.int32), voffs
+
+
+@dataclasses.dataclass
+class HostSpanBatch:
+    """A decoded span group, stacked for n_dev devices (span mode)."""
+    data: np.ndarray       # [n_dev, bytes_cap] uint8
+    offsets: np.ndarray    # [n_dev, records_cap] int32
+    n_records: np.ndarray  # [n_dev] int32
+    voffsets: List[np.ndarray]
+
+
+def stack_span_group(source, spans: Sequence[FileVirtualSpan], n_dev: int,
+                     geometry: DecodeGeometry) -> HostSpanBatch:
+    """Decode up to n_dev spans and stack them into the span-mode batch
+    shape, zero-padded to the geometry's caps; a missing span is an
+    empty shard."""
+    outs = [decode_span_host(source, span, geometry)
+            for span in list(spans)[:n_dev]]
+    data = np.zeros((n_dev, geometry.bytes_cap), dtype=np.uint8)
+    offsets = np.zeros((n_dev, geometry.records_cap), dtype=np.int32)
+    counts = np.zeros((n_dev,), dtype=np.int32)
+    voffs: List[np.ndarray] = [np.empty(0, dtype=np.uint64)] * n_dev
+    for i, (d, o, v) in enumerate(outs):
+        data[i, :d.size] = d
+        offsets[i, :o.size] = o
+        counts[i] = o.size
+        voffs[i] = v
+    return HostSpanBatch(data, offsets, counts, voffs)
+
+
+def iter_span_groups(spans: Sequence[FileVirtualSpan], n_dev: int
+                     ) -> Iterator[List[FileVirtualSpan]]:
+    """The plan in groups of n_dev spans (the last may be short)."""
+    spans = list(spans)
+    for i in range(0, len(spans), n_dev):
+        yield spans[i:i + n_dev]
 
 
 def _interval_mask(data: np.ndarray, offs: np.ndarray, header, intervals
@@ -1053,6 +1095,34 @@ def seq_stats_step(prefix: torch.Tensor, seq: torch.Tensor,
     return _payload_stats_tail(seq_qual_stats(seq, qual, lengths), valid)
 
 
+def read_stats_step(seq: torch.Tensor, qual: torch.Tensor,
+                    lengths: torch.Tensor, count
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Read payload tiles with explicit per-read lengths (FASTQ, QSEQ,
+    FASTA windows; ``tensor_batches``) -> the stats tail pair, through
+    the K2 kernel: rows past ``count`` (an int or a 0-d tensor on the
+    tiles' device) get length 0."""
+    valid = torch.arange(seq.shape[0], device=seq.device) < count
+    lengths = torch.where(valid, lengths, 0).to(torch.int32)
+    return _payload_stats_tail(seq_qual_stats(seq, qual, lengths), valid)
+
+
+def unpack_step(data: torch.Tensor, offsets: torch.Tensor,
+                count: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """A stacked span group (``stack_span_group``) on the device -> the
+    12 fixed-field columns and ``valid``, each [n_dev, records_cap], one
+    K1 gather per device row: data uint8 [n_dev, bytes_cap], offsets
+    int32 [n_dev, records_cap], count int32 [n_dev] (the "mapper" feed
+    of the reference's ``make_unpack_step``)."""
+    rows = []
+    for i in range(data.shape[0]):
+        cols = dict(unpack_fixed_fields(data[i], offsets[i]))
+        cols["valid"] = torch.arange(offsets.shape[1],
+                                     device=offsets.device) < count[i]
+        rows.append(cols)
+    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+
 class _StatTotals:
     """Running device sums of the per-group stats pairs; one drain to the
     host at the end (no synchronisation per group)."""
@@ -1402,18 +1472,32 @@ def _payload_empty(geometry: PayloadGeometry) -> Callable:
     return lambda: tuple(np.empty((0, w), np.uint8) for w in widths)
 
 
-def _feed_payload(spans: Iterable[FileVirtualSpan],
-                  geometry: PayloadGeometry, axis: DataAxis,
-                  dispatch_fn: Callable, config: HBamConfig, prefetch: int,
-                  decode: Callable, stream_fused: bool = False) -> int:
-    """``decode(span)`` -> (prefix, seq, qual), or a fused chunk stream
-    of such tuples, on the pool, packed into row tiles and handed to
-    ``dispatch_fn(tensors, counts)`` (the FeedPipeline contract).
-    Returns the number of groups."""
-    widths = (PREFIX, geometry.seq_stride, geometry.qual_stride)
-    fp = FeedPipeline(axis.n_dev, geometry.tile_records,
-                      [TileSpec((w,), np.uint8) for w in widths],
+def _payload_specs(geometry: PayloadGeometry) -> List[TileSpec]:
+    """The BAM payload tiles: prefix, seq and qual rows."""
+    return [TileSpec((w,), np.uint8)
+            for w in (PREFIX, geometry.seq_stride, geometry.qual_stride)]
+
+
+def _read_specs(geometry: PayloadGeometry) -> List[TileSpec]:
+    """The read formats' tiles: seq and qual rows, and the lengths."""
+    return [TileSpec((geometry.seq_stride,), np.uint8),
+            TileSpec((geometry.qual_stride,), np.uint8),
+            TileSpec((), np.int32)]
+
+
+def _payload_groups(spans: Iterable, specs: Sequence[TileSpec],
+                    geometry: PayloadGeometry, axis: DataAxis,
+                    emit_fn: Callable, config: HBamConfig, prefetch: int,
+                    decode: Callable, stream_fused: bool = False,
+                    balance: bool = True) -> Iterator:
+    """``decode(span)`` -> a tuple of row arrays per ``specs`` (BAM
+    payload: prefix, seq, qual; read formats: seq, qual, lengths), or a
+    fused chunk stream of such tuples, on the pool, packed into row
+    tiles; yields the value of ``emit_fn(tensors, counts)`` for each
+    group (the ``FeedPipeline.stream`` contract)."""
+    fp = FeedPipeline(axis.n_dev, geometry.tile_records, specs,
                       block_n=geometry.block_n,
+                      fixed_shape=geometry.fixed_shape, balance=balance,
                       pin_memory=axis.devices[0].type == "cuda")
     window = max(1, prefetch) * config.pool_size()
     if stream_fused:
@@ -1421,24 +1505,44 @@ def _feed_payload(spans: Iterable[FileVirtualSpan],
     with cf.ThreadPoolExecutor(
             config.pool_size(), thread_name_prefix="hbam-decode") as pool, \
             _span_stream(pool, spans, decode, window) as stream:
-        return fp.feed(stream, dispatch_fn)
+        yield from fp.stream(stream, emit_fn)
+
+
+def _feed_payload(spans: Iterable[FileVirtualSpan],
+                  geometry: PayloadGeometry, axis: DataAxis,
+                  dispatch_fn: Callable, config: HBamConfig, prefetch: int,
+                  decode: Callable, stream_fused: bool = False) -> int:
+    """``_payload_groups`` of a stats driver: each group goes to
+    ``dispatch_fn(tensors, counts)`` (the ``FeedPipeline.feed``
+    contract), the final partial group spread over the devices.
+    Returns the number of groups."""
+    return sum(1 for _ in _payload_groups(
+        spans, _payload_specs(geometry), geometry, axis,
+        lambda t, c: (None, dispatch_fn(t, c)), config, prefetch, decode,
+        stream_fused))
 
 
 def iter_payload_tile_groups(path: str, spans: Iterable[FileVirtualSpan],
                              geometry: PayloadGeometry, axis: DataAxis,
-                             dispatch_fn: Callable,
+                             emit_fn: Callable,
                              config: HBamConfig = DEFAULT_CONFIG,
                              prefetch: int = 2, header=None,
-                             quarantine: Optional[QuarantineManifest] = None
-                             ) -> int:
+                             quarantine: Optional[QuarantineManifest] = None,
+                             balance: bool = True) -> Iterator:
     """Decode spans on the pool under the span failure policy (retry,
     the native -> zlib ladder, quarantine; intervals applied), pack
-    (prefix, seq, qual) row tiles and hand each group to
-    ``dispatch_fn(tensors, counts)``.  On the native plane each span's
-    fused decode streams its chunks into the tiles when
-    ``select_plane`` allows it.  Sheds at the file's quarantine gate
-    first; heals a half-open gate once every span is through.  Returns
-    the number of groups."""
+    (prefix, seq, qual) row tiles and yield the value of
+    ``emit_fn(tensors, counts)`` for each group: ``tensors`` are
+    [n_dev, rows, w] views of a ring slot, valid until the generator is
+    advanced, and ``emit_fn`` returns ``(value, in-flight handle)``
+    (``FeedPipeline.stream``).  ``rows`` is ``geometry.tile_records``
+    for every full group; the final one shrinks to a bucket unless
+    ``geometry.fixed_shape``.  ``balance`` spreads the final group over
+    the devices (the stats driver); ``tensor_batches`` passes False and
+    keeps the serial order.  On the native plane each span's fused
+    decode streams its chunks into the tiles when ``select_plane``
+    allows it.  Sheds at the file's quarantine gate first; heals a
+    half-open gate once every span is through."""
     intervals = parse_config_intervals(config, header)
     check_quarantine_gate(path, config)
     spans = _planned(spans, config, quarantine)
@@ -1462,30 +1566,36 @@ def iter_payload_tile_groups(path: str, spans: Iterable[FileVirtualSpan],
             intervals=intervals, header=header, config=config)[:3]
 
     with _reading(path, config) as src:
-        groups = _feed_payload(
-            spans, geometry, axis, dispatch_fn, config, prefetch,
+        yield from _payload_groups(
+            spans, _payload_specs(geometry), geometry, axis, emit_fn,
+            config, prefetch,
             _span_policy(payload, config, quarantine, ladder,
                          decision.host_backend, _payload_empty(geometry)),
-            stream_fused=decision.stream_fused)
+            stream_fused=decision.stream_fused, balance=balance)
     quarantine_run_ok(path, config)
-    return groups
 
 
-def _stats_dispatch(axis: DataAxis, geometry: PayloadGeometry,
+def _stats_dispatch(axis: DataAxis, step: Callable,
                     totals: "_StatTotals") -> Callable:
-    """Payload tile groups through K2, added into ``totals``."""
+    """Tile groups through K2, ``step(*device tiles, count)`` on each
+    device (``seq_stats_step`` or ``read_stats_step``), added into
+    ``totals``."""
     def dispatch(tensors, counts):
         parts = []
         copies = _CopiesDone()
         for i, dev in enumerate(axis.devices):
-            prefix, seq, qual = (_copy_to(t[i], dev) for t in tensors)
+            tiles = [_copy_to(t[i], dev) for t in tensors]
             copies.record(dev)
-            parts.append(seq_stats_step(prefix, seq, qual, int(counts[i]),
-                                        geometry.max_len))
+            parts.append(step(*tiles, int(counts[i])))
         totals.add(axis.sum([p[0] for p in parts]),
                    axis.sum([p[1] for p in parts]))
         return copies.handle()
     return dispatch
+
+
+def _bam_stats_step(geometry: PayloadGeometry) -> Callable:
+    return lambda prefix, seq, qual, n: seq_stats_step(
+        prefix, seq, qual, n, geometry.max_len)
 
 
 def _seq_stats_device(path: str, axis: DataAxis, config: HBamConfig,
@@ -1514,7 +1624,8 @@ def _seq_stats_device(path: str, axis: DataAxis, config: HBamConfig,
 
         with _reading(path, config) as src:
             _feed_payload(fixups, geometry, axis,
-                          _stats_dispatch(axis, geometry, totals), config,
+                          _stats_dispatch(axis, _bam_stats_step(geometry),
+                                          totals), config,
                           prefetch, _fixup_policy(payload, config, quarantine,
                                                   _payload_empty(geometry)))
     return _attach_quarantine(_payload_stats_result(totals), quarantine)
@@ -1558,10 +1669,12 @@ def seq_stats_file(path: str, device=None,
         totals = _StatTotals()
         if quarantine is None:
             quarantine = QuarantineManifest()
-        iter_payload_tile_groups(path, host_spans, geometry, axis,
-                                 _stats_dispatch(axis, geometry, totals),
-                                 config, prefetch, header=header,
-                                 quarantine=quarantine)
+        dispatch = _stats_dispatch(axis, _bam_stats_step(geometry), totals)
+        for _ in iter_payload_tile_groups(
+                path, host_spans, geometry, axis,
+                lambda t, c: (None, dispatch(t, c)), config, prefetch,
+                header=header, quarantine=quarantine):
+            pass
         return _attach_quarantine(_payload_stats_result(totals), quarantine)
 
     return _run_planes(
@@ -1569,6 +1682,152 @@ def seq_stats_file(path: str, device=None,
         lambda: _seq_stats_device(path, axis, config, geometry, header,
                                   spans, prefetch, quarantine),
         host_run)
+
+
+def _owned_copy(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A ring view -> a tensor on ``device`` that its consumer owns:
+    copied asynchronously from pinned memory on CUDA, cloned on the CPU
+    (where ``.to`` would hand out the ring's own memory)."""
+    if device.type == "cuda":
+        return t.to(device, non_blocking=True)
+    return t.clone()
+
+
+def _batch_emit(device: torch.device, names: Sequence[str]) -> Callable:
+    """``emit_fn`` of the ``tensor_batches`` feeds: each group's tiles
+    under ``names`` plus ``n_records`` (int32 [n_dev]) as tensors on
+    ``device``; the in-flight handle covers the copies."""
+    def emit(tensors, counts):
+        out = {name: _owned_copy(t, device)
+               for name, t in zip(names, tensors)}
+        out["n_records"] = torch.from_numpy(counts.copy()).to(device)
+        copies = _CopiesDone()
+        copies.record(device)
+        return out, copies.handle()
+    return emit
+
+
+def _read_decode(tiles_of: Callable, geometry: PayloadGeometry,
+                 config: HBamConfig,
+                 quarantine: Optional[QuarantineManifest] = None
+                 ) -> Callable:
+    """The read feeds' ``decode``: ``tiles_of(span)`` -> (seq, qual,
+    lengths) rows under ``decode_with_retry``; a skipped span gives no
+    rows."""
+    empty = tuple(np.empty((0,) + spec.shape, spec.dtype)
+                  for spec in _read_specs(geometry))
+
+    def decode(span):
+        out = decode_with_retry(tiles_of, span, config, quarantine=quarantine)
+        return empty if out is None else out
+    return decode
+
+
+def stream_read_tensor_batches(spans, read_span_fn, config: HBamConfig,
+                               device=None,
+                               geometry: Optional[PayloadGeometry] = None
+                               ) -> Iterator[Dict[str, torch.Tensor]]:
+    """The tensor-batch generator of the read formats:
+    ``read_span_fn(span)`` gives objects with ``.sequence`` /
+    ``.quality``, packed by ``fragments_to_payload_tiles``.  Spans
+    decode on the pool under the span failure policy; yields
+    {seq_packed, qual, lengths, n_records} on ``device``, rows in
+    stream order (no balance)."""
+    from hadoop_bam_torch.api.read_datasets import fragments_to_payload_tiles
+
+    axis = data_axis(device)
+    geometry = geometry if geometry is not None else PayloadGeometry()
+
+    def tiles_of(span):
+        return fragments_to_payload_tiles(
+            read_span_fn(span), geometry.seq_stride, geometry.qual_stride,
+            geometry.max_len)
+
+    yield from _payload_groups(
+        spans, _read_specs(geometry), geometry, axis,
+        _batch_emit(axis.devices[0], ("seq_packed", "qual", "lengths")),
+        config, 2, _read_decode(tiles_of, geometry, config), balance=False)
+
+
+def pipeline_span_count(path, n_dev: int,
+                        config: HBamConfig = DEFAULT_CONFIG) -> int:
+    """Spans at the pipeline grain for a whole-file text stats driver:
+    min(config.split_size, 4 MiB), so that a file of one 128 MiB job
+    grain still overlaps its host tokenize with the dispatches; at least
+    one span per device, and one per device when the size is unknown."""
+    grain = float(max(1, min(int(config.split_size), 4 << 20)))
+    try:
+        with scoped_byte_source(path) as src:
+            size = src.size
+    except Exception:  # noqa: BLE001 -- planning must not fail the driver
+        return n_dev
+    return max(n_dev, int(np.ceil(size / grain)))
+
+
+# text read-format extensions of the payload stats drivers
+FASTQ_EXTS = (".fastq", ".fq", ".fastq.gz", ".fq.gz")
+QSEQ_EXTS = (".qseq", ".qseq.gz")
+TEXT_READ_EXTS = FASTQ_EXTS + QSEQ_EXTS
+
+
+def fastq_seq_stats_file(path: str, device=None,
+                         config: HBamConfig = DEFAULT_CONFIG,
+                         geometry: Optional[PayloadGeometry] = None,
+                         spans=None,
+                         quarantine: Optional[QuarantineManifest] = None
+                         ) -> Dict[str, object]:
+    """GC / quality / base stats over a FASTQ, or a QSEQ (by its
+    extension), through K2 on ``cuda:0`` unless ``device`` says
+    otherwise: the text twin of ``seq_stats_file``, with the same result
+    dict.  Spans are planned at ``pipeline_span_count``'s grain (a
+    gzipped file is one span) and tokenized by the vectorized packers,
+    or parsed into objects when ``*_filter_failed_qc`` needs the read
+    names' filter flag; each decodes under ``decode_with_retry`` (a
+    skipped span goes into ``quarantine``, which rides the result when
+    not empty)."""
+    from hadoop_bam_torch.api.read_datasets import (
+        fastq_text_to_payload_tiles, fragments_to_payload_tiles,
+        open_fastq, open_qseq, qseq_text_to_payload_tiles,
+    )
+
+    axis = data_axis(device)
+    geometry = geometry if geometry is not None else PayloadGeometry()
+    if path.lower().endswith(QSEQ_EXTS):
+        ds = open_qseq(path, device=axis.devices[0], config=config)
+        fast_tiles = not config.qseq_filter_failed_qc
+        qual_offset = config.qseq_base_quality_encoding.value
+        text_to_tiles = qseq_text_to_payload_tiles
+    else:
+        ds = open_fastq(path, device=axis.devices[0], config=config)
+        fast_tiles = not config.fastq_filter_failed_qc
+        qual_offset = config.fastq_base_quality_encoding.value
+        text_to_tiles = fastq_text_to_payload_tiles
+    if spans is None:
+        spans = ds.spans(num_spans=pipeline_span_count(path, axis.n_dev,
+                                                       config))
+    spans = list(spans)
+    if quarantine is None:
+        quarantine = QuarantineManifest()
+    if quarantine.total_spans is None:
+        quarantine.total_spans = len(spans)
+    totals = _StatTotals()
+
+    def tiles_of(span):
+        if fast_tiles:
+            return text_to_tiles(ds.read_span_text(span),
+                                 geometry.seq_stride, geometry.qual_stride,
+                                 geometry.max_len, qual_offset)
+        return fragments_to_payload_tiles(
+            ds.read_span(span), geometry.seq_stride, geometry.qual_stride,
+            geometry.max_len)
+
+    dispatch = _stats_dispatch(axis, read_stats_step, totals)
+    for _ in _payload_groups(
+            spans, _read_specs(geometry), geometry, axis,
+            lambda t, c: (None, dispatch(t, c)), config, 2,
+            _read_decode(tiles_of, geometry, config, quarantine)):
+        pass
+    return _attach_quarantine(_payload_stats_result(totals), quarantine)
 
 
 def _flagstat_tiles(axis: DataAxis, config: HBamConfig,

@@ -11,15 +11,19 @@ hadoop_bam_tpu/parallel/staging.py).
   ``committed_device_put`` and ``_block_in_flight``.)
 - ``FeedPipeline``: a packer thread repacks per-span row arrays into ring
   slots (rows written in place; a partial tile zeroes only its own tail)
-  while the caller's thread dispatches the previous group.
+  while the caller's thread dispatches the previous group: ``feed`` for
+  the stats drivers, the ``stream`` generator for ``tensor_batches``.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import queue
 import threading
-from typing import Callable, Iterable, List, Optional, Sequence, Tuple
+from typing import (
+    Callable, Iterable, Iterator, List, Optional, Sequence, Tuple,
+)
 
 import numpy as np
 import torch
@@ -116,22 +120,36 @@ _SENTINEL = object()
 class FeedPipeline:
     """Group assembly on a packer thread + dispatch on the caller's.
 
-    ``feed(span_arrays_stream, dispatch_fn)``: the stream yields per-span
-    TUPLES of row arrays in lockstep (axis 0 = records; empty spans
-    allowed).  Device ``i`` of a group holds rows ``[i*cap, (i+1)*cap)``
-    of the concatenated stream; the final partial group spreads evenly
-    over the devices and ships in the smallest bucket that holds it.  ``dispatch_fn(tensors, counts)``
-    gets ``tensors[j]`` as a [n_dev, bucket, *shape] view of a leased
-    slot's host tensor; it must start the copies out of it before it
-    returns, and return their in-flight handle (or None when the copies
-    were synchronous).  The slot goes back to the ring when the call
-    returns, and the ring waits on the handle before reusing it."""
+    The span stream yields per-span TUPLES of row arrays in lockstep
+    (axis 0 = records; empty spans allowed).  Device ``i`` of a group
+    holds rows ``[i*cap, (i+1)*cap)`` of the concatenated stream, and
+    the final partial group ships in the smallest bucket that holds it
+    (``bucket_cap``), or at ``cap`` with ``fixed_shape``.  With
+    ``balance`` (the default: the stats drivers, whose sums do not
+    depend on placement) the final partial group spreads evenly over the
+    devices; ``tensor_batches`` passes ``balance=False`` and its rows
+    fill the devices in order.  At n_dev = 1 both give the same groups.
+
+    ``feed(stream, dispatch_fn)``: ``dispatch_fn(tensors, counts)`` gets
+    ``tensors[j]`` as a [n_dev, bucket, *shape] view of a leased slot's
+    host tensor; it must start the copies out of it before it returns,
+    and return their in-flight handle (or None when the copies were
+    synchronous).  The slot goes back to the ring when the call returns.
+
+    ``stream(stream, emit_fn)``: a generator of ``value`` for each
+    ``(value, handle) = emit_fn(tensors, counts)``; the views stay valid
+    until the consumer advances the generator, and only then does the
+    slot go back to the ring.  In both forms the ring waits on the
+    handle before the packer writes the slot again."""
 
     def __init__(self, n_dev: int, cap: int, specs: Sequence[TileSpec],
-                 *, block_n: int = 256, pin_memory: bool = False):
+                 *, block_n: int = 256, fixed_shape: bool = False,
+                 balance: bool = True, pin_memory: bool = False):
         self.n_dev, self.cap = int(n_dev), int(cap)
         self.specs = list(specs)
         self.block_n = int(block_n)
+        self.fixed_shape = bool(fixed_shape)
+        self.balance = bool(balance)
         self.pin_memory = bool(pin_memory)
         self.dispatches = 0
 
@@ -168,7 +186,7 @@ class FeedPipeline:
             counts = slot.counts
             counts[:] = 0
             target = self.cap
-            if exhausted and have < self.n_dev * self.cap:
+            if self.balance and exhausted and have < self.n_dev * self.cap:
                 target = max(1, -(-have // self.n_dev))
             for dev in range(self.n_dev):
                 filled = 0
@@ -190,8 +208,8 @@ class FeedPipeline:
                 counts[dev] = filled
                 if not parts and exhausted:
                     break
-            bucket = max(bucket_cap(int(c), self.cap, self.block_n)
-                         for c in counts)
+            bucket = self.cap if self.fixed_shape else max(
+                bucket_cap(int(c), self.cap, self.block_n) for c in counts)
             # zero only rows [count, bucket) per device: rows under the
             # count were just written, rows past the bucket never ship
             for spec, dst in zip(self.specs, slot.arrays):
@@ -201,10 +219,10 @@ class FeedPipeline:
                         dst[dev, c:bucket] = spec.pad
             _put(q, (slot, bucket), cancel)
 
-    def feed(self, span_stream: Iterable[Tuple[np.ndarray, ...]],
-             dispatch_fn: Callable) -> int:
-        """Drive the whole stream through ``dispatch_fn``; returns the
-        number of dispatched groups."""
+    def _slots(self, span_stream: Iterable[Tuple[np.ndarray, ...]]
+               ) -> Iterator[Tuple[RingSlot, Tuple[torch.Tensor, ...]]]:
+        """Leased ``(slot, bucket views)`` pairs; a slot goes back to the
+        ring when the generator is advanced or closed."""
         ring = StagingRing(self.n_dev, self.cap, self.specs,
                            self.pin_memory)
         q: "queue.Queue" = queue.Queue(maxsize=1)
@@ -216,7 +234,7 @@ class FeedPipeline:
                 self._pack_loop(span_stream, q, cancel, ring)
             except Cancelled:
                 return
-            except BaseException as e:  # noqa: BLE001 — re-raised by feed
+            except BaseException as e:  # noqa: BLE001 — re-raised below
                 errs.append(e)
             try:
                 _put(q, _SENTINEL, cancel)
@@ -234,10 +252,7 @@ class FeedPipeline:
                     break
                 slot, bucket = item
                 try:
-                    slot.in_flight = dispatch_fn(
-                        tuple(t[:, :bucket] for t in slot.tensors),
-                        slot.counts)
-                    self.dispatches += 1
+                    yield slot, tuple(t[:, :bucket] for t in slot.tensors)
                 finally:
                     ring.release(slot)
         finally:
@@ -245,4 +260,23 @@ class FeedPipeline:
             packer.join()
         if errs:
             raise errs[0]
+
+    def stream(self, span_stream: Iterable[Tuple[np.ndarray, ...]],
+               emit_fn: Callable) -> Iterator:
+        """Generator form: yields ``value`` of each group's
+        ``(value, handle) = emit_fn(tensors, counts)``; the group's slot
+        is released only once the consumer asks for the next value."""
+        with contextlib.closing(self._slots(span_stream)) as slots:
+            for slot, tensors in slots:
+                value, slot.in_flight = emit_fn(tensors, slot.counts)
+                self.dispatches += 1
+                yield value
+
+    def feed(self, span_stream: Iterable[Tuple[np.ndarray, ...]],
+             dispatch_fn: Callable) -> int:
+        """Drive the whole stream through ``dispatch_fn``; returns the
+        number of dispatched groups."""
+        for _ in self.stream(span_stream, lambda tensors, counts: (
+                None, dispatch_fn(tensors, counts))):
+            pass
         return self.dispatches

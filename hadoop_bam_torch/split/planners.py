@@ -15,6 +15,9 @@ Guessed plans stream: ``iter_bam_spans`` yields each span as soon as its
 end boundary is known, while a background thread guesses the next ones,
 so a driver decodes the first spans while later ones are planned; the
 memo keeps that stream and stores the plan only once it has ended.
+
+Text formats (QSEQ, FASTQ; ``plan_text_spans`` / ``read_text_span``)
+split at plain byte ranges and align to lines at read time.
 """
 from __future__ import annotations
 
@@ -33,10 +36,12 @@ from hadoop_bam_torch.formats.bam import (
 )
 from hadoop_bam_torch.formats.bamio import read_bam_header
 from hadoop_bam_torch.split.bam_guesser import BAMSplitGuesser
-from hadoop_bam_torch.split.spans import FileVirtualSpan
+from hadoop_bam_torch.split.spans import FileByteSpan, FileVirtualSpan
 from hadoop_bam_torch.split.splitting_index import SplittingIndex
 from hadoop_bam_torch.utils.errors import PlanError
-from hadoop_bam_torch.utils.seekable import as_byte_source
+from hadoop_bam_torch.utils.seekable import (
+    as_byte_source, scoped_byte_source,
+)
 
 
 def plan_byte_ranges(size: int, *, num_spans: Optional[int] = None,
@@ -59,6 +64,65 @@ def plan_byte_ranges(size: int, *, num_spans: Optional[int] = None,
         bounds = np.unique(bounds)
     return [(int(bounds[i]), int(bounds[i + 1]))
             for i in range(len(bounds) - 1)]
+
+
+# ---------------------------------------------------------------------------
+# Text formats: newline-aligned spans
+# ---------------------------------------------------------------------------
+
+def plan_text_spans(path: str, *, num_spans: Optional[int] = None,
+                    span_bytes: Optional[int] = None) -> List[FileByteSpan]:
+    """Plain byte splits; lines are aligned at read time
+    (``read_text_span``'s LineRecordReader contract)."""
+    with scoped_byte_source(path) as src:
+        ranges = plan_byte_ranges(src.size, num_spans=num_spans,
+                                  span_bytes=span_bytes)
+    return [FileByteSpan(path, s, e) for s, e in ranges]
+
+
+def read_text_span(source, span: FileByteSpan, *, chunk: int = 1 << 20
+                   ) -> bytes:
+    """The bytes of every line that *starts* in [span.start, span.end).
+
+    LineRecordReader contract: past offset 0, the (maybe partial) line
+    in progress at ``start`` belongs to the span before, so skip to the
+    first newline at or after ``start - 1``; read past ``end`` to finish
+    the last line."""
+    with scoped_byte_source(source) as src:
+        start, end = span.start, span.end
+        if start > 0:
+            probe_off = start - 1
+            probe = b""
+            while True:
+                got = src.pread(probe_off + len(probe), chunk)
+                if not got:
+                    return b""
+                probe += got
+                nl = probe.find(b"\n")
+                if nl >= 0:
+                    start = probe_off + nl + 1
+                    break
+        if start >= end:
+            return b""   # no line starts inside this span
+        out = bytearray()
+        pos = start
+        while pos < end:
+            got = src.pread(pos, min(chunk, end - pos))
+            if not got:
+                break
+            out += got
+            pos += len(got)
+        while not out.endswith(b"\n") and pos < src.size:
+            got = src.pread(pos, chunk)
+            if not got:
+                break
+            nl = got.find(b"\n")
+            if nl >= 0:
+                out += got[:nl + 1]
+                break
+            out += got
+            pos += len(got)
+        return bytes(out)
 
 
 # ---------------------------------------------------------------------------

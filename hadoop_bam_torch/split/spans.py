@@ -1,6 +1,7 @@
-"""FileVirtualSpan — the unit of distributable work (copy of
-hadoop_bam_tpu/split/spans.py): a path plus [start, end) virtual offsets.
-Any host can decode any span on its own."""
+"""The units of distributable work (copy of hadoop_bam_tpu/split/spans.py):
+``FileVirtualSpan``, a path plus [start, end) virtual offsets (BAM), and
+``FileByteSpan``, a path plus a plain [start, end) byte range (FASTQ,
+QSEQ, FASTA).  Any host can decode any span on its own."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -33,3 +34,22 @@ class FileVirtualSpan:
         return {"path": self.path, "start": int(self.start_voffset),
                 "end": int(self.end_voffset),
                 "locations": list(self.locations)}
+
+
+@dataclass(frozen=True)
+class FileByteSpan:
+    """A plain byte-range split of a text file; the text readers align it
+    to records at read time (split/read_planners.py)."""
+    path: str
+    start: int
+    end: int
+    locations: Tuple[str, ...] = ()
+
+    def to_dict(self) -> dict:
+        return {"path": self.path, "start": self.start, "end": self.end,
+                "locations": list(self.locations)}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "FileByteSpan":
+        return cls(d["path"], int(d["start"]), int(d["end"]),
+                   tuple(d.get("locations", ())))

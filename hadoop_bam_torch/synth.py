@@ -14,8 +14,9 @@ sides of 5).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -242,21 +243,27 @@ def _chunk(rng: np.random.Generator, first_pair: int, n_pairs: int):
 def write_synthetic_bam(path: str, n_reads: int, seed: int,
                         chunk_pairs: int = 1 << 16,
                         regions: Sequence[str] = (),
-                        coordinate_sorted: bool = False) -> SynthTruth:
+                        coordinate_sorted: bool = False,
+                        fastq: Optional[str] = None) -> SynthTruth:
     """Write ``n_reads`` (even) paired reads to ``path``; return the
     truth, with seq-stats at the default payload geometry's max_len, and
     the truth over the reads overlapping each of ``regions``.  Mates are
     adjacent and pairs at random places; ``coordinate_sorted`` writes
     the same reads ordered by (contig, pos), unplaced reads last, as an
-    indexed (``.bai``) BAM must be (held in memory: ~277 B a read)."""
+    indexed (``.bai``) BAM must be (held in memory: ~277 B a read).
+    ``fastq`` also writes the reads, in the file's order, as the FASTQ
+    of ``write_synthetic_reads`` (one generation for both files)."""
     if n_reads % 2:
         raise ValueError("n_reads must be even (reads come in pairs)")
+    if fastq is not None and coordinate_sorted:
+        raise ValueError("fastq= needs the unsorted order")
     rng = np.random.default_rng(seed)
     whole = _Tally()
     by_region = {r: _Tally() for r in regions}
     held = []
     order = "coordinate" if coordinate_sorted else "unsorted"
-    with BamWriter(path, header(order)) as w:
+    with BamWriter(path, header(order)) as w, \
+            (open(fastq, "wb") if fastq else contextlib.nullcontext()) as fq:
         for p0 in range(0, n_reads // 2, chunk_pairs):
             k = min(chunk_pairs, n_reads // 2 - p0)
             rec, codes, qual, cols = _chunk(rng, p0, k)
@@ -264,6 +271,8 @@ def write_synthetic_bam(path: str, n_reads: int, seed: int,
                 held.append(rec)
             else:
                 w.write_raw(rec.tobytes(), rec.size)
+            if fq is not None:
+                fq.write(_fastq_text(rec, codes, qual))
             whole.add(np.ones(rec.size, bool), codes, qual, cols)
             for r, tally in by_region.items():
                 tally.add(region_mask(r, cols["refid"], rec["pos"]), codes,
@@ -281,6 +290,130 @@ def write_synthetic_bam(path: str, n_reads: int, seed: int,
     truth = whole.truth()
     truth.regions = {r: t.truth() for r, t in by_region.items()}
     return truth
+
+
+_LETTERS = np.frombuffer(b"=ACMGRSVTWYHKDBN", np.uint8)   # 4-bit code -> ASCII
+
+
+def _fastq_text(rec: np.ndarray, codes: np.ndarray, qual: np.ndarray
+                ) -> bytes:
+    """FASTQ records of a chunk (fixed 317-byte records): ``@`` + the
+    BAM read name, the stored bases, ``+``, Phred+33 qualities."""
+    n = rec.size
+    out = np.empty((n, NAME_LEN + 2 * READ_LEN + 5), np.uint8)
+    out[:, 0] = ord("@")
+    out[:, 1:NAME_LEN] = rec["name"][:, :NAME_LEN - 1]
+    c = NAME_LEN
+    out[:, c] = 10
+    out[:, c + 1:c + 1 + READ_LEN] = _LETTERS[codes]
+    c += 1 + READ_LEN
+    out[:, c:c + 3] = np.frombuffer(b"\n+\n", np.uint8)
+    out[:, c + 3:c + 3 + READ_LEN] = qual + 33
+    out[:, -1] = 10
+    return out.tobytes()
+
+
+def _qseq_text(rec: np.ndarray, codes: np.ndarray, qual: np.ndarray,
+               first_read: int) -> bytes:
+    """QSEQ lines of a chunk: machine SYN, run 1, lane 1, tile 1101, x the
+    read's 8-digit index, y 0, index 0, read 1 or 2 (the mate), bases
+    with '.' for N, Illumina Phred+64 qualities, filter 1."""
+    n = rec.size
+    head = np.frombuffer(b"SYN\t1\t1\t1101\t", np.uint8)
+    idx = first_read + np.arange(n)
+    x = 48 + (idx[:, None] // 10 ** np.arange(7, -1, -1)[None, :]) % 10
+    letters = _LETTERS[codes]
+    letters[codes == 15] = ord(".")
+    parts = [np.broadcast_to(head, (n, head.size)), x.astype(np.uint8),
+             np.broadcast_to(np.frombuffer(b"\t0\t0\t", np.uint8), (n, 5)),
+             (49 + idx % 2)[:, None].astype(np.uint8),
+             np.full((n, 1), 9, np.uint8), letters,
+             np.full((n, 1), 9, np.uint8), (qual + 64).astype(np.uint8),
+             np.broadcast_to(np.frombuffer(b"\t1\n", np.uint8), (n, 3))]
+    return np.concatenate(parts, axis=1).tobytes()
+
+
+def write_synthetic_reads(path: str, n_reads: int, seed: int,
+                          fmt: str = "fastq", limit: Optional[int] = None,
+                          compress: bool = False,
+                          chunk_pairs: int = 1 << 16) -> SynthTruth:
+    """Write the reads of ``write_synthetic_bam(path, n_reads, seed)`` as
+    FASTQ (``fmt="fastq"``) or QSEQ (``"qseq"``), the first ``limit`` of
+    them when given, gzipped with ``compress``: the same records from the
+    same seed, bases and qualities as the BAM stores them.  Returns the
+    truth over the reads written (its seq-stats equal the BAM's when
+    every read is written)."""
+    import gzip
+    if n_reads % 2:
+        raise ValueError("n_reads must be even (reads come in pairs)")
+    if fmt not in ("fastq", "qseq"):
+        raise ValueError(f"unknown read format {fmt!r}")
+    limit = n_reads if limit is None else min(limit, n_reads)
+    rng = np.random.default_rng(seed)
+    tally = _Tally()
+    written = 0
+    opener = (lambda: gzip.open(path, "wb", compresslevel=1)) if compress \
+        else (lambda: open(path, "wb"))
+    with opener() as f:
+        for p0 in range(0, n_reads // 2, chunk_pairs):
+            if written >= limit:
+                break
+            k = min(chunk_pairs, n_reads // 2 - p0)
+            rec, codes, qual, cols = _chunk(rng, p0, k)
+            take = min(rec.size, limit - written)
+            rec, codes, qual = rec[:take], codes[:take], qual[:take]
+            cols = {c: v[:take] for c, v in cols.items()}
+            f.write(_fastq_text(rec, codes, qual) if fmt == "fastq"
+                    else _qseq_text(rec, codes, qual, written))
+            tally.add(np.ones(take, bool), codes, qual, cols)
+            written += take
+    return tally.truth()
+
+
+# GRCh38's chr21 and chr22 lengths
+FASTA_CONTIGS: Tuple[Tuple[str, int], ...] = (("chr21", 46709983),
+                                              ("chr22", 50818468))
+
+
+def write_synthetic_fasta(path: str, seed: int,
+                          contigs: Sequence[Tuple[str, int]] = FASTA_CONTIGS,
+                          width: int = 60,
+                          chunk_lines: int = 1 << 16) -> Dict[str, int]:
+    """A reference FASTA of random bases (about 41% GC, N at 0.2%) with
+    ``contigs`` (name, length) in lines of ``width``; returns {name:
+    length}."""
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    with open(path, "wb") as f:
+        for name, length in contigs:
+            f.write(f">{name} synthetic\n".encode())
+            for l0 in range(0, length, width * chunk_lines):
+                m = min(width * chunk_lines, length - l0)
+                pick = np.searchsorted(np.cumsum(_CODE_P), rng.random(m),
+                                       side="right").clip(max=4)
+                body = letters[pick]
+                full = m // width
+                lines = np.empty((full, width + 1), np.uint8)
+                lines[:, :width] = body[:full * width].reshape(full, width)
+                lines[:, width] = 10
+                f.write(lines.tobytes())
+                if m % width:
+                    f.write(body[full * width:].tobytes() + b"\n")
+    return dict(contigs)
+
+
+def window_count(length: int, window: int, stride: int = 0) -> int:
+    """Windows ``FastaDataset.window_tensor_batches`` cuts from a contig
+    of ``length`` bases: one for a contig no longer than the window;
+    else a start every ``stride`` up to ``length - window``, plus that
+    last start when the stride misses it."""
+    stride = stride or window
+    if length <= 0:
+        return 0
+    if length <= window:
+        return 1
+    last = length - window
+    return last // stride + 1 + (1 if last % stride else 0)
 
 
 def flip_block(src: str, dst: str, near: int) -> int:

@@ -79,3 +79,20 @@ def as_byte_source(obj) -> ByteSource:
         src = FileByteSource(obj)
         return _SOURCE_WRAPPER(src) if _SOURCE_WRAPPER is not None else src
     raise TypeError(f"cannot make a ByteSource from {type(obj)!r}")
+
+
+class scoped_byte_source:
+    """``with scoped_byte_source(obj) as src``: closes ``src`` on exit only
+    when this call opened it (an open ByteSource passes through and stays
+    the caller's)."""
+
+    def __init__(self, obj):
+        self._owned = not isinstance(obj, ByteSource)
+        self.src = as_byte_source(obj)
+
+    def __enter__(self) -> ByteSource:
+        return self.src
+
+    def __exit__(self, *exc):
+        if self._owned:
+            self.src.close()

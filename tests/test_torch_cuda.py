@@ -60,7 +60,9 @@ def _k2_random(n, sb, qb, seed):
                                    (513, 76, 151, True),
                                    (1000, 96, 160, True),
                                    (2048, 8192, 16383, False),
-                                   (300, 8192, 16384, False)])
+                                   (300, 8192, 16384, False),
+                                   (65_536, 512, 1024, False),
+                                   (4097, 512, 1024, True)])
 def test_k2_kernel_matches_plain(cuda, shape):
     n, sb, qb, sliced = shape
     args = [t.to(cuda) for t in _k2_random(n, sb, qb, sb + n)]
@@ -110,6 +112,94 @@ def test_drivers_on_card_match_truth(cuda, tmp_path):
         assert abs(got[k] - getattr(truth, k)) <= 1e-6 * getattr(truth, k)
     assert tub.unpack_fixed_fields.launches > k1
     assert tss.seq_qual_stats.launches > k2
+
+
+def test_k2_fasta_windows_on_card_match_plain(cuda, tmp_path):
+    """FASTA windows (max_len = window = 1024: strides 512 and 1024, the
+    quality rows zero) straight from window_tensor_batches on the card:
+    K2 equals its plain version on every batch."""
+    from hadoop_bam_torch.api import open_fasta
+    from hadoop_bam_torch.synth import window_count, write_synthetic_fasta
+    path = str(tmp_path / "w.fa")
+    contigs = write_synthetic_fasta(path, 1, (("a", 300_000),
+                                              ("b", 250_123)))
+    n = 0
+    for b in open_fasta(path).window_tensor_batches(window=1024):
+        assert b["seq_packed"].device == cuda
+        assert b["seq_packed"].shape[2:] == (512,)
+        assert b["qual"].shape[2:] == (1024,)
+        n += int(b["n_records"][0])
+        args = (b["seq_packed"][0], b["qual"][0], b["lengths"][0])
+        before = tss.seq_qual_stats.launches
+        got = tss.seq_qual_stats(*args)
+        want = tss.seq_qual_stats_plain(*args)
+        torch.cuda.synchronize()
+        assert tss.seq_qual_stats.launches == before + 1
+        for k in ("gc", "mean_qual", "base_hist"):
+            assert torch.equal(got[k], want[k]), k
+    assert n == sum(window_count(k, 1024) for k in contigs.values())
+
+
+def test_unpack_step_on_card_matches_plain(cuda, tmp_path):
+    """unpack_step over a stacked span group on the card: one K1 launch,
+    the 12 columns of K1's plain version, valid = the first n rows."""
+    from hadoop_bam_torch.parallel import pipeline as tp
+    from hadoop_bam_torch.split.planners import plan_bam_spans
+    from hadoop_bam_torch.synth import write_synthetic_bam
+    path = str(tmp_path / "u.bam")
+    write_synthetic_bam(path, 40_000, seed=4)
+    g = tp.DecodeGeometry(bytes_cap=1 << 22, records_cap=1 << 16)
+    group = next(tp.iter_span_groups(plan_bam_spans(path, num_spans=4), 1))
+    batch = tp.stack_span_group(path, group, 1, g)
+    d, o, c = (torch.from_numpy(a).to(cuda) for a in
+               (batch.data, batch.offsets, batch.n_records))
+    before = tub.unpack_fixed_fields.launches
+    cols = tp.unpack_step(d, o, c)
+    want = tub.unpack_fixed_fields_plain(d[0], o[0])
+    torch.cuda.synchronize()
+    assert tub.unpack_fixed_fields.launches == before + 1
+    n = int(batch.n_records[0])
+    assert n > 0
+    for name in tub.FIXED_FIELDS:
+        assert cols[name].shape == (1, g.records_cap)
+        assert torch.equal(cols[name][0], want[name]), name
+    assert cols["valid"][0, :n].all() and not cols["valid"][0, n:].any()
+
+
+def test_read_formats_on_card_match_truth(cuda, tmp_path):
+    """fastq_seq_stats_file over a FASTQ and a gzipped QSEQ written from a
+    BAM's reads, and the BAM's tensor_batches through read_stats_step,
+    on the card: the generator's counts, through K2."""
+    from hadoop_bam_torch.api import open_bam
+    from hadoop_bam_torch.parallel import pipeline as tp
+    from hadoop_bam_torch.synth import (
+        write_synthetic_bam, write_synthetic_reads,
+    )
+    bam, fq = str(tmp_path / "r.bam"), str(tmp_path / "r.fastq")
+    qs = str(tmp_path / "r.qseq.gz")
+    truth = write_synthetic_bam(bam, 40_000, seed=6)
+    write_synthetic_reads(fq, 40_000, 6)
+    q_truth = write_synthetic_reads(qs, 40_000, 6, fmt="qseq", limit=9_000,
+                                    compress=True)
+    before = tss.seq_qual_stats.launches
+    for p, t in ((fq, truth), (qs, q_truth)):
+        got = tp.fastq_seq_stats_file(p)
+        assert got["n_reads"] == t.n_reads
+        assert np.array_equal(got["base_hist"], t.base_hist)
+        for k in ("mean_gc", "mean_qual"):
+            assert abs(got[k] - getattr(t, k)) <= 1e-6 * getattr(t, k)
+    totals, rows = tp._StatTotals(), 0
+    for b in open_bam(bam).tensor_batches():
+        assert b["prefix"].device == cuda
+        cols = tub.unpack_fixed_fields_tile(b["prefix"][0])
+        lengths = torch.clamp(cols["l_seq"], max=160).to(torch.int32)
+        totals.add(*tp.read_stats_step(b["seq_packed"][0], b["qual"][0],
+                                       lengths, b["n_records"][0]))
+        rows += int(b["n_records"][0])
+    got = tp._payload_stats_result(totals)
+    assert rows == got["n_reads"] == truth.n_reads
+    assert np.array_equal(got["base_hist"], truth.base_hist)
+    assert tss.seq_qual_stats.launches > before
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,34 @@ from hadoop_bam_torch.utils.errors import PlanError
 
 from fixtures import make_header, make_records
 
+
+def reference_native_loaded(limit_s: float = 60.0) -> bool:
+    """Load the JAX package's native library, retrying a failed load for
+    up to ``limit_s`` seconds.  That package compiles its library in
+    place, unlocked, on first use, and remembers a failed load for the
+    life of the process.  When several pytest-xdist workers of a fresh
+    checkout collect the suite at once (``tests/test_device_planes.py``
+    and ``tests/test_inflate_device.py`` load it at import), one worker
+    can load the file while another worker's linker is rewriting it;
+    every later test of that worker that compares with the reference's
+    native or device plane then fails.  By the time this module is
+    collected the other workers' builds are done, so a retry loads the
+    whole file."""
+    import time
+    from hadoop_bam_tpu.utils import native as jnative
+    deadline = time.monotonic() + limit_s
+    while jnative.load() is None and time.monotonic() < deadline:
+        jnative._tried = False
+        if jnative.load() is not None:
+            break
+        time.sleep(1.0)
+    return jnative.load() is not None
+
+
+# at collection, before any test of this worker runs (xdist workers
+# collect the whole suite first)
+reference_native_loaded()
+
 DEVICE = HBamConfig(inflate_backend="device")
 NATIVE = HBamConfig(inflate_backend="native")
 

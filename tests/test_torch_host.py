@@ -101,13 +101,24 @@ def test_bucket_cap_matches_jax():
         assert bucket_cap(count, 1 << 16) == jax_bucket(count, 1 << 16)
 
 
+def _named(d):
+    """A config dict with each enum value (the quality encodings) as its
+    name: the two packages' enums are different classes."""
+    import enum
+    return {k: v.name if isinstance(v, enum.Enum) else v
+            for k, v in d.items()}
+
+
 def test_config_and_geometry_from_jax_dicts():
     cfg = tconfig.config_from_dict(dataclasses.asdict(JAX_CONFIG))
     assert cfg == tconfig.HBamConfig(inflate_backend="auto")
     assert tconfig.resolve_inflate_backend(cfg) == "native"
     # every field the port carries has the reference's default
-    ref = dataclasses.asdict(JAX_CONFIG)
-    assert {k: ref[k] for k in tconfig.CARRIED} == dataclasses.asdict(cfg)
+    ref = _named(dataclasses.asdict(JAX_CONFIG))
+    assert {k: ref[k] for k in tconfig.CARRIED} == \
+        _named(dataclasses.asdict(cfg))
+    assert (cfg.fastq_base_quality_encoding.name,
+            cfg.qseq_base_quality_encoding.name) == ("SANGER", "ILLUMINA")
     assert (cfg.span_retries, cfg.adaptive_planes) == (2, True)
     # the planning and fused-decode settings, at the reference's defaults
     assert (cfg.split_size, cfg.use_splitting_index,
@@ -120,15 +131,23 @@ def test_config_and_geometry_from_jax_dicts():
                             breaker_cooldown_s=0.5, chaos_seed=11,
                             split_size=1 << 20, use_splitting_index=False,
                             keep_paired_reads_together=True,
-                            use_fused_decode=False, decode_chunk_blocks=7)
+                            use_fused_decode=False, decode_chunk_blocks=7,
+                            fastq_base_quality_encoding=type(
+                                JAX_CONFIG.fastq_base_quality_encoding)
+                            .ILLUMINA, fastq_filter_failed_qc=True,
+                            qseq_filter_failed_qc=True)
     cfg = tconfig.config_from_dict(dataclasses.asdict(z))
+    assert (cfg.fastq_base_quality_encoding, cfg.fastq_filter_failed_qc,
+            cfg.qseq_filter_failed_qc) == (
+        tconfig.BaseQualityEncoding.ILLUMINA, True, True)
     assert (cfg.inflate_backend, cfg.check_crc, cfg.pool_size()) == \
         ("zlib", True, 3)
     assert (cfg.split_size, cfg.use_splitting_index,
             cfg.keep_paired_reads_together, cfg.use_fused_decode,
             cfg.decode_chunk_blocks) == (1 << 20, False, True, False, 7)
-    ref = dataclasses.asdict(z)
-    assert {k: ref[k] for k in tconfig.CARRIED} == dataclasses.asdict(cfg)
+    ref = _named(dataclasses.asdict(z))
+    assert {k: ref[k] for k in tconfig.CARRIED} == \
+        _named(dataclasses.asdict(cfg))
     # the chaos seed is an argument of install_chaos_seeded, not a setting
     assert "chaos_seed" not in tconfig.CARRIED
     assert tconfig.config_from_dict(
@@ -142,7 +161,11 @@ def test_config_and_geometry_from_jax_dicts():
         assert dataclasses.asdict(tg) == {k: ref[k]
                                           for k in dataclasses.asdict(tg)}
     pg = tconfig.geometry_from_dict(dataclasses.asdict(jp.PayloadGeometry()))
-    assert (pg.seq_stride, pg.qual_stride) == (96, 160)
+    assert (pg.seq_stride, pg.qual_stride, pg.fixed_shape) == \
+        (96, 160, False)
+    pg = tconfig.geometry_from_dict(dataclasses.asdict(
+        jp.PayloadGeometry(fixed_shape=True)))
+    assert pg.fixed_shape is True
 
 
 @pytest.fixture(scope="module")
@@ -242,6 +265,9 @@ def test_port_imports_with_jax_blocked():
     and hadoop_bam_tpu cannot be imported."""
     mods = _port_modules()
     assert len(mods) >= 20, mods
+    for m in ("api.read_datasets", "formats.fastq", "formats.qseq",
+              "formats.fasta", "split.read_planners"):
+        assert f"hadoop_bam_torch.{m}" in mods
     code = f"""
 import importlib, sys
 class Block:
