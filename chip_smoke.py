@@ -146,7 +146,12 @@ import time
 H100_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA data sheet
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    if msg.startswith("== phase"):     # where the time limit goes
+        msg += f" (t = {time.perf_counter() - _T0:.1f} s)"
     print(msg, flush=True)
 
 
@@ -1942,7 +1947,9 @@ def phase_planning(torch, path, truth, card, dev, args, native_walls,
                    device_walls, guessed_plan_s, interval_walls):
     """Phase 11: the splitting index, the plan memo, .bai trimming and
     the fused decode through the entry points; returns the launches of
-    its runs."""
+    its runs, and the coordinate-sorted copy with its ``.bai`` and its
+    truth (refid and pos columns kept), which phase 13 queries and then
+    removes."""
     log("== phase 11: span planning and fused decode on cuda:0")
     import numpy as np
     from hadoop_bam_torch.api import open_bam
@@ -1971,15 +1978,16 @@ def phase_planning(torch, path, truth, card, dev, args, native_walls,
         shutil.copyfile(path, link)
     native = HBamConfig(inflate_backend="native")
     device = HBamConfig(inflate_backend="device")
+    kept = False
     try:
         # (a) the writers
         _, w_sbai = _timed(lambda: write_splitting_index(link, 4096))
         idx = SplittingIndex.load_for(link)
         check(len(idx.voffsets) == -(-truth.n_reads // 4096) + 1,
               "the splitting index samples every 4096th read")
-        _, w_synth = _timed(lambda: write_synthetic_bam(
+        srt_truth, w_synth = _timed(lambda: write_synthetic_bam(
             srt, args.reads, args.seed, regions=REGIONS,
-            coordinate_sorted=True))
+            coordinate_sorted=True, keep_columns=True))
         _, w_bai = _timed(lambda: write_bai(srt))
         log(f"(a) .splitting-bai of {size} bytes: {len(idx.voffsets)} "
             f"offsets, {os.path.getsize(link + '.splitting-bai')} bytes in "
@@ -2193,19 +2201,19 @@ def phase_planning(torch, path, truth, card, dev, args, native_walls,
                 f"[{card}]")
         log(f"(e) fused spans finished by the two-pass tail: {tails} of "
             f"{spans} ({100 * tails / max(spans, 1):.2f}%)")
+        kept = True
     finally:
-        for p in [link, srt] + _sidecars(link) + _sidecars(srt) + \
-                [srt + ".bai.off"]:
+        # the sorted copy and its .bai stay for phase 13 when all passed
+        for p in [link] + _sidecars(link) + ([] if kept else [srt] + _sidecars(
+                srt)) + [srt + ".bai.off"]:
             if os.path.exists(p):
                 os.remove(p)
-        if not os.listdir(work):
-            os.rmdir(work)
         cold()
     launches = read_launches()
     log(f"launches in phase 11: {launches}")
     for name, n in launches.items():
         check(n > 0, f"{name} launched in phase 11")
-    return launches
+    return launches, srt, srt_truth
 
 
 # phase 12's gzipped QSEQ: the first reads of the BAM's
@@ -2464,10 +2472,412 @@ def phase_reads(torch, path, truth, card, dev, args, native_walls):
 
 # ``--times KERNEL``: the timing function of each kernel (or path) that
 # has one, called as fn(torch, path, dev) -> a JSON-able dict
+# phase 13: the coverage BAM piles 2,000,000 reads (at the default
+# --reads) over chr20:1-10,000,000, about 30x
+COV_SPAN = 10_000_000
+CHR20_LEN = 64_444_167
+QUERY_REGIONS = 1000
+
+
+def _k12_tiles(torch, cov, dev, rows, mc, copies):
+    """``copies`` tiles of ``rows`` cigar rows of the coverage BAM at op
+    width ``mc`` (the records of at most ``mc`` ops, packed as the driver
+    packs them) on ``dev``, and the aligned ops one tile holds (op
+    length > 0, M/=/X, mapped, on chr20)."""
+    import numpy as np
+    from hadoop_bam_torch.parallel import pipeline as tp
+    from hadoop_bam_torch.split.planners import plan_bam_spans
+    got, n = [], 0
+    for span in plan_bam_spans(cov, num_spans=max(
+            1, os.path.getsize(cov) // (4 << 20))):
+        r = tp.decode_span_cigar_rows(cov, span, 64)
+        nc = r[:, 8].astype(np.int64) | (r[:, 9].astype(np.int64) << 8)
+        r = r[nc <= mc, :tp._cigar_row_bytes(mc)]
+        got.append(r)
+        n += len(r)
+        if n >= rows:
+            break
+    tile = np.ascontiguousarray(np.concatenate(got)[:rows])
+    check(tile.shape[0] == rows, f"{rows} rows of at most {mc} ops")
+    words = tile[:, 12:].copy().view("<u4").astype(np.int64)
+    refid = tile[:, 0:4].copy().view("<i4")[:, 0]
+    flag = tile[:, 10].astype(np.int64) | (tile[:, 11].astype(np.int64)
+                                           << 8)
+    aligned = np.isin(words & 0xF, (0, 7, 8)) & ((words >> 4) > 0) & \
+        ((flag & 4) == 0)[:, None] & (refid == 0)[:, None]
+    host = torch.from_numpy(tile)
+    return [host.to(dev) for _ in range(copies)], host, int(aligned.sum())
+
+
+def k12_times(torch, cov, dev, card) -> dict:
+    """K12 at one dispatch of the driver (``coverage_step``, 32,768 rows)
+    at op widths 8 and 64 on the card against the CPU's result on the
+    same tile, timed by ``device_ms`` (each call over its own copy of
+    the tile, together past the 50 MB L2), with its bound: the tile read
+    once and two 4-byte diff entries read and written per aligned op;
+    and the final cumsum at the 10 Mb and chr20 windows (a window read
+    and written once)."""
+    from hadoop_bam_torch.ops.cigar import SPREAD
+    from hadoop_bam_torch.parallel import pipeline as tp
+    rows, out = 1 << 15, {}
+    for mc in (8, 64):
+        row_w = tp._cigar_row_bytes(mc)
+        copies = max(2, -(-(100 << 20) // (rows * row_w)))
+        tiles, host, aligned = _k12_tiles(torch, cov, dev, rows, mc, copies)
+        diff = torch.zeros(COV_SPAN + 1 + SPREAD, dtype=torch.int32,
+                           device=dev)
+        got = tp.coverage_step(tiles[0], rows, 0, 0, COV_SPAN, mc)
+        want = tp.coverage_step(host, rows, 0, 0, COV_SPAN, mc)
+        check(torch.equal(got.cpu(), want), f"K12 at width {mc}: card "
+              f"equals CPU")
+        calls = [lambda t=t: tp.coverage_step(t, rows, 0, 0, COV_SPAN, mc,
+                                              out=diff) for t in tiles]
+        ms = device_ms(torch, calls)
+        nbytes = rows * row_w + 16 * aligned
+        bound = 1e3 * nbytes / H100_BYTES_PER_S
+        out[f"width_{mc}"] = {"rows": rows, "tile_bytes": rows * row_w,
+                              "aligned_ops": aligned, "ms": ms,
+                              "bound_ms": bound, "bytes": nbytes}
+        log(f"K12 coverage_step at {rows} rows, op width {mc} "
+            f"({rows * row_w} B tile, {aligned} aligned ops): {ms:.4f} ms "
+            f"by the profiler, bound {bound:.4f} ms ({nbytes} B / "
+            f"3.35 TB/s, {100 * bound / ms:.1f}%); card equals CPU "
+            f"[{card}]")
+    for window in (COV_SPAN, CHR20_LEN):
+        d = torch.ones(window + 1, dtype=torch.int32, device=dev)
+        ms = device_ms(torch, [lambda: torch.cumsum(d[:window], 0,
+                                                    dtype=torch.int32)],
+                       reps=8)
+        bound = 1e3 * 8 * window / H100_BYTES_PER_S
+        out[f"cumsum_{window}"] = {"ms": ms, "bound_ms": bound}
+        log(f"K12 final cumsum over {window} bases: {ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({100 * bound / ms:.1f}%) [{card}]")
+    return out
+
+
+def _query_batch(rng, names, lengths, n):
+    """``n`` regions of 1-10 kb over ``names`` weighted by length, a
+    tenth of them placed to overlap another region of the batch; as
+    (rid, beg, end) 1-based inclusive, in a shuffled order."""
+    import numpy as np
+    lengths = np.asarray(lengths, np.int64)
+    n_free = n - n // 10
+    rid = rng.choice(len(names), n_free, p=lengths / lengths.sum())
+    ln = rng.integers(1000, 10_001, n)
+    beg = 1 + (rng.random(n_free) * (lengths[rid] - ln[:n_free])).astype(
+        np.int64)
+    other = rng.integers(0, n_free, n - n_free)
+    o_beg, o_end = beg[other], beg[other] + ln[other] - 1
+    t_len = ln[n_free:]
+    t_beg = np.maximum(1, o_beg - t_len + 1 + (rng.random(n - n_free) * (
+        o_end - o_beg + t_len)).astype(np.int64))
+    rid = np.concatenate([rid, rid[other]])
+    beg = np.concatenate([beg, t_beg])
+    end = beg + ln - 1
+    order = rng.permutation(n)
+    return rid[order], beg[order], end[order]
+
+
+def _query_oracle(srt_truth, rid, beg, end):
+    """Reads overlapping each region from the generator's columns: every
+    read is 151M, so read i covers [pos + 1, pos + 151]; the sorted
+    copy keeps pos sorted within a contig."""
+    import numpy as np
+    out = np.zeros(rid.size, np.int64)
+    for c in np.unique(rid):
+        pos1 = srt_truth.pos[srt_truth.refid == c] + 1
+        m = rid == c
+        out[m] = np.searchsorted(pos1, end[m], "right") - \
+            np.searchsorted(pos1, beg[m] - 150, "left")
+    return out
+
+
+def _host_lines(srt, header, regions):
+    """The SAM lines of each region's reads in file order, by a full
+    native decode of the file (``map_file_spans``) and a host overlap
+    test: no index and no query engine."""
+    import numpy as np
+    from hadoop_bam_torch.formats.bam import BamBatch
+    from hadoop_bam_torch.parallel import pipeline as tp
+
+    def lines(data, offs, voffs):
+        b = BamBatch(data, offs, header=header)
+        pos1 = b.pos + 1
+        end1 = pos1 + np.maximum(b.reference_span(), 1) - 1
+        return [[b.to_sam_line(int(i)) for i in np.flatnonzero(
+            (b.refid == r) & (pos1 <= e) & (end1 >= s))]
+            for r, s, e in regions]
+    parts = tp.map_file_spans(srt, lines)
+    return [sum((p[k] for p in parts), []) for k in range(len(regions))]
+
+
+def phase_coverage_query(torch, path, truth, card, dev, args, srt,
+                         srt_truth, native_walls):
+    """Phase 13: coverage (K12) at 30x over mixed CIGARs, batched BAM
+    region queries (K13) on phase 11's sorted copy, and the span window's
+    hang defence, through the entry points on cuda:0."""
+    log("== phase 13: coverage, batched region queries and the hang "
+        "defence on cuda:0")
+    import numpy as np
+    from hadoop_bam_torch import synth
+    from hadoop_bam_torch.api import open_bam, query_regions
+    from hadoop_bam_torch.config import HBamConfig
+    from hadoop_bam_torch.formats.bamio import read_bam_header
+    from hadoop_bam_torch.parallel import pipeline as tp
+    from hadoop_bam_torch.query import engine as qe
+    from hadoop_bam_torch.resilience import chaos
+    from hadoop_bam_torch.split.bai import write_bai
+    from hadoop_bam_torch.utils import native
+    from hadoop_bam_torch.utils.errors import PlanError, TransientIOError
+    from hadoop_bam_torch.utils.metrics import METRICS
+    work = os.path.join(os.path.dirname(path), "phase13")
+    os.makedirs(work, exist_ok=True)
+    cov = os.path.join(work, "coverage.bam")
+    bai = cov + ".bai"
+    try:
+        # (a) coverage over a 30x pile of mixed CIGARs
+        ctruth, w_synth = _timed(lambda: synth.write_coverage_bam(
+            cov, args.reads, args.seed, span=COV_SPAN))
+        _, w_bai = _timed(lambda: write_bai(cov))
+        log(f"(a) coverage BAM: {ctruth.n_reads} reads over "
+            f"chr20:1-{COV_SPAN:,} ({ctruth.n_reads * 151 / COV_SPAN:.1f}x), "
+            f"{os.path.getsize(cov)} bytes in {w_synth:.1f} s, its .bai in "
+            f"{w_bai:.2f} s; ops {ctruth.op_kinds()}, {ctruth.star_cigars} "
+            f"'*' CIGARs, {ctruth.unmapped} unmapped, "
+            f"{ctruth.reads_over(8)} reads past 8 ops, "
+            f"{ctruth.reads_over(32)} past 32 (at most {ctruth.max_ops}), "
+            f"{ctruth.on_ref(1)} on chr21")
+        check(set("MIDNSH=X") <= set(ctruth.op_kinds())
+              and ctruth.reads_over(32) > 0 and ctruth.star_cigars > 0,
+              "the CIGAR mix holds every op kind, '*' and > 32 ops")
+        tp.coverage_step.launches = 0
+        runs = (("chr20:1-10,000,000 through the .bai", "chr20:1-10000000",
+                 COV_SPAN),
+                ("all of chr20 through the .bai", "chr20", CHR20_LEN),
+                ("chr20:1-10,000,000 with the .bai moved aside (whole-file "
+                 "plan)", "chr20:1-10000000", COV_SPAN))
+        walls = {}
+        for k, (label, region, window) in enumerate(runs):
+            if k == 2:
+                os.rename(bai, bai + ".off")
+            try:
+                cold()
+                METRICS.reset()
+                depth, wall = _timed(lambda: tp.coverage_file(cov, region))
+            finally:
+                if k == 2:
+                    os.rename(bai + ".off", bai)
+            want = synth.coverage_oracle(ctruth, 0, 0, window)
+            check(depth.dtype == np.int32 and depth.shape == (window,)
+                  and np.array_equal(depth, want),
+                  f"coverage {label} equals the generator's pileup")
+            reads = METRICS.get("pipeline.records")
+            walls[k] = wall
+            log(f"(a) {label}: equals the oracle; {wall:.3f} s wall, "
+                f"{reads:,} reads decoded ({reads / wall:,.0f} reads/s), "
+                f"{int(depth.sum()):,} aligned bases ({depth.sum() / wall:,.0f}"
+                f" bases/s; {window / wall:,.0f} window bases/s), "
+                f"{METRICS.get('pipeline.spans')} spans, dispatch "
+                f"{METRICS.get('pipeline.dispatch_bytes'):,} B, mean depth "
+                f"{depth[:COV_SPAN].mean():.2f}, max {int(depth.max())} "
+                f"[{card}]")
+            del depth, want
+        k12_launches = tp.coverage_step.launches
+        log(f"K12 (coverage_step) calls on the main path: {k12_launches}")
+        check(k12_launches > 0, "K12 ran on the main path")
+        try:
+            tp.coverage_file(cov, "chr20:1-10000000", max_cigar=16)
+            check(False, "max_cigar=16 raises PlanError")
+        except PlanError as e:
+            log(f"(a) max_cigar=16 raises PlanError: {e}")
+        log_busy(torch, "coverage chr20:1-10,000,000",
+                 lambda: tp.coverage_file(cov, "chr20:1-10000000"), card)
+        k12 = k12_times(torch, cov, dev, card)
+        os.remove(cov)
+        os.remove(bai)
+
+        # (b) batched region queries on phase 11's sorted copy
+        header, _ = read_bam_header(srt)
+        rng = np.random.default_rng(args.seed + 13)
+        rid, beg, end = _query_batch(rng, header.ref_names,
+                                     header.ref_lengths, QUERY_REGIONS)
+        regions = [f"{header.ref_names[r]}:{s}-{e}"
+                   for r, s, e in zip(rid, beg, end)]
+        want = _query_oracle(srt_truth, rid, beg, end)
+        reqs = [qe.QueryRequest(srt, r) for r in regions]
+        eng = qe.QueryEngine()
+        qe.overlap_step.launches = 0
+        METRICS.reset()
+
+        def kept_counts():
+            acc = torch.zeros(len(reqs), dtype=torch.int64, device=dev)
+            for out in query_regions(reqs, engine=eng):
+                acc += torch.bincount(out["req"][out["keep"]],
+                                      minlength=len(reqs))
+            return acc.cpu().numpy()
+        got, cold_wall = _timed(kept_counts)
+        decoded_cold = METRICS.get("query.chunks_decoded")
+        check(np.array_equal(got, want), "query_regions' kept counts equal "
+              "the generator's")
+        got, warm_wall = _timed(kept_counts)
+        check(np.array_equal(got, want), "warm kept counts")
+        stats = eng.stats()
+        k13_launches = qe.overlap_step.launches
+        check(k13_launches > 0, "K13 ran on the main path")
+        lat = []
+        for r in reqs[:200]:
+            t0 = time.perf_counter()
+            for out in query_regions([r], engine=eng):
+                out["keep"].sum().item()
+            lat.append(time.perf_counter() - t0)
+        overlapping = int(sum(
+            np.any((rid == rid[i]) & (beg <= end[i]) & (end >= beg[i])
+                   & (np.arange(rid.size) != i)) for i in range(rid.size)))
+        log(f"(b) {len(reqs)} regions of 1-10 kb ({overlapping} overlap "
+            f"another of the batch), {int(want.sum()):,} reads kept, equal "
+            f"to the generator's per request; cold {cold_wall:.3f} s "
+            f"({len(reqs) / cold_wall:,.0f} regions/s), warm "
+            f"{warm_wall:.3f} s ({len(reqs) / warm_wall:,.0f} regions/s); "
+            f"chunks decoded {decoded_cold} cold, "
+            f"{METRICS.get('query.chunks_decoded') - decoded_cold} warm; "
+            f"cache hits {stats['hits']}, misses {stats['misses']}; one "
+            f"request a batch, warm: p50 {1e3 * np.percentile(lat, 50):.2f}"
+            f" ms, p99 {1e3 * np.percentile(lat, 99):.2f} ms; K13 calls "
+            f"{k13_launches} [{card}]")
+        sub = list(range(50))
+        res, rec_wall = _timed(lambda: eng.query_records(
+            [reqs[i] for i in sub]))
+        host = _host_lines(srt, header, [(rid[i], beg[i], end[i])
+                                         for i in sub])
+        for i, r, h in zip(sub, res, host):
+            check([x.to_line() for x in r.records] == h,
+                  f"query_records {regions[i]} equals the host oracle")
+            check(len(h) == want[i], f"{regions[i]}: {len(h)} lines")
+        log(f"(b) query_records on 50 requests: {sum(map(len, host)):,} "
+            f"records equal the host oracle line for line, "
+            f"{rec_wall:.3f} s [{card}]")
+        # K13 at the dispatch shape, on the batch's own candidate rows
+        from hadoop_bam_torch.query.scheduler import Deadline
+        tuples, _, _, _ = eng._prepare(reqs, Deadline(None))
+        cap = eng.config.query_tile_records
+        cols = [np.concatenate([t[j] for t in tuples])[:cap]
+                for j in range(len(qe.TILE_COLUMNS))]
+        host_cols = [torch.from_numpy(c) for c in cols]
+        copies = [[c.to(dev) for c in host_cols] for _ in range(64)]
+        n = torch.tensor([cap], dtype=torch.int32)
+        nd = n.to(dev)
+        check(torch.equal(qe.overlap_step(*copies[0], nd).cpu(),
+                          qe.overlap_step(*host_cols, n)),
+              "K13 on the card equals the CPU")
+        ms = device_ms(torch, [lambda c=c: qe.overlap_step(*c, nd)
+                               for c in copies])
+        nbytes = cap * (4 * len(qe.TILE_COLUMNS) + 1) + 4
+        k13 = {"rows": cap, "ms": ms, "bytes": nbytes,
+               "bound_ms": 1e3 * nbytes / H100_BYTES_PER_S}
+        log(f"K13 overlap_step at {cap} rows: {ms:.4f} ms by the profiler, "
+            f"bound {k13['bound_ms']:.5f} ms ({nbytes} B / 3.35 TB/s, "
+            f"{100 * k13['bound_ms'] / ms:.1f}%); card equals CPU [{card}]")
+        del copies, eng
+
+        # (c) the span window's hang defence: every pool task wedged past
+        # pool_task_timeout_s, then one
+        timeout, delay = 0.25, 2.0
+        for skip in (False, True):
+            cfg = HBamConfig(inflate_backend="native", span_retries=1,
+                             pool_task_timeout_s=timeout,
+                             speculative_decode=False, skip_bad_spans=skip)
+            METRICS.reset()
+            cold()
+            t0 = time.perf_counter()
+            with chaos.fault_points_on("pool.task", [chaos.PointFault(
+                    kind="delay", count=10 ** 9, delay_s=delay)]):
+                try:
+                    open_bam(path, config=cfg).flagstat()
+                    check(False, "a wedged pool raises TransientIOError")
+                except TransientIOError as e:
+                    wall = time.perf_counter() - t0
+                    msg = str(e)
+            check(wall < delay + 4 * timeout + 1.0,
+                  f"raised within {wall:.2f} s")
+            check(METRICS.get("pipeline.bad_spans") == 0,
+                  "nothing quarantined: the window raises outside the "
+                  "span policy, as in the reference")
+            # the wedged tasks wake after the delay, start their span's
+            # native job and hand it to the window's cleanup
+            time.sleep(max(0.0, t0 + delay + 0.5 - time.perf_counter()))
+            t1 = time.perf_counter()
+            while native.live_jobs() and time.perf_counter() - t1 < 15:
+                time.sleep(0.05)
+            check(native.live_jobs() == 0, "no native job left running")
+            log(f"(c) every pool task wedged {delay} s, timeout {timeout} s"
+                f"{', skip_bad_spans' if skip else ''}: TransientIOError in "
+                f"{wall:.3f} s ({msg}); timeouts "
+                f"{METRICS.get('pool.task_timeouts')}, resubmits "
+                f"{METRICS.get('jobs.timeout_resubmits')}, quarantined 0; "
+                f"native jobs 0 {time.perf_counter() - t0:.2f} s after the "
+                f"call began [{card}]")
+        cfg = HBamConfig(inflate_backend="native", span_retries=1,
+                         pool_task_timeout_s=timeout,
+                         speculative_decode=False)
+        want_flag = truth.flagstat if truth is not None else \
+            open_bam(path, config=HBamConfig(inflate_backend="native")
+                     ).flagstat()
+        with chaos.fault_points_on("pool.task", [chaos.PointFault(
+                kind="delay", count=10 ** 9, delay_s=delay)]):
+            try:
+                tp.coverage_file(srt, "chr20:1-1000000", config=cfg)
+                check(False, "coverage on a wedged pool raises")
+            except TransientIOError:
+                pass
+        METRICS.reset()
+        cold()
+        with chaos.fault_points_on("pool.task", [chaos.PointFault(
+                kind="delay", at_call=1, delay_s=delay)]):
+            flag, wall = _timed(open_bam(path, config=cfg).flagstat)
+        check(flag == want_flag, "one wedged task: the truth")
+        check(METRICS.get("pool.task_timeouts") == 1 ==
+              METRICS.get("jobs.timeout_resubmits"), "one resubmit")
+        check(native.live_jobs() == 0, "no native job left running")
+        log(f"(c) coverage_file on a wedged pool raises TransientIOError; "
+            f"one wedged task: resubmitted once, flagstat equals the "
+            f"truth in {wall:.3f} s (phase 5 "
+            f"{native_walls.get('flagstat', float('nan')):.3f} s) [{card}]")
+    finally:
+        for p in [cov, bai, bai + ".off", srt] + _sidecars(srt):
+            if os.path.exists(p):
+                os.remove(p)
+        work11 = os.path.join(os.path.dirname(path), "phase11")
+        for w in (work, work11):
+            if os.path.isdir(w) and not os.listdir(w):
+                os.rmdir(w)
+        cold()
+    return {"K12": dict(k12, launches=k12_launches),
+            "K13": dict(k13, launches=k13_launches)}
+
+
+def coverage_query_times(torch, path, dev) -> dict:
+    """``--times coverage_query``: phase 13 alone, on a sorted copy of
+    the BAM's reads written beside it (its truth columns kept); the
+    one-wedged-task check compares with a clean flagstat of the BAM."""
+    import types
+    from hadoop_bam_torch.split.bai import write_bai
+    from hadoop_bam_torch.synth import write_synthetic_bam
+    base = os.path.basename(path)[:-len(".bam")].split("_")
+    args = types.SimpleNamespace(seed=int(base[1]), reads=int(base[2]))
+    srt = path[:-len(".bam")] + "_sorted13.bam"
+    srt_truth = write_synthetic_bam(srt, args.reads, args.seed,
+                                    coordinate_sorted=True,
+                                    keep_columns=True)
+    write_bai(srt)
+    return phase_coverage_query(torch, path, None, card_line(), dev, args,
+                                srt, srt_truth, {})
+
+
 TIMES = {"walk_records_device": k9_times, "resolve_pack": k7_times,
          "payload_gather": k10p_times, "device_plane": device_plane_times,
          "native_plane": native_plane_times, "k2_window": k2_window_times,
-         "bai_regions": bai_regions_times}
+         "bai_regions": bai_regions_times,
+         "coverage_query": coverage_query_times}
 
 
 def check_truth(flag, stats, truth) -> None:
@@ -2544,11 +2954,13 @@ def main(argv=None) -> int:
     resilience_launches = phase_resilience(torch, path, truth, card, dev,
                                            native_walls, args.seed,
                                            interval_walls)
-    planning_launches = phase_planning(torch, path, truth, card, dev, args,
-                                       native_walls, device_walls, plan_s,
-                                       interval_walls)
+    planning_launches, srt, srt_truth = phase_planning(
+        torch, path, truth, card, dev, args, native_walls, device_walls,
+        plan_s, interval_walls)
     reads_launches, k2_window = phase_reads(torch, path, truth, card, dev,
                                             args, native_walls)
+    steps = phase_coverage_query(torch, path, truth, card, dev, args, srt,
+                                 srt_truth, native_walls)
     rows["seq_qual_stats"].update(k2_window)
     for name, x in list(rows.items()) + [
             ("seq_qual_stats at the window shape",
@@ -2569,6 +2981,8 @@ def main(argv=None) -> int:
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    log(f"torch-op steps of phase 13 (no hand kernel): "
+        f"{json.dumps(steps)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)

@@ -95,6 +95,31 @@ class HBamConfig:
     use_fused_decode: bool = True
     decode_chunk_blocks: int = 32
 
+    # the span window's straggler and hang defence
+    # (parallel/pipeline.iter_windowed, jobs/speculate.py)
+    pool_task_timeout_s: Optional[float] = None  # hard deadline on the
+    #                                       active wait for one pool task:
+    #                                       an overrun is abandoned and
+    #                                       resubmitted once per
+    #                                       span_retries, then raises
+    #                                       TransientIOError; None = off
+    speculative_decode: bool = True       # race a second copy of a task
+    #                                       that outlives the soft deadline
+    #                                       (first result wins)
+    straggler_multiplier: float = 4.0     # soft deadline = p95 of the
+    #                                       decaying task latencies x this
+    straggler_min_s: float = 0.5          # soft-deadline floor
+
+    # region queries (query/): decoded-chunk LRU budget, the compressed
+    # bytes coalesced into one chunk, rows per overlap dispatch, and
+    # admission (concurrent batches, bounded wait queue, deadline)
+    query_cache_bytes: int = 256 << 20
+    query_chunk_bytes: int = 1 << 20
+    query_tile_records: int = 8192
+    query_max_in_flight: int = 8
+    query_queue_depth: int = 32
+    query_deadline_s: Optional[float] = None
+
     # FASTQ / QSEQ input (api/read_datasets.py): the quality encoding of
     # the text (re-based to Sanger on read) and whether reads whose
     # Illumina filter flag failed are dropped

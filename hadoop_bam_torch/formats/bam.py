@@ -10,13 +10,15 @@ records; each record starts with a 36-byte fixed prefix::
 
 then read name, CIGAR, 4-bit packed bases, qualities and tags.
 ``BamBatch`` is the columnar view the interval filter, the BAI build
-and the planner read.
+and the planner read, and ``to_sam_line`` renders one of its records as
+SAM text (the query engine's records).  The tag codec and
+``encode_record`` serve ``formats/sam.SamRecord``.
 """
 from __future__ import annotations
 
 import struct
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -25,6 +27,9 @@ FIXED_RECORD_PREFIX = 36  # bytes from block_size through tlen inclusive
 CORE_AFTER_BLOCKSIZE = 32
 
 SEQ_NIBBLE = "=ACMGRSVTWYHKDBN"          # [SPEC] 4-bit base codes
+CIGAR_OPS = "MIDNSHP=X"                  # [SPEC] op codes 0..8
+_SEQ_NIBBLE_B = SEQ_NIBBLE.encode()
+_CIGAR_OPS_B = CIGAR_OPS.encode()
 
 # Flag bits [SPEC] section 1.4
 FPAIRED, FPROPER_PAIR, FUNMAP, FMUNMAP = 0x1, 0x2, 0x4, 0x8
@@ -48,6 +53,27 @@ class SAMHeader:
     @property
     def n_ref(self) -> int:
         return len(self.ref_names)
+
+    def ref_id(self, name: str) -> int:
+        try:
+            return self.ref_names.index(name)
+        except ValueError:
+            return -1
+
+    def ref_name(self, rid: int) -> str:
+        return "*" if rid < 0 or rid >= self.n_ref else self.ref_names[rid]
+
+    def to_sam_text(self) -> str:
+        """Header text, with @SQ lines made from the binary dictionary
+        when the text lacks them (@HD first)."""
+        if "@SQ" in self.text or not self.ref_names:
+            return self.text
+        sq = "".join(f"@SQ\tSN:{n}\tLN:{l}\n"
+                     for n, l in zip(self.ref_names, self.ref_lengths))
+        lines = self.text.splitlines(keepends=True)
+        hd = [l for l in lines if l.startswith("@HD")]
+        rest = [l for l in lines if not l.startswith("@HD")]
+        return "".join(hd) + sq + "".join(rest)
 
     def to_bam_bytes(self) -> bytes:
         out = bytearray()
@@ -97,6 +123,22 @@ class SAMHeader:
                     lengths.append(int(fields["LN"]))
         return cls(text=text if text.endswith("\n") or not text
                    else text + "\n", ref_names=names, ref_lengths=lengths)
+
+
+def reg2bin(beg: int, end: int) -> int:
+    """[SPEC] SAMv1 section 5.3: the UCSC binning-scheme bin."""
+    end -= 1
+    if beg >> 14 == end >> 14:
+        return ((1 << 15) - 1) // 7 + (beg >> 14)
+    if beg >> 17 == end >> 17:
+        return ((1 << 12) - 1) // 7 + (beg >> 17)
+    if beg >> 20 == end >> 20:
+        return ((1 << 9) - 1) // 7 + (beg >> 20)
+    if beg >> 23 == end >> 23:
+        return ((1 << 6) - 1) // 7 + (beg >> 23)
+    if beg >> 26 == end >> 26:
+        return ((1 << 3) - 1) // 7 + (beg >> 26)
+    return 0
 
 
 def walk_record_offsets(buf, start: int = 0, end: Optional[int] = None
@@ -160,15 +202,27 @@ class BamBatch:
 
     # fixed fields [SPEC layout offsets]
     @property
+    def block_size(self): return self._col("block_size", 0, 4, True)
+    @property
     def refid(self): return self._col("refid", 4, 4, True)
     @property
     def pos(self): return self._col("pos", 8, 4, True)
     @property
     def l_read_name(self): return self._col("l_read_name", 12, 1, False)
     @property
+    def mapq(self): return self._col("mapq", 13, 1, False)
+    @property
     def n_cigar(self): return self._col("n_cigar", 16, 2, False)
     @property
+    def flag(self): return self._col("flag", 18, 2, False)
+    @property
     def l_seq(self): return self._col("l_seq", 20, 4, True)
+    @property
+    def mate_refid(self): return self._col("mate_refid", 24, 4, True)
+    @property
+    def mate_pos(self): return self._col("mate_pos", 28, 4, True)
+    @property
+    def tlen(self): return self._col("tlen", 32, 4, True)
 
     def read_name(self, i: int) -> str:
         o = int(self.offsets[i]) + FIXED_RECORD_PREFIX
@@ -178,6 +232,66 @@ class BamBatch:
     @property
     def cigar_offset(self):
         return self.offsets + FIXED_RECORD_PREFIX + self.l_read_name
+
+    @property
+    def seq_offset(self): return self.cigar_offset + 4 * self.n_cigar
+    @property
+    def qual_offset(self): return self.seq_offset + (self.l_seq + 1) // 2
+    @property
+    def tags_offset(self): return self.qual_offset + self.l_seq
+    @property
+    def record_end(self): return self.offsets + 4 + self.block_size
+
+    def cigar_string(self, i: int) -> str:
+        n = int(self.n_cigar[i])
+        if n == 0:
+            return "*"
+        o = int(self.cigar_offset[i])
+        raw = self.data[o:o + 4 * n].view("<u4")
+        return "".join(f"{int(v) >> 4}{CIGAR_OPS[int(v) & 0xF]}"
+                       for v in raw)
+
+    def seq_string(self, i: int) -> str:
+        n = int(self.l_seq[i])
+        if n == 0:
+            return "*"
+        o = int(self.seq_offset[i])
+        packed = self.data[o:o + (n + 1) // 2]
+        nibbles = np.empty(packed.size * 2, dtype=np.uint8)
+        nibbles[0::2] = packed >> 4
+        nibbles[1::2] = packed & 0xF
+        lut = np.frombuffer(_SEQ_NIBBLE_B, dtype=np.uint8)
+        return lut[nibbles[:n]].tobytes().decode()
+
+    def qual_string(self, i: int) -> str:
+        n = int(self.l_seq[i])
+        o = int(self.qual_offset[i])
+        q = self.data[o:o + n]
+        if n == 0 or (q.size and q[0] == 0xFF):
+            return "*"
+        return (q + 33).tobytes().decode()
+
+    def tags_raw(self, i: int) -> bytes:
+        return self.data[int(self.tags_offset[i]):
+                         int(self.record_end[i])].tobytes()
+
+    def tags(self, i: int) -> List[Tuple[str, str, object]]:
+        return parse_tags(self.tags_raw(i))
+
+    def to_sam_line(self, i: int) -> str:
+        """Record ``i`` as a SAM text line (no newline)."""
+        h = self.header or SAMHeader()
+        rid = int(self.refid[i])
+        mrid = int(self.mate_refid[i])
+        rnext = "=" if mrid == rid and mrid >= 0 else h.ref_name(mrid)
+        fields = [
+            self.read_name(i), str(int(self.flag[i])), h.ref_name(rid),
+            str(int(self.pos[i]) + 1), str(int(self.mapq[i])),
+            self.cigar_string(i), rnext, str(int(self.mate_pos[i]) + 1),
+            str(int(self.tlen[i])), self.seq_string(i), self.qual_string(i),
+        ]
+        fields += [format_tag(t) for t in self.tags(i)]
+        return "\t".join(fields)
 
     def reference_span(self) -> np.ndarray:
         """Per-record alignment span on the reference (bases consumed by
@@ -205,3 +319,159 @@ class BamBatch:
             span = np.where(counts > 0, cig_span, span)
         self._cache["ref_span"] = span
         return span
+
+
+# ---------------------------------------------------------------------------
+# Tags [SPEC] section 4.2.4, and record encoding
+# ---------------------------------------------------------------------------
+
+_TAG_SCALAR = {"c": ("<b", 1), "C": ("<B", 1), "s": ("<h", 2), "S": ("<H", 2),
+               "i": ("<i", 4), "I": ("<I", 4), "f": ("<f", 4), "A": None}
+_ARRAY_ELEM = {"c": ("<b", 1), "C": ("<B", 1), "s": ("<h", 2), "S": ("<H", 2),
+               "i": ("<i", 4), "I": ("<I", 4), "f": ("<f", 4)}
+
+
+def parse_tags(raw: bytes) -> List[Tuple[str, str, object]]:
+    out: List[Tuple[str, str, object]] = []
+    p, n = 0, len(raw)
+    while p + 3 <= n:
+        tag = raw[p:p + 2].decode()
+        typ = chr(raw[p + 2])
+        p += 3
+        if typ == "A":
+            out.append((tag, "A", chr(raw[p])))
+            p += 1
+        elif typ in _TAG_SCALAR and _TAG_SCALAR[typ]:
+            fmt, sz = _TAG_SCALAR[typ]
+            out.append((tag, typ, struct.unpack_from(fmt, raw, p)[0]))
+            p += sz
+        elif typ in ("Z", "H"):
+            z = raw.index(b"\x00", p)
+            out.append((tag, typ, raw[p:z].decode()))
+            p = z + 1
+        elif typ == "B":
+            etyp = chr(raw[p])
+            p += 1
+            (cnt,) = struct.unpack_from("<I", raw, p)
+            p += 4
+            fmt, sz = _ARRAY_ELEM[etyp]
+            vals = list(struct.unpack_from(f"<{cnt}{fmt[1]}", raw, p))
+            p += cnt * sz
+            out.append((tag, "B", (etyp, vals)))
+        else:
+            raise BAMError(f"unknown tag type {typ!r}")
+    return out
+
+
+def format_tag(t: Tuple[str, str, object]) -> str:
+    tag, typ, val = t
+    if typ in "cCsSiI":
+        return f"{tag}:i:{val}"
+    if typ == "f":
+        return f"{tag}:f:{val:g}"
+    if typ == "A":
+        return f"{tag}:A:{val}"
+    if typ in ("Z", "H"):
+        return f"{tag}:{typ}:{val}"
+    if typ == "B":
+        etyp, vals = val
+        body = ",".join(f"{v:g}" if etyp == "f" else str(v) for v in vals)
+        return f"{tag}:B:{etyp},{body}"
+    raise BAMError(f"unknown tag type {typ!r}")
+
+
+def encode_tag(tag: str, typ: str, val) -> bytes:
+    head = tag.encode() + typ.encode()
+    if typ == "A":
+        return head + val.encode()
+    if typ in _TAG_SCALAR and _TAG_SCALAR[typ]:
+        fmt, _ = _TAG_SCALAR[typ]
+        return head + struct.pack(fmt, val)
+    if typ in ("Z", "H"):
+        return head + val.encode() + b"\x00"
+    if typ == "B":
+        etyp, vals = val
+        fmt, _ = _ARRAY_ELEM[etyp]
+        return head + etyp.encode() + struct.pack("<I", len(vals)) + \
+            struct.pack(f"<{len(vals)}{fmt[1]}", *vals)
+    raise BAMError(f"unknown tag type {typ!r}")
+
+
+def tag_from_sam(text: str) -> Tuple[str, str, object]:
+    tag, typ, val = text.split(":", 2)
+    if typ == "i":
+        return (tag, "i", int(val))
+    if typ == "f":
+        return (tag, "f", float(val))
+    if typ == "A":
+        return (tag, "A", val)
+    if typ in ("Z", "H"):
+        return (tag, typ, val)
+    if typ == "B":
+        parts = val.split(",")
+        etyp = parts[0]
+        conv = float if etyp == "f" else int
+        return (tag, "B", (etyp, [conv(x) for x in parts[1:]]))
+    raise BAMError(f"bad SAM tag {text!r}")
+
+
+_SEQ_CODE: Dict[int, int] = {c: i for i, c in enumerate(_SEQ_NIBBLE_B)}
+_CIGAR_CODE: Dict[int, int] = {c: i for i, c in enumerate(_CIGAR_OPS_B)}
+
+
+def encode_record(*, name: str, flag: int, refid: int, pos: int, mapq: int,
+                  cigar: Sequence[Tuple[int, str]] = (), mate_refid: int = -1,
+                  mate_pos: int = -1, tlen: int = 0, seq: str = "*",
+                  qual: str = "*",
+                  tags: Sequence[Tuple[str, str, object]] = (),
+                  bin_: Optional[int] = None) -> bytes:
+    """One alignment record as BAM bytes.  ``pos``/``mate_pos`` are
+    0-based; ``cigar`` is a sequence of (length, op_char)."""
+    nameb = name.encode() + b"\x00"
+    if not 1 <= len(nameb) <= 255:
+        raise BAMError("read name length out of range")
+    cigar_raw = b"".join(struct.pack("<I", (l << 4) | _CIGAR_CODE[ord(op)])
+                         for l, op in cigar)
+    if seq == "*" or seq == "":
+        l_seq, seq_raw = 0, b""
+    else:
+        sb = seq.upper().encode()
+        l_seq = len(sb)
+        codes = [_SEQ_CODE.get(c, 15) for c in sb]
+        if l_seq % 2:
+            codes.append(0)
+        seq_raw = bytes((codes[i] << 4) | codes[i + 1]
+                        for i in range(0, len(codes), 2))
+    if l_seq == 0:
+        qual_raw = b""
+    elif qual == "*" or qual == "":
+        qual_raw = b"\xff" * l_seq
+    else:
+        if len(qual) != l_seq:
+            raise BAMError("qual length != seq length")
+        qual_raw = bytes(ord(c) - 33 for c in qual)
+    tags_raw = b"".join(encode_tag(*t) for t in tags)
+    if bin_ is None:
+        span = sum(l for l, op in cigar if op in "MDN=X")
+        end = pos + (span if span > 0 else 1)
+        bin_ = reg2bin(max(pos, 0), max(end, pos + 1)) if pos >= 0 else 4680
+    body = struct.pack("<iiBBHHHiiii", refid, pos, len(nameb), mapq, bin_,
+                       len(cigar), flag, l_seq, mate_refid, mate_pos, tlen)
+    body += nameb + cigar_raw + seq_raw + qual_raw + tags_raw
+    return struct.pack("<i", len(body)) + body
+
+
+def parse_cigar_string(s: str) -> List[Tuple[int, str]]:
+    if s == "*" or not s:
+        return []
+    out: List[Tuple[int, str]] = []
+    num = 0
+    for ch in s:
+        if ch.isdigit():
+            num = num * 10 + ord(ch) - 48
+        else:
+            if ch not in CIGAR_OPS:
+                raise BAMError(f"bad CIGAR op {ch!r}")
+            out.append((num, ch))
+            num = 0
+    return out

@@ -45,6 +45,7 @@ import contextlib
 import dataclasses
 import logging
 import os
+import time
 from collections import deque
 from typing import (
     Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple,
@@ -60,7 +61,11 @@ from hadoop_bam_torch.device import DataAxis, data_axis
 from hadoop_bam_torch.formats import bgzf
 from hadoop_bam_torch.formats.bam import BAMError, BamBatch, SAMHeader
 from hadoop_bam_torch.formats.bamio import read_bam_header
+from hadoop_bam_torch.jobs.speculate import UnitLatency
 from hadoop_bam_torch.ops import inflate as inflate_ops
+from hadoop_bam_torch.ops.cigar import (
+    coverage_diff_from_tiles, window_coverage_from_tiles,
+)
 from hadoop_bam_torch.ops.flagstat import FLAGSTAT_FIELDS, flagstat_vector
 from hadoop_bam_torch.ops.inflate_device import (
     ladder_pow2, records_cap, require_tokenizer, resolve_walk_fields,
@@ -89,11 +94,14 @@ from hadoop_bam_torch.split.planners import iter_bam_spans, plan_spans_cached
 from hadoop_bam_torch.split.spans import FileVirtualSpan
 from hadoop_bam_torch.utils import native
 from hadoop_bam_torch.utils.errors import (
-    CORRUPT, PLAN, TRANSIENT, CorruptDataError, PlanError, classify_error,
+    CORRUPT, PLAN, TRANSIENT, CorruptDataError, PlanError, TransientIOError,
+    classify_error,
 )
 from hadoop_bam_torch.utils.metrics import METRICS
+from hadoop_bam_torch.utils.pools import submit as pool_submit
 from hadoop_bam_torch.utils.resilient import (
-    QuarantineManifest, RetryingByteSource, RetryPolicy, span_retry_policy,
+    QuarantineManifest, RetryingByteSource, RetryPolicy, call_with_retry,
+    span_retry_policy,
 )
 from hadoop_bam_torch.utils.seekable import (
     as_byte_source, scoped_byte_source,
@@ -662,34 +670,182 @@ def decode_span_payload_host(source, span: FileVirtualSpan,
     return prefix, seq, qual, voffs
 
 
+# how long a QUEUED candidate's hard-timeout anchor is held, as a
+# multiple of pool_task_timeout_s: a backlogged but healthy pool (queue
+# waits of a few task durations) never false-fires, and a pool whose
+# every worker is wedged (resubmissions never dequeue) still exhausts
+# the budget and raises TransientIOError (the reference's value)
+_QUEUED_GRACE = 8.0
+
+
 def iter_windowed(pool: cf.ThreadPoolExecutor, items: Iterable,
                   fn: Callable, window: int,
-                  cleanup: Optional[Callable] = None) -> Iterator:
+                  cleanup: Optional[Callable] = None,
+                  config: Optional[HBamConfig] = None,
+                  what: str = "span decode") -> Iterator:
     """``fn(item)`` on the pool with at most ``window`` futures in
     flight; results in order.  Closing the generator early cancels the
     futures that have not started, hands every result that is or will
     be ready but was never yielded to ``cleanup`` (a fused chunk stream
     holds a live native job: closing it joins the workers), and closes
-    ``items`` when it is a generator."""
+    ``items`` when it is a generator.
+
+    Submissions go through ``utils/pools.submit`` under
+    ``call_with_retry`` (3 retries): a transient submission fault (the
+    ``pool.submit`` chaos point) retries briefly.  With a ``config`` the
+    wait grows the reference's straggler and hang defence
+    (``_iter_windowed``, jobs/speculate.py):
+
+    - with ``config.speculative_decode`` a unit outliving the soft
+      deadline (p95 of this drive's decaying latencies x
+      ``straggler_multiplier``, floored at ``straggler_min_s``) gets a
+      second copy on the pool; the first result wins, and the loser is
+      cancelled or reaped through ``cleanup``
+      (``jobs.speculative_launched`` / ``jobs.speculative_won``);
+    - with ``config.pool_task_timeout_s`` a future outliving it is
+      abandoned (a wedged thread cannot be killed, only orphaned) and
+      the item resubmitted, once per ``span_retries``; then
+      ``TransientIOError`` (``pool.task_timeouts`` /
+      ``jobs.timeout_resubmits``).  The deadline covers active waiting
+      on a runnable task: time queued behind a healthy backlog, or spent
+      running before the consumer reached the entry, does not count
+      (``_await``'s two clocks).
+
+    Without a config the wait is the plain blocking ``Future.result()``,
+    as in the reference."""
     it = iter(items)
-    dq: "deque[cf.Future]" = deque()
+    # entries: [item, future, submit stamp, speculated?]
+    dq: "deque[list]" = deque()
+    timeout_s = config.pool_task_timeout_s if config is not None else None
+    timeout_s = float(timeout_s) if timeout_s else None
+    max_resubmits = int(config.span_retries or 0) \
+        if timeout_s is not None else 0
+    latency = UnitLatency.from_config(config) \
+        if config is not None and config.speculative_decode else None
+    submit_policy = RetryPolicy(retries=3, backoff_base_s=0.01,
+                                backoff_max_s=0.1)
+
+    def _submit(item) -> cf.Future:
+        return call_with_retry(lambda: pool_submit(pool, fn, item),
+                               submit_policy, what="decode pool submit",
+                               counter="pool.submit_retries")
+
+    def _abandon(f: cf.Future) -> None:
+        if not f.cancel() and cleanup is not None:
+            f.add_done_callback(_reaper(cleanup))
+
+    def _await(entry) -> object:
+        if timeout_s is None and latency is None:
+            return entry[1].result()
+        # candidates: [future, deadline anchor, speculative?, submit
+        # stamp, first seen queued].  The deadline anchor starts when
+        # this wait begins (a decode that ran while earlier entries were
+        # consumed is not stuck) and is refreshed while the future is
+        # queued, within _QUEUED_GRACE; the submit stamp feeds the
+        # latency histogram (turnaround, which keeps the soft deadline
+        # conservative)
+        now = time.perf_counter()
+        cands = [[entry[1], now, False, entry[2], None]]
+        resubmits = 0
+        while True:
+            for c in list(cands):
+                if not c[0].done():
+                    continue
+                try:
+                    out = c[0].result()
+                except Exception:  # noqa: BLE001 -- policy boundary
+                    # a failed copy while another runs keeps the race;
+                    # the last one failing raises (its own retry policy
+                    # is spent: resubmitting would repeat the failure)
+                    cands.remove(c)
+                    if not cands:
+                        raise
+                    continue
+                if latency is not None:
+                    latency.observe(time.perf_counter() - c[3])
+                if c[2]:
+                    METRICS.count("jobs.speculative_won")
+                for o in cands:
+                    if o is not c:
+                        _abandon(o[0])
+                return out
+            now = time.perf_counter()
+            for c in cands:
+                if not c[0].running() and not c[0].done():
+                    if c[4] is None:
+                        c[4] = now
+                    if timeout_s is None or \
+                            now - c[4] <= timeout_s * _QUEUED_GRACE:
+                        c[1] = now
+            if timeout_s is not None:
+                for c in list(cands):
+                    if now - c[1] > timeout_s:
+                        METRICS.count("pool.task_timeouts")
+                        _abandon(c[0])
+                        cands.remove(c)
+            if not cands:
+                if resubmits >= max_resubmits:
+                    raise TransientIOError(
+                        f"{what} exceeded the {timeout_s:g}s "
+                        f"pool_task_timeout_s deadline {resubmits + 1} "
+                        f"time(s) -- worker(s) presumed wedged") from None
+                resubmits += 1
+                METRICS.count("jobs.timeout_resubmits")
+                t = time.perf_counter()
+                cands.append([_submit(entry[0]), t, False, t, None])
+                now = time.perf_counter()
+            soft = latency.soft_deadline_s() if latency is not None \
+                else None
+            if soft is not None and not entry[3] and len(cands) == 1 \
+                    and now - cands[0][1] > soft:
+                entry[3] = True
+                METRICS.count("jobs.speculative_launched")
+                t = time.perf_counter()
+                cands.append([_submit(entry[0]), t, True, t, None])
+            # sleep until the nearest deadline (or a coarse slice),
+            # woken early by any candidate completing
+            waits = [0.25]
+            if timeout_s is not None:
+                waits += [c[1] + timeout_s - now for c in cands]
+            if soft is not None and not entry[3]:
+                waits += [cands[0][1] + soft - now]
+            elif latency is not None and soft is None:
+                waits += [float(latency.min_s)]
+            cf.wait([c[0] for c in cands], timeout=max(0.005, min(waits)),
+                    return_when=cf.FIRST_COMPLETED)
+
     try:
         for item in it:
-            dq.append(pool.submit(fn, item))
+            dq.append([item, _submit(item), time.perf_counter(), False])
             if len(dq) >= window:
                 break
         while dq:
-            fut = dq.popleft()
-            nxt = next(it, None)
-            if nxt is not None:
-                dq.append(pool.submit(fn, nxt))
-            yield fut.result()
+            entry = dq.popleft()
+            for item in it:
+                dq.append([item, _submit(item), time.perf_counter(),
+                           False])
+                break
+            yield _await(entry)
     finally:
-        for f in dq:
-            if not f.cancel() and cleanup is not None:
-                f.add_done_callback(_reaper(cleanup))
+        for entry in dq:
+            _abandon(entry[1])
         if hasattr(it, "close"):
             it.close()
+
+
+@contextlib.contextmanager
+def _decode_pool(config: HBamConfig, name: str = "hbam-decode"):
+    """A driver call's thread pool.  It is shut down without waiting:
+    a worker the window abandoned under ``pool_task_timeout_s`` may
+    still be wedged, and a speculative loser may still run; each hands
+    its result to the window's cleanup when it ends (a fused chunk
+    stream's native job is closed there), and the call does not wait
+    for it, as the reference's shared pool does not."""
+    pool = cf.ThreadPoolExecutor(config.pool_size(), thread_name_prefix=name)
+    try:
+        yield pool
+    finally:
+        pool.shutdown(wait=False, cancel_futures=True)
 
 
 def _reaper(cleanup: Callable) -> Callable:
@@ -708,13 +864,14 @@ def _reaper(cleanup: Callable) -> Callable:
 
 @contextlib.contextmanager
 def _span_stream(pool: cf.ThreadPoolExecutor, spans: Iterable,
-                 decode: Callable, window: int):
+                 decode: Callable, window: int, config: HBamConfig):
     """FeedPipeline input of ``decode(span)`` results (arrays, tuples or
-    fused chunk streams) decoded on ``pool`` ``window`` spans ahead.  On
-    exit the stream in hand is closed, then the window: no native job
-    outlives it."""
+    fused chunk streams) decoded on ``pool`` ``window`` spans ahead, the
+    window under ``config``'s straggler and hang defence.  On exit the
+    stream in hand is closed, then the window: no native job outlives
+    it."""
     windowed = iter_windowed(pool, spans, decode, window,
-                             cleanup=_close_stream)
+                             cleanup=_close_stream, config=config)
     flat = _flatten_span_stream(windowed)
     try:
         yield flat
@@ -868,13 +1025,12 @@ def _resilient_source(path, config: HBamConfig):
 
 @contextlib.contextmanager
 def _reading(path, config: HBamConfig):
-    """``_resilient_source`` for the length of a driver call."""
-    src = _resilient_source(path, config)
-    try:
-        yield src
-    finally:
-        if src is not path:
-            src.close()
+    """``_resilient_source`` for the length of a driver call.  It is not
+    closed here: a task the span window abandoned (``pool_task_timeout_s``,
+    or a speculative loser) may still read through it after the call
+    returns, and the source closes its descriptor when the last
+    reference to it goes (at once when no such task is left)."""
+    yield _resilient_source(path, config)
 
 
 def decode_with_retry(fn: Callable, span: FileVirtualSpan,
@@ -1371,10 +1527,11 @@ def _device_plane(path: str, axis: DataAxis, config: HBamConfig,
             lambda s: _tokenize_span_tokens(src, s, config.check_crc),
             span, config, quarantine=quarantine)
 
-    with _reading(path, config) as src, cf.ThreadPoolExecutor(
-            config.pool_size(), thread_name_prefix="hbam-tokenize") as pool:
+    with _reading(path, config) as src, \
+            _decode_pool(config, "hbam-tokenize") as pool:
         stream = iter_windowed(pool, spans, tokenize,
-                               max(1, prefetch) * config.pool_size())
+                               max(1, prefetch) * config.pool_size(),
+                               config=config)
         try:
             for chunk in stream:
                 if chunk is None:
@@ -1502,9 +1659,8 @@ def _payload_groups(spans: Iterable, specs: Sequence[TileSpec],
     window = max(1, prefetch) * config.pool_size()
     if stream_fused:
         window = _stream_window(window)
-    with cf.ThreadPoolExecutor(
-            config.pool_size(), thread_name_prefix="hbam-decode") as pool, \
-            _span_stream(pool, spans, decode, window) as stream:
+    with _decode_pool(config) as pool, \
+            _span_stream(pool, spans, decode, window, config) as stream:
         yield from fp.stream(stream, emit_fn)
 
 
@@ -1859,9 +2015,8 @@ def _flagstat_tiles(axis: DataAxis, config: HBamConfig,
     window = max(1, prefetch) * config.pool_size()
     if stream_fused:
         window = _stream_window(window)
-    with cf.ThreadPoolExecutor(
-            config.pool_size(), thread_name_prefix="hbam-decode") as pool, \
-            _span_stream(pool, spans, decode, window) as stream:
+    with _decode_pool(config) as pool, \
+            _span_stream(pool, spans, decode, window, config) as stream:
         fp.feed(stream, dispatch)
     return total[0]
 
@@ -1920,13 +2075,13 @@ def _flagstat_spans(path: str, axis: DataAxis, config: HBamConfig,
                                          backend, config=config)
         return data, offs
 
-    with _reading(path, config) as src, cf.ThreadPoolExecutor(
-            config.pool_size(), thread_name_prefix="hbam-decode") as pool:
+    with _reading(path, config) as src, _decode_pool(config) as pool:
         decode = _span_policy(
             span_bytes, config, quarantine, ladder, config.host_backend,
             lambda: (np.empty(0, np.uint8), np.empty(0, np.int32)))
         stream = iter_windowed(pool, spans, decode,
-                               max(1, prefetch) * config.pool_size())
+                               max(1, prefetch) * config.pool_size(),
+                               config=config)
         try:
             for k, (data, offs) in enumerate(stream):
                 n = int(offs.size)
@@ -2077,3 +2232,256 @@ def flagstat_file(path: str, device=None,
             _flagstat_device(path, axis, config, geometry, header, spans,
                              prefetch, quarantine), quarantine),
         host_run)
+
+
+# ---------------------------------------------------------------------------
+# Coverage (K12): per-base aligned depth over a genomic window
+# ---------------------------------------------------------------------------
+
+# row layout: the fixed-field projection (offsets from FIXED_FIELDS, the
+# one place that owns the BAM field map), then the cigar words
+_COVERAGE_PROJECTION = ("refid", "pos", "n_cigar", "flag")
+_CIGAR_ROW_HDR = projection_row_bytes(_COVERAGE_PROJECTION)   # 12
+# the whole-file plan's grain when the BAM has no .bai (the reference's)
+COVERAGE_SPAN_BYTES = 4 << 20
+# the widest window one call covers (the reference's cap)
+COVERAGE_MAX_WINDOW = 1 << 26
+
+
+def _cigar_row_bytes(max_cigar: int) -> int:
+    return _CIGAR_ROW_HDR + 4 * max_cigar
+
+
+def decode_span_cigar_rows(source, span: FileVirtualSpan, max_cigar: int,
+                           check_crc: bool = False,
+                           config: Optional[HBamConfig] = None
+                           ) -> np.ndarray:
+    """The coverage path's host stage: inflate a span (the fused pass in
+    offsets mode on the native plane, else the two-pass path) and pack
+    one dense row per record: the (refid, pos, n_cigar, flag) projection
+    and the cigar words, zero-padded to ``max_cigar`` ops.
+
+    Ops past ``max_cigar`` are dropped from the row, whose n_cigar field
+    keeps the full count, so that the driver raises outside the span
+    retry boundary (a user parameter is neither retried nor quarantined
+    as corruption)."""
+    cfg = config if config is not None else DEFAULT_CONFIG
+    host_backend = cfg.host_backend
+    got = _decode_span_fused(source, span, "offsets", check_crc=check_crc,
+                             want_voffs=False, config=config) \
+        if _use_fused(config, host_backend) else None
+    if got is None:
+        got = _decode_span_core(source, span, check_crc, host_backend,
+                                want_voffs=False)
+    d, o, _voffs, _ = got
+    c = o.size
+    rows = np.zeros((c, _cigar_row_bytes(max_cigar)), dtype=np.uint8)
+    if c == 0:
+        return rows
+    o64 = o.astype(np.int64)
+    dst = 0
+    for src_off, width in projection_ranges(_COVERAGE_PROJECTION):
+        rows[:, dst:dst + width] = \
+            d[o64[:, None] + np.arange(src_off, src_off + width)]
+        dst += width
+    nc_off = _CIGAR_ROW_HDR - 4          # n_cigar u16 within the row
+    n_cigar = (rows[:, nc_off].astype(np.int64)
+               | (rows[:, nc_off + 1].astype(np.int64) << 8))
+    cigar_off = o64 + PREFIX + d[o64 + 12].astype(np.int64)
+    byte_counts = 4 * np.minimum(n_cigar, max_cigar)
+    total_b = int(byte_counts.sum())
+    if total_b:
+        starts_b = np.cumsum(byte_counts) - byte_counts
+        flat_b = (np.arange(total_b, dtype=np.int64)
+                  - np.repeat(starts_b, byte_counts))
+        row_i = np.repeat(np.arange(c, dtype=np.int64), byte_counts)
+        rows[row_i, _CIGAR_ROW_HDR + flat_b] = \
+            d[np.repeat(cigar_off, byte_counts) + flat_b]
+    return rows
+
+
+def _coverage_inputs(tile: torch.Tensor, count: int, max_cigar: int):
+    """A cigar-row tile [rows, 12 + 4 * max_cigar] -> (cigar words,
+    projected columns, row_valid)."""
+    cols = unpack_projected_tile(tile[:, :_CIGAR_ROW_HDR],
+                                 _COVERAGE_PROJECTION)
+    ops4 = tile[:, _CIGAR_ROW_HDR:].reshape(tile.shape[0], max_cigar, 4) \
+        .to(torch.int64)
+    ops = ops4[..., 0] | (ops4[..., 1] << 8) | (ops4[..., 2] << 16) | \
+        (ops4[..., 3] << 24)
+    valid = torch.arange(tile.shape[0], device=tile.device) < count
+    return ops, cols, valid
+
+
+def coverage_step(tile: torch.Tensor, count: int, target_refid: int,
+                  win_start: int, window: int, max_cigar: int,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K12 on one device: a cigar-row tile with ``count`` valid rows ->
+    the window's diff array (int32 [window + 1 + SPREAD], added into
+    ``out``).  The reference's step returns the window's depth per
+    dispatch; the driver here adds every dispatch's diff on the card and
+    runs one cumsum at the end (the same int32 sums:
+    ``coverage_depth_step`` is the per-dispatch form the tests hold it
+    against).  Torch ops, no hand kernel (ops/cigar.py)."""
+    coverage_step.launches += 1
+    ops, cols, valid = _coverage_inputs(tile, count, max_cigar)
+    return coverage_diff_from_tiles(ops, cols["pos"], cols["refid"],
+                                    cols["flag"], valid, target_refid,
+                                    win_start, window, out=out)
+
+
+coverage_step.launches = 0    # calls (chip_smoke counts the main path's)
+
+
+def coverage_depth_step(tile: torch.Tensor, count: int, target_refid: int,
+                        win_start: int, window: int, max_cigar: int
+                        ) -> torch.Tensor:
+    """The reference's per-dispatch step (``make_coverage_step``): one
+    tile's depth over the window, int32 [window]."""
+    ops, cols, valid = _coverage_inputs(tile, count, max_cigar)
+    return window_coverage_from_tiles(ops, cols["pos"], cols["refid"],
+                                      cols["flag"], valid, target_refid,
+                                      win_start, window)
+
+
+class _PackedCopies:
+    """Contiguous pinned buffers for the width-cut tiles: a slice of a
+    ring slot is strided, and a strided host tensor would be staged and
+    copied synchronously.  Two buffers in turn; a buffer is written again
+    only after its last copy's event fired."""
+
+    def __init__(self, nbytes: int, pin_memory: bool):
+        self._bufs = [torch.empty(nbytes, dtype=torch.uint8,
+                                  pin_memory=pin_memory) for _ in range(2)]
+        self._done: List[Optional[_CopiesDone]] = [None, None]
+        self._k = 0
+
+    def copy(self, rows: np.ndarray, device: torch.device) -> torch.Tensor:
+        """``rows`` (a strided [R, w] view) -> a [R, w] tensor on
+        ``device``, copied asynchronously from a packed pinned buffer."""
+        k = self._k
+        self._k ^= 1
+        if self._done[k] is not None:
+            self._done[k].synchronize()
+            self._done[k] = None
+        n, w = rows.shape
+        host = self._bufs[k][:n * w].view(n, w)
+        host.numpy()[:] = rows
+        if device.type != "cuda":
+            return host.clone()
+        t = host.to(device, non_blocking=True)
+        copies = _CopiesDone()
+        copies.record(device)
+        self._done[k] = copies
+        return t
+
+
+def _coverage_region(region, header: SAMHeader):
+    """(target refid, 0-based window start, window) of a region string
+    or an Interval, under the reference's checks."""
+    from hadoop_bam_torch.split.intervals import Interval, resolve_interval
+    if not isinstance(region, Interval):
+        region = resolve_interval(region, header.ref_names)
+    if region.rname not in header.ref_names:
+        raise ValueError(f"region reference {region.rname!r} not in header")
+    target_refid = header.ref_names.index(region.rname)
+    end = min(region.end, header.ref_lengths[target_refid])
+    window = end - region.start + 1
+    if window <= 0:
+        raise ValueError(f"empty region {region}")
+    if window > COVERAGE_MAX_WINDOW:
+        raise ValueError(f"region spans {window} bases; cap is 2^26 -- "
+                         f"tile larger regions across calls")
+    return region, target_refid, region.start - 1, window
+
+
+def coverage_file(path: str, region, device=None,
+                  config: HBamConfig = DEFAULT_CONFIG,
+                  header: Optional[SAMHeader] = None,
+                  spans: Optional[Sequence[FileVirtualSpan]] = None,
+                  max_cigar: int = 64, tile_records: int = 1 << 15,
+                  prefetch: int = 2,
+                  quarantine: Optional[QuarantineManifest] = None
+                  ) -> np.ndarray:
+    """Per-base aligned-base depth over a genomic window, on ``cuda:0``
+    unless ``device`` says otherwise: plan -> inflate -> pack cigar rows
+    -> K12 diff-scatter pileup on the device -> one cumsum.
+
+    ``region`` is a samtools-style string ("chr20:1,000-2,000", 1-based
+    inclusive) or an ``Interval``; returns int32 depth, one entry a base
+    (at most 2^26 bases).  With a ``.bai`` beside the BAM the plan is the
+    index's chunks for the region; without one the whole file streams
+    through at 4 MiB spans and rows off the region count nothing.  Spans
+    longer than twice that grain are cut (``_grain_cut``, as the other
+    drivers do: a .bai chunk can span a chromosome).  Each span decodes
+    under ``decode_with_retry`` (quarantined under ``skip_bad_spans``) in
+    the span window with ``config``'s straggler and hang defence.  Each
+    dispatch ships the tile cut to its pow2 op width (at least 8): a
+    record with more than ``max_cigar`` ops raises PlanError
+    (``pipeline.dispatch_bytes`` counts what crosses the link)."""
+    axis = data_axis(device)
+    dev = axis.devices[0]
+    if header is None:
+        header, _ = read_bam_header(path)
+    region, target_refid, win_start, window = _coverage_region(region,
+                                                               header)
+    if spans is None:
+        # the Interval object, not its string form, goes to the planner
+        # (contig names may hold ':')
+        from hadoop_bam_torch.split.bai import plan_interval_spans
+        spans = plan_interval_spans(path, [region], header)
+        if spans is None:
+            with as_byte_source(path) as src:
+                size = src.size
+            n_spans = max(axis.n_dev, int(np.ceil(size / COVERAGE_SPAN_BYTES)))
+            spans = plan_spans_cached(path, header, config,
+                                      num_spans=n_spans)
+        spans = _grain_cut(path, header, spans, COVERAGE_SPAN_BYTES)
+    check_crc = bool(config.check_crc)
+    row_w = _cigar_row_bytes(max_cigar)
+    spans = _planned(spans, config, quarantine)
+    diff: List[Optional[torch.Tensor]] = [None]
+    nc_off = _CIGAR_ROW_HDR - 4
+    pin = dev.type == "cuda"
+    packed = _PackedCopies(tile_records * row_w, pin)
+
+    def dispatch(tensors, counts):
+        tiles = tensors[0].numpy()
+        c = int(counts[0])
+        mc = 1
+        if c:
+            nc = (tiles[0, :c, nc_off].astype(np.int32)
+                  | (tiles[0, :c, nc_off + 1].astype(np.int32) << 8))
+            mc = max(mc, int(nc.max()))
+        if mc > max_cigar:
+            raise PlanError(
+                f"record with {mc} cigar ops exceeds max_cigar={max_cigar}; "
+                f"pass a larger max_cigar")
+        mc = min(max_cigar, max(8, 1 << (mc - 1).bit_length()))
+        w = _cigar_row_bytes(mc)
+        METRICS.count("pipeline.dispatch_bytes",
+                      tiles.shape[1] * w + int(counts.nbytes))
+        t = packed.copy(tiles[0, :, :w], dev)
+        diff[0] = coverage_step(t, c, target_refid, win_start, window, mc,
+                                out=diff[0])
+        return None      # the ring slot was read on the host above
+
+    def decode(span):
+        out = decode_with_retry(
+            lambda s: decode_span_cigar_rows(src, s, max_cigar, check_crc,
+                                             config=config),
+            span, config, quarantine=quarantine)
+        return out if out is not None else np.zeros((0, row_w), np.uint8)
+
+    fp = FeedPipeline(axis.n_dev, tile_records,
+                      [TileSpec((row_w,), np.uint8)], fixed_shape=True,
+                      pin_memory=pin)
+    window_spans = max(1, prefetch) * config.pool_size()
+    with _reading(path, config) as src, _decode_pool(config) as pool, \
+            _span_stream(pool, spans, decode, window_spans,
+                         config) as stream:
+        fp.feed(stream, dispatch)
+    if diff[0] is None:
+        return np.zeros(window, np.int32)
+    depth = torch.cumsum(diff[0][:window], 0, dtype=torch.int32)
+    return depth.cpu().numpy()

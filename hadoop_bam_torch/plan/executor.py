@@ -6,7 +6,9 @@ the device gates of the reference (:176-194) -- the plane was named,
 no interval filter, no ``skip_bad_spans``, and the device fault
 domain's breaker lets the run through -- and the fused-decode gates
 (``_use_fused``, ``_fused_stream_gate``).  No IR: both of the port's
-drivers have a device plane.
+drivers have a device plane.  ``run_chunk_columns`` is the reference's
+query-chunk runner (``_run_chunk_columns``), called by the query engine
+directly until the plan IR is ported.
 
 One deliberate difference: the reference's fused gate also asks whether
 the native library exports the ``hbam_fused_*`` entry points and falls
@@ -18,11 +20,15 @@ build fault: the fused decode raises NativeBuildError
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import time
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
 
 from hadoop_bam_torch.config import (
     DEFAULT_CONFIG, HBamConfig, resolve_inflate_backend,
 )
+from hadoop_bam_torch.utils.metrics import METRICS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,3 +111,30 @@ def select_plane(config: Optional[HBamConfig], *, intervals=None,
     return PlaneDecision(plane=plane, backend=backend,
                          host_backend=host_backend, stream_fused=stream,
                          rejected=tuple(rejected))
+
+
+def run_chunk_columns(span, config: HBamConfig, decode_fn: Callable
+                      ) -> Tuple[Dict[str, object], Optional[int]]:
+    """One query-engine chunk: ``decode_fn(span)`` under
+    ``decode_with_retry``.  Returns the ``(columns, cache cost)`` pair
+    ``ChunkCache.get_or_compute`` stores: cost None for a chunk that
+    ``skip_bad_spans`` quarantined, which is served empty and not
+    cached, so a healed fault decodes again on the next query.
+    Counters: ``query.chunks_decoded``, ``query.chunks_skipped``,
+    ``query.chunk_bytes`` (decoded footprint) and
+    ``query.decode_wall_us`` (the reference's ``query.decode_wall``
+    span as a counter of microseconds: the port has no spans yet)."""
+    from hadoop_bam_torch.parallel.pipeline import decode_with_retry
+    t0 = time.perf_counter()
+    value = decode_with_retry(decode_fn, span, config)
+    METRICS.count("query.decode_wall_us",
+                  int((time.perf_counter() - t0) * 1e6))
+    if value is None:
+        METRICS.count("query.chunks_skipped")
+        return ({"rid": np.empty(0, np.int32),
+                 "pos1": np.empty(0, np.int32),
+                 "end1": np.empty(0, np.int32),
+                 "records": [], "n": 0, "nbytes": 0}, None)
+    METRICS.count("query.chunk_bytes", int(value["nbytes"]))
+    METRICS.count("query.chunks_decoded")
+    return (value, int(value["nbytes"]))

@@ -1,0 +1,186 @@
+"""Bounded LRU chunk cache keyed by file identity + virtual-offset range
+(copy of hadoop_bam_tpu/query/cache.py).
+
+The warm path of the query engine is this cache: a zipf-skewed region
+workload hits the same hot BGZF chunks over and over, and re-inflating
+them per request would make every query pay the cold-path decode.  Keys
+ALWAYS include the file's identity — (absolute path, size, mtime_ns) —
+so replacing a file on disk can never serve stale decoded chunks.  Eviction is
+by byte budget, strict LRU; counters ride utils/metrics.py
+(``query.cache_hits`` / ``query.cache_misses`` / ``query.cache_evictions``)
+so a caller can read hit rates without private hooks.
+"""
+from __future__ import annotations
+
+import concurrent.futures as cf
+import os
+import threading
+from collections import OrderedDict
+from typing import Callable, Dict, Hashable, Optional, Tuple
+
+from hadoop_bam_torch.utils.metrics import METRICS
+
+FileIdentity = Tuple[str, int, int]          # (abspath, size, mtime_ns)
+
+
+def file_identity(path: "str | os.PathLike") -> FileIdentity:
+    """(abspath, size, mtime_ns) of a file — the cache-key component that
+    makes chunk entries self-invalidating: rewrite the file and every key
+    derived from the old identity simply never matches again.
+
+    A missing path raises ``FileNotFoundError`` (PLAN class in the error
+    taxonomy: a bad path is configuration, never retried or skipped)."""
+    p = os.path.abspath(os.fspath(path))
+    st = os.stat(p)
+    return (p, int(st.st_size), int(st.st_mtime_ns))
+
+
+class ChunkCache:
+    """Thread-safe byte-budgeted LRU of decoded chunks.
+
+    Values are opaque to the cache; the caller supplies ``nbytes`` (the
+    decoded footprint) on ``put``.  An entry larger than the whole budget
+    is not admitted at all — counting it would immediately evict
+    everything else for a value that can never be re-used before it is
+    evicted itself."""
+
+    def __init__(self, byte_budget: int = 256 << 20):
+        if byte_budget <= 0:
+            from hadoop_bam_torch.utils.errors import PlanError
+            raise PlanError(
+                f"query cache byte budget must be positive, got "
+                f"{byte_budget}")
+        self.byte_budget = int(byte_budget)
+        self._lock = threading.Lock()
+        self._entries: "OrderedDict[Hashable, Tuple[object, int]]" = \
+            OrderedDict()
+        self._bytes = 0
+        # per-INSTANCE counters (stats() must describe THIS cache even
+        # with several engines alive); the METRICS ticks below are the
+        # process-wide view for dashboards
+        self._hits = 0
+        self._misses = 0
+        self._evictions = 0
+        self._coalesced = 0
+        # single-flight table: key -> Future of the one in-progress
+        # compute; entries are ALWAYS removed in the leader's finally
+        self._inflight: Dict[Hashable, cf.Future] = {}
+
+    def get(self, key: Hashable):
+        """Cached value or None; ticks query.cache_hits / cache_misses."""
+        with self._lock:
+            hit = self._entries.get(key)
+            if hit is None:
+                self._misses += 1
+                METRICS.count("query.cache_misses")
+                return None
+            self._entries.move_to_end(key)
+            self._hits += 1
+            METRICS.count("query.cache_hits")
+            return hit[0]
+
+    def put(self, key: Hashable, value, nbytes: int) -> None:
+        nbytes = max(0, int(nbytes))
+        if nbytes > self.byte_budget:
+            METRICS.count("query.cache_oversize")
+            return
+        with self._lock:
+            old = self._entries.pop(key, None)
+            if old is not None:
+                self._bytes -= old[1]
+            self._entries[key] = (value, nbytes)
+            self._bytes += nbytes
+            while self._bytes > self.byte_budget and len(self._entries) > 1:
+                _k, (_v, nb) = self._entries.popitem(last=False)
+                self._bytes -= nb
+                self._evictions += 1
+                METRICS.count("query.cache_evictions")
+            # a single entry can never exceed the budget (guard above),
+            # so the loop always terminates with _bytes <= byte_budget
+
+    def contains(self, key: Hashable) -> bool:
+        """Counter-free membership probe (cached OR currently being
+        computed) — the prefetcher's dedup check, which must not distort
+        hit/miss stats with its speculative lookups."""
+        with self._lock:
+            return key in self._entries or key in self._inflight
+
+    def get_or_compute(self, key: Hashable,
+                       compute: Callable[[], Tuple[object, Optional[int]]]):
+        """Single-flight lookup: a hit returns immediately; on a miss
+        exactly ONE caller (the leader) runs ``compute`` while concurrent
+        callers for the same key block on its result instead of
+        duplicating the decode (the thundering-herd shape of a zipf-hot
+        region arriving from many serve clients at once).
+
+        ``compute`` returns ``(value, nbytes)``; ``nbytes=None`` means
+        serve-but-don't-cache (the quarantined-chunk healing path).  A
+        leader exception propagates to every waiter — the waiters asked
+        for the same bytes and would have failed identically."""
+        with self._lock:
+            hit = self._entries.get(key)
+            if hit is not None:
+                self._entries.move_to_end(key)
+                self._hits += 1
+                METRICS.count("query.cache_hits")
+                return hit[0]
+            fut = self._inflight.get(key)
+            if fut is None:
+                fut = self._inflight[key] = cf.Future()
+                leader = True
+                self._misses += 1
+                METRICS.count("query.cache_misses")
+            else:
+                leader = False
+                self._coalesced += 1
+                METRICS.count("query.cache_coalesced")
+        if not leader:
+            return fut.result()
+        try:
+            value, nbytes = compute()
+            if nbytes is not None:
+                self.put(key, value, nbytes)
+        except BaseException as e:
+            fut.set_exception(e)
+            raise
+        else:
+            fut.set_result(value)
+            return value
+        finally:
+            # the flight entry ALWAYS clears and the future ALWAYS
+            # resolves, whatever failed above — a leaked entry would
+            # park every future caller for this key on a dead future
+            with self._lock:
+                self._inflight.pop(key, None)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._bytes = 0
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    @property
+    def bytes_used(self) -> int:
+        with self._lock:
+            return self._bytes
+
+    def stats(self) -> Dict[str, float]:
+        """THIS cache's hit/miss/eviction counters and occupancy.  (The
+        process-wide ``query.cache_*`` METRICS counters aggregate over
+        every cache; a multi-engine server must not have one engine's
+        traffic distort another's stats.)"""
+        with self._lock:
+            total = self._hits + self._misses
+            return {
+                "entries": len(self._entries),
+                "bytes": self._bytes,
+                "byte_budget": self.byte_budget,
+                "hits": self._hits,
+                "misses": self._misses,
+                "evictions": self._evictions,
+                "coalesced": self._coalesced,
+                "hit_rate": (self._hits / total) if total else 0.0,
+            }

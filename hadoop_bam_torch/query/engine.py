@@ -1,0 +1,428 @@
+"""QueryEngine: batched random-access region queries over indexed BAMs
+(counterpart of hadoop_bam_tpu/query/engine.py, BAM only).
+
+A request is a BATCH of ``(path, region)`` pairs.  The engine:
+
+1. resolves every region through the file's ``.bai`` / ``.csi``
+   (``split/bai.py``) into virtual-offset chunk ranges;
+2. coalesces and deduplicates the ranges of all requests on the same
+   file (overlapping regions share chunks; small compressed gaps merge,
+   so one read and inflate serves neighbours) and decodes each chunk
+   once, through the ``ChunkCache``, so later batches reuse it;
+3. routes the candidate record columns through the staging
+   ``FeedPipeline`` to the device and filters them there with the
+   interval-overlap predicate ``overlap_step`` (K13), one vector compare
+   per tile group;
+4. materializes per-request records (``query_records``) or yields the
+   device batches as they are (``tensor_batches``, ``api.query_regions``).
+
+Chunk decodes run under ``decode_with_retry`` (transient faults retry,
+corrupt ones fail fast, ``skip_bad_spans`` serves a bad chunk empty);
+admission and deadline pressure raise ``TransientIOError``; bad requests
+(no index, unknown contig, a container the port cannot query) raise
+``PlanError``.  Deliberate differences: VCF, BCF and CRAM files raise
+``PlanError`` until the port has their readers, and the engine takes a
+``device`` where the reference takes a mesh.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from hadoop_bam_torch.config import DEFAULT_CONFIG, HBamConfig
+from hadoop_bam_torch.device import resolve_device
+from hadoop_bam_torch.query.cache import ChunkCache, file_identity
+from hadoop_bam_torch.query.scheduler import Deadline, QueryScheduler
+from hadoop_bam_torch.split.intervals import Interval, resolve_interval
+from hadoop_bam_torch.split.spans import FileVirtualSpan
+from hadoop_bam_torch.utils.errors import PlanError
+from hadoop_bam_torch.utils.metrics import METRICS
+
+_I32_MAX = np.int32(np.iinfo(np.int32).max)
+# compressed gap below which neighbouring index ranges coalesce into one
+# chunk: one read and inflate then serves both; rows in the gap are
+# filtered by the exact device predicate like any other candidate
+_COALESCE_GAP_C = 1 << 14
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryRequest:
+    path: str
+    region: str
+    # per-request deadline override (seconds); None = the batch deadline
+    deadline_s: Optional[float] = None
+
+
+@dataclasses.dataclass
+class QueryResult:
+    request: QueryRequest
+    records: List[object]          # SamRecord
+    n_candidates: int = 0          # rows the index surfaced pre-predicate
+
+
+# tile column order fed through the FeedPipeline (all [] int32 series)
+TILE_COLUMNS = ("rid", "pos1", "end1", "iv_rid", "iv_beg", "iv_end", "req")
+
+
+def overlap_step(rid: torch.Tensor, pos1: torch.Tensor, end1: torch.Tensor,
+                 iv_rid: torch.Tensor, iv_beg: torch.Tensor,
+                 iv_end: torch.Tensor, req: torch.Tensor, count
+                 ) -> torch.Tensor:
+    """K13: the 1-based inclusive interval-overlap predicate per row,
+    ``rid == iv_rid and pos1 <= iv_end and end1 >= iv_beg``, over
+    ``[..., cap]`` int32 columns, for rows under ``count`` (one count a
+    leading index) -> bool ``[..., cap]``.  The interval bounds ride the
+    tile as per-row columns, so one step serves rows of different
+    requests; ``req`` is carried, not read.  Elementwise torch ops, no
+    hand kernel (the reference jits the same compares as XLA code)."""
+    del req
+    overlap_step.launches += 1
+    cap = rid.shape[-1]
+    count = torch.as_tensor(count, device=rid.device)
+    valid = torch.arange(cap, device=rid.device) < count.unsqueeze(-1)
+    return valid & (rid == iv_rid) & (pos1 <= iv_end) & (end1 >= iv_beg)
+
+
+overlap_step.launches = 0     # calls (chip_smoke counts the main path's)
+
+
+def _sniff_kind(path: str) -> str:
+    lower = path.lower()
+    if lower.endswith(".bam"):
+        return "bam"
+    if lower.endswith(".cram"):
+        raise PlanError(
+            f"cannot region-query {path!r} here: the port reads no CRAM "
+            f"yet (ROADMAP Queue 1 item 13a); .bam is supported")
+    if lower.endswith((".bcf", ".vcf.gz", ".vcf.bgz")):
+        raise PlanError(
+            f"cannot region-query {path!r} here: the port has no variant "
+            f"plane yet (ROADMAP Queue 1 item 8); .bam is supported")
+    raise PlanError(
+        f"cannot region-query {path!r}: supported containers are .bam "
+        f"(.bai/.csi sidecar)")
+
+
+class _FileMeta:
+    """Header + index of one file identity, resolved once per engine."""
+
+    __slots__ = ("path", "ident", "kind", "header", "ref_names", "index")
+
+    def __init__(self, path: str, ident, kind: str, header, ref_names,
+                 index):
+        self.path = path
+        self.ident = ident
+        self.kind = kind
+        self.header = header
+        self.ref_names = list(ref_names)
+        self.index = index
+
+
+class QueryEngine:
+    """Batched random-access region queries (module docstring), on
+    ``cuda:0`` unless ``device`` says otherwise (RuntimeError without a
+    card: the engine never moves to the CPU on its own)."""
+
+    def __init__(self, config: HBamConfig = DEFAULT_CONFIG,
+                 cache: Optional[ChunkCache] = None,
+                 scheduler: Optional[QueryScheduler] = None,
+                 device=None):
+        self.config = config
+        self.device = resolve_device(device)
+        self.cache = cache if cache is not None else ChunkCache(
+            int(config.query_cache_bytes))
+        self.scheduler = scheduler if scheduler is not None else \
+            QueryScheduler(int(config.query_max_in_flight),
+                           int(config.query_queue_depth),
+                           config.query_deadline_s)
+        # bounded metadata LRU and its lock: many threads may drive one
+        # engine, so lookup, insert and evict must be atomic
+        self._meta: "collections.OrderedDict[Tuple, _FileMeta]" = \
+            collections.OrderedDict()
+        self._meta_lock = threading.Lock()
+
+    # -- metadata ------------------------------------------------------------
+
+    def _file_meta(self, path: str) -> _FileMeta:
+        ident = file_identity(path)
+        with self._meta_lock:
+            meta = self._meta.get(ident)
+            if meta is not None:
+                self._meta.move_to_end(ident)
+                return meta
+        kind = _sniff_kind(path)
+        from hadoop_bam_torch.formats.bamio import read_bam_header
+        from hadoop_bam_torch.split.bai import load_bai_for
+        header, _ = read_bam_header(path)
+        index = load_bai_for(path)
+        if index is None:
+            raise PlanError(
+                f"{path} has no .bai/.csi sidecar -- region queries need a "
+                f"genomic index; build one with split.bai.write_bai")
+        meta = _FileMeta(path, ident, kind, header, header.ref_names, index)
+        with self._meta_lock:
+            # two threads may have built the same meta: the first insert
+            # wins so every caller shares one instance
+            existing = self._meta.get(ident)
+            if existing is not None:
+                return existing
+            if len(self._meta) >= 64:
+                self._meta.pop(next(iter(self._meta)))
+            self._meta[ident] = meta
+        return meta
+
+    # -- resolution ----------------------------------------------------------
+
+    def _resolve(self, meta: _FileMeta, region: str
+                 ) -> Tuple[Interval, List[Tuple[int, int]]]:
+        iv = resolve_interval(region, meta.ref_names)
+        if iv.rname not in meta.ref_names:
+            raise PlanError(
+                f"region contig {iv.rname!r} is not in {meta.path}'s "
+                f"reference dictionary")
+        rid = meta.ref_names.index(iv.rname)
+        return iv, meta.index.query(rid, iv.start - 1, iv.end)
+
+    def _coalesce(self, ranges: Sequence[Tuple[int, int]], kind: str
+                  ) -> List[Tuple[int, int]]:
+        """Merge overlapping or near-adjacent (start, end) ranges, at most
+        ``query_chunk_bytes`` compressed bytes a chunk (one oversized
+        range stays one chunk: the index gives no record-aligned interior
+        offsets).  Gaps and sizes are compressed bytes: BAM ranges are
+        virtual offsets (compressed offset = value >> 16), CRAM container
+        ranges raw byte offsets."""
+        shift = 0 if kind == "cram" else 16
+        cap_c = max(1 << 16, int(self.config.query_chunk_bytes))
+        out: List[Tuple[int, int]] = []
+        for s, e in sorted(set(ranges)):
+            if out:
+                ps, pe = out[-1]
+                gap_c = (s >> shift) - (pe >> shift)
+                size_c = (e >> shift) - (ps >> shift)
+                if s <= pe or (gap_c <= _COALESCE_GAP_C
+                               and size_c <= cap_c):
+                    if e > pe:
+                        out[-1] = (ps, e)
+                    continue
+            out.append((s, e))
+        return out
+
+    # -- chunk decode (cache + retry) ---------------------------------------
+
+    def chunk_key(self, meta: _FileMeta, s: int, e: int) -> Tuple:
+        return (meta.ident, meta.kind, s, e)
+
+    def _chunk(self, meta: _FileMeta, s: int, e: int) -> Dict[str, object]:
+        """Decoded chunk columns, cached by (identity, range) through the
+        single-flight cache path: concurrent callers on the same cold
+        chunk share one decode."""
+        return self.cache.get_or_compute(
+            self.chunk_key(meta, s, e),
+            lambda: self._compute_chunk(meta, s, e))
+
+    def _compute_chunk(self, meta: _FileMeta, s: int, e: int):
+        from hadoop_bam_torch.plan.executor import run_chunk_columns
+        return run_chunk_columns(
+            FileVirtualSpan(meta.path, s, e), self.config,
+            lambda sp: self._decode_bam_chunk(meta, sp))
+
+    def _decode_bam_chunk(self, meta: _FileMeta,
+                          span: FileVirtualSpan) -> Dict[str, object]:
+        from hadoop_bam_torch.split.planners import read_bam_span
+        batch = read_bam_span(meta.path, span, header=meta.header)
+        n = len(batch)
+        pos1 = batch.pos.astype(np.int64) + 1
+        end1 = pos1 + np.maximum(batch.reference_span(), 1) - 1
+        return {
+            "rid": batch.refid.astype(np.int32),
+            "pos1": np.minimum(pos1, _I32_MAX).astype(np.int32),
+            "end1": np.minimum(end1, _I32_MAX).astype(np.int32),
+            "batch": batch,
+            "n": n,
+            "nbytes": int(batch.data.nbytes) + 16 * n + 64,
+        }
+
+    @staticmethod
+    def _materialize(meta: _FileMeta, value: Dict[str, object], row: int):
+        from hadoop_bam_torch.formats.sam import SamRecord
+        return SamRecord.from_line(value["batch"].to_sam_line(row))
+
+    # -- serving -------------------------------------------------------------
+
+    def _prepare(self, requests: Sequence[QueryRequest], deadline: Deadline):
+        """Resolve + decode: (stream tuples, host refs, per-request
+        candidate counts, intervals)."""
+        tuples: List[Tuple[np.ndarray, ...]] = []
+        refs: List[Tuple[int, _FileMeta, Dict[str, object]]] = []
+        cand_counts = [0] * len(requests)
+        ivs: List[Optional[Interval]] = [None] * len(requests)
+        # per-request deadline overrides keep the batch's enqueue anchor:
+        # admission wait counts against them
+        req_deadlines = [
+            None if r.deadline_s is None
+            else deadline.rebudget(r.deadline_s)
+            for r in requests]
+
+        def check(i: int, what: str) -> None:
+            deadline.check(what)
+            if req_deadlines[i] is not None:
+                req_deadlines[i].check(f"{what} (request {i})")
+
+        # group by path, in first-appearance order
+        by_path: Dict[str, List[int]] = {}
+        for i, req in enumerate(requests):
+            by_path.setdefault(req.path, []).append(i)
+
+        plans = []           # (req_idx, meta, iv, ranges)
+        # ranges accumulate by file identity, not path string: two
+        # spellings of one file resolve to one identity
+        ranges_by_ident: Dict[Tuple, List[Tuple[int, int]]] = {}
+        kind_of_ident: Dict[Tuple, str] = {}
+        for path, req_idxs in by_path.items():
+            deadline.check("query resolve")
+            meta = self._file_meta(path)
+            acc = ranges_by_ident.setdefault(meta.ident, [])
+            kind_of_ident[meta.ident] = meta.kind
+            for i in req_idxs:
+                METRICS.count("query.requests")
+                check(i, "query resolve")
+                iv, ranges = self._resolve(meta, requests[i].region)
+                ivs[i] = iv
+                plans.append((i, meta, iv, ranges))
+                acc.extend(ranges)
+        chunk_sets = {
+            ident: self._coalesce(rs, kind_of_ident[ident])
+            for ident, rs in ranges_by_ident.items()}
+
+        for i, meta, iv, ranges in plans:
+            check(i, "query decode")
+            if not ranges:
+                continue
+            rid = np.int32(meta.ref_names.index(iv.rname))
+            iv_beg = np.int32(min(iv.start, int(_I32_MAX)))
+            iv_end = np.int32(min(iv.end, int(_I32_MAX)))
+            lo = min(s for s, _ in ranges)
+            hi = max(e for _, e in ranges)
+            for s, e in chunk_sets[meta.ident]:
+                if e <= lo or s >= hi:
+                    continue             # chunk serves other requests only
+                check(i, "query decode")
+                value = self._chunk(meta, s, e)
+                n = int(value["n"])
+                if not n:
+                    continue
+                cand_counts[i] += n
+                METRICS.count("query.rows_scanned", n)
+                tuples.append((
+                    value["rid"], value["pos1"], value["end1"],
+                    np.full(n, rid, np.int32),
+                    np.full(n, iv_beg, np.int32),
+                    np.full(n, iv_end, np.int32),
+                    np.full(n, i, np.int32),
+                ))
+                refs.append((i, meta, value))
+        return tuples, refs, cand_counts, ivs
+
+    def _stream_groups(self, tuples, deadline: Deadline,
+                       host_counts: Optional[List[np.ndarray]] = None
+                       ) -> Iterator[Dict]:
+        """Feed the candidate tuples through the FeedPipeline and yield
+        device batches {rid, pos, end, req, keep, n_records}, each a
+        ``[n_dev, rows]`` tensor the consumer owns; ``host_counts``
+        collects each group's row counts as the host packed them."""
+        from hadoop_bam_torch.parallel.pipeline import (
+            _CopiesDone, _owned_copy,
+        )
+        from hadoop_bam_torch.parallel.staging import FeedPipeline, TileSpec
+
+        if not tuples:
+            return
+        dev = self.device
+        fp = FeedPipeline(1, int(self.config.query_tile_records),
+                          [TileSpec((), np.int32)] * len(TILE_COLUMNS),
+                          block_n=64, pin_memory=dev.type == "cuda")
+
+        def emit(tensors, counts):
+            deadline.check("query filter")
+            cols = [_owned_copy(t, dev) for t in tensors]
+            n = _owned_copy(torch.from_numpy(counts), dev)
+            copies = _CopiesDone()
+            copies.record(dev)
+            if host_counts is not None:
+                host_counts.append(counts.copy())
+            keep = overlap_step(*cols, n)
+            return ({"rid": cols[0], "pos": cols[1], "end": cols[2],
+                     "req": cols[6], "keep": keep, "n_records": n},
+                    copies.handle())
+
+        yield from fp.stream(iter(tuples), emit)
+
+    @staticmethod
+    def _requests(requests) -> List[QueryRequest]:
+        return [r if isinstance(r, QueryRequest) else QueryRequest(*r)
+                for r in requests]
+
+    def tensor_batches(self, requests: Sequence[QueryRequest],
+                       deadline_s: Optional[float] = None) -> Iterator[Dict]:
+        """Device-batch surface (``api.query_regions``): yields
+        ``{rid, pos, end, req, keep, n_records}`` groups on the engine's
+        device, ``keep`` the K13 overlap mask and ``req`` each row's
+        request index."""
+        requests = self._requests(requests)
+        deadline = None
+        try:
+            with self.scheduler.admit(deadline_s) as deadline:
+                tuples, _refs, _counts, _ivs = self._prepare(requests,
+                                                             deadline)
+                yield from self._stream_groups(tuples, deadline)
+        finally:
+            # one tick per batch whose deadline was missed, whether it
+            # aborted mid-serve (check() booked it) or finished late
+            if deadline is not None and deadline.expired:
+                deadline.book_miss()
+
+    def query_records(self, requests: Sequence[QueryRequest],
+                      deadline_s: Optional[float] = None
+                      ) -> List[QueryResult]:
+        """Exact per-request record lists, index-pruned and filtered on
+        the device; file order within a request, request order across
+        the batch.  The keep masks come back in one copy at the end."""
+        requests = self._requests(requests)
+        batch_deadline = None
+        keeps: List[torch.Tensor] = []
+        try:
+            with self.scheduler.admit(deadline_s) as deadline:
+                batch_deadline = deadline
+                tuples, refs, cand_counts, _ivs = self._prepare(requests,
+                                                                deadline)
+                counts: List[np.ndarray] = []
+                for out in self._stream_groups(tuples, deadline, counts):
+                    c = counts[-1]
+                    keeps += [out["keep"][d, :int(c[d])]
+                              for d in range(c.size)]
+        finally:
+            if batch_deadline is not None and batch_deadline.expired:
+                batch_deadline.book_miss()
+        mask = torch.cat(keeps).cpu().numpy() if keeps \
+            else np.zeros(0, bool)
+        results = [QueryResult(req, [], cand_counts[i])
+                   for i, req in enumerate(requests)]
+        base = 0
+        for req_idx, meta, value in refs:
+            n = int(value["n"])
+            rows = np.flatnonzero(mask[base:base + n])
+            base += n
+            recs = results[req_idx].records
+            for row in rows:
+                recs.append(self._materialize(meta, value, int(row)))
+        METRICS.count("query.rows_matched",
+                      sum(len(r.records) for r in results))
+        return results
+
+    def stats(self) -> Dict[str, float]:
+        return self.cache.stats()

@@ -4,15 +4,19 @@ schedules (trimmed copy of hadoop_bam_tpu/resilience/chaos.py).
 An instrumented call site calls ``fire(point)``: one load of a module
 global when nothing is installed; otherwise the point's schedule may
 raise or delay.  ``KNOWN_POINTS`` is the reference's list; the port
-instruments two of them:
+instruments four of them:
 
 ========================  =================================================
-point                     instrumented at (``parallel/pipeline.py``)
+point                     instrumented at
 ========================  =================================================
+``pool.submit``           ``utils/pools.submit``, on the submitter's thread
+``pool.task``             ``utils/pools.submit``, on the worker thread
+                          before the task runs (a "delay" wedges it)
 ``decode.native``         the ladder-aware host span decode closures,
                           native rung only, inside the retry boundary
+                          (``parallel/pipeline.py``)
 ``device.step``           each token chunk's device step on the device
-                          decode plane
+                          decode plane (``parallel/pipeline.py``)
 ========================  =================================================
 
 Faults raise the taxonomy (``TransientIOError`` for "transient",

@@ -58,6 +58,10 @@ class SynthTruth:
     mean_qual: float
     regions: Dict[str, "SynthTruth"] = dataclasses.field(
         default_factory=dict)
+    # with keep_columns: each read's reference and 0-based position, in
+    # the file's order (every read is 151M: it covers [pos, pos + 151))
+    refid: Optional[np.ndarray] = None
+    pos: Optional[np.ndarray] = None
 
 
 class _Tally:
@@ -244,7 +248,8 @@ def write_synthetic_bam(path: str, n_reads: int, seed: int,
                         chunk_pairs: int = 1 << 16,
                         regions: Sequence[str] = (),
                         coordinate_sorted: bool = False,
-                        fastq: Optional[str] = None) -> SynthTruth:
+                        fastq: Optional[str] = None,
+                        keep_columns: bool = False) -> SynthTruth:
     """Write ``n_reads`` (even) paired reads to ``path``; return the
     truth, with seq-stats at the default payload geometry's max_len, and
     the truth over the reads overlapping each of ``regions``.  Mates are
@@ -252,7 +257,9 @@ def write_synthetic_bam(path: str, n_reads: int, seed: int,
     the same reads ordered by (contig, pos), unplaced reads last, as an
     indexed (``.bai``) BAM must be (held in memory: ~277 B a read).
     ``fastq`` also writes the reads, in the file's order, as the FASTQ
-    of ``write_synthetic_reads`` (one generation for both files)."""
+    of ``write_synthetic_reads`` (one generation for both files).
+    ``keep_columns`` keeps each read's refid and pos in the truth, in
+    the file's order (the query oracle's columns)."""
     if n_reads % 2:
         raise ValueError("n_reads must be even (reads come in pairs)")
     if fastq is not None and coordinate_sorted:
@@ -260,7 +267,7 @@ def write_synthetic_bam(path: str, n_reads: int, seed: int,
     rng = np.random.default_rng(seed)
     whole = _Tally()
     by_region = {r: _Tally() for r in regions}
-    held = []
+    held, cols_kept = [], []
     order = "coordinate" if coordinate_sorted else "unsorted"
     with BamWriter(path, header(order)) as w, \
             (open(fastq, "wb") if fastq else contextlib.nullcontext()) as fq:
@@ -271,6 +278,8 @@ def write_synthetic_bam(path: str, n_reads: int, seed: int,
                 held.append(rec)
             else:
                 w.write_raw(rec.tobytes(), rec.size)
+                if keep_columns:
+                    cols_kept.append(rec[["refid", "pos"]].copy())
             if fq is not None:
                 fq.write(_fastq_text(rec, codes, qual))
             whole.add(np.ones(rec.size, bool), codes, qual, cols)
@@ -284,11 +293,17 @@ def write_synthetic_bam(path: str, n_reads: int, seed: int,
             key = (np.where(refid < 0, len(CONTIGS), refid) << 32) + \
                 rec["pos"].astype(np.int64) + 1
             rec = rec[np.argsort(key, kind="stable")]
+            if keep_columns:
+                cols_kept.append(rec[["refid", "pos"]].copy())
             step = 2 * chunk_pairs
             for i in range(0, rec.size, step):
                 w.write_raw(rec[i:i + step].tobytes(), rec[i:i + step].size)
     truth = whole.truth()
     truth.regions = {r: t.truth() for r, t in by_region.items()}
+    if keep_columns:
+        kept = np.concatenate(cols_kept)
+        truth.refid = kept["refid"].astype(np.int32)
+        truth.pos = kept["pos"].astype(np.int64)
     return truth
 
 
@@ -588,3 +603,276 @@ def poison_allocator(dev) -> None:
     held += [torch.full((1 << 19,), 0xAB, dtype=torch.uint8, device=dev)
              for _ in range(32)]
     del held
+
+
+# ---------------------------------------------------------------------------
+# Coverage BAM: coordinate-sorted reads with mixed CIGARs, and its pileup
+# ---------------------------------------------------------------------------
+
+# op codes [SPEC]: M I D N S H P = X
+_M, _I, _D, _N, _S, _H, _EQ, _X = 0, 1, 2, 3, 4, 5, 7, 8
+_REF_OPS = (_M, _D, _N, _EQ, _X)
+_DEPTH_OPS = (_M, _EQ, _X)
+_QUERY_OPS = (_M, _I, _S, _EQ, _X)
+_OP_CHARS = "MIDNSHP=X"
+_COV_PREFIX = 36 + NAME_LEN              # prefix and read name
+_COV_SEQ = (READ_LEN + 1) // 2
+_COV_HEAD = np.dtype(RECORD.descr[:13])   # RECORD up to the read name
+
+
+@dataclasses.dataclass
+class CoverageTruth:
+    """The generator's own columns of ``write_coverage_bam``'s file, in
+    file order: each read's reference, 0-based position and FLAG, and its
+    CIGAR as a ragged list (``n_ops`` per read over ``op_len`` /
+    ``op_code``; n_ops 0 is a '*' CIGAR)."""
+    refid: np.ndarray              # int32 [n]
+    pos: np.ndarray                # int64 [n]
+    flag: np.ndarray               # int32 [n]
+    n_ops: np.ndarray              # int32 [n]
+    op_len: np.ndarray             # int64 [total ops]
+    op_code: np.ndarray            # uint8 [total ops]
+
+    @property
+    def n_reads(self) -> int:
+        return int(self.refid.size)
+
+    @property
+    def star_cigars(self) -> int:
+        return int((self.n_ops == 0).sum())
+
+    @property
+    def unmapped(self) -> int:
+        return int(((self.flag & FUNMAP) != 0).sum())
+
+    @property
+    def max_ops(self) -> int:
+        return int(self.n_ops.max())
+
+    def reads_over(self, k: int) -> int:
+        return int((self.n_ops > k).sum())
+
+    def on_ref(self, rid: int) -> int:
+        return int((self.refid == rid).sum())
+
+    def op_kinds(self) -> str:
+        return "".join(_OP_CHARS[c] for c in np.unique(self.op_code))
+
+
+def _cigar_table(rng: np.random.Generator, n: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """[n, 42] (length, code) tables of the CIGAR classes, one row a
+    read, each consuming READ_LEN query bases (zero-length ops are
+    dropped by the caller)."""
+    L = READ_LEN
+    k = 42
+    ln = np.zeros((n, k), np.int64)
+    code = np.zeros((n, k), np.uint8)
+    ln[:, 0] = L                                      # 151M by default
+    r = rng.random(n)
+
+    def rows(lo, hi):
+        return np.nonzero((r >= lo) & (r < hi))[0]
+
+    def put(idx, parts):
+        for j, (length, c) in enumerate(parts):
+            ln[idx, j] = length
+            code[idx, j] = c
+        ln[idx, len(parts):] = 0
+
+    idx = rows(0.850, 0.880)                          # soft clip, either end
+    s = rng.integers(1, 40, idx.size)
+    left = rng.random(idx.size) < 0.5
+    put(idx, [(np.where(left, s, L - s), np.where(left, _S, _M)),
+              (np.where(left, L - s, s), np.where(left, _M, _S))])
+    idx = rows(0.880, 0.895)                          # hard clips
+    h = rng.integers(1, 60, idx.size)
+    put(idx, [(h, _H), (np.full(idx.size, L), _M), (h[::-1], _H)])
+    idx = rows(0.895, 0.925)                          # 1-10 bp insertion
+    i = rng.integers(1, 11, idx.size)
+    a = rng.integers(10, L - 20, idx.size)
+    put(idx, [(a, _M), (i, _I), (L - a - i, _M)])
+    idx = rows(0.925, 0.955)                          # 1-10 bp deletion
+    d = rng.integers(1, 11, idx.size)
+    a = rng.integers(10, L - 10, idx.size)
+    put(idx, [(a, _M), (d, _D), (L - a, _M)])
+    idx = rows(0.955, 0.970)                          # =/X runs
+    a = rng.integers(5, 70, idx.size)
+    b = rng.integers(1, 4, idx.size)
+    c = rng.integers(5, 60, idx.size)
+    put(idx, [(a, _EQ), (b, _X), (c, _EQ), (np.ones(idx.size), _X),
+              (L - a - b - c - 1, _EQ)])
+    idx = rows(0.970, 0.985)                          # RNA-seq N skip
+    g = rng.integers(50, 5001, idx.size)
+    a = rng.integers(20, L - 20, idx.size)
+    s = rng.integers(0, 6, idx.size)
+    put(idx, [(s, _S), (a - s, _M), (g, _N), (L - a, _M)])
+    idx = rows(0.985, 0.997)                          # 9-16 ops
+    parts = []
+    used = np.zeros(idx.size, np.int64)
+    for j in range(7):
+        q = rng.integers(5, 15, idx.size)
+        parts += [(q, _M), (rng.integers(1, 4, idx.size),
+                            (_I, _D, _EQ, _X, _D, _I, _N)[j])]
+        used += q + (parts[-1][0] if parts[-1][1] in (_I, _EQ, _X) else 0)
+    parts.append((L - used, _M))
+    put(idx, parts)
+    idx = rows(0.997, 1.0)                            # 33-41 ops
+    parts = []
+    used = np.zeros(idx.size, np.int64)
+    for j in range(20):
+        q = rng.integers(2, 5, idx.size)
+        op = (_I, _D, _X, _N)[j % 4]
+        parts += [(q, _M), (np.ones(idx.size, np.int64), op)]
+        used += q + (1 if op in (_I, _X) else 0)
+    parts.append((L - used, _M))
+    put(idx, parts)
+    return ln, code
+
+
+def write_coverage_bam(path: str, n_reads: int, seed: int,
+                       span: int = 10_000_000,
+                       chunk: int = 1 << 16) -> CoverageTruth:
+    """Write ``n_reads`` (even) paired 151-bp reads piled over
+    chr20:1-``span`` as a coordinate-sorted BAM, and return the
+    generator's truth (``CoverageTruth``; ``coverage_oracle`` turns it
+    into depth).  2,000,000 reads over 10 Mb is about 30x.
+
+    Most reads are 151M.  The rest carry soft and hard clips, 1-10 bp
+    insertions and deletions, =/X runs, RNA-seq-like N skips of 50-5,000
+    bp, 9-16 ops and 33-41 ops; 3% of the pairs lie on chr21, 2% of the
+    reads are unmapped (at their mate's place, most with a '*' CIGAR,
+    some keeping one), 0.5% of the pairs are unplaced, and 0.2% of the
+    mapped reads have a '*' CIGAR.  Every read holds 151 bases."""
+    if n_reads % 2:
+        raise ValueError("n_reads must be even (reads come in pairs)")
+    rng = np.random.default_rng(seed)
+    n_pairs = n_reads // 2
+    n = n_reads
+    on21 = rng.random(n_pairs) < 0.03
+    lens = np.array([l for _, l in CONTIGS], np.int64)
+    start_hi = np.minimum(span, lens[on21.astype(int)]) - 12_000
+    pos1 = (rng.random(n_pairs) * start_hi).astype(np.int64)
+    insert = rng.integers(200, 600, n_pairs)
+    refid = np.repeat(on21.astype(np.int32), 2)
+    pos = np.stack([pos1, pos1 + insert - READ_LEN], 1).reshape(-1)
+    ln, code = _cigar_table(rng, n)
+    unmapped = rng.random(n) < 0.02
+    unplaced = np.repeat(rng.random(n_pairs) < 0.005, 2)
+    unmapped |= unplaced
+    star = (unmapped & (rng.random(n) < 0.8)) | unplaced | \
+        (~unmapped & (rng.random(n) < 0.002))
+    mate = np.arange(n) ^ 1
+    # an unmapped read sits at its mate's place; an unplaced pair nowhere
+    pos = np.where(unmapped & ~unplaced, pos[mate], pos)
+    refid = np.where(unplaced, -1, refid)
+    pos = np.where(unplaced, -1, pos)
+    ln[star] = 0
+    n_ops = (ln > 0).sum(1).astype(np.int32)
+    keep = ln > 0
+    flat_len = ln[keep]
+    flat_code = code[keep]
+    first = np.tile([True, False], n_pairs)
+    flag = (FPAIRED + np.where(first, FREAD1, FREAD2)
+            + np.where(unmapped, FUNMAP, 0)
+            + np.where(unmapped[mate], FMUNMAP, 0)
+            + np.where(~unmapped & ~unmapped[mate], FPROPER_PAIR, 0)
+            + np.where(rng.random(n) < 0.03, FDUP, 0)).astype(np.int32)
+    # coordinate order, unplaced reads last
+    key = (np.where(refid < 0, len(CONTIGS), refid).astype(np.int64)
+           << 32) + pos + 1
+    order = np.argsort(key, kind="stable")
+    off = np.concatenate([[0], np.cumsum(n_ops)])
+    n_ops_s = n_ops[order]
+    off_s = np.concatenate([[0], np.cumsum(n_ops_s)])
+    src = np.repeat(off[:-1][order], n_ops_s) + (
+        np.arange(off_s[-1]) - np.repeat(off_s[:-1], n_ops_s))
+    truth = CoverageTruth(refid=refid[order].astype(np.int32),
+                          pos=pos[order], flag=flag[order], n_ops=n_ops_s,
+                          op_len=flat_len[src], op_code=flat_code[src])
+    mate_refid = refid[mate][order]
+    mate_pos = pos[mate][order]
+    pair = (np.arange(n) // 2)[order]
+    ref_span = np.zeros(n, np.int64)
+    seg = np.repeat(np.arange(n), n_ops_s)
+    np.add.at(ref_span, seg, np.where(np.isin(truth.op_code, _REF_OPS),
+                                      truth.op_len, 0))
+    with BamWriter(path, header("coordinate")) as w:
+        for lo in range(0, n, chunk):
+            hi = min(n, lo + chunk)
+            w.write_raw(_coverage_records(
+                rng, truth, lo, hi, off_s, mate_refid[lo:hi],
+                mate_pos[lo:hi], pair[lo:hi], ref_span[lo:hi]), hi - lo)
+    return truth
+
+
+def _coverage_records(rng, truth: CoverageTruth, lo: int, hi: int,
+                      off_s: np.ndarray, mate_refid, mate_pos, pair,
+                      ref_span) -> bytes:
+    """Records [lo, hi) of the coverage BAM as concatenated bytes."""
+    k = hi - lo
+    nc = truth.n_ops[lo:hi].astype(np.int64)
+    size = _COV_PREFIX + 4 * nc + _COV_SEQ + READ_LEN
+    start = np.concatenate([[0], np.cumsum(size)])
+    buf = np.zeros(int(start[-1]), np.uint8)
+    pos = truth.pos[lo:hi]
+    prefix = np.zeros(k, _COV_HEAD)
+    prefix["block_size"] = size - 4
+    prefix["refid"] = truth.refid[lo:hi]
+    prefix["pos"] = pos
+    prefix["l_read_name"] = NAME_LEN
+    prefix["mapq"] = np.where(truth.flag[lo:hi] & FUNMAP, 0, 60)
+    p0 = np.maximum(pos, 0)
+    prefix["bin"] = np.where(pos >= 0, _reg2bin(
+        p0, p0 + np.maximum(ref_span, 1)), 4680)
+    prefix["n_cigar"] = nc
+    prefix["flag"] = truth.flag[lo:hi]
+    prefix["l_seq"] = READ_LEN
+    prefix["mate_refid"] = mate_refid
+    prefix["mate_pos"] = mate_pos
+    digits = (pair[:, None] // 10 ** np.arange(7, -1, -1)[None, :]) % 10
+    prefix["name"][:, 0] = ord("c")
+    prefix["name"][:, 1:9] = 48 + digits
+    pb = prefix.view(np.uint8).reshape(k, _COV_PREFIX)
+    buf[start[:-1, None] + np.arange(_COV_PREFIX)[None, :]] = pb
+    # cigar words
+    a, b = off_s[lo], off_s[hi]
+    words = ((truth.op_len[a:b] << 4) | truth.op_code[a:b]).astype("<u4")
+    row = np.repeat(np.arange(k), nc)
+    j = np.arange(b - a) - np.repeat(off_s[lo:hi] - a, nc)
+    dst = start[:-1][row] + _COV_PREFIX + 4 * j
+    buf[dst[:, None] + np.arange(4)[None, :]] = \
+        words.view(np.uint8).reshape(-1, 4)
+    # bases and qualities
+    codes = _CODES[rng.integers(0, 4, (k, READ_LEN + 1))]
+    seq = (codes[:, 0::2] << 4) | codes[:, 1::2]
+    at = start[:-1] + _COV_PREFIX + 4 * nc
+    buf[at[:, None] + np.arange(_COV_SEQ)[None, :]] = seq
+    buf[at[:, None] + _COV_SEQ + np.arange(READ_LEN)[None, :]] = \
+        rng.integers(2, 42, (k, READ_LEN), dtype=np.uint8)
+    return buf.tobytes()
+
+
+def coverage_oracle(truth: CoverageTruth, refid: int, win_start: int,
+                    window: int) -> np.ndarray:
+    """Per-base aligned depth over ``[win_start, win_start + window)``
+    (0-based) of reference ``refid``, from the generator's own columns:
+    M/=/X bases of reads without FLAG 0x4 on that reference, with D/N
+    moving the cursor.  NumPy only (int32 result)."""
+    n_ops = truth.n_ops.astype(np.int64)
+    seg = np.repeat(np.arange(truth.n_reads), n_ops)
+    adv = np.where(np.isin(truth.op_code, _REF_OPS), truth.op_len, 0)
+    # each op's reference start: the read's position plus the reference
+    # bases of the read's earlier ops
+    before = np.cumsum(adv) - adv
+    first = np.concatenate([[0], np.cumsum(n_ops)[:-1]])
+    has = n_ops > 0
+    read_base = np.repeat(before[first[has]], n_ops[has])
+    op_start = truth.pos[seg] + before - read_base
+    use = np.isin(truth.op_code, _DEPTH_OPS) & \
+        (truth.refid[seg] == refid) & ((truth.flag[seg] & FUNMAP) == 0)
+    s = np.clip(op_start[use] - win_start, 0, window)
+    e = np.clip(op_start[use] + truth.op_len[use] - win_start, 0, window)
+    diff = np.bincount(s, minlength=window + 1)[:window + 1] - \
+        np.bincount(e, minlength=window + 1)[:window + 1]
+    return np.cumsum(diff[:window]).astype(np.int32)

@@ -319,6 +319,19 @@ def fused_available() -> bool:
 FUSED_OFFSETS, FUSED_ROWS, FUSED_PAYLOAD = 0, 1, 2
 
 
+# fused jobs started and not yet joined (``live_jobs``): the span window
+# closes a losing or abandoned copy's job through its cleanup, and the
+# tests hold that no job outlives a driver call
+_LIVE_LOCK = threading.Lock()
+_LIVE = [0]
+
+
+def live_jobs() -> int:
+    """Fused native jobs whose workers have not been joined yet."""
+    with _LIVE_LOCK:
+        return _LIVE[0]
+
+
 class FusedJob:
     """One running ``hbam_fused_*`` span decode: native workers inflate
     runs of ``chunk_blocks`` blocks while the record walk and pack follow
@@ -374,6 +387,8 @@ class FusedJob:
             int(out_off.size), int(chunk_blocks), int(n_threads))
         if not self._h:
             raise ValueError("fused decode rejected its arguments")
+        with _LIVE_LOCK:
+            _LIVE[0] += 1
         self.rc = 0
         self.tail = int(start)
         self.n_rows = 0
@@ -408,6 +423,8 @@ class FusedJob:
             self._h, _ptr(tail, ctypes.c_int64),
             _ptr(n_rows, ctypes.c_int64), _ptr(err_index, ctypes.c_int64))
         self._h = None
+        with _LIVE_LOCK:
+            _LIVE[0] -= 1
         self.rc = int(rc)
         self.tail = int(tail[0])
         self.n_rows = int(n_rows[0])

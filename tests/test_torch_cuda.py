@@ -773,3 +773,119 @@ def test_phase11_fused_and_two_pass_on_card(phase11, fused):
     assert tub.unpack_fixed_fields.launches > k1
     assert tss.seq_qual_stats.launches > k2
     assert METRICS.get("pipeline.records") == 3 * truth.n_reads
+
+
+# ---------------------------------------------------------------------------
+# K12 (coverage) and K13 (region-query overlap): torch ops on the card
+# against the same ops on the CPU, and their drivers
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def coverage_bam(cuda, tmp_path):
+    from hadoop_bam_torch.split.bai import write_bai
+    from hadoop_bam_torch.synth import write_coverage_bam
+    path = str(tmp_path / "cov.bam")
+    truth = write_coverage_bam(path, 20_000, seed=4, span=300_000)
+    write_bai(path)
+    return path, truth
+
+
+@pytest.mark.parametrize("mc", [8, 64])
+def test_k12_coverage_step_on_card_matches_cpu(coverage_bam, mc):
+    from hadoop_bam_torch.parallel import pipeline as tp
+    from hadoop_bam_torch.split.planners import plan_bam_spans
+    path, _ = coverage_bam
+    rows = np.concatenate([tp.decode_span_cigar_rows(path, s, 64)
+                           for s in plan_bam_spans(path, num_spans=3)])
+    nc = rows[:, 8].astype(np.int64) | (rows[:, 9].astype(np.int64) << 8)
+    tile = np.ascontiguousarray(rows[nc <= mc, :tp._cigar_row_bytes(mc)])
+    host = torch.from_numpy(tile)
+    dev = host.to("cuda")
+    calls = tp.coverage_step.launches
+    for count, start, window in ((tile.shape[0], 0, 300_000),
+                                 (tile.shape[0] // 3, 100_000, 50_000)):
+        got = tp.coverage_step(dev, count, 0, start, window, mc)
+        want = tp.coverage_step(host, count, 0, start, window, mc)
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+        d = tp.coverage_depth_step(dev, count, 0, start, window, mc)
+        assert torch.equal(d.cpu(), torch.cumsum(want[:window], 0,
+                                                 dtype=torch.int32))
+    assert tp.coverage_step.launches == calls + 4
+
+
+def test_k12_int32_wrap_on_card_matches_cpu(cuda):
+    """Op starts past 2^31 wrap in int32 on the card as on the CPU."""
+    from hadoop_bam_torch.ops import cigar
+    rng = np.random.default_rng(9)
+    n, mc = 500, 16
+    words = ((rng.integers(0, 1 << 12, (n, mc)) << 4)
+             | rng.integers(0, 9, (n, mc))).astype(np.int64)
+    pos = rng.integers((1 << 31) - 30_000, (1 << 31) - 1, n).astype(
+        np.int32)
+    cols = [torch.from_numpy(a) for a in (
+        words, pos, rng.integers(-1, 2, n).astype(np.int32),
+        rng.integers(0, 4096, n).astype(np.int32), rng.random(n) < 0.9)]
+    want = cigar.window_coverage_from_tiles(*cols, 1, (1 << 31) - 40_000,
+                                            60_000)
+    got = cigar.window_coverage_from_tiles(*(c.to(cuda) for c in cols), 1,
+                                           (1 << 31) - 40_000, 60_000)
+    assert torch.equal(got.cpu(), want) and bool(want.any())
+
+
+def test_coverage_file_on_card_equals_cpu_and_oracle(coverage_bam):
+    import os
+    from hadoop_bam_torch.parallel import pipeline as tp
+    from hadoop_bam_torch.synth import coverage_oracle
+    path, truth = coverage_bam
+    for region, lo, window in (("chr20:1-300000", 0, 300_000),
+                               ("chr20:250001-310000", 250_000, 60_000)):
+        want = coverage_oracle(truth, 0, lo, window)
+        got = tp.coverage_file(path, region)
+        assert np.array_equal(got, want)
+        assert np.array_equal(tp.coverage_file(path, region, device="cpu"),
+                              want)
+        os.rename(path + ".bai", path + ".off")
+        try:
+            assert np.array_equal(tp.coverage_file(path, region), want)
+        finally:
+            os.rename(path + ".off", path + ".bai")
+
+
+def test_k13_overlap_step_on_card_matches_cpu(cuda):
+    from hadoop_bam_torch.query.engine import overlap_step
+    rng = np.random.default_rng(3)
+    cap = 8192
+    cols = [rng.integers(-1, 3, (1, cap)), rng.integers(1, 9000, (1, cap)),
+            rng.integers(1, 9000, (1, cap)), rng.integers(-1, 3, (1, cap)),
+            rng.integers(1, 9000, (1, cap)), rng.integers(1, 9000, (1, cap)),
+            rng.integers(0, 50, (1, cap))]
+    host = [torch.from_numpy(c.astype(np.int32)) for c in cols]
+    for count in (cap, 5000, 0):
+        n = torch.tensor([count], dtype=torch.int32)
+        want = overlap_step(*host, n)
+        got = overlap_step(*(c.to(cuda) for c in host), n.to(cuda))
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+        assert not bool(want[0, count:].any())
+
+
+def test_query_engine_on_card_equals_cpu(cuda, tmp_path):
+    from hadoop_bam_torch.api import query_regions
+    from hadoop_bam_torch.query import QueryEngine, QueryRequest
+    from hadoop_bam_torch.split.bai import write_bai
+    from hadoop_bam_torch.synth import write_synthetic_bam
+    path = str(tmp_path / "q.bam")
+    truth = write_synthetic_bam(path, 40_000, seed=6, coordinate_sorted=True,
+                                keep_columns=True)
+    write_bai(path)
+    regions = ["chr20:1-200000", "chr20:5,000,000-5,010,000", "chr21",
+               "chr21:100-40000", "chr20:1000000-1000050"]
+    reqs = [QueryRequest(path, r) for r in regions]
+    card, cpu = QueryEngine(), QueryEngine(device="cpu")
+    assert card.device.type == "cuda"
+    got = [[x.to_line() for x in r.records] for r in card.query_records(reqs)]
+    want = [[x.to_line() for x in r.records] for r in cpu.query_records(reqs)]
+    assert got == want and sum(map(len, got)) > 0
+    kept = sum(int(o["keep"].sum()) for o in query_regions(reqs, engine=card))
+    assert kept == sum(map(len, got))
+    pos1 = truth.pos[truth.refid == 1] + 1
+    assert len(got[2]) == pos1.size

@@ -734,3 +734,369 @@ def test_plan_streams_unless_the_circuit_needs_its_length(bam, skip):
     _same(*_run("flagstat", bam, _cfg(skip_bad_spans=skip), _plans(bam, 4),
                 tq, jq))
     assert tq.total_spans == jq.total_spans == 4
+
+
+# ---------------------------------------------------------------------------
+# tests/test_jobs.py: the span window's straggler and hang defence, and
+# the drivers under pool.task chaos
+# ---------------------------------------------------------------------------
+
+def _window(pkg):
+    """(iter_windowed, counters, chaos module) of one package."""
+    if pkg == "port":
+        return tp.iter_windowed, METRICS, tchaos
+    return jp._iter_windowed, JMETRICS, jres.chaos
+
+
+def _wcfg(pkg, **kw):
+    cfg = dataclasses.replace(JAX_CONFIG, **kw)
+    return config_from_dict(dataclasses.asdict(cfg)) if pkg == "port" \
+        else cfg
+
+
+@pytest.fixture()
+def pool():
+    import concurrent.futures as cf
+    p = cf.ThreadPoolExecutor(max_workers=8)
+    yield p
+    p.shutdown(wait=False, cancel_futures=True)
+
+
+PKGS = pytest.mark.parametrize("pkg", ["port", "reference"])
+
+
+@PKGS
+def test_window_speculates_on_a_straggler(pkg, pool):
+    """A unit outliving the soft deadline gets one second copy, which
+    wins; order is kept and nothing is yielded twice."""
+    import threading
+    import time
+    windowed, m, _ = _window(pkg)
+    seen, lock = set(), threading.Lock()
+
+    def fn(i):
+        with lock:
+            first = i not in seen
+            seen.add(i)
+        time.sleep(3.0 if i == 30 and first else 0.005)
+        return i
+
+    cfg = _wcfg(pkg, straggler_min_s=0.3, straggler_multiplier=2.0)
+    assert list(windowed(pool, range(32), fn, 4, config=cfg)) == \
+        list(range(32))
+    assert m.get("jobs.speculative_launched") == 1
+    assert m.get("jobs.speculative_won") == 1
+
+
+@PKGS
+def test_window_small_runs_never_speculate(pkg, pool):
+    windowed, m, _ = _window(pkg)
+    cfg = _wcfg(pkg, straggler_min_s=0.0, straggler_multiplier=0.0)
+    assert list(windowed(pool, range(8), lambda i: i, 4, config=cfg)) == \
+        list(range(8))
+    assert m.get("jobs.speculative_launched") == 0
+
+
+@PKGS
+def test_window_timeout_resubmits_past_wedged_worker(pkg, pool):
+    import threading
+    windowed, m, _ = _window(pkg)
+    release, lock, attempts = threading.Event(), threading.Lock(), {}
+
+    def fn(i):
+        with lock:
+            attempts[i] = attempts.get(i, 0) + 1
+            first = attempts[i] == 1
+        if i == 5 and first:
+            release.wait()
+            return -1
+        return i * 10
+
+    cfg = _wcfg(pkg, pool_task_timeout_s=0.25, speculative_decode=False)
+    try:
+        assert list(windowed(pool, range(8), fn, 4, config=cfg)) == \
+            [i * 10 for i in range(8)]
+        assert m.get("pool.task_timeouts") == 1
+        assert m.get("jobs.timeout_resubmits") == 1
+    finally:
+        release.set()
+
+
+@PKGS
+def test_window_timeout_exhaustion_is_transient(pkg, pool):
+    import threading
+    windowed, m, _ = _window(pkg)
+    release = threading.Event()
+
+    def fn(i):
+        if i == 2:
+            release.wait()
+        return i
+
+    cfg = _wcfg(pkg, pool_task_timeout_s=0.15, span_retries=1,
+                speculative_decode=False)
+    try:
+        with pytest.raises(Exception, match="pool_task_timeout") as e:
+            list(windowed(pool, range(4), fn, 2, config=cfg))
+        assert type(e.value).__name__ == "TransientIOError"
+        assert (m.get("pool.task_timeouts"),
+                m.get("jobs.timeout_resubmits")) == (2, 1)
+    finally:
+        release.set()
+
+
+@PKGS
+def test_window_does_not_resubmit_a_failed_unit(pkg, pool):
+    """A unit that failed (not timed out) raises at once: no resubmit."""
+    windowed, m, _ = _window(pkg)
+    calls = []
+
+    def fn(i):
+        if i == 1:
+            calls.append(i)
+            raise terr.CorruptDataError("bad bytes")
+        return i
+
+    cfg = _wcfg(pkg, pool_task_timeout_s=30.0, speculative_decode=False)
+    with pytest.raises(terr.CorruptDataError):
+        list(windowed(pool, range(4), fn, 2, config=cfg))
+    assert calls == [1] and m.get("jobs.timeout_resubmits") == 0
+
+
+@PKGS
+def test_window_timeout_is_active_wait_not_submit_age(pkg):
+    """Queue wait behind a healthy single worker does not count against
+    the deadline: the last units' submit age passes the 1.0 s timeout,
+    their active wait does not."""
+    import concurrent.futures as cf
+    import time
+    windowed, m, _ = _window(pkg)
+    one = cf.ThreadPoolExecutor(max_workers=1)
+
+    def fn(i):
+        time.sleep(0.7 if i == 0 else 0.3)
+        return i
+
+    cfg = _wcfg(pkg, pool_task_timeout_s=1.0, span_retries=0,
+                speculative_decode=False)
+    try:
+        assert list(windowed(one, range(4), fn, 4, config=cfg)) == \
+            list(range(4))
+        assert m.get("pool.task_timeouts") == 0
+    finally:
+        one.shutdown(wait=False, cancel_futures=True)
+
+
+@PKGS
+def test_window_pool_task_delay_is_resubmitted(pkg, pool):
+    """A ``pool.task`` chaos delay wedges one worker; the window
+    resubmits the unit and finishes long before the delay does."""
+    import time
+    windowed, m, chaos = _window(pkg)
+    cfg = _wcfg(pkg, pool_task_timeout_s=0.2, speculative_decode=False)
+    t0 = time.perf_counter()
+    with chaos.fault_points_on("pool.task", [chaos.PointFault(
+            kind="delay", at_call=1, delay_s=3.0)]):
+        assert list(windowed(pool, range(6), lambda i: i, 2,
+                             config=cfg)) == list(range(6))
+    assert time.perf_counter() - t0 < 2.5
+    assert m.get("pool.task_timeouts") == 1
+    assert m.get("chaos.pool.task.delay") == 1
+
+
+@PKGS
+def test_window_fully_wedged_pool_raises_within_grace(pkg):
+    import concurrent.futures as cf
+    import threading
+    import time
+    windowed, m, _ = _window(pkg)
+    release = threading.Event()
+    two = cf.ThreadPoolExecutor(max_workers=2)
+    cfg = _wcfg(pkg, pool_task_timeout_s=0.1, span_retries=1,
+                speculative_decode=False)
+    t0 = time.perf_counter()
+    try:
+        with pytest.raises(Exception, match="pool_task_timeout"):
+            list(windowed(two, range(4), lambda i: (release.wait(), i)[1],
+                          4, config=cfg))
+        assert time.perf_counter() - t0 < 5.0
+    finally:
+        release.set()
+        two.shutdown(wait=False, cancel_futures=True)
+
+
+@PKGS
+def test_window_retries_a_transient_submit_fault(pkg, pool):
+    windowed, m, chaos = _window(pkg)
+    with chaos.fault_points_on("pool.submit", [chaos.PointFault(
+            kind="transient", at_call=0)]):
+        assert list(windowed(pool, range(5), lambda i: i, 2,
+                             config=_wcfg(pkg))) == list(range(5))
+    assert m.get("pool.submit_retries") == 1
+
+
+def test_window_config_fields_carry_over():
+    """The four window settings come across with the reference's
+    defaults and values; without a config the wait is the plain blocking
+    one: a slow unit is waited for, nothing times out or speculates."""
+    import concurrent.futures as cf
+    import time
+    d = config_from_dict(dataclasses.asdict(JAX_CONFIG))
+    assert (d.pool_task_timeout_s, d.speculative_decode,
+            d.straggler_multiplier, d.straggler_min_s) == \
+        (None, True, 4.0, 0.5)
+    c = config_from_dict(dataclasses.asdict(dataclasses.replace(
+        JAX_CONFIG, pool_task_timeout_s=2.5, speculative_decode=False,
+        straggler_multiplier=3.0, straggler_min_s=0.1)))
+    assert (c.pool_task_timeout_s, c.speculative_decode,
+            c.straggler_multiplier, c.straggler_min_s) == \
+        (2.5, False, 3.0, 0.1)
+    with cf.ThreadPoolExecutor(2) as p:
+        assert list(tp.iter_windowed(
+            p, range(3), lambda i: (time.sleep(0.3 if i == 1 else 0), i)[1],
+            2)) == [0, 1, 2]
+    assert METRICS.get("pool.task_timeouts") == 0
+    assert METRICS.get("jobs.speculative_launched") == 0
+
+
+def _drive(pkg, driver, path, jcfg, spans):
+    """The outcome of one package's driver call (``_run`` runs both)."""
+    ts, js = spans
+    if pkg == "port":
+        tcfg = config_from_dict(dataclasses.asdict(jcfg))
+        if driver == "flagstat":
+            return _outcome(lambda: tp.flagstat_file(
+                path, device="cpu", config=tcfg, spans=ts))
+        return _outcome(lambda: tp.seq_stats_file(
+            path, device="cpu", config=tcfg, spans=ts, geometry=TGEOM))
+    if driver == "flagstat":
+        return _outcome(lambda: jp.flagstat_file(path, config=jcfg,
+                                                 spans=js))
+    return _outcome(lambda: jp.seq_stats_file(path, config=jcfg, spans=js,
+                                              geometry=GEOM))
+
+
+def _no_live_jobs_within(seconds):
+    """Poll (the garbage collector off) until no fused native job is
+    left: a job an abandoned copy started after the driver returned is
+    closed by the window's cleanup when its task ends."""
+    import gc
+    import time
+    from hadoop_bam_torch.utils import native
+    gc.disable()
+    try:
+        t_end = time.perf_counter() + seconds
+        while native.live_jobs() and time.perf_counter() < t_end:
+            time.sleep(0.02)
+        return native.live_jobs()
+    finally:
+        gc.enable()
+
+
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("driver", ["flagstat", "seq_stats"])
+def test_hung_spans_raise_transient_like_the_reference(bam, driver, skip):
+    """Every pool task wedged past ``pool_task_timeout_s``: both packages
+    raise TransientIOError within a bounded wall, under
+    ``skip_bad_spans`` too (the reference's window raises outside the
+    span policy, so nothing is quarantined), with the same timeout
+    counters; no native job outlives the abandoned copies."""
+    import time
+    spans = _plans(bam, 4)
+    cfg = _cfg(pool_task_timeout_s=0.1, span_retries=1,
+               speculative_decode=False, skip_bad_spans=skip,
+               decode_pool_workers=4)
+    out = []
+    for chaos in (tchaos, jres.chaos):
+        with chaos.fault_points_on("pool.task", [chaos.PointFault(
+                kind="delay", count=1000, delay_s=0.6)]):
+            t0 = time.perf_counter()
+            got = _drive("port" if chaos is tchaos else "reference",
+                         driver, bam, cfg, spans)
+            out.append((got, time.perf_counter() - t0))
+    (t, t_wall), (j, _) = out
+    _same(t, j)
+    assert t[0] == "err" and type(t[1]).__name__ == "TransientIOError"
+    assert "pool_task_timeout_s" in str(t[1])
+    assert t_wall < 3.0
+    for name in ("pool.task_timeouts", "jobs.timeout_resubmits",
+                 "pipeline.bad_spans"):
+        assert METRICS.get(name) == JMETRICS.get(name), name
+    assert METRICS.get("pipeline.bad_spans") == 0
+    assert _no_live_jobs_within(10.0) == 0
+
+
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("driver", ["flagstat", "seq_stats"])
+def test_one_hung_span_is_resubmitted_like_the_reference(bam, driver, skip):
+    """One wedged task: both packages resubmit it and return the whole
+    file's result, with one timeout and one resubmit each, before the
+    wedged copy wakes."""
+    import time
+    spans = _plans(bam, 4)
+    cfg = _cfg(pool_task_timeout_s=0.2, speculative_decode=False,
+               skip_bad_spans=skip, decode_pool_workers=4)
+    res = []
+    for chaos in (tchaos, jres.chaos):
+        with chaos.fault_points_on("pool.task", [chaos.PointFault(
+                kind="delay", at_call=1, delay_s=1.0)]):
+            res.append(_drive("port" if chaos is tchaos else "reference",
+                              driver, bam, cfg, spans))
+    _same(*res)
+    assert res[0][0] == "ok" and "quarantine" not in res[0][1]
+    for name in ("pool.task_timeouts", "jobs.timeout_resubmits"):
+        assert METRICS.get(name) == JMETRICS.get(name) == 1, name
+    # the wedged copy wakes, decodes and is reaped; nothing is recorded
+    assert _no_live_jobs_within(5.0) == 0
+    time.sleep(1.2)
+    assert _no_live_jobs_within(5.0) == 0
+    assert METRICS.get("pipeline.bad_spans") == 0
+
+
+@pytest.fixture(scope="module")
+def many_spans_bam(tmp_path_factory):
+    from hadoop_bam_torch.synth import write_synthetic_bam
+    path = str(tmp_path_factory.mktemp("tres_spec") / "s.bam")
+    truth = write_synthetic_bam(path, 40_000, 5)
+    return path, truth
+
+
+@pytest.mark.parametrize("driver", ["flagstat", "seq_stats"])
+def test_speculative_race_like_the_reference(many_spans_bam, driver):
+    """A straggling span decode past the soft deadline: both packages
+    race one second copy, the copy wins, the counters match and the
+    result is the truth.  The call returns while the losing copy is
+    still wedged (its chaos sleep is released only afterwards), and once
+    released its native job is closed by the window's cleanup (the
+    port's fused chunk streams)."""
+    import threading
+    path, truth = many_spans_bam
+    spans = _plans(path, 40)
+    assert len(spans[0]) >= 30
+    # the soft deadline is the p95 of the units' turnaround (submit to
+    # the consumer's pick-up): a straggler held until the call returns
+    # outlives it however slowly the consumer drains the window
+    cfg = _cfg(straggler_min_s=0.2, straggler_multiplier=1.0,
+               decode_pool_workers=4)
+    res = []
+    for chaos in (tchaos, jres.chaos):
+        release, woke = threading.Event(), []
+
+        def sleep(d, release=release, woke=woke):
+            release.wait(d)
+            woke.append(d)
+
+        with chaos.fault_points_on("pool.task", [chaos.PointFault(
+                kind="delay", at_call=28, delay_s=120.0)], sleep=sleep):
+            res.append(_drive("port" if chaos is tchaos else "reference",
+                              driver, path, cfg, spans))
+            assert woke == [], "the call returned before the loser woke"
+            release.set()
+    import time
+    time.sleep(0.5)                 # the released losers start their jobs
+    assert _no_live_jobs_within(10.0) == 0
+    _same(*res)
+    key = "total" if driver == "flagstat" else "n_reads"
+    assert res[0][1][key] == truth.n_reads
+    for name in ("jobs.speculative_launched", "jobs.speculative_won"):
+        assert METRICS.get(name) == JMETRICS.get(name) >= 1, name
