@@ -102,7 +102,29 @@ Phases (any failure raises and exits non-zero):
    BAM: 2,000,000 rows, through ``read_stats_step`` equal to
    ``seq_stats()``, with batches/s and GB/s delivered to the card; (e)
    ``unpack_step`` over one stacked span group equal to K1's plain
-   version.  Walls, reads/s and profiled busy shares of (a) and (d).
+   version.  Walls, reads/s and profiled busy shares of (a) and (d);
+13. coverage (K12) over a 30x BAM of mixed CIGARs through the ``.bai``,
+   1,000 batched region queries (K13) on phase 11's sorted copy, and the
+   span window's hang defence (``phase_coverage_query``);
+14. the resident region server (``hadoop_bam_torch.serve.ServeLoop``):
+   (a) K10i (``interval_cols``) bit for bit against its plain version at
+   the 64- and 17-block chunks of a BAM of mixed CIGARs (the chunk, random
+   n_cigar / l_read_name with offsets at the buffer's end, a 65-op row
+   raising ``over``, pos at the int32 edges, n_all -1 / 0 / past R, each
+   twice) and the whole serve step against ``resolve_walk_intervals_plain``,
+   with its time and bound; (b) the first 200 of phase 13 (b)'s regions,
+   one request at a time, at the default serve width (4,096-row tiles,
+   512 MiB) with prefetch off: native plane cold then warm (counts equal
+   to the engine's and the generator's; the warm pass decodes nothing on
+   the host, in its own ``MetricsContext``), a profiled warm pass, then
+   the device plane cold on a fresh loop (``serve.device_tile_builds``
+   > 0), and once more with every K10i launch held against its plain
+   version; K10i then checked in the same seven cases and timed at the
+   serve's own chunk shape (the R it launched most often: the ``.bai``
+   chunks of 1-10 kb regions), and the tile filter timed alone on one
+   [1, 4,096] tile group; (c) two tenants over TCP on port 0: 200 batch requests, then an
+   interactive one that must be answered while batch answers are still
+   to come.
 
 The plan memo would let a repeated call skip planning, so every timed
 driver call of phases 5, 9 and 11 and of ``--times`` / ``--turns``
@@ -115,7 +137,8 @@ limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 ``--times KERNEL`` stops after the build: it only checks and times that
 kernel at its shapes (``TIMES``: K9 and K10p at both chunk shapes, K7+K8
 at its three chunks, K2 at phase 12's FASTA window shape
-(``k2_window``); ``device_plane``: the profiled device-plane
+(``k2_window``); ``serve_tiles``: phase 14 on a sorted copy written
+beside the BAM; ``device_plane``: the profiled device-plane
 ``seq_stats()`` by kernel; ``native_plane``: the native plane's three
 drivers of phase 5, warmed up, five rounds in turn; ``bai_regions``:
 phase 11 (d)'s ``.bai`` runs on a sorted copy of the reads kept beside
@@ -321,6 +344,40 @@ def loop_ms(torch, calls, reps: int = 48) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, calls, reps: int = 32) -> float:
+    """Mean device ms per call with the host's launch cost taken out:
+    ``reps`` calls cycling through ``calls`` captured in one CUDA graph,
+    its replay timed by CUDA events (the median of five replays).  For
+    steps of several small torch kernels, whose calls in a row by events
+    time the host.  NaN, logged, where the calls cannot be captured."""
+    if not torch.cuda.is_available():
+        return float("nan")
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for call in calls:
+                call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(reps):
+                calls[i % len(calls)]()
+        times = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / reps)
+        return statistics.median(times)
+    except RuntimeError as e:
+        log(f"graph_ms: the calls could not be captured ({e})")
+        return float("nan")
 
 
 def kernel_split(torch, calls, reps: int = 32, kernel=None) -> dict:
@@ -864,10 +921,10 @@ def kernels_report(name):
             if "registers" in l or "spill" in l]
 
 
-def bam_chunk(torch, path, dev, n=64):
-    """The BAM's first ``n`` blocks resolved on the card as the device
-    plane ships them (rows padded to a power of two >= 8): (buf, total,
-    start of the first record, host copy of buf)."""
+def chunk_tokens(torch, path, dev, n):
+    """The BAM's first ``n`` blocks as the device plane stages them:
+    ([B, 65,536] int32 token bits with B a power of two >= 8, [B]
+    counts, [B] sizes) on ``dev``, and the first record's offset."""
     import numpy as np
     from hadoop_bam_torch.formats.bamio import read_bam_header
     from hadoop_bam_torch.ops import inflate_device as tid
@@ -876,11 +933,19 @@ def bam_chunk(torch, path, dev, n=64):
     tok, nt, iz = pad_tokens(native.deflate_tokenize_batch(
         np.frombuffer(raw, np.uint8), table["cdata_off"],
         table["cdata_len"], 1 << 16), tid.round_pow2(n, 8))
-    buf, total = tid.resolve_pack(*(torch.from_numpy(a).to(dev)
-                                    for a in (tok, nt, iz)))
     _, voff = read_bam_header(path)
     blk = int(np.nonzero(table["coffset"] == voff >> 16)[0][0])
     start = int(iz[:blk].sum()) + (voff & 0xFFFF)
+    return [torch.from_numpy(a).to(dev) for a in (tok, nt, iz)], start
+
+
+def bam_chunk(torch, path, dev, n=64):
+    """The BAM's first ``n`` blocks resolved on the card as the device
+    plane ships them (rows padded to a power of two >= 8): (buf, total,
+    start of the first record, host copy of buf)."""
+    from hadoop_bam_torch.ops import inflate_device as tid
+    tokens, start = chunk_tokens(torch, path, dev, n)
+    buf, total = tid.resolve_pack(*tokens)
     return buf, total, start, buf.cpu().numpy()
 
 
@@ -2719,6 +2784,7 @@ def phase_coverage_query(torch, path, truth, card, dev, args, srt,
         decoded_cold = METRICS.get("query.chunks_decoded")
         check(np.array_equal(got, want), "query_regions' kept counts equal "
               "the generator's")
+        engine_counts = got
         got, warm_wall = _timed(kept_counts)
         check(np.array_equal(got, want), "warm kept counts")
         stats = eng.stats()
@@ -2843,16 +2909,17 @@ def phase_coverage_query(torch, path, truth, card, dev, args, srt,
             f"truth in {wall:.3f} s (phase 5 "
             f"{native_walls.get('flagstat', float('nan')):.3f} s) [{card}]")
     finally:
-        for p in [cov, bai, bai + ".off", srt] + _sidecars(srt):
+        for p in [cov, bai, bai + ".off"]:
             if os.path.exists(p):
                 os.remove(p)
-        work11 = os.path.join(os.path.dirname(path), "phase11")
-        for w in (work, work11):
-            if os.path.isdir(w) and not os.listdir(w):
-                os.rmdir(w)
+        if os.path.isdir(work) and not os.listdir(work):
+            os.rmdir(work)
         cold()
-    return {"K12": dict(k12, launches=k12_launches),
-            "K13": dict(k13, launches=k13_launches)}
+    # phase 14 serves the first SERVE_REQUESTS of the same regions from
+    # the same sorted copy, and removes it
+    return ({"K12": dict(k12, launches=k12_launches),
+             "K13": dict(k13, launches=k13_launches)},
+            (regions, rid, beg, end, engine_counts))
 
 
 def coverage_query_times(torch, path, dev) -> dict:
@@ -2869,15 +2936,524 @@ def coverage_query_times(torch, path, dev) -> dict:
                                     coordinate_sorted=True,
                                     keep_columns=True)
     write_bai(srt)
-    return phase_coverage_query(torch, path, None, card_line(), dev, args,
-                                srt, srt_truth, {})
+    try:
+        return phase_coverage_query(torch, path, None, card_line(), dev,
+                                    args, srt, srt_truth, {})[0]
+    finally:
+        _remove_sorted(srt)
+
+
+SERVE_REQUESTS = 200
+
+
+def _remove_sorted(srt) -> None:
+    """Remove phase 11's sorted copy, its sidecars and its directory."""
+    for p in [srt] + _sidecars(srt):
+        if os.path.exists(p):
+            os.remove(p)
+    work = os.path.dirname(srt)
+    if os.path.basename(work) == "phase11" and os.path.isdir(work) \
+            and not os.listdir(work):
+        os.rmdir(work)
+
+
+def _k10i_inputs(torch, tokens, start):
+    """K10i's inputs on one chunk as the serve step makes them: the
+    resolved buffer, the walk's offsets, K1's five columns and n_all."""
+    from hadoop_bam_torch.ops import inflate_device as tid
+    buf, offs, cols, _, n_all, _, _ = tid._resolve_walk(
+        *tokens, start, 1 << 30, None)
+    return [buf, offs, cols["refid"], cols["pos"], cols["l_read_name"],
+            cols["n_cigar"], cols["l_seq"], n_all]
+
+
+def _k10i_bytes(torch, args) -> int:
+    """The bytes K10i must move: three int32 [R] outputs written once;
+    for each of the min(n_all, R) valid rows its offset and five columns
+    read once and its CIGAR words up to the cap; n_all and the flag."""
+    from hadoop_bam_torch.ops.inflate_device import DEVICE_TILE_CIGAR_CAP
+    R = args[1].shape[0]
+    nv = max(0, min(int(args[7]), R))
+    nc = torch.clamp(args[5][:nv].to(torch.int64), 0, DEVICE_TILE_CIGAR_CAP)
+    return 12 * R + 24 * nv + 4 * int(nc.sum()) + 8
+
+
+def _k10i_hold(torch, args, label, seed) -> None:
+    """K10i against its plain version, bit for bit, each case twice in a
+    row, on one chunk's inputs ``args`` (``_k10i_inputs``): the chunk as
+    it is, random n_cigar / l_read_name (the buffer's bytes read as CIGAR
+    words, op lengths that wrap int32) with offsets near the buffer's
+    end, a 65-op row (over = 1), pos at the int32 edges, and n_all -1, 0
+    and past R."""
+    import numpy as np
+    from hadoop_bam_torch.ops import inflate_device as tid
+    dev = args[1].device
+    R, L = args[1].shape[0], args[0].shape[0]
+    nv = int(args[7])
+    rng = np.random.default_rng(seed)
+
+    def col(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+    offs_edge = args[1].clone()
+    offs_edge[:8] = col([L - 40, L - 37, L - 1, 0, L - 300, 5, 7, 11])
+    rand = list(args)
+    rand[1] = offs_edge
+    rand[4] = col(rng.integers(0, 256, R))
+    rand[5] = col(rng.integers(0, tid.DEVICE_TILE_CIGAR_CAP + 1, R))
+    over = list(args)
+    nc65 = args[5].clone()
+    nc65[nv // 2] = 65
+    over[5] = nc65
+    edge = list(args)
+    pos = args[3].clone()
+    pos[:4] = col([2 ** 31 - 2, 2 ** 31 - 1, -1, -2 ** 31])
+    edge[3] = pos
+    cases = [("chunk", args), ("random n_cigar and l_read_name", rand),
+             ("a 65-op row", over), ("pos at the int32 edges", edge)]
+    for v in (-1, 0, R + 7):
+        a = list(args)
+        a[7] = torch.tensor([v], dtype=torch.int32, device=dev)
+        cases.append((f"n_all {v}", a))
+    for name, a in cases:
+        want = tid.interval_cols_plain(*a)
+        for _ in range(2):
+            got = tid.interval_cols(*a)
+            sync(torch, dev)
+            for g, w, what in zip(got, want,
+                                  ("rid", "pos1", "end1", "over")):
+                check(torch.equal(g.reshape(-1), w.reshape(-1)),
+                      f"K10i {what}, {label}, {name}")
+        if name == "a 65-op row":
+            check(int(got[3]) == 1, f"a 65-op row raises over ({label})")
+        elif name == "chunk":
+            check(int(got[3]) == 0 and nv > 0,
+                  f"the chunk's CIGARs fit ({label})")
+    log(f"K10i at the {label} (R = {R}, {L} buffer bytes, {nv} records): "
+        f"rid, pos1, end1 and over bit-equal to plain in {len(cases)} "
+        f"cases, twice each")
+
+
+def _k10i_times(torch, args) -> dict:
+    """K10i's device ms (profiler and events) and its plain version's
+    over 8 copies of one chunk's inputs, with the bound."""
+    from hadoop_bam_torch.ops import inflate_device as tid
+    copies = [[t.clone() if torch.is_tensor(t) else t for t in args]
+              for _ in range(8)]
+    calls = [lambda c=c: tid.interval_cols(*c) for c in copies]
+    nbytes = _k10i_bytes(torch, args)
+    return {"R": args[1].shape[0], "records": int(args[7]),
+            "nbytes": nbytes,
+            "ms": device_ms(torch, calls, kernel="interval_cols"),
+            "loop_ms": loop_ms(torch, calls),
+            "plain_ms": device_ms(torch, [
+                lambda c=c: tid.interval_cols_plain(*c) for c in copies]),
+            "bound_ms": nbytes / H100_BYTES_PER_S * 1e3}
+
+
+def k10i_check(torch, path, dev) -> dict:
+    """K10i against its plain version (``_k10i_hold``) on the 64- and
+    17-block chunks of ``path`` (mixed CIGARs), then the whole serve step
+    (``resolve_walk_intervals``) against ``resolve_walk_intervals_plain``.
+    Returns per chunk shape the device ms, plain ms, loop ms and bound."""
+    from hadoop_bam_torch.ops import inflate_device as tid
+    out = {}
+    for n in (64, 17):
+        tokens, start = chunk_tokens(torch, path, dev, n)
+        args = _k10i_inputs(torch, tokens, start)
+        _k10i_hold(torch, args, f"{n}-block chunk", n)
+        step = tid.resolve_walk_intervals(*tokens, start, 1 << 30)
+        plain = tid.resolve_walk_intervals_plain(*tokens, start, 1 << 30)
+        sync(torch, dev)
+        for g, w, what in zip(step, plain, ("rid", "pos1", "end1", "n_all",
+                                            "tail", "bad", "over")):
+            check(torch.equal(g.reshape(-1), w.reshape(-1)),
+                  f"resolve_walk_intervals {what} at {n} blocks")
+        out[f"{n}-block"] = _k10i_times(torch, args)
+    return out
+
+
+class _CheckedK10i:
+    """Stands in for ``interval_cols`` during a checked serve pass: each
+    call launches the kernel, holds its outputs bit for bit against
+    ``interval_cols_plain`` on the same inputs, and tallies the launch's
+    records by its row count R (``seen``), keeping per R the inputs of
+    the launch with the most records (``most``)."""
+
+    def __init__(self, torch, tid):
+        self.torch, self.tid = torch, tid
+        self.kernel = tid.interval_cols
+        self.seen, self.most = {}, {}
+
+    def __enter__(self):
+        self.tid.interval_cols = self
+        return self
+
+    def __exit__(self, *exc):
+        self.tid.interval_cols = self.kernel
+
+    # the kernel's wrapper counts its launch on the module's name, which
+    # is this stand-in while it is in place: keep the count on the kernel
+    @property
+    def launches(self):
+        return self.kernel.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.kernel.launches = n
+
+    def __call__(self, *a):
+        torch = self.torch
+        out = self.kernel(*a)
+        want = self.tid.interval_cols_plain(*a)
+        R = int(a[1].shape[0])
+        for g, w, what in zip(out, want, ("rid", "pos1", "end1", "over")):
+            check(torch.equal(g.reshape(-1), w.reshape(-1)),
+                  f"K10i {what} in the checked serve pass (R = {R})")
+        n = int(a[7])
+        self.seen.setdefault(R, []).append(n)
+        if n > int(self.most.get(R, [0] * 8)[7]):
+            self.most[R] = [t.clone() if torch.is_tensor(t) else t
+                            for t in a]
+        return out
+
+
+def _tile_filter_times(torch, srt_truth, dev) -> dict:
+    """``tile_filter_step`` alone on one [1, 4,096] tile group of the
+    sorted copy (its first 4,096 reads, every one 151M) against one
+    5 kb interval over them, over 8 copies: device ms by the profiler,
+    calls in a row by events, one CUDA graph of 32 calls replayed (the
+    six kernels without the host's launches), and the bound."""
+    import numpy as np
+    from hadoop_bam_torch.serve import tiles as st
+    cap = 4096
+    rid = np.asarray(srt_truth.refid[:cap], np.int32)
+    pos1 = np.asarray(srt_truth.pos[:cap], np.int32) + 1
+    cols = [torch.from_numpy(np.ascontiguousarray(c)).reshape(1, cap).to(dev)
+            for c in (rid, pos1, pos1 + 150)]
+    count = torch.tensor([cap], dtype=torch.int32, device=dev)
+    iv = torch.tensor([int(rid[cap // 2]), int(pos1[cap // 2]),
+                       int(pos1[cap // 2]) + 5000], dtype=torch.int32,
+                      device=dev)
+    copies = [[c.clone() for c in cols] + [count.clone(), iv.clone()]
+              for _ in range(8)]
+    calls = [lambda c=c: st.tile_filter_step(*c) for c in copies]
+    keep, hits = st.tile_filter_step(*copies[0])
+    check(int(hits.sum()) == int(keep.sum()) > 0,
+          "the tile filter keeps reads of the interval")
+    # three int32 columns, the count and the interval read once; the
+    # bool mask and the int32 hit count written once
+    nbytes = 3 * 4 * cap + 4 + 12 + cap + 4
+    return {"shape": f"[1, {cap}] int32", "nbytes": nbytes,
+            "ms": device_ms(torch, calls), "loop_ms": loop_ms(torch, calls),
+            "graph_ms": graph_ms(torch, calls),
+            "bound_ms": nbytes / H100_BYTES_PER_S * 1e3}
+
+
+def _serve_pass(loop, srt, regions):
+    """One request a region, in turn, each inside the pass's own
+    MetricsContext: (counts, n_candidates, tile hits, tile misses, wall,
+    per-request latencies, the context's metrics)."""
+    import numpy as np
+    from hadoop_bam_torch.utils.metrics import MetricsContext
+    counts, cands, hits, misses, lat = [], [], 0, 0, []
+    with MetricsContext() as m:
+        t0 = time.perf_counter()
+        for r in regions:
+            t1 = time.perf_counter()
+            res = loop.query(srt, [r])[0]
+            lat.append(time.perf_counter() - t1)
+            counts.append(res.count)
+            cands.append(res.n_candidates)
+            hits += res.tile_hits
+            misses += res.tile_misses
+        wall = time.perf_counter() - t0
+    return (np.asarray(counts), cands, hits, misses, wall,
+            np.asarray(lat), m)
+
+
+def _log_pass(what, p, card) -> None:
+    import numpy as np
+    counts, cands, hits, misses, wall, lat, m = p
+    s = m.hist_summary("serve.latency_s")
+    log(f"(b) {what}: {len(counts)} requests in {wall:.3f} s "
+        f"({len(counts) / wall:,.1f} requests/s), {int(counts.sum()):,} "
+        f"reads kept of {sum(cands):,} candidates; tile hits {hits}, "
+        f"misses {misses}; latency by the client p50 "
+        f"{1e3 * np.percentile(lat, 50):.3f} ms, p99 "
+        f"{1e3 * np.percentile(lat, 99):.3f} ms; serve.latency_s p50 "
+        f"{1e3 * s['p50']:.3f} ms, p99 {1e3 * s['p99']:.3f} ms; chunks "
+        f"decoded {m.counters.get('query.chunks_decoded', 0)}, host decode "
+        f"{m.timers.get('pipeline.host_decode', 0.0):.3f} s, inflate "
+        f"{m.timers.get('pipeline.inflate', 0.0):.3f} s, device tile "
+        f"builds {m.counters.get('serve.device_tile_builds', 0)} [{card}]")
+
+
+def _tcp_lines(host, port, docs, out, key):
+    """Send ``docs`` as JSONL on one connection, then read every answer;
+    appends (arrival perf_counter, doc) to ``out[key]``."""
+    import socket
+    with socket.create_connection((host, port), timeout=120) as s:
+        s.sendall("".join(json.dumps(d) + "\n" for d in docs).encode())
+        s.shutdown(socket.SHUT_WR)
+        buf = b""
+        while True:
+            chunk = s.recv(1 << 16)
+            if not chunk:
+                break
+            buf += chunk
+            while b"\n" in buf:
+                line, buf = buf.split(b"\n", 1)
+                out[key].append((time.perf_counter(), json.loads(line)))
+
+
+def phase_serve(torch, path, card, dev, seed, srt, srt_truth, served):
+    """Phase 14: the resident region server on cuda:0 (K10i, the serve
+    tiles, tenancy and the TCP transport) on phase 11's sorted copy,
+    for the first SERVE_REQUESTS regions of phase 13 (b).  Returns the
+    K10i row, every wrapper's launches in the serve runs, and the tile
+    filter's time alone."""
+    log("== phase 14: the resident region server on cuda:0")
+    import threading
+    import numpy as np
+    from hadoop_bam_torch import synth
+    from hadoop_bam_torch.config import HBamConfig
+    from hadoop_bam_torch.ops import inflate_device as tid
+    from hadoop_bam_torch.serve import ServeLoop, make_tcp_server
+    from hadoop_bam_torch.serve import tiles as st
+    regions, rid, beg, end, engine_counts = served
+    regions = list(regions[:SERVE_REQUESTS])
+    engine_counts = np.asarray(engine_counts[:SERVE_REQUESTS])
+    want = _query_oracle(srt_truth, rid[:SERVE_REQUESTS],
+                         beg[:SERVE_REQUESTS], end[:SERVE_REQUESTS])
+    check(np.array_equal(engine_counts, want),
+          "phase 13's engine counts equal the generator's")
+    work = os.path.join(os.path.dirname(path), "phase14")
+    os.makedirs(work, exist_ok=True)
+    cov = os.path.join(work, "cigars.bam")
+    try:
+        # (a) K10i against its plain version at both chunk shapes, on a
+        # BAM of mixed CIGARs
+        ctruth, w = _timed(lambda: synth.write_coverage_bam(
+            cov, 200_000, seed, span=COV_SPAN))
+        log(f"(a) {ctruth.n_reads} reads of mixed CIGARs ({w:.1f} s): ops "
+            f"{ctruth.op_kinds()}, {ctruth.star_cigars} '*', at most "
+            f"{ctruth.max_ops} ops")
+        times = k10i_check(torch, cov, dev)
+        for line in kernels_report("interval_cols"):
+            log(f"  ptxas: {line}")
+        for shape, x in times.items():
+            log(f"K10i at the {shape} chunk (R = {x['R']}, {x['records']} "
+                f"records): device {x['ms']:.4f} ms (plain "
+                f"{x['plain_ms']:.4f} ms, {x['loop_ms']:.4f} ms a call in a "
+                f"row by events), bound {x['bound_ms']:.6f} ms = "
+                f"{x['nbytes']} B / 3.35 TB/s, "
+                f"{100 * x['bound_ms'] / x['ms']:.1f}% of it [{card}]")
+        log("no single PyTorch call computes this function (library_ms "
+            "null)")
+        os.remove(cov)
+
+        # (b) the server at the default width on the native plane, cold
+        # then warm, then cold on the device plane on a fresh loop
+        reset_launches()
+        tid.interval_cols.launches = 0
+        st.tile_filter_step.launches = 0
+        native_cfg = HBamConfig(inflate_backend="native",
+                                serve_prefetch=False)
+        loop = ServeLoop(config=native_cfg).start()
+        try:
+            cold_p = _serve_pass(loop, srt, regions)
+            warm_p = _serve_pass(loop, srt, regions)
+            for what, p in (("native plane, cold", cold_p),
+                            ("native plane, warm", warm_p)):
+                check(np.array_equal(p[0], engine_counts),
+                      f"{what}: counts equal the engine's and the "
+                      f"generator's")
+                _log_pass(what, p, card)
+            cm, wm = cold_p[6], warm_p[6]
+            check(cm.counters.get("query.chunks_decoded", 0) > 0
+                  and cm.timers.get("pipeline.host_decode", 0) > 0
+                  and cm.timers.get("pipeline.inflate", 0) > 0,
+                  "the cold pass decodes on the host")
+            check(wm.counters.get("query.chunks_decoded", 0) == 0
+                  and wm.timers.get("pipeline.host_decode", 0.0) == 0.0
+                  and wm.timers.get("pipeline.inflate", 0.0) == 0.0
+                  and warm_p[3] == 0,
+                  "the warm pass decodes nothing on the host")
+            log(f"(b) tiles resident: {loop.tiles.stats()}")
+            wall, busy, by_name = device_busy(
+                torch, lambda: _serve_pass(loop, srt, regions))
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+            log(f"(b) warm pass profiled: {wall:.3f} s wall, device busy "
+                f"{busy:.4f} s ({100 * busy / wall:.2f}%); top: "
+                + "; ".join(f"{k[:60]} {v * 1e3:.2f} ms" for k, v in top)
+                + f" [{card}]")
+
+            # (c) two tenants over TCP on the warm loop: a batch flood,
+            # then one interactive request that overtakes it
+            server = make_tcp_server(loop, port=0)
+            host, port = server.server_address[:2]
+            t = threading.Thread(target=server.serve_forever, daemon=True)
+            t.start()
+            try:
+                got = {"bulk": [], "web": []}
+                bulk = [{"id": i, "path": srt, "region": r,
+                         "tenant": "bulk", "priority": "batch"}
+                        for i, r in enumerate(regions)]
+                tb = threading.Thread(target=_tcp_lines, args=(
+                    host, port, bulk, got, "bulk"))
+                t0 = time.perf_counter()
+                tb.start()
+                while not got["bulk"] and tb.is_alive():
+                    time.sleep(0.001)
+                t_web = time.perf_counter()
+                _tcp_lines(host, port, [{
+                    "id": "web", "path": srt, "region": regions[0],
+                    "tenant": "web", "priority": "interactive"}], got,
+                    "web")
+                tb.join(120)
+                wall = time.perf_counter() - t0
+            finally:
+                server.shutdown()
+                server.server_close()
+                t.join(10)
+            docs = {d["id"]: d for _, d in got["bulk"]}
+            check(len(docs) == len(regions) and all(
+                "results" in d for d in docs.values()),
+                "every batch request answered over TCP")
+            tcp_counts = np.asarray([docs[i]["results"][0]["count"]
+                                     for i in range(len(regions))])
+            check(np.array_equal(tcp_counts, engine_counts),
+                  "TCP counts equal (b)'s")
+            (t_ans, web), = got["web"]
+            check(web["results"][0]["count"] == engine_counts[0],
+                  "the interactive count")
+            after = sum(1 for ta, _ in got["bulk"] if ta > t_ans)
+            check(after > 0, "the interactive request overtook queued "
+                  "batch requests")
+            log(f"(c) TCP, two tenants: {len(regions)} batch requests and "
+                f"one interactive request sent after the first batch answer"
+                f" ({1e3 * (t_web - t0):.1f} ms in), answered in "
+                f"{1e3 * (t_ans - t_web):.2f} ms with {after} batch answers "
+                f"still to come; all counts equal (b)'s; {wall:.3f} s in "
+                f"all [{card}]")
+        finally:
+            loop.stop()
+        # the device plane, cold, on a fresh loop
+        dev_cfg = HBamConfig(inflate_backend="device", serve_prefetch=False)
+        loop = ServeLoop(config=dev_cfg).start()
+        try:
+            dev_p = _serve_pass(loop, srt, regions)
+            check(np.array_equal(dev_p[0], engine_counts),
+                  "device plane: counts equal the engine's")
+            check(dev_p[6].counters.get("serve.device_tile_builds", 0) > 0,
+                  "serve.device_tile_builds > 0")
+            _log_pass("device plane, cold", dev_p, card)
+        finally:
+            loop.stop()
+        launches = dict(read_launches(),
+                        interval_cols=tid.interval_cols.launches,
+                        tile_filter_step=st.tile_filter_step.launches)
+        log(f"launches in the serve runs: {launches}")
+        check(launches["interval_cols"] > 0, "K10i ran on the main path")
+        check(launches["tile_filter_step"] > 0,
+              "the tile filter ran on the main path")
+
+        # the device plane again on a fresh loop, every K10i launch held
+        # against its plain version; then K10i checked and timed at the
+        # serve's own chunk shape (the R it launched most often), and
+        # the tile filter timed alone on one tile group
+        loop = ServeLoop(config=dev_cfg).start()
+        try:
+            with _CheckedK10i(torch, tid) as k10i:
+                chk_p = _serve_pass(loop, srt, regions)
+        finally:
+            loop.stop()
+        check(np.array_equal(chk_p[0], engine_counts),
+              "checked device plane: counts equal the engine's")
+        by_R = {R: len(n) for R, n in sorted(k10i.seen.items())}
+        R_serve = max(by_R, key=by_R.get)
+        log(f"(b) checked device-plane pass: all {sum(by_R.values())} K10i "
+            f"launches bit-equal to plain (the timed pass launched "
+            f"{launches['interval_cols']}); launches by R {by_R}; records "
+            f"a launch at R = {R_serve}: median "
+            f"{statistics.median(k10i.seen[R_serve])}, most "
+            f"{max(k10i.seen[R_serve])} (the chunk checked and timed)")
+        serve_args = k10i.most[R_serve]
+        _k10i_hold(torch, serve_args, "serve chunk", 14)
+        times["serve"] = _k10i_times(torch, serve_args)
+        del k10i
+        x = times["serve"]
+        log(f"K10i at the serve chunk (R = {x['R']}, {x['records']} "
+            f"records): device {x['ms']:.4f} ms (plain {x['plain_ms']:.4f} "
+            f"ms, {x['loop_ms']:.4f} ms a call in a row by events), bound "
+            f"{x['bound_ms']:.6f} ms = {x['nbytes']} B / 3.35 TB/s, "
+            f"{100 * x['bound_ms'] / x['ms']:.1f}% of it [{card}]")
+        tf = _tile_filter_times(torch, srt_truth, dev)
+        log(f"K13 rest (tile_filter_step) alone at {tf['shape']}: "
+            f"{tf['graph_ms']:.5f} ms a call in one CUDA graph replayed, "
+            f"{tf['ms']:.5f} ms by device_ms, {tf['loop_ms']:.5f} ms a call "
+            f"in a row by events (the host's launches); bound "
+            f"{tf['bound_ms']:.7f} ms = {tf['nbytes']} B / 3.35 TB/s, "
+            f"{100 * tf['bound_ms'] / tf['graph_ms']:.2f}% of the graph's "
+            f"time [{card}]")
+    finally:
+        if os.path.exists(cov):
+            os.remove(cov)
+        if os.path.isdir(work) and not os.listdir(work):
+            os.rmdir(work)
+        _remove_sorted(srt)
+    big, main = times["64-block"], times["serve"]
+    row = {"name": "interval_cols", "route": "cuda",
+           "source": "hadoop_bam_torch/csrc/interval_cols.cu",
+           "replaces": "hadoop_bam_tpu/ops/inflate_device.py:335",
+           "max_abs_err": 0, "ms": big["ms"], "loop_ms": big["loop_ms"],
+           "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+           "bound_by": "bytes", "library_ms": None,
+           "main_path_shape": _shape_row(
+               f"serve chunk: {main['R']} rows, {main['records']} records",
+               0, main["ms"], main["plain_ms"], main["nbytes"])}
+    return row, launches, tf
+
+
+def serve_tiles_times(torch, path, dev) -> dict:
+    """``--times serve_tiles``: phase 14 alone, on a sorted copy of the
+    BAM's reads written beside it, with the engine's counts of its
+    regions computed here."""
+    import numpy as np
+    from hadoop_bam_torch.api import query_regions
+    from hadoop_bam_torch.formats.bamio import read_bam_header
+    from hadoop_bam_torch.query import engine as qe
+    from hadoop_bam_torch.split.bai import write_bai
+    from hadoop_bam_torch.synth import write_synthetic_bam
+    base = os.path.basename(path)[:-len(".bam")].split("_")
+    srt = path[:-len(".bam")] + "_sorted14.bam"
+    srt_truth = write_synthetic_bam(srt, int(base[2]), int(base[1]),
+                                    coordinate_sorted=True,
+                                    keep_columns=True)
+    write_bai(srt)
+    seed = int(base[1])
+    header, _ = read_bam_header(srt)
+    rid, beg, end = _query_batch(np.random.default_rng(seed + 13),
+                                 header.ref_names, header.ref_lengths,
+                                 QUERY_REGIONS)
+    regions = [f"{header.ref_names[r]}:{s}-{e}"
+               for r, s, e in zip(rid, beg, end)][:SERVE_REQUESTS]
+    reqs = [qe.QueryRequest(srt, r) for r in regions]
+    acc = torch.zeros(len(reqs), dtype=torch.int64, device=dev)
+    for out in query_regions(reqs, engine=qe.QueryEngine()):
+        acc += torch.bincount(out["req"][out["keep"]], minlength=len(reqs))
+    row, launches, tf = phase_serve(torch, path, card_line(), dev, seed,
+                                    srt, srt_truth, (regions, rid, beg, end,
+                                                     acc.cpu().numpy()))
+    return {"K10i": row, "launches": launches, "tile_filter_step": tf}
 
 
 TIMES = {"walk_records_device": k9_times, "resolve_pack": k7_times,
          "payload_gather": k10p_times, "device_plane": device_plane_times,
          "native_plane": native_plane_times, "k2_window": k2_window_times,
          "bai_regions": bai_regions_times,
-         "coverage_query": coverage_query_times}
+         "coverage_query": coverage_query_times,
+         "serve_tiles": serve_tiles_times}
 
 
 def check_truth(flag, stats, truth) -> None:
@@ -2959,8 +3535,11 @@ def main(argv=None) -> int:
         plan_s, interval_walls)
     reads_launches, k2_window = phase_reads(torch, path, truth, card, dev,
                                             args, native_walls)
-    steps = phase_coverage_query(torch, path, truth, card, dev, args, srt,
-                                 srt_truth, native_walls)
+    steps, served = phase_coverage_query(torch, path, truth, card, dev, args,
+                                         srt, srt_truth, native_walls)
+    k10i, serve_launches, tile_filter = phase_serve(
+        torch, path, card, dev, args.seed, srt, srt_truth, served)
+    rows["interval_cols"] = k10i
     rows["seq_qual_stats"].update(k2_window)
     for name, x in list(rows.items()) + [
             ("seq_qual_stats at the window shape",
@@ -2972,16 +3551,24 @@ def main(argv=None) -> int:
         check(x["bound_ms"] <= x["ms"] <= 1.2 * x["loop_ms"],
               f"{name}: the profiler's {x['ms']:.4f} ms lies between the "
               f"bound and the back-to-back event time")
+    counted = set(_wrappers())   # the kernels every earlier path counts
     for name, row in rows.items():
+        def on(launches):
+            # K10i runs on the serve path alone: the earlier paths' counts
+            # do not hold it
+            return launches[name] if name in counted else 0
         by_path = {"native": native_launches.get(name, 0),
-                   "device": device_launches[name],
-                   "resilience": resilience_launches[name],
-                   "planning": planning_launches[name],
-                   "reads": reads_launches[name]}
+                   "device": on(device_launches),
+                   "resilience": on(resilience_launches),
+                   "planning": on(planning_launches),
+                   "reads": on(reads_launches),
+                   "serve": serve_launches[name]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
-    log(f"torch-op steps of phase 13 (no hand kernel): "
+    steps["K13 rest (tile_filter_step)"] = dict(
+        tile_filter, launches=serve_launches["tile_filter_step"])
+    log(f"torch-op steps of phases 13-14 (no hand kernel): "
         f"{json.dumps(steps)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))

@@ -120,6 +120,42 @@ class HBamConfig:
     query_queue_depth: int = 32
     query_deadline_s: Optional[float] = None
 
+    # the resident region server (serve/: ServeLoop): the device-resident
+    # interval-tile LRU budget and rows per tile, adjacent-window
+    # prefetch at background pool priority, per-tenant admission
+    # (running + bounded wait queue, idle gates LRU past max_tenants),
+    # the tile builder's staging-ring slots, the retry hint on sheds and
+    # the fault pressure that pauses prefetch.  serve_replica_id and
+    # serve_peers name a fleet, which the port refuses until it is
+    # ported; serve_cohort_manifests is carried for the cohort plane
+    serve_tile_cache_bytes: int = 512 << 20
+    serve_tile_records: int = 4096
+    serve_prefetch: bool = True
+    serve_prefetch_depth: int = 2
+    serve_recent_regions: int = 16
+    serve_tenant_max_in_flight: int = 4
+    serve_tenant_queue_depth: int = 16
+    serve_max_tenants: int = 64
+    serve_ring_slots: int = 3
+    serve_replica_id: Optional[str] = None
+    serve_peers: str = ""
+    serve_shed_retry_after_s: float = 0.1
+    serve_prefetch_pause_pressure: float = 3.0
+    serve_cohort_manifests: int = 8
+
+    # live ops (obs/flight.py, obs/slo.py): where flight-recorder dumps
+    # land (None: the ring stays in memory) and how many are kept; the
+    # per-tenant latency objective, its target, the burn-window tick,
+    # the events below which a window reads 0, and whether a burning
+    # tenant's batch work is shed
+    flight_dump_dir: Optional[str] = None
+    flight_dump_cap: int = 16
+    slo_latency_s: float = 1.0
+    slo_target: float = 0.99
+    slo_tick_s: float = 10.0
+    slo_min_events: int = 64
+    slo_shed_batch: bool = True
+
     # FASTQ / QSEQ input (api/read_datasets.py): the quality encoding of
     # the text (re-based to Sanger on read) and whether reads whose
     # Illumina filter flag failed are dropped

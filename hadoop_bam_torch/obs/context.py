@@ -1,0 +1,146 @@
+"""TraceContext: the causal request identity every span and journal
+line can carry (copy of hadoop_bam_tpu/obs/context.py).
+
+The PR-6 obs layer answered "where did the wall go" per PROCESS; a
+multi-tenant serve tier with breakers and shedding, journaled jobs, and
+a cohort plane also needs "why was THIS request slow" — which requires
+attributing spans to a request, not a process.  A ``TraceContext`` is
+minted at every entry point (one serve transport line, one ``hbam`` CLI
+verb, one job start, one query batch) and rides a ``contextvars``
+variable, so every propagation seam the codebase already has — the
+shared decode pool (``utils.pools.submit`` copies the submitter's
+context), the staging packer thread, the serve dispatcher (jobs run
+under the submitter's contextvars snapshot), prefetch background tasks
+— carries it for free:
+
+- ``Metrics.span`` stamps the trace id (and, when tracing is enabled,
+  a span id + parent span id) onto every trace-ring event, so the
+  Chrome-trace export reconstructs ONE causally-linked tree per request
+  across threads;
+- the flight recorder (``obs/flight.py``) records the trace id on every
+  span completion, so a breaker-trip dump names the request that
+  tripped it;
+- ``jobs.JobJournal`` stamps the trace id on every journal line, so
+  ``hbam jobs --json`` reports which invocation wrote a journal.
+
+Minting is cheap (8 random bytes + one contextvar set) and therefore
+UNCONDITIONAL at entry points.  Span ids are only allocated while
+tracing is enabled; the port has no trace ring yet (ROADMAP item 12),
+so ``Metrics.span`` never allocates them and ``begin_span`` /
+``end_span`` serve callers that track their own child spans.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+import itertools
+import os
+from typing import Iterator, Optional, Tuple
+
+# root span id of a freshly-minted trace: events whose parent is
+# _ROOT_SPAN are the top of the request's tree
+_ROOT_SPAN = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceContext:
+    """One request/job identity: immutable, cheap to fork per span."""
+
+    trace_id: str                       # 16 hex chars, process-unique++
+    span_id: int = _ROOT_SPAN           # innermost ACTIVE span's id
+    op: str = ""                        # entry point ("serve.request",
+    #                                     "cli.sort", "job.cohort_join")
+    tenant: Optional[str] = None
+    deadline_s: Optional[float] = None
+
+
+_CURRENT: "contextvars.ContextVar[Optional[TraceContext]]" = \
+    contextvars.ContextVar("hbam_trace_ctx", default=None)
+
+# span ids are process-wide (CPython's itertools.count.__next__ is
+# atomic — the same idiom ServeLoop uses for its dispatch sequence)
+_SPAN_IDS = itertools.count(1)
+
+
+def new_trace_id() -> str:
+    return os.urandom(8).hex()
+
+
+# the fleet identity of THIS process (serve/fleet.py sets it once at
+# replica construction): stamped on every span event so a Chrome-trace
+# or flight dump assembled from N replicas attributes each span to the
+# process that did the work.  None outside a fleet — spans stay as they
+# were, zero overhead beyond one global read.
+_REPLICA_ID: Optional[str] = None
+
+
+def set_replica_id(replica_id: Optional[str]) -> None:
+    global _REPLICA_ID
+    _REPLICA_ID = str(replica_id) if replica_id is not None else None
+
+
+def replica_id() -> Optional[str]:
+    return _REPLICA_ID
+
+
+def current_trace() -> Optional[TraceContext]:
+    """The active TraceContext, or None outside any entry point."""
+    return _CURRENT.get()
+
+
+def current_trace_id() -> Optional[str]:
+    ctx = _CURRENT.get()
+    return ctx.trace_id if ctx is not None else None
+
+
+@contextlib.contextmanager
+def trace_context(op: str = "", tenant: Optional[str] = None,
+                  deadline_s: Optional[float] = None,
+                  trace_id: Optional[str] = None
+                  ) -> Iterator[TraceContext]:
+    """Mint a NEW root TraceContext for the block — the entry-point
+    primitive.  Pass ``trace_id`` to adopt a caller-supplied id (a
+    client header, a journal's recorded trace)."""
+    ctx = TraceContext(trace_id=trace_id or new_trace_id(), op=op,
+                       tenant=tenant, deadline_s=deadline_s)
+    tok = _CURRENT.set(ctx)
+    try:
+        yield ctx
+    finally:
+        _CURRENT.reset(tok)
+
+
+@contextlib.contextmanager
+def ensure_trace(op: str = "", tenant: Optional[str] = None,
+                 deadline_s: Optional[float] = None
+                 ) -> Iterator[TraceContext]:
+    """Library entry points use this instead of ``trace_context``: when
+    an outer entry point (a CLI verb, a transport line) already minted a
+    trace, join it; otherwise mint one — so a direct library caller
+    still gets end-to-end ids without double-minting under the CLI."""
+    cur = _CURRENT.get()
+    if cur is not None:
+        yield cur
+        return
+    with trace_context(op=op, tenant=tenant,
+                       deadline_s=deadline_s) as ctx:
+        yield ctx
+
+
+def begin_span() -> Optional[Tuple["contextvars.Token", str, int, int]]:
+    """Allocate a child span under the current trace and make it the
+    active parent: returns ``(reset_token, trace_id, span_id,
+    parent_span_id)``, or None when no trace is active.  Only called
+    while tracing is ENABLED (``Metrics.span``); the token must be
+    handed back to ``end_span`` in the same context."""
+    cur = _CURRENT.get()
+    if cur is None:
+        return None
+    sid = next(_SPAN_IDS)
+    tok = _CURRENT.set(dataclasses.replace(cur, span_id=sid))
+    return tok, cur.trace_id, sid, cur.span_id
+
+
+def end_span(token: "contextvars.Token") -> None:
+    _CURRENT.reset(token)

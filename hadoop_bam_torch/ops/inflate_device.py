@@ -15,10 +15,14 @@ Everything after that runs here, on one chunk of at most 64 blocks:
   start a complete record, tile by tile;
 - ``unpack_fixed_fields`` (K1) at the walk's offsets;
 - ``payload_gather`` (K10p, ``csrc/payload_gather.cu``): each record's
-  packed bases and quals into the fixed-stride tiles K2 reads.
+  packed bases and quals into the fixed-stride tiles K2 reads;
+- ``interval_cols`` (K10i, ``csrc/interval_cols.cu``): each record's
+  (rid, pos1, end1) interval columns, end1 from its own CIGAR, for the
+  serve tiles.
 
-``resolve_walk_fields`` and ``resolve_walk_payload`` chain them, so the
-inflated bytes never exist on the host.  Each wrapper launches its kernel
+``resolve_walk_fields``, ``resolve_walk_payload`` and
+``resolve_walk_intervals`` chain them, so the inflated bytes never
+exist on the host.  Each wrapper launches its kernel
 on a CUDA tensor (``<wrapper>.launches`` counts the launches) and runs
 its plain PyTorch version, kept beside it, on a CPU tensor.
 
@@ -546,6 +550,120 @@ payload_gather.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K10i: the serve tiles' interval columns
+# ---------------------------------------------------------------------------
+
+# CIGAR ops a record may have for the serve-tile device walk.  A chunk
+# with a longer CIGAR raises ``over`` and the caller builds it on the
+# host: an end1 from a truncated CIGAR would be wrong (the reference's
+# value, which keeps its gather tile [R, 64, 4] bytes).
+DEVICE_TILE_CIGAR_CAP = 64
+
+_I32_MAX = (1 << 31) - 1
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> the int32 value two's-complement arithmetic leaves."""
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def interval_cols_plain(buf: torch.Tensor, offs: torch.Tensor,
+                        refid: torch.Tensor, pos: torch.Tensor,
+                        l_read_name: torch.Tensor, n_cigar: torch.Tensor,
+                        l_seq: torch.Tensor, n_all: Scalar,
+                        cap: int = DEVICE_TILE_CIGAR_CAP):
+    """Plain version of K10i: the reference's [R, cap] formulation (every
+    row's first ``cap`` CIGAR words gathered byte by byte with the index
+    clamp), in int64 masked to the int32 values the reference's int32
+    sums and clamps wrap to.  Returns (rid, pos1, end1) int32 [R] and the
+    int32 ``over`` flag."""
+    L = buf.shape[0]
+    R = offs.shape[0]
+    dev = buf.device
+    n_valid = torch.clamp(torch.as_tensor(n_all, device=dev).reshape(()),
+                          max=R)
+    valid = torch.arange(R, device=dev) < n_valid
+    nc = n_cigar.to(torch.int64)
+    ls = l_seq.to(torch.int64)
+    over = (valid & (nc > cap)).any().to(torch.int32)
+    cig_off = _wrap32(offs.to(torch.int64) + PREFIX
+                      + l_read_name.to(torch.int64))
+    k = torch.arange(cap, device=dev, dtype=torch.int64)[None, :]
+    widx = _wrap32(cig_off[:, None] + 4 * k)
+    word = torch.zeros(widx.shape, dtype=torch.int64, device=dev)
+    for j in range(4):
+        idx = _wrap32(widx + j).clamp(0, L - 1)
+        word |= buf[idx].to(torch.int64) << (8 * j)
+    op = word & 0xF
+    oplen = word >> 4
+    consumes = (op == 0) | (op == 2) | (op == 3) | (op == 7) | (op == 8)
+    act = k < torch.clamp(nc, max=cap)[:, None]
+    span = _wrap32(torch.where(act & consumes, oplen, 0).sum(1))
+    ref = torch.where(nc > 0, span, torch.clamp(ls, min=0))
+    pos1 = torch.clamp(pos.to(torch.int64), max=_I32_MAX - 1) + 1
+    room = _wrap32(_I32_MAX - pos1)
+    end1 = _wrap32(pos1 + torch.minimum(torch.clamp(ref, min=1) - 1, room))
+    rid = torch.where(valid, refid, torch.full_like(refid, -1))
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    return (rid, torch.where(valid, pos1.to(torch.int32), zero),
+            torch.where(valid, end1.to(torch.int32), zero), over)
+
+
+def interval_cols(buf: torch.Tensor, offs: torch.Tensor,
+                  refid: torch.Tensor, pos: torch.Tensor,
+                  l_read_name: torch.Tensor, n_cigar: torch.Tensor,
+                  l_seq: torch.Tensor, n_all: Scalar,
+                  cap: int = DEVICE_TILE_CIGAR_CAP):
+    """Each walked record's 1-based inclusive (rid, pos1, end1) as int32
+    [R] columns, end1 from its first ``cap`` CIGAR ops (a ``*`` CIGAR
+    takes l_seq), rows at or past min(n_all, R) holding the tile pads
+    (rid -1, pos1 = end1 = 0), and the int32 ``over`` flag (a valid row
+    with more than ``cap`` ops), with ``resolve_walk_intervals``' rules.
+
+    CUDA tensors launch the K10i kernel on the current stream (``n_all``
+    may be a device int32, read there: no synchronisation); CPU tensors
+    take ``interval_cols_plain``."""
+    if buf.dtype != torch.uint8 or buf.dim() != 1 or buf.shape[0] < 1:
+        raise ValueError(f"buf must be uint8 [L], got {buf.dtype} "
+                         f"{tuple(buf.shape)}")
+    R = offs.shape[0]
+    named = (("offs", offs), ("refid", refid), ("pos", pos),
+             ("l_read_name", l_read_name), ("n_cigar", n_cigar),
+             ("l_seq", l_seq))
+    for name, t in named:
+        if t.dtype != torch.int32 or tuple(t.shape) != (R,):
+            raise ValueError(f"{name} must be int32 [{R}], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != buf.device:
+            raise ValueError(f"{name} must be on {buf.device}")
+    if not 0 <= int(cap) <= 4096:
+        raise ValueError(f"cigar cap {cap} outside [0, 4096]")
+    if not _cuda_or_cpu(buf):
+        return interval_cols_plain(buf, offs, refid, pos, l_read_name,
+                                   n_cigar, l_seq, n_all, cap)
+    if not buf.is_contiguous():   # the kernel reads buf as bytes
+        raise ValueError("buf must be contiguous on the card")
+    dev = buf.device
+    cols = [t.contiguous() for _, t in named]
+    n_all = _i32_scalar(n_all, dev)
+    rid, pos1, end1 = (torch.empty(R, dtype=torch.int32, device=dev)
+                       for _ in range(3))
+    over = torch.empty(1, dtype=torch.int32, device=dev)
+    fn = kernels.kernel("interval_cols")
+    with torch.cuda.device(dev):
+        rc = fn(buf.data_ptr(), buf.shape[0],
+                *(t.data_ptr() for t in cols), n_all.data_ptr(), R,
+                int(cap), rid.data_ptr(), pos1.data_ptr(), end1.data_ptr(),
+                over.data_ptr(), _stream(dev))
+    kernels.check_launch("interval_cols", rc)
+    interval_cols.launches += 1
+    return rid, pos1, end1, over[0]
+
+
+interval_cols.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # The fused decode steps
 # ---------------------------------------------------------------------------
 
@@ -600,6 +718,47 @@ def resolve_walk_payload(tokens: torch.Tensor, n_tokens: torch.Tensor,
                                cols["n_cigar"], n_all, max_len, seq_stride,
                                qual_stride)
     return cols, seq, qual, valid, n_all, tail, bad
+
+
+def resolve_walk_intervals(tokens: torch.Tensor, n_tokens: torch.Tensor,
+                           isize: torch.Tensor, start: int, stop: int,
+                           P: Optional[int] = None,
+                           cigar_cap: int = DEVICE_TILE_CIGAR_CAP):
+    """The device decode step of the serve-tile family: resolve + pack +
+    walk + K1, then K10i's (rid, pos1, end1) interval columns at the
+    walk's R = records_cap(B, P) rows (the pads past the walked records).
+    Returns (rid, pos1, end1, n_all, tail, bad, over), the four verdicts
+    int32 scalars on the chunk's device: ``over`` (a record with more
+    than ``cigar_cap`` ops) sends the chunk to the host build."""
+    buf, offs, cols, _valid, n_all, tail, bad = _resolve_walk(
+        tokens, n_tokens, isize, start, stop, P)
+    rid, pos1, end1, over = interval_cols(
+        buf, offs, cols["refid"], cols["pos"], cols["l_read_name"],
+        cols["n_cigar"], cols["l_seq"], n_all, cigar_cap)
+    return rid, pos1, end1, n_all, tail, bad, over
+
+
+def resolve_walk_intervals_plain(tokens: torch.Tensor,
+                                 n_tokens: torch.Tensor,
+                                 isize: torch.Tensor, start: int, stop: int,
+                                 P: Optional[int] = None,
+                                 cigar_cap: int = DEVICE_TILE_CIGAR_CAP):
+    """``resolve_walk_intervals`` through every kernel's plain version,
+    on the tensors' own device (the check a card run holds the kernels
+    to)."""
+    from hadoop_bam_torch.ops.unpack_bam import unpack_fixed_fields_plain
+    B, T = tokens.shape
+    P = T if P is None else int(P)
+    R = records_cap(B, P)
+    buf, total = pack_contiguous_plain(
+        resolve_tokens_plain(tokens, n_tokens, P), isize)
+    offs, n_all, tail, bad = walk_records_device_plain(buf, total, start,
+                                                       stop, R)
+    cols = unpack_fixed_fields_plain(buf, offs)
+    rid, pos1, end1, over = interval_cols_plain(
+        buf, offs, cols["refid"], cols["pos"], cols["l_read_name"],
+        cols["n_cigar"], cols["l_seq"], n_all, cigar_cap)
+    return rid, pos1, end1, n_all, tail, bad, over
 
 
 # ---------------------------------------------------------------------------

@@ -45,6 +45,9 @@ KERNELS: Dict[str, tuple] = {
     "payload_gather": ("hbam_payload_gather",
                        [_VP, _I64, _VP, _VP, _VP, _VP, _VP, _I64, _I64,
                         _I64, _I64, _VP, _VP, _I64, _I64, _VP]),
+    "interval_cols": ("hbam_interval_cols",
+                      [_VP, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64,
+                       _I64, _VP, _VP, _VP, _VP, _VP]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

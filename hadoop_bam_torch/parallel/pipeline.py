@@ -190,7 +190,10 @@ def _decode_span_src(src, span: FileVirtualSpan, check_crc: bool,
     raw, end_block_size, next_c = _fetch_span_raw(src, span)
     if raw:
         table = inflate_ops.block_table(raw)
-        data, ubase = inflate_ops.inflate_span(raw, table, backend=backend)
+        with METRICS.timer("pipeline.inflate"), \
+                METRICS.span("bam.inflate_wall", nbytes=len(raw)):
+            data, ubase = inflate_ops.inflate_span(raw, table,
+                                                   backend=backend)
         METRICS.count("pipeline.blocks", int(table["isize"].size))
         METRICS.count("pipeline.inflated_bytes", int(data.size))
         if check_crc:
@@ -461,8 +464,16 @@ def _iter_fused_span_chunks(src, span: FileVirtualSpan, mode: str, *,
 
     def gen():
         try:
-            for lo, hi in dec.chunks():
-                yield slices(lo, hi)
+            # the consumption IS the span's host decode (the native
+            # waits are inflate + walk work): the reference's
+            # host_decode timer and wall, fused_decode the sub-stage
+            with METRICS.timer("pipeline.host_decode"), \
+                    METRICS.wall_timer("pipeline.host_decode_wall"), \
+                    METRICS.timer("pipeline.fused_decode"), \
+                    METRICS.span("bam.fused_decode_wall",
+                                 nbytes=int(dec.data.size)):
+                for lo, hi in dec.chunks():
+                    yield slices(lo, hi)
             n, tail = dec.finish()
         except GeneratorExit:
             dec.finish(check=False)
@@ -1721,12 +1732,19 @@ def iter_payload_tile_groups(path: str, spans: Iterable[FileVirtualSpan],
             src, span, geometry, check_crc, backend,
             intervals=intervals, header=header, config=config)[:3]
 
+    policy = _span_policy(payload, config, quarantine, ladder,
+                          decision.host_backend, _payload_empty(geometry))
+
+    def decode(span):
+        with METRICS.timer("pipeline.host_decode"), \
+                METRICS.wall_timer("pipeline.host_decode_wall"), \
+                METRICS.span("bam.host_decode_wall"):
+            return policy(span)
+
     with _reading(path, config) as src:
         yield from _payload_groups(
             spans, _payload_specs(geometry), geometry, axis, emit_fn,
-            config, prefetch,
-            _span_policy(payload, config, quarantine, ladder,
-                         decision.host_backend, _payload_empty(geometry)),
+            config, prefetch, decode,
             stream_fused=decision.stream_fused, balance=balance)
     quarantine_run_ok(path, config)
 

@@ -8,7 +8,9 @@ hadoop_bam_tpu/parallel/staging.py).
   ``lease`` waits on that event before it hands the slot out again, so
   the packer can never overwrite a buffer an asynchronous copy is still
   reading.  (The reference blocked on device arrays for the same rule:
-  ``committed_device_put`` and ``_block_in_flight``.)
+  ``committed_device_put`` and ``_block_in_flight``.)  A slot can be
+  PINNED out of the ring (``RingSlot.pin``): the serve tile builder
+  hands its buffers to a cached tile and the ring mints a replacement.
 - ``FeedPipeline``: a packer thread repacks per-span row arrays into ring
   slots (rows written in place; a partial tile zeroes only its own tail)
   while the caller's thread dispatches the previous group: ``feed`` for
@@ -58,14 +60,38 @@ class RingSlot:
     [n_dev, cap, *shape] (pinned on CUDA axes) and ``arrays[j]`` its
     numpy view; ``counts`` holds the per-device row counts.
     ``in_flight`` is the handle (anything with ``synchronize()``, a CUDA
-    event on the card) of the last copy out of these buffers."""
-    __slots__ = ("tensors", "arrays", "counts", "in_flight")
+    event on the card) of the last copy out of these buffers.
 
-    def __init__(self, tensors: List[torch.Tensor], n_dev: int):
+    ``pin()`` transfers the slot's buffers OUT of the ring for good: a
+    pinned slot's ``release`` parks it (never requeues it) and the ring
+    mints a fresh replacement, so capacity is unchanged while the pinned
+    buffers can never be leased and overwritten again.  On the CPU
+    ``tensor.to("cpu")`` returns the same tensor, so a serve tile built
+    from a slot IS the slot's memory; without the pin a recycled slot
+    would rewrite a cached tile.  ``unpin()`` relinquishes a parked slot
+    (its buffers then live as long as whatever references them) or,
+    before release, cancels the pin so the slot recirculates."""
+    __slots__ = ("tensors", "arrays", "counts", "in_flight", "pinned",
+                 "parked", "_ring")
+
+    def __init__(self, tensors: List[torch.Tensor], n_dev: int,
+                 ring: "StagingRing"):
         self.tensors = tensors
         self.arrays = [t.numpy() for t in tensors]
         self.counts = np.zeros(n_dev, np.int32)
         self.in_flight = None
+        self.pinned = False
+        self.parked = False
+        self._ring = ring
+
+    def pin(self) -> None:
+        self.pinned = True
+
+    def unpin(self) -> None:
+        self._ring.unpin(self)
+
+    def release(self) -> None:
+        self._ring.release(self)
 
 
 class Cancelled(Exception):
@@ -73,19 +99,27 @@ class Cancelled(Exception):
 
 
 class StagingRing:
-    """A ring of two preallocated group buffers (one being packed while
-    the other's copy is in flight), leased and released.  ``lease``
-    never returns a slot whose last copy is still in flight."""
+    """A ring of ``slots`` preallocated group buffers (two for the feeds:
+    one being packed while the other's copy is in flight), leased and
+    released.  ``lease`` never returns a slot whose last copy is still
+    in flight."""
 
     def __init__(self, n_dev: int, cap: int, specs: Sequence[TileSpec],
-                 pin_memory: bool = False):
+                 pin_memory: bool = False, slots: int = 2):
+        self.n_dev, self.cap = int(n_dev), int(cap)
+        self.specs = list(specs)
+        self.pin_memory = bool(pin_memory)
+        self.n_slots = max(2, int(slots))
         self._free: "queue.Queue[RingSlot]" = queue.Queue()
-        for _ in range(2):
-            self._free.put(RingSlot([
-                torch.full((n_dev, cap) + tuple(s.shape), s.pad,
-                           dtype=_torch_dtype(s.dtype),
-                           pin_memory=pin_memory)
-                for s in specs], n_dev))
+        for _ in range(self.n_slots):
+            self._free.put(self._fresh_slot())
+
+    def _fresh_slot(self) -> RingSlot:
+        return RingSlot([
+            torch.full((self.n_dev, self.cap) + tuple(s.shape), s.pad,
+                       dtype=_torch_dtype(s.dtype),
+                       pin_memory=self.pin_memory)
+            for s in self.specs], self.n_dev, self)
 
     def lease(self, cancel: Optional[threading.Event] = None) -> RingSlot:
         while True:
@@ -101,7 +135,21 @@ class StagingRing:
         return slot
 
     def release(self, slot: RingSlot) -> None:
+        if slot.pinned:
+            # ownership transfer: the buffers leave the ring for good
+            # and a fresh replacement keeps the capacity
+            slot.parked = True
+            self._free.put(self._fresh_slot())
+            return
         self._free.put(slot)
+
+    def unpin(self, slot: RingSlot) -> None:
+        """Relinquish a pinned slot.  Parked (already released): a
+        replacement was minted at release, so this only drops the flags;
+        the buffers are never leased again.  Not yet released: cancels
+        the pin, and the slot recirculates on release."""
+        slot.pinned = False
+        slot.parked = False
 
 
 def _put(q: "queue.Queue", item, cancel: threading.Event) -> None:
@@ -224,7 +272,7 @@ class FeedPipeline:
         """Leased ``(slot, bucket views)`` pairs; a slot goes back to the
         ring when the generator is advanced or closed."""
         ring = StagingRing(self.n_dev, self.cap, self.specs,
-                           self.pin_memory)
+                           pin_memory=self.pin_memory)
         q: "queue.Queue" = queue.Queue(maxsize=1)
         cancel = threading.Event()
         errs: List[BaseException] = []

@@ -1,12 +1,16 @@
 """Plane selection (trimmed copy of hadoop_bam_tpu/plan/executor.py).
 
 ``select_plane`` is the one predicate table that decides which decode
-plane a driver call runs on and why every other plane was rejected:
+plane a driver call (or a serve request's cold tile builds) runs on and
+why every other plane was rejected:
 the device gates of the reference (:176-194) -- the plane was named,
 no interval filter, no ``skip_bad_spans``, and the device fault
 domain's breaker lets the run through -- and the fused-decode gates
-(``_use_fused``, ``_fused_stream_gate``).  No IR: both of the port's
-drivers have a device plane.  ``run_chunk_columns`` is the reference's
+(``_use_fused``, ``_fused_stream_gate``).  No IR: every driver family
+the port routes (flagstat, payload, serve tiles) has a device plane and
+the same gates, so one decision serves them all.  ``plane_report`` is
+the display-only decision of the serve ``health()``.
+``run_chunk_columns`` is the reference's
 query-chunk runner (``_run_chunk_columns``), called by the query engine
 directly until the plan IR is ported.
 
@@ -41,6 +45,12 @@ class PlaneDecision:
     stream_fused: bool    # host spans decode as fused chunk streams
     rejected: Tuple[Tuple[str, str], ...]   # (plane or mode, reason)
 
+    def to_doc(self) -> Dict:
+        return {"plane": self.plane,
+                "backend": self.backend, "host_backend": self.host_backend,
+                "stream_fused": self.stream_fused,
+                "rejected": {p: r for p, r in self.rejected}}
+
 
 def _use_fused(config: Optional[HBamConfig],
                backend: str = "native") -> bool:
@@ -65,7 +75,8 @@ def _fused_stream_gate(config: Optional[HBamConfig], intervals) -> bool:
 def select_plane(config: Optional[HBamConfig], *, intervals=None,
                  ladder=None) -> PlaneDecision:
     """THE plane-selection table.  ``intervals`` is the parsed interval
-    filter (None: no filtering).  ``ladder`` is the file's
+    filter (None: no filtering; a serve chunk has none).  ``ladder`` is
+    the file's
     ``DemotionLadder`` when adaptive planes are on; its device breaker
     is consulted LAST, only when every other device gate passed, since
     ``allow_plane`` uses up a half-open probe slot."""
@@ -113,6 +124,16 @@ def select_plane(config: Optional[HBamConfig], *, intervals=None,
                          rejected=tuple(rejected))
 
 
+def plane_report(config: Optional[HBamConfig] = None) -> Dict:
+    """Display-only plane decision for this config -- the serve
+    ``health()`` surface.  Never consumes breaker probes (no ladder) and
+    never touches files; the interval gate is approximated by whether
+    ``config.bam_intervals`` is set."""
+    cfg = config if config is not None else DEFAULT_CONFIG
+    intervals = () if cfg.bam_intervals else None
+    return select_plane(cfg, intervals=intervals).to_doc()
+
+
 def run_chunk_columns(span, config: HBamConfig, decode_fn: Callable
                       ) -> Tuple[Dict[str, object], Optional[int]]:
     """One query-engine chunk: ``decode_fn(span)`` under
@@ -120,21 +141,20 @@ def run_chunk_columns(span, config: HBamConfig, decode_fn: Callable
     ``ChunkCache.get_or_compute`` stores: cost None for a chunk that
     ``skip_bad_spans`` quarantined, which is served empty and not
     cached, so a healed fault decodes again on the next query.
-    Counters: ``query.chunks_decoded``, ``query.chunks_skipped``,
-    ``query.chunk_bytes`` (decoded footprint) and
-    ``query.decode_wall_us`` (the reference's ``query.decode_wall``
-    span as a counter of microseconds: the port has no spans yet)."""
+    The ``query.decode_wall`` span, ``query.chunk_fetch_s`` and
+    ``query.chunk_bytes`` histograms (cache misses only), and the
+    ``query.chunks_decoded`` / ``query.chunks_skipped`` counters."""
     from hadoop_bam_torch.parallel.pipeline import decode_with_retry
     t0 = time.perf_counter()
-    value = decode_with_retry(decode_fn, span, config)
-    METRICS.count("query.decode_wall_us",
-                  int((time.perf_counter() - t0) * 1e6))
+    with METRICS.span("query.decode_wall", kind="bam"):
+        value = decode_with_retry(decode_fn, span, config)
+    METRICS.observe("query.chunk_fetch_s", time.perf_counter() - t0)
     if value is None:
         METRICS.count("query.chunks_skipped")
         return ({"rid": np.empty(0, np.int32),
                  "pos1": np.empty(0, np.int32),
                  "end1": np.empty(0, np.int32),
                  "records": [], "n": 0, "nbytes": 0}, None)
-    METRICS.count("query.chunk_bytes", int(value["nbytes"]))
+    METRICS.observe("query.chunk_bytes", int(value["nbytes"]))
     METRICS.count("query.chunks_decoded")
     return (value, int(value["nbytes"]))

@@ -29,6 +29,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import threading
+import time
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -36,6 +37,7 @@ import torch
 
 from hadoop_bam_torch.config import DEFAULT_CONFIG, HBamConfig
 from hadoop_bam_torch.device import resolve_device
+from hadoop_bam_torch.obs.context import ensure_trace
 from hadoop_bam_torch.query.cache import ChunkCache, file_identity
 from hadoop_bam_torch.query.scheduler import Deadline, QueryScheduler
 from hadoop_bam_torch.split.intervals import Interval, resolve_interval
@@ -234,10 +236,12 @@ class QueryEngine:
     def _decode_bam_chunk(self, meta: _FileMeta,
                           span: FileVirtualSpan) -> Dict[str, object]:
         from hadoop_bam_torch.split.planners import read_bam_span
-        batch = read_bam_span(meta.path, span, header=meta.header)
-        n = len(batch)
-        pos1 = batch.pos.astype(np.int64) + 1
-        end1 = pos1 + np.maximum(batch.reference_span(), 1) - 1
+        with METRICS.timer("pipeline.host_decode"), \
+                METRICS.wall_timer("pipeline.host_decode_wall"):
+            batch = read_bam_span(meta.path, span, header=meta.header)
+            n = len(batch)
+            pos1 = batch.pos.astype(np.int64) + 1
+            end1 = pos1 + np.maximum(batch.reference_span(), 1) - 1
         return {
             "rid": batch.refid.astype(np.int32),
             "pos1": np.minimum(pos1, _I32_MAX).astype(np.int32),
@@ -283,18 +287,19 @@ class QueryEngine:
         # spellings of one file resolve to one identity
         ranges_by_ident: Dict[Tuple, List[Tuple[int, int]]] = {}
         kind_of_ident: Dict[Tuple, str] = {}
-        for path, req_idxs in by_path.items():
-            deadline.check("query resolve")
-            meta = self._file_meta(path)
-            acc = ranges_by_ident.setdefault(meta.ident, [])
-            kind_of_ident[meta.ident] = meta.kind
-            for i in req_idxs:
-                METRICS.count("query.requests")
-                check(i, "query resolve")
-                iv, ranges = self._resolve(meta, requests[i].region)
-                ivs[i] = iv
-                plans.append((i, meta, iv, ranges))
-                acc.extend(ranges)
+        with METRICS.span("query.resolve_wall", requests=len(requests)):
+            for path, req_idxs in by_path.items():
+                deadline.check("query resolve")
+                meta = self._file_meta(path)
+                acc = ranges_by_ident.setdefault(meta.ident, [])
+                kind_of_ident[meta.ident] = meta.kind
+                for i in req_idxs:
+                    METRICS.count("query.requests")
+                    check(i, "query resolve")
+                    iv, ranges = self._resolve(meta, requests[i].region)
+                    ivs[i] = iv
+                    plans.append((i, meta, iv, ranges))
+                    acc.extend(ranges)
         chunk_sets = {
             ident: self._coalesce(rs, kind_of_ident[ident])
             for ident, rs in ranges_by_ident.items()}
@@ -360,7 +365,8 @@ class QueryEngine:
                      "req": cols[6], "keep": keep, "n_records": n},
                     copies.handle())
 
-        yield from fp.stream(iter(tuples), emit)
+        with METRICS.span("query.filter_wall"):
+            yield from fp.stream(iter(tuples), emit)
 
     @staticmethod
     def _requests(requests) -> List[QueryRequest]:
@@ -374,13 +380,19 @@ class QueryEngine:
         device, ``keep`` the K13 overlap mask and ``req`` each row's
         request index."""
         requests = self._requests(requests)
+        t0 = time.perf_counter()
         deadline = None
         try:
-            with self.scheduler.admit(deadline_s) as deadline:
+            # one trace per query batch (joined when a serve transport
+            # already minted one)
+            with ensure_trace(op="query.batch", deadline_s=deadline_s), \
+                    self.scheduler.admit(deadline_s) as deadline:
                 tuples, _refs, _counts, _ivs = self._prepare(requests,
                                                              deadline)
                 yield from self._stream_groups(tuples, deadline)
         finally:
+            # end-to-end batch latency, admission wait included
+            METRICS.observe("query.latency_s", time.perf_counter() - t0)
             # one tick per batch whose deadline was missed, whether it
             # aborted mid-serve (check() booked it) or finished late
             if deadline is not None and deadline.expired:
@@ -393,10 +405,12 @@ class QueryEngine:
         the device; file order within a request, request order across
         the batch.  The keep masks come back in one copy at the end."""
         requests = self._requests(requests)
+        t_start = time.perf_counter()
         batch_deadline = None
         keeps: List[torch.Tensor] = []
         try:
-            with self.scheduler.admit(deadline_s) as deadline:
+            with ensure_trace(op="query.batch", deadline_s=deadline_s), \
+                    self.scheduler.admit(deadline_s) as deadline:
                 batch_deadline = deadline
                 tuples, refs, cand_counts, _ivs = self._prepare(requests,
                                                                 deadline)
@@ -422,6 +436,7 @@ class QueryEngine:
                 recs.append(self._materialize(meta, value, int(row)))
         METRICS.count("query.rows_matched",
                       sum(len(r.records) for r in results))
+        METRICS.observe("query.latency_s", time.perf_counter() - t_start)
         return results
 
     def stats(self) -> Dict[str, float]:

@@ -77,6 +77,12 @@ class Deadline:
             return False
         self.missed = True
         METRICS.count("query.deadline_misses")
+        # incident-grade: a missed deadline snapshots the flight ring
+        # (transition always; disk only when a dump dir is configured)
+        from hadoop_bam_torch.obs import flight
+        rec = flight.recorder()
+        rec.record_transition("deadline", "query.deadline", "missed")
+        rec.dump("deadline_miss")
         return True
 
     def check(self, what: str = "query") -> None:

@@ -20,9 +20,10 @@ All methods are thread-safe: decode pool workers and the driver thread
 consult the same breakers.
 
 Counters ``resilience.breaker_open`` / ``resilience.breaker_half_open`` /
-``resilience.breaker_closed`` tick on transitions.  (The reference also
-emits a trace span and a flight-recorder entry per transition; the port
-has no ``obs/`` layer yet.)
+``resilience.breaker_closed`` tick on transitions; each transition is
+a zero-width ``resilience.breaker_state`` span and a flight-recorder
+entry, and an OPEN dumps the flight recorder (when a dump directory is
+configured).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import threading
 import time
 from typing import Callable
 
+from hadoop_bam_torch.obs import flight
 from hadoop_bam_torch.utils.metrics import METRICS
 
 CLOSED = "closed"
@@ -104,6 +106,13 @@ class CircuitBreaker:
     def _transition(self, state: str) -> None:
         self._state = state
         METRICS.count(f"resilience.breaker_{state}")
+        with METRICS.span("resilience.breaker_state",
+                          breaker=self.name, state=state):
+            pass
+        rec = flight.recorder()
+        rec.record_transition("breaker", self.name, state)
+        if state == OPEN:
+            rec.dump(f"breaker_open:{self.name or 'unnamed'}")
 
     def _maybe_half_open(self) -> None:
         if self._state == OPEN and \

@@ -1,5 +1,5 @@
 """Fault domains and the decode-plane demotion ladder (copy of
-hadoop_bam_tpu/resilience/domains.py, less the flight-recorder dump).
+hadoop_bam_tpu/resilience/domains.py).
 
 A *fault domain* is one ``(subsystem, backend, file_identity)`` triple
 -- e.g. ``("decode", "native", <abspath of f.bam>)`` -- holding a
@@ -24,7 +24,8 @@ import time
 from collections import OrderedDict
 from typing import Callable, Dict, Optional, Tuple
 
-from hadoop_bam_torch.resilience.breaker import CircuitBreaker
+from hadoop_bam_torch.obs import flight
+from hadoop_bam_torch.resilience.breaker import OPEN, CircuitBreaker
 from hadoop_bam_torch.utils.errors import (
     CircuitBreakerError, PLAN, classify_error,
 )
@@ -108,6 +109,19 @@ class FaultDomainRegistry:
             d = FaultDomain(key, config=config, clock=self._clock)
             self._domains[key] = d
             return d
+
+    def fault_pressure(self) -> float:
+        """Registry-wide decayed failure count -- the serve prefetcher's
+        auto-pause signal: high pressure means speculative work is the
+        wrong way to spend decode capacity right now."""
+        with self._lock:
+            domains = list(self._domains.values())
+        return sum(d.breaker.failure_rate() for d in domains)
+
+    def open_breakers(self) -> int:
+        with self._lock:
+            domains = list(self._domains.values())
+        return sum(1 for d in domains if d.breaker.state == OPEN)
 
     def states(self) -> Dict[str, dict]:
         """Health-surface snapshot: domain key string -> breaker state
@@ -216,10 +230,15 @@ class DemotionLadder:
         return self.next_lower(plane) is not None
 
     def confirm_failure(self, plane: str, exc: BaseException) -> None:
-        # the reference also records the demotion in its flight recorder
-        # and dumps a snapshot; the port has no obs/ layer yet
         METRICS.count("resilience.demotions")
         METRICS.count(f"resilience.demoted_from_{plane}")
+        # a demotion is an incident-grade event even before the plane's
+        # breaker opens: record + dump so the first oracle-confirmed
+        # plane fault already leaves a flight snapshot behind
+        rec = flight.recorder()
+        rec.record_transition("demotion", f"{self.subsystem}/{plane}",
+                              "demoted")
+        rec.dump(f"plane_demotion:{plane}", error=str(exc))
         self._domain(plane).record_failure(exc)
 
     def record_success(self, plane: str) -> None:

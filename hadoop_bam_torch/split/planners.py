@@ -39,6 +39,7 @@ from hadoop_bam_torch.split.bam_guesser import BAMSplitGuesser
 from hadoop_bam_torch.split.spans import FileByteSpan, FileVirtualSpan
 from hadoop_bam_torch.split.splitting_index import SplittingIndex
 from hadoop_bam_torch.utils.errors import PlanError
+from hadoop_bam_torch.utils.metrics import METRICS
 from hadoop_bam_torch.utils.seekable import (
     as_byte_source, scoped_byte_source,
 )
@@ -254,7 +255,8 @@ def read_bam_span(source, span: FileVirtualSpan,
         info = bgzf.parse_block_header(head, 0)
         if coffset > end_c or (coffset == end_c and end_u == 0):
             break
-        data = bgzf.inflate_block(head, info, check_crc=check_crc)
+        with METRICS.timer("pipeline.inflate"):
+            data = bgzf.inflate_block(head, info, check_crc=check_crc)
         if coffset == start_c and start_u:
             data = data[start_u:]
             block_bases.append((total - start_u, coffset))
@@ -281,8 +283,9 @@ def read_bam_span(source, span: FileVirtualSpan,
         while need > len(buf) and coffset < src.size:
             head = src.pread(coffset, bgzf.MAX_BLOCK_SIZE)
             info = bgzf.parse_block_header(head, 0)
-            chunks.append(bgzf.inflate_block(head, info,
-                                             check_crc=check_crc))
+            with METRICS.timer("pipeline.inflate"):
+                chunks.append(bgzf.inflate_block(head, info,
+                                                 check_crc=check_crc))
             block_bases.append((len(buf), coffset))
             buf = b"".join(chunks)
             coffset += info.block_size

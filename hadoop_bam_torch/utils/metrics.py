@@ -1,46 +1,369 @@
-"""Named counters (the counter part of hadoop_bam_tpu/utils/metrics.py).
+"""Stage metrics: counters, timers, histograms, spans, context-scoped
+(copy of hadoop_bam_tpu/utils/metrics.py without the trace ring).
 
-The resilience layer ticks the reference's counter names, so a test can
-read the same name from both packages:
+- ``count`` / ``get``          flat counters (the resilience layer and the
+                               drivers tick the reference's names)
+- ``timer``                    thread-summed work seconds
+- ``wall_timer``               wall-clock UNION spans (overlapping pool
+                               threads merge)
+- ``observe``                  log-bucketed mergeable histograms
+                               (``obs/hist.py``) with p50/p95/p99
+- ``span``                     wall_timer + a flight-recorder append
+                               (``obs/flight.py``); the reference also
+                               writes a trace-ring event when tracing is
+                               on, and the port has no trace ring yet
+                               (ROADMAP item 12)
 
-    pipeline.bad_spans, pipeline.transient_retries, pipeline.corrupt_spans,
-    pipeline.span_demotions, resilience.demotions, resilience.heals,
-    resilience.quarantine_gate_shed, chaos.point_faults,
-    chaos.<point>.<kind>, chaos.injected_faults, io.read_retries
-
-Timers, spans, histograms and context scoping are not ported.
+**Context scoping.**  ``METRICS`` is a PROXY: attribute access resolves
+to the contextvar-scoped current ``Metrics`` instance, falling back to
+the process-global default, so every ``METRICS.count(...)`` call site
+works unchanged while ``MetricsContext`` gives a concurrent batch or a
+serve client its own isolated numbers.  ``utils/pools.submit`` carries
+the context across threads (a bare ``ThreadPoolExecutor.submit`` would
+silently fall back to the global).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import threading
+import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, Iterator, Optional
+
+from hadoop_bam_torch.obs import flight as _flight
+from hadoop_bam_torch.obs.hist import Histogram
+
+# span-args size guard: a pathological path/region/repr string passed as
+# a span attr must not bloat the trace ring or the flight recorder —
+# values are truncated and the key set is capped before any recording
+_SPAN_ARG_MAX_CHARS = 120
+_SPAN_ARG_MAX_KEYS = 8
+
+
+def trim_span_args(args: Dict[str, object]) -> Dict[str, object]:
+    """Bound one span's attr payload: at most ``_SPAN_ARG_MAX_KEYS``
+    keys (insertion order wins; a ``dropped_args`` count marks the cut),
+    scalar values pass through, everything else is stringified and
+    truncated to ``_SPAN_ARG_MAX_CHARS`` with the elided length noted."""
+    out: Dict[str, object] = {}
+    dropped = 0
+    for k, v in args.items():
+        if len(out) >= _SPAN_ARG_MAX_KEYS:
+            dropped += 1
+            continue
+        if isinstance(v, (int, float, bool)) or v is None:
+            out[k] = v
+            continue
+        s = v if isinstance(v, str) else repr(v)
+        if len(s) > _SPAN_ARG_MAX_CHARS:
+            s = (s[:_SPAN_ARG_MAX_CHARS]
+                 + f"...(+{len(s) - _SPAN_ARG_MAX_CHARS})")
+        out[k] = s
+    if dropped:
+        out["dropped_args"] = dropped
+    return out
 
 
 class Metrics:
-    """Thread-safe process-wide counters."""
-
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.counters: Dict[str, int] = defaultdict(int)
+        self.timers: Dict[str, float] = defaultdict(float)
+        self.timer_calls: Dict[str, int] = defaultdict(int)
+        self.wall_timers: Dict[str, float] = defaultdict(float)
+        self.wall_calls: Dict[str, int] = defaultdict(int)
+        self.histograms: Dict[str, Histogram] = {}
+        self._wall_active: Dict[str, list] = {}
+        # bumped by reset(): a wall span that straddles a reset() must
+        # not account into (or corrupt) the post-reset state — the span
+        # captures the epoch at entry and discards itself on mismatch
+        self._epoch = 0
 
     def count(self, name: str, n: int = 1) -> None:
         with self._lock:
             self.counters[name] += n
 
     def get(self, name: str) -> int:
-        """One counter, 0 when it never ticked."""
+        """Read one counter without mutating the defaultdict (a bare
+        ``counters[name]`` probe would materialize a zero entry)."""
         with self._lock:
             return self.counters.get(name, 0)
 
-    def snapshot(self) -> Dict[str, Dict[str, int]]:
-        """A consistent copy of every counter."""
+    def observe(self, name: str, value: float, n: int = 1) -> None:
+        """Record ``value`` into the named log-bucketed histogram
+        (latencies in seconds, sizes in bytes — the name's suffix says
+        which: ``*_s`` / ``*_bytes``)."""
         with self._lock:
-            return {"counters": dict(self.counters)}
+            h = self.histograms.get(name)
+            if h is None:
+                h = self.histograms[name] = Histogram()
+            h.record(value, n)
+
+    def hist_summary(self, name: str) -> Dict[str, float]:
+        """count/mean/p50/p95/p99/max of one histogram ({} when absent)."""
+        with self._lock:
+            h = self.histograms.get(name)
+            return h.summary() if h is not None else {}
+
+    def hist_dict(self, name: str) -> Dict[str, object]:
+        """One histogram's full mergeable state ({} when absent) — the
+        targeted read the SLO engine's admission-path burn check uses
+        instead of serializing the whole instance with ``to_dict``."""
+        with self._lock:
+            h = self.histograms.get(name)
+            return h.to_dict() if h is not None else {}
+
+    def discard_series(self, *names: str) -> None:
+        """Remove the named series (counter/timer/wall/histogram entries
+        of exactly these names) — the eviction hook for bounded
+        per-tenant series in a long-lived server.  Unknown names are
+        ignored."""
+        with self._lock:
+            for n in names:
+                self.counters.pop(n, None)
+                self.timers.pop(n, None)
+                self.timer_calls.pop(n, None)
+                self.wall_timers.pop(n, None)
+                self.wall_calls.pop(n, None)
+                self.histograms.pop(n, None)
+
+    def snapshot(self) -> Dict[str, Dict[str, float]]:
+        """Consistent copy of all counters/timers (one lock acquisition) —
+        the hook quarantine/failure reports use to embed resilience counts
+        (pipeline.bad_spans / transient_retries / corrupt_spans,
+        io.read_retries, chaos.injected_faults) without racing the pool.
+        Histograms are included as their p-summaries; ``to_dict`` carries
+        the full mergeable buckets."""
+        with self._lock:
+            return {"counters": dict(self.counters),
+                    "timers": dict(self.timers),
+                    "timer_calls": dict(self.timer_calls),
+                    "wall_timers": dict(self.wall_timers),
+                    "histograms": {k: h.summary()
+                                   for k, h in self.histograms.items()}}
+
+    @contextlib.contextmanager
+    def timer(self, name: str) -> Iterator[None]:
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self.timers[name] += dt
+                self.timer_calls[name] += 1
+
+    @contextlib.contextmanager
+    def wall_timer(self, name: str) -> Iterator[None]:
+        """WALL-CLOCK span aggregation, distinct from ``timer``: spans of
+        the same name that overlap in time (pool threads decoding
+        concurrently) merge into their union, so the aggregate reports
+        how long the stage occupied the wall — not thread-summed work
+        seconds, which can exceed wall time and make pipeline overlap
+        invisible (the bench's stage_timer_note caveat)."""
+        t0 = time.perf_counter()
+        with self._lock:
+            epoch = self._epoch
+            st = self._wall_active.setdefault(name, [0, t0])
+            if st[0] == 0:
+                st[1] = t0
+            st[0] += 1
+        try:
+            yield
+        finally:
+            t1 = time.perf_counter()
+            with self._lock:
+                if self._epoch != epoch:
+                    return     # reset() raced this span: discard it
+                st = self._wall_active.get(name)
+                if st is None:
+                    return
+                st[0] -= 1
+                if st[0] == 0:
+                    self.wall_timers[name] += t1 - st[1]
+                    self.wall_calls[name] += 1
+
+    def add_wall(self, name: str, seconds: float,
+                 t0: Optional[float] = None,
+                 args: Optional[dict] = None) -> None:
+        """Record an externally-measured wall span.  ``t0`` (the
+        caller's ``perf_counter`` start) places the interval in the
+        reference's trace ring, which the port does not have yet; it is
+        accepted and unused.  Every add_wall also feeds the always-on
+        flight recorder."""
+        if args:
+            args = trim_span_args(args)
+        with self._lock:
+            self.wall_timers[name] += seconds
+            self.wall_calls[name] += 1
+        _flight.recorder().record_span(name, seconds, args or None)
+
+    @contextlib.contextmanager
+    def span(self, name: str, **args) -> Iterator[None]:
+        """A STAGE SPAN: ``wall_timer`` aggregation plus one flight-recorder
+        append per completion (name, duration, the active trace id and
+        the keyword ``args``, size-guarded by ``trim_span_args``) -- the
+        reference's span with tracing disabled."""
+        if args:
+            args = trim_span_args(args)
+        t0 = time.perf_counter()
+        try:
+            with self.wall_timer(name):
+                yield
+        finally:
+            _flight.recorder().record_span(name, time.perf_counter() - t0,
+                                           args or None)
+
+    # -- merging (the reference's mesh-wide merge_metrics payload) ----------
+
+    def to_dict(self) -> Dict[str, object]:
+        """Full mergeable state (histograms as buckets, not summaries) —
+        the allgather payload of ``merge_metrics``."""
+        with self._lock:
+            return {"counters": dict(self.counters),
+                    "timers": dict(self.timers),
+                    "timer_calls": dict(self.timer_calls),
+                    "wall_timers": dict(self.wall_timers),
+                    "wall_calls": dict(self.wall_calls),
+                    "histograms": {k: h.to_dict()
+                                   for k, h in self.histograms.items()}}
+
+    def merge_dict(self, d: Dict[str, object]) -> None:
+        """Merge one host's ``to_dict`` payload into this instance:
+        counters/timers SUM (work adds across hosts), histograms merge
+        by bucket addition (associative), and wall spans take the MAX
+        across hosts — each host's value is already its local union, and
+        hosts run concurrently, so the mesh-wide wall is bounded by the
+        slowest host, not the sum."""
+        with self._lock:
+            for k, v in dict(d.get("counters", {})).items():
+                self.counters[k] += int(v)
+            for k, v in dict(d.get("timers", {})).items():
+                self.timers[k] += float(v)
+            for k, v in dict(d.get("timer_calls", {})).items():
+                self.timer_calls[k] += int(v)
+            for k, v in dict(d.get("wall_timers", {})).items():
+                self.wall_timers[k] = max(self.wall_timers[k], float(v))
+            for k, v in dict(d.get("wall_calls", {})).items():
+                self.wall_calls[k] = max(self.wall_calls[k], int(v))
+            for k, hd in dict(d.get("histograms", {})).items():
+                h = self.histograms.get(k)
+                if h is None:
+                    h = self.histograms[k] = Histogram()
+                h.merge(Histogram.from_dict(hd))
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, object]) -> "Metrics":
+        m = cls()
+        m.merge_dict(d)
+        return m
 
     def reset(self) -> None:
         with self._lock:
+            self._epoch += 1
             self.counters.clear()
+            self.timers.clear()
+            self.timer_calls.clear()
+            self.wall_timers.clear()
+            self.wall_calls.clear()
+            self.histograms.clear()
+            self._wall_active.clear()
 
 
-METRICS = Metrics()
+class NullMetrics(Metrics):
+    """Every recording surface a no-op: a ``MetricsContext`` over this
+    runs work with the always-on instrumentation (spans, counters,
+    histogram ticks) switched off, which is how its own cost is
+    measured."""
+
+    def count(self, name: str, n: int = 1) -> None:
+        pass
+
+    def observe(self, name: str, value: float, n: int = 1) -> None:
+        pass
+
+    def add_wall(self, name: str, seconds: float,
+                 t0: Optional[float] = None,
+                 args: Optional[dict] = None) -> None:
+        pass
+
+    @contextlib.contextmanager
+    def timer(self, name: str) -> Iterator[None]:
+        yield
+
+    @contextlib.contextmanager
+    def wall_timer(self, name: str) -> Iterator[None]:
+        yield
+
+    @contextlib.contextmanager
+    def span(self, name: str, **args) -> Iterator[None]:
+        yield
+
+
+# ---------------------------------------------------------------------------
+# context scoping: METRICS is a proxy over the contextvar-scoped instance
+# ---------------------------------------------------------------------------
+
+_BASE = Metrics()
+_CURRENT: "contextvars.ContextVar[Optional[Metrics]]" = \
+    contextvars.ContextVar("hbam_metrics", default=None)
+
+
+def current_metrics() -> Metrics:
+    """The Metrics instance this context records into: the innermost
+    active ``MetricsContext``, else the process-global default."""
+    m = _CURRENT.get()
+    return m if m is not None else _BASE
+
+
+def base_metrics() -> Metrics:
+    """The process-global default instance (what ``METRICS`` resolves to
+    outside any ``MetricsContext``)."""
+    return _BASE
+
+
+class MetricsContext:
+    """Run-scoped isolation: everything recorded inside the ``with``
+    block — including work handed to the shared decode pool via
+    ``utils.pools.submit`` and the staging packer thread — lands in this
+    context's own ``Metrics`` instead of the process global, so two
+    concurrent engine batches (or bench rows) get separately
+    attributable numbers::
+
+        with MetricsContext() as m:
+            engine.query_records(batch)
+        print(m.hist_summary("query.latency_s"))
+
+    Re-entrant and nestable; pass an existing instance (e.g.
+    ``NullMetrics()``) to substitute rather than isolate."""
+
+    def __init__(self, metrics: Optional[Metrics] = None):
+        self.metrics = metrics if metrics is not None else Metrics()
+        self._token: Optional[contextvars.Token] = None
+
+    def __enter__(self) -> Metrics:
+        self._token = _CURRENT.set(self.metrics)
+        return self.metrics
+
+    def __exit__(self, *exc) -> None:
+        if self._token is not None:
+            _CURRENT.reset(self._token)
+            self._token = None
+
+
+class _MetricsProxy:
+    """Attribute access forwards to ``current_metrics()`` — the shim
+    that context-scopes every historical ``METRICS.x`` call site without
+    touching it."""
+
+    __slots__ = ()
+
+    def __getattr__(self, name: str):
+        return getattr(current_metrics(), name)
+
+    def __repr__(self) -> str:
+        return f"<METRICS proxy -> {current_metrics()!r}>"
+
+
+METRICS = _MetricsProxy()

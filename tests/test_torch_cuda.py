@@ -889,3 +889,115 @@ def test_query_engine_on_card_equals_cpu(cuda, tmp_path):
     assert kept == sum(map(len, got))
     pos1 = truth.pos[truth.refid == 1] + 1
     assert len(got[2]) == pos1.size
+
+
+def _k10i_random(n_rows, L, seed, cuda):
+    """K10i inputs on random bytes: offsets anywhere in (and past) the
+    buffer, l_read_name 0-255, n_cigar 0-70 (a few past the 64 cap),
+    pos over the whole int32 range with its edges, refid -1..3."""
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(0, 256, L, dtype=np.uint8)
+    offs = rng.integers(-50, L + 50, n_rows).astype(np.int32)
+    refid = rng.integers(-1, 4, n_rows).astype(np.int32)
+    pos = rng.integers(-2 ** 31, 2 ** 31, n_rows, dtype=np.int64
+                       ).astype(np.int32)
+    pos[:4] = [2 ** 31 - 2, 2 ** 31 - 1, -1, -2 ** 31]
+    lrn = rng.integers(0, 256, n_rows).astype(np.int32)
+    nc = rng.integers(0, 65, n_rows).astype(np.int32)
+    ls = rng.integers(-3, 300, n_rows).astype(np.int32)
+    cols = [torch.from_numpy(a).to(cuda)
+            for a in (buf, offs, refid, pos, lrn, nc, ls)]
+    return cols
+
+
+@pytest.mark.parametrize("n_all", [-1, 0, 1, 777, 4096, 5000])
+def test_k10i_interval_cols_match_plain(cuda, n_all):
+    from hadoop_bam_torch.ops import inflate_device as tid
+    args = _k10i_random(4096, 1 << 16, 5, cuda)
+    for over in (False, True):
+        a = list(args)
+        if over:
+            nc = a[5].clone()
+            nc[min(max(n_all, 1), 4096) - 1] = 65
+            a[5] = nc
+        na = torch.tensor([n_all], dtype=torch.int32, device=cuda)
+        before = tid.interval_cols.launches
+        got = tid.interval_cols(*a, na)
+        want = tid.interval_cols_plain(*a, na)
+        torch.cuda.synchronize()
+        assert tid.interval_cols.launches == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g.reshape(-1), w.reshape(-1))
+        assert int(got[3]) == int(over and n_all > 0)
+
+
+def test_k10i_serve_step_on_card_matches_plain(cuda, tmp_path):
+    from hadoop_bam_torch.ops import inflate_device as tid
+    from hadoop_bam_torch.parallel.pipeline import _tokenize_span_tokens
+    from hadoop_bam_torch.split.planners import plan_bam_spans
+    from hadoop_bam_torch.synth import write_coverage_bam
+    path = str(tmp_path / "cig.bam")
+    write_coverage_bam(path, 20_000, seed=9, span=300_000)
+    checked = 0
+    for span in plan_bam_spans(path, num_spans=6):
+        c = _tokenize_span_tokens(path, span)
+        if c is None or c.used < c.n_blocks:
+            continue
+        B = tid.round_pow2(c.used, 8)
+        tok = np.zeros((B, c.P), np.int32)
+        tok[:c.used] = c.tokens.view(np.int32)
+        nt = np.zeros(B, np.int32)
+        iz = np.zeros(B, np.int32)
+        nt[:c.used], iz[:c.used] = c.n_tokens, c.isize
+        t = [torch.from_numpy(a).to(cuda) for a in (tok, nt, iz)]
+        got = tid.resolve_walk_intervals(*t, c.start, c.stop, c.P)
+        want = tid.resolve_walk_intervals_plain(*t, c.start, c.stop, c.P)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.reshape(-1), w.reshape(-1))
+        assert int(got[3]) > 0 and int(got[6]) == 0
+        checked += 1
+    assert checked > 0
+
+
+@pytest.mark.parametrize("backend", ["native", "device"])
+def test_serve_loop_on_card_equals_cpu_engine(cuda, tmp_path, backend):
+    from hadoop_bam_torch.config import HBamConfig
+    from hadoop_bam_torch.ops import inflate_device as tid
+    from hadoop_bam_torch.query import QueryEngine, QueryRequest
+    from hadoop_bam_torch.serve import ServeLoop
+    from hadoop_bam_torch.serve import tiles as st
+    from hadoop_bam_torch.split.bai import write_bai
+    from hadoop_bam_torch.synth import write_synthetic_bam
+    from hadoop_bam_torch.utils.metrics import MetricsContext
+    path = str(tmp_path / "s.bam")
+    write_synthetic_bam(path, 40_000, seed=6, coordinate_sorted=True)
+    write_bai(path)
+    regions = ["chr20:1-200000", "chr20:5,000,000-5,010,000", "chr21",
+               "chr21:100-40000", "chr20:1000000-1000050"]
+    want = QueryEngine(device="cpu").query_records(
+        [QueryRequest(path, r) for r in regions])
+    cfg = HBamConfig(inflate_backend=backend, serve_prefetch=False)
+    k10i = tid.interval_cols.launches
+    steps = st.tile_filter_step.launches
+    with ServeLoop(config=cfg) as loop:
+        assert loop.device.type == "cuda"
+        cold = loop.query(path, regions)
+        with MetricsContext() as warm_m:
+            warm = loop.query(path, regions)
+        recs = loop.query(path, regions[:2], want_records=True)
+    # candidates are the region's own index ranges (the engine scans
+    # the batch's hull): the same server on the CPU gives the same
+    with ServeLoop(config=cfg, device="cpu") as cpu_loop:
+        cpu_cands = [r.n_candidates for r in cpu_loop.query(path, regions)]
+    for got in (cold, warm):
+        assert [r.count for r in got] == [len(w.records) for w in want]
+        assert [r.n_candidates for r in got] == cpu_cands
+    assert all(r.tile_misses == 0 for r in warm)
+    assert warm_m.counters.get("query.chunks_decoded", 0) == 0
+    for r, w in zip(recs, want):
+        assert [x.to_line() for x in r.records] == \
+            [x.to_line() for x in w.records]
+    assert st.tile_filter_step.launches > steps
+    if backend == "device":
+        assert tid.interval_cols.launches > k10i
