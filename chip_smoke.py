@@ -107,18 +107,21 @@ Phases (any failure raises and exits non-zero):
    1,000 batched region queries (K13) on phase 11's sorted copy, and the
    span window's hang defence (``phase_coverage_query``);
 14. the resident region server (``hadoop_bam_torch.serve.ServeLoop``):
-   (a) K10i (``interval_cols``) bit for bit against its plain version at
-   the 64- and 17-block chunks of a BAM of mixed CIGARs (the chunk, random
-   n_cigar / l_read_name with offsets at the buffer's end, a 65-op row
-   raising ``over``, pos at the int32 edges, n_all -1 / 0 / past R, each
-   twice) and the whole serve step against ``resolve_walk_intervals_plain``,
-   with its time and bound; (b) the first 200 of phase 13 (b)'s regions,
+   (a) K10i (``interval_cols``, which reads each record's prefix itself)
+   bit for bit against its plain version at the 64- and 17-block chunks
+   of a BAM of mixed CIGARs (the chunk, buf 3 bytes off 16, random
+   n_cigar / l_read_name written into the prefixes with offsets cut by
+   either end of the buffer, a 65-op row raising ``over``, pos at the
+   int32 edges, n_all -1 / 0 / past R, each twice) and the whole serve
+   step against ``resolve_walk_intervals_plain``, with its time and
+   bound; (b) the first 200 of phase 13 (b)'s regions,
    one request at a time, at the default serve width (4,096-row tiles,
    512 MiB) with prefetch off: native plane cold then warm (counts equal
    to the engine's and the generator's; the warm pass decodes nothing on
    the host, in its own ``MetricsContext``), a profiled warm pass, then
    the device plane cold on a fresh loop (``serve.device_tile_builds``
-   > 0), and once more with every K10i launch held against its plain
+   > 0; K7+K8, K9 and K10i once a build, no K1), and once more with
+   every K10i launch held against its plain
    version; K10i then checked in the same seven cases and timed at the
    serve's own chunk shape (the R it launched most often: the ``.bai``
    chunks of 1-10 kb regions), and the tile filter timed alone on one
@@ -138,7 +141,13 @@ limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 kernel at its shapes (``TIMES``: K9 and K10p at both chunk shapes, K7+K8
 at its three chunks, K2 at phase 12's FASTA window shape
 (``k2_window``); ``serve_tiles``: phase 14 on a sorted copy written
-beside the BAM; ``device_plane``: the profiled device-plane
+beside the BAM; ``interval_chain``: ``resolve_walk_intervals`` split
+by kernel at a serve chunk and the 17- and 64-block chunks of a BAM of
+mixed CIGARs written beside the BAM, for turns against a tree whose
+chain still ran K1; ``interval_floor``: K10i alone at those chunks,
+walked, with n_all = 0, and in turns against the memset scheme it
+replaced, by the profiler and by one CUDA graph;
+``device_plane``: the profiled device-plane
 ``seq_stats()`` by kernel; ``native_plane``: the native plane's three
 drivers of phase 5, warmed up, five rounds in turn; ``bai_regions``:
 phase 11 (d)'s ``.bai`` runs on a sorted copy of the reads kept beside
@@ -296,9 +305,13 @@ def device_ms(torch, calls, reps: int = 32, kernel=None) -> float:
     launches once).  A session that lost launches reads low (K2 at
     0.0034-0.0169 ms under its bound of 0.0303 ms); such sessions are
     logged (an unfenced one with -1 launches) and dropped.  Unlike event
-    timing around one call, host launch overhead does not count.  Falls
-    back to ``loop_ms`` when six sessions give no whole reading, and
-    says so."""
+    timing around one call, host launch overhead does not count.  When
+    six sessions give no whole reading (late in a long smoke process the
+    profiler often loses a session's leading fence whole) it takes, for
+    a hand kernel's calls (``kernel`` named), ``graph_ms`` (the calls in
+    one CUDA graph, its replay timed by events: device time with no host
+    launches), else or where the calls cannot be captured ``loop_ms`` (an
+    upper bound), and says which."""
     if not torch.cuda.is_available():
         return float("nan")   # a rehearsal on the CPU measures nothing
     for call in calls:
@@ -320,6 +333,11 @@ def device_ms(torch, calls, reps: int = 32, kernel=None) -> float:
             f"{[s for s in sessions if s not in whole]}; kept {whole}")
     if whole:
         return statistics.median(ms for _, ms in whole)
+    ms = graph_ms(torch, calls) if kernel else float("nan")
+    if ms == ms:
+        log(f"torch.profiler gave no whole session in 6: the calls in one "
+            f"CUDA graph by events instead ({ms:.4f} ms)")
+        return ms
     log("torch.profiler gave no whole session in 6: the calls in a row "
         "by events instead (an upper bound)")
     return loop_ms(torch, calls)
@@ -2959,61 +2977,81 @@ def _remove_sorted(srt) -> None:
 
 def _k10i_inputs(torch, tokens, start):
     """K10i's inputs on one chunk as the serve step makes them: the
-    resolved buffer, the walk's offsets, K1's five columns and n_all."""
+    resolved buffer, the walk's offsets and n_all."""
     from hadoop_bam_torch.ops import inflate_device as tid
-    buf, offs, cols, _, n_all, _, _ = tid._resolve_walk(
-        *tokens, start, 1 << 30, None)
-    return [buf, offs, cols["refid"], cols["pos"], cols["l_read_name"],
-            cols["n_cigar"], cols["l_seq"], n_all]
+    buf, offs, n_all, _, _ = tid._resolve_offsets(*tokens, start, 1 << 30,
+                                                  None)
+    return [buf, offs, n_all]
 
 
 def _k10i_bytes(torch, args) -> int:
     """The bytes K10i must move: three int32 [R] outputs written once;
-    for each of the min(n_all, R) valid rows its offset and five columns
-    read once and its CIGAR words up to the cap; n_all and the flag."""
+    for each of the min(n_all, R) valid rows its 4-byte offset, its 20
+    prefix bytes (4-23) and its 4 * min(n_cigar, cap) CIGAR bytes read
+    once; n_all and over, 4 bytes each."""
     from hadoop_bam_torch.ops.inflate_device import DEVICE_TILE_CIGAR_CAP
-    R = args[1].shape[0]
-    nv = max(0, min(int(args[7]), R))
-    nc = torch.clamp(args[5][:nv].to(torch.int64), 0, DEVICE_TILE_CIGAR_CAP)
-    return 12 * R + 24 * nv + 4 * int(nc.sum()) + 8
+    from hadoop_bam_torch.ops.unpack_bam import unpack_fixed_fields_plain
+    buf, offs, n_all = args
+    R = offs.shape[0]
+    nv = max(0, min(int(n_all), R))
+    # K1's plain gather, which every tree has (``--times interval_chain
+    # --tree``): a walked record lies in buf, where its rule is the clip
+    nc = unpack_fixed_fields_plain(buf, offs[:nv])["n_cigar"]
+    nc = torch.clamp(nc.to(torch.int64), 0, DEVICE_TILE_CIGAR_CAP)
+    return 12 * R + (4 + 20) * nv + 4 * int(nc.sum()) + 8
 
 
 def _k10i_hold(torch, args, label, seed) -> None:
     """K10i against its plain version, bit for bit, each case twice in a
     row, on one chunk's inputs ``args`` (``_k10i_inputs``): the chunk as
-    it is, random n_cigar / l_read_name (the buffer's bytes read as CIGAR
-    words, op lengths that wrap int32) with offsets near the buffer's
-    end, a 65-op row (over = 1), pos at the int32 edges, and n_all -1, 0
-    and past R."""
+    it is and in a view of buf 3 bytes off 16; random l_read_name and
+    n_cigar written into the records' prefixes (the buffer's bytes read
+    as CIGAR words, op lengths that wrap int32) with offsets cut by the
+    buffer's start and end, past both and wrapping int32; a 65-op row
+    (over = 1); pos at the int32 edges; and n_all -1, 0 and past R."""
     import numpy as np
     from hadoop_bam_torch.ops import inflate_device as tid
-    dev = args[1].device
-    R, L = args[1].shape[0], args[0].shape[0]
-    nv = int(args[7])
+    buf, offs, n_all = args
+    dev = offs.device
+    R, L = offs.shape[0], buf.shape[0]
+    nv = int(n_all)
     rng = np.random.default_rng(seed)
 
-    def col(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
-    offs_edge = args[1].clone()
-    offs_edge[:8] = col([L - 40, L - 37, L - 1, 0, L - 300, 5, 7, 11])
-    rand = list(args)
-    rand[1] = offs_edge
-    rand[4] = col(rng.integers(0, 256, R))
-    rand[5] = col(rng.integers(0, tid.DEVICE_TILE_CIGAR_CAP + 1, R))
-    over = list(args)
-    nc65 = args[5].clone()
-    nc65[nv // 2] = 65
-    over[5] = nc65
-    edge = list(args)
-    pos = args[3].clone()
-    pos[:4] = col([2 ** 31 - 2, 2 ** 31 - 1, -1, -2 ** 31])
-    edge[3] = pos
-    cases = [("chunk", args), ("random n_cigar and l_read_name", rand),
-             ("a 65-op row", over), ("pos at the int32 edges", edge)]
+    def col(a, dtype=np.int32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+    def put(b, rows, at, values):
+        """``values`` (bytes, one row of them a record) at prefix byte
+        ``at`` of the records ``rows``."""
+        b = b.clone()
+        vals = col(values, np.uint8).reshape(len(rows), -1)
+        idx = offs[torch.as_tensor(rows, device=dev)].to(
+            torch.int64)[:, None] + at + torch.arange(
+            vals.shape[1], device=dev)
+        b[idx] = vals
+        return b
+    shifted = torch.zeros(L + 3, dtype=torch.uint8, device=dev)
+    shifted[3:] = buf
+    rows = np.arange(nv)
+    rand_buf = put(buf, rows, 12, rng.integers(0, 256, (nv, 1)))
+    nc = rng.integers(0, tid.DEVICE_TILE_CIGAR_CAP + 1, nv)
+    rand_buf = put(rand_buf, rows, 16, np.stack([nc & 255, nc >> 8], 1))
+    offs_edge = offs.clone()
+    offs_edge[:12] = col([L - 40, L - 37, L - 23, L - 1, L + 40, 0, L - 300,
+                          -1, -13, -40, 2 ** 31 - 20, 2 ** 31 - 40])
+    pos = np.array([2 ** 31 - 2, 2 ** 31 - 1, -1, -2 ** 31], "<i4")
+    cases = [("chunk", args),
+             ("buf 3 bytes off 16", [shifted[3:], offs, n_all]),
+             ("random l_read_name and n_cigar, offsets cut by both ends",
+              [rand_buf, offs_edge, n_all]),
+             ("a 65-op row", [put(buf, [nv // 2], 16, [[65, 0]]), offs,
+                              n_all]),
+             ("pos at the int32 edges",
+              [put(buf, np.arange(4), 8, pos.view(np.uint8).reshape(4, 4)),
+               offs, n_all])]
     for v in (-1, 0, R + 7):
-        a = list(args)
-        a[7] = torch.tensor([v], dtype=torch.int32, device=dev)
-        cases.append((f"n_all {v}", a))
+        cases.append((f"n_all {v}", [buf, offs, torch.tensor(
+            [v], dtype=torch.int32, device=dev)]))
     for name, a in cases:
         want = tid.interval_cols_plain(*a)
         for _ in range(2):
@@ -3041,7 +3079,7 @@ def _k10i_times(torch, args) -> dict:
               for _ in range(8)]
     calls = [lambda c=c: tid.interval_cols(*c) for c in copies]
     nbytes = _k10i_bytes(torch, args)
-    return {"R": args[1].shape[0], "records": int(args[7]),
+    return {"R": args[1].shape[0], "records": int(args[2]),
             "nbytes": nbytes,
             "ms": device_ms(torch, calls, kernel="interval_cols"),
             "loop_ms": loop_ms(torch, calls),
@@ -3109,11 +3147,11 @@ class _CheckedK10i:
         for g, w, what in zip(out, want, ("rid", "pos1", "end1", "over")):
             check(torch.equal(g.reshape(-1), w.reshape(-1)),
                   f"K10i {what} in the checked serve pass (R = {R})")
-        n = int(a[7])
+        n = int(a[2])
         self.seen.setdefault(R, []).append(n)
-        if n > int(self.most.get(R, [0] * 8)[7]):
-            self.most[R] = [t.clone() if torch.is_tensor(t) else t
-                            for t in a]
+        if n > int(self.most.get(R, [0] * 3)[2]):
+            # (buf, offs, n_all): the serve passes the default cap
+            self.most[R] = [t.clone() for t in a[:3]]
         return out
 
 
@@ -3340,16 +3378,29 @@ def phase_serve(torch, path, card, dev, seed, srt, srt_truth, served):
             loop.stop()
         # the device plane, cold, on a fresh loop
         dev_cfg = HBamConfig(inflate_backend="device", serve_prefetch=False)
+        before = dict(read_launches(),
+                      interval_cols=tid.interval_cols.launches)
         loop = ServeLoop(config=dev_cfg).start()
         try:
             dev_p = _serve_pass(loop, srt, regions)
             check(np.array_equal(dev_p[0], engine_counts),
                   "device plane: counts equal the engine's")
-            check(dev_p[6].counters.get("serve.device_tile_builds", 0) > 0,
-                  "serve.device_tile_builds > 0")
+            builds = dev_p[6].counters.get("serve.device_tile_builds", 0)
+            check(builds > 0, "serve.device_tile_builds > 0")
             _log_pass("device plane, cold", dev_p, card)
         finally:
             loop.stop()
+        # K10i reads each record's prefix itself: the chain is K7+K8, K9,
+        # K10i, and no K1
+        chain = {k: v - before[k] for k, v in dict(
+            read_launches(), interval_cols=tid.interval_cols.launches).items()}
+        log(f"(b) the device-plane pass's launches: {chain} for {builds} "
+            f"device tile builds")
+        check(chain["unpack_fixed_fields"] == 0,
+              "the device-plane serve launched no K1")
+        check(chain["interval_cols"] == chain["resolve_pack"]
+              == chain["walk_records_device"] >= builds,
+              "each device tile build ran K7+K8, K9 and K10i once")
         launches = dict(read_launches(),
                         interval_cols=tid.interval_cols.launches,
                         tile_filter_step=st.tile_filter_step.launches)
@@ -3448,12 +3499,171 @@ def serve_tiles_times(torch, path, dev) -> dict:
     return {"K10i": row, "launches": launches, "tile_filter_step": tf}
 
 
+# (label, BGZF blocks) of the serve's interval chain: a serve chunk (a
+# few blocks in B = 8 rows, R = 16,384, the R of every serve launch) and
+# the device plane's 17- and 64-block chunks
+CHAIN_SHAPES = (("serve chunk", 4), ("17-block", 17), ("64-block", 64))
+
+
+def interval_chain_times(torch, path, dev) -> dict:
+    """``--times interval_chain``: ``resolve_walk_intervals`` (the serve's
+    device tile build) split by kernel at ``CHAIN_SHAPES`` on a BAM of
+    mixed CIGARs written beside the BAM (or found there), each shape held
+    bit for bit against ``resolve_walk_intervals_plain`` first.  Both
+    have the same signature in every tree since K10i was written, so with
+    ``--tree`` it times an earlier tree's chain (there K7+K8, K9, K1 and
+    K10i with its memset) on the same card and inputs.  Per shape: every
+    kernel's ms, K10i's, K1's and the memsets', and the bound of K10i's
+    work as this tree's K10i does it (``_k10i_bytes``)."""
+    from hadoop_bam_torch import synth
+    from hadoop_bam_torch.ops import inflate_device as tid
+    seed = int(os.path.basename(path).split("_")[1])
+    cov = path[:-len(".bam")] + "_cigars.bam"
+    if not os.path.exists(cov):
+        _, w = _timed(lambda: synth.write_coverage_bam(
+            cov, 200_000, seed, span=COV_SPAN))
+        log(f"wrote {cov} (200,000 reads of mixed CIGARs) in {w:.1f} s")
+    out = {}
+    for label, n in CHAIN_SHAPES:
+        tokens, start = chunk_tokens(torch, cov, dev, n)
+        got = tid.resolve_walk_intervals(*tokens, start, 1 << 30)
+        want = tid.resolve_walk_intervals_plain(*tokens, start, 1 << 30)
+        sync(torch, dev)
+        for g, w, what in zip(got, want, ("rid", "pos1", "end1", "n_all",
+                                          "tail", "bad", "over")):
+            check(torch.equal(g.reshape(-1), w.reshape(-1)),
+                  f"resolve_walk_intervals {what} at the {label}")
+        B, P = tokens[0].shape
+        buf, total = tid.resolve_pack(*tokens)
+        offs, n_all, _, _ = tid.walk_records_device(
+            buf, total, start, 1 << 30, tid.records_cap(B, P))
+        nbytes = _k10i_bytes(torch, [buf, offs, n_all])
+        copies = [[t.clone() for t in tokens] for _ in range(8)]
+        split = kernel_split(torch, [
+            lambda c=c: tid.resolve_walk_intervals(*c, start, 1 << 30)
+            for c in copies], kernel="interval_cols")
+
+        def part(key):
+            return sum(ms for k, ms in split.items() if key in k)
+        k10i, k1, memset = (part("interval_cols"),
+                            part("unpack_fixed_fields"), part("emset"))
+        out[label] = {"blocks": n, "R": int(offs.shape[0]),
+                      "records": int(n_all), "by_kernel": split,
+                      "k10i_ms": k10i, "k1_ms": k1, "memset_ms": memset,
+                      "k1_k10i_ms": k1 + k10i + memset,
+                      "chain_ms": sum(split.values()), "nbytes": nbytes,
+                      "bound_ms": nbytes / H100_BYTES_PER_S * 1e3}
+        x = out[label]
+        log(f"interval chain at the {label} (R = {x['R']}, {x['records']} "
+            f"records): K10i {k10i:.4f} ms, K1 {k1:.4f} ms, memsets "
+            f"{memset:.4f} ms, chain {x['chain_ms']:.4f} ms; K10i's bound "
+            f"{x['bound_ms']:.6f} ms = {nbytes} B / 3.35 TB/s")
+    return out
+
+
+def _k10i_memset_scheme(torch):
+    """K10i as PR 12 set ``over`` (a memset before the launch, one
+    atomicOr a CTA that saw an over-cap row), for ``--times
+    interval_floor``: ``csrc/interval_cols.cu`` with its counter-word
+    tail and launch patched, built by nvcc into the build dir, wrapped
+    like ``interval_cols`` (no launch count)."""
+    import ctypes
+    from hadoop_bam_torch.ops import kernels
+    with open(os.path.join(kernels.CSRC, "interval_cols.cu")) as f:
+        src = f.read()
+    tail = src[src.index("  // over: the last CTA to count itself in"):
+               src.index("}  // namespace")]
+    launch = "  interval_cols_kernel<<<"
+    check(tail.count("atomicAdd(done") == 1 and src.count(launch) == 1,
+          "K10i's source has the counter-word tail to patch")
+    src = src.replace(tail, "  if (__syncthreads_or(my_over) && "
+                      "threadIdx.x == 0) atomicOr(over, 1);\n}\n\n")
+    src = src.replace(launch, "  {\n    const cudaError_t e = "
+                      "cudaMemsetAsync(over, 0, 4, static_cast<cudaStream_t>"
+                      "(stream));\n    if (e != cudaSuccess) return "
+                      "static_cast<int>(e);\n  }\n" + launch)
+    base = os.path.join(kernels.BUILD_DIR, "interval_cols_memset")
+    with open(base + ".cu", "w") as f:
+        f.write(src)
+    subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o",
+                    base + ".so", base + ".cu"], check=True,
+                   capture_output=True)
+    fn = ctypes.CDLL(base + ".so").hbam_interval_cols
+    fn.argtypes = kernels.KERNELS["interval_cols"][1]
+    fn.restype = ctypes.c_int
+
+    def call(buf, offs, n_all, cap=64):
+        dev, R = buf.device, offs.shape[0]
+        rid, pos1, end1 = (torch.empty(R, dtype=torch.int32, device=dev)
+                           for _ in range(3))
+        over = torch.empty(1, dtype=torch.int32, device=dev)
+        rc = fn(buf.data_ptr(), buf.shape[0], offs.data_ptr(),
+                n_all.data_ptr(), R, cap, rid.data_ptr(), pos1.data_ptr(),
+                end1.data_ptr(), over.data_ptr(), None,
+                torch.cuda.current_stream(dev).cuda_stream)
+        kernels.check_launch("interval_cols (memset scheme)", rc)
+        return rid, pos1, end1, over[0]
+    return call
+
+
+def interval_floor_times(torch, path, dev) -> dict:
+    """``--times interval_floor``: K10i alone at ``CHAIN_SHAPES`` on the
+    mixed-CIGAR BAM of ``interval_chain`` (written beside the BAM if
+    missing): walked and with n_all = 0 (the pads and the counter word,
+    no walk), and in turns (counter, memset, memset, counter) against
+    the memset scheme it replaced (``_k10i_memset_scheme``), each by the
+    profiler (kernel and memset activity) and by one CUDA graph
+    (``graph_ms``, ``device_ms``'s fallback), after both schemes are held
+    bit for bit against plain; and ``graph_ms`` on the chain's K9 and
+    K7+K8 calls at each shape."""
+    from hadoop_bam_torch import synth
+    from hadoop_bam_torch.ops import inflate_device as tid
+    seed = int(os.path.basename(path).split("_")[1])
+    cov = path[:-len(".bam")] + "_cigars.bam"
+    if not os.path.exists(cov):
+        synth.write_coverage_bam(cov, 200_000, seed, span=COV_SPAN)
+    memset = _k10i_memset_scheme(torch)
+    out = {}
+    for label, n in CHAIN_SHAPES:
+        tokens, start = chunk_tokens(torch, cov, dev, n)
+        args = _k10i_inputs(torch, tokens, start)
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        want = tid.interval_cols_plain(*args)
+        for name, f in (("counter", tid.interval_cols), ("memset", memset)):
+            got = f(*args)
+            sync(torch, dev)
+            check(all(torch.equal(g.reshape(-1), w.reshape(-1))
+                      for g, w in zip(got, want)),
+                  f"K10i ({name}) equals plain at the {label}")
+        row = {"R": int(args[1].shape[0]), "records": int(args[2])}
+        for key, a, f in (("walked", args, tid.interval_cols),
+                          ("n_all 0", args[:2] + [zero], tid.interval_cols),
+                          ("memset", args, memset),
+                          ("memset again", args, memset),
+                          ("walked again", args, tid.interval_cols)):
+            copies = [[t.clone() for t in a] for _ in range(8)]
+            calls = [lambda c=c, f=f: f(*c) for c in copies]
+            row[key] = {"ms": device_ms(torch, calls, kernel="interval_cols"),
+                        "graph_ms": graph_ms(torch, calls)}
+        buf, total = tid.resolve_pack(*tokens)
+        R = row["R"]
+        row["K9 graph_ms"] = graph_ms(torch, [
+            lambda: tid.walk_records_device(buf, total, start, 1 << 30, R)])
+        row["K7+K8 graph_ms"] = graph_ms(torch, [
+            lambda: tid.resolve_pack(*tokens)])
+        out[label] = row
+        log(f"K10i at the {label}: {json.dumps(row)}")
+    return out
+
+
 TIMES = {"walk_records_device": k9_times, "resolve_pack": k7_times,
          "payload_gather": k10p_times, "device_plane": device_plane_times,
          "native_plane": native_plane_times, "k2_window": k2_window_times,
          "bai_regions": bai_regions_times,
          "coverage_query": coverage_query_times,
-         "serve_tiles": serve_tiles_times}
+         "serve_tiles": serve_tiles_times,
+         "interval_chain": interval_chain_times,
+         "interval_floor": interval_floor_times}
 
 
 def check_truth(flag, stats, truth) -> None:

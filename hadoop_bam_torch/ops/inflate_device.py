@@ -17,8 +17,8 @@ Everything after that runs here, on one chunk of at most 64 blocks:
 - ``payload_gather`` (K10p, ``csrc/payload_gather.cu``): each record's
   packed bases and quals into the fixed-stride tiles K2 reads;
 - ``interval_cols`` (K10i, ``csrc/interval_cols.cu``): each record's
-  (rid, pos1, end1) interval columns, end1 from its own CIGAR, for the
-  serve tiles.
+  (rid, pos1, end1) interval columns from its own prefix, end1 from its
+  own CIGAR, for the serve tiles (no K1 on that chain).
 
 ``resolve_walk_fields``, ``resolve_walk_payload`` and
 ``resolve_walk_intervals`` chain them, so the inflated bytes never
@@ -33,6 +33,7 @@ record capacity ``records_cap(B, P)`` is fixed per rung.
 from __future__ import annotations
 
 import functools
+import threading
 import time
 import zlib
 from typing import Dict, NamedTuple, Optional, Tuple, Union
@@ -567,27 +568,46 @@ def _wrap32(x: torch.Tensor) -> torch.Tensor:
     return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
 
 
+def _prefix_columns(buf: torch.Tensor, offs: torch.Tensor) -> Dict[str,
+                                                                 torch.Tensor]:
+    """Bytes 4-23 of each row's record by the reference's index rule for
+    the serve step, ``clip(offs + k, 0, L - 1)`` with the int32 sum
+    wrapping (``resolve_walk_intervals`` :359-362; K1 wraps a negative
+    index by L instead): refid, pos, l_read_name, n_cigar and l_seq as
+    int64 [R] holding their int32 / unsigned values."""
+    L = buf.shape[0]
+    k = torch.arange(4, 24, device=buf.device, dtype=torch.int64)
+    idx = _wrap32(offs.to(torch.int64)[:, None] + k[None, :]).clamp(0, L - 1)
+    t = buf[idx].to(torch.int64)
+
+    def le(at: int, width: int) -> torch.Tensor:
+        v = t[:, at]
+        for i in range(1, width):
+            v = v | (t[:, at + i] << (8 * i))
+        return v
+    return {"refid": _wrap32(le(0, 4)), "pos": _wrap32(le(4, 4)),
+            "l_read_name": t[:, 8], "n_cigar": le(12, 2),
+            "l_seq": _wrap32(le(16, 4))}
+
+
 def interval_cols_plain(buf: torch.Tensor, offs: torch.Tensor,
-                        refid: torch.Tensor, pos: torch.Tensor,
-                        l_read_name: torch.Tensor, n_cigar: torch.Tensor,
-                        l_seq: torch.Tensor, n_all: Scalar,
-                        cap: int = DEVICE_TILE_CIGAR_CAP):
-    """Plain version of K10i: the reference's [R, cap] formulation (every
-    row's first ``cap`` CIGAR words gathered byte by byte with the index
-    clamp), in int64 masked to the int32 values the reference's int32
-    sums and clamps wrap to.  Returns (rid, pos1, end1) int32 [R] and the
-    int32 ``over`` flag."""
+                        n_all: Scalar, cap: int = DEVICE_TILE_CIGAR_CAP):
+    """Plain version of K10i: each row's prefix gathered by the
+    reference's clip rule (``_prefix_columns``), then the reference's
+    [R, cap] formulation (every row's first ``cap`` CIGAR words gathered
+    byte by byte with the index clamp), in int64 masked to the int32
+    values the reference's int32 sums and clamps wrap to.  Returns (rid,
+    pos1, end1) int32 [R] and the int32 ``over`` flag."""
     L = buf.shape[0]
     R = offs.shape[0]
     dev = buf.device
+    cols = _prefix_columns(buf, offs)
     n_valid = torch.clamp(torch.as_tensor(n_all, device=dev).reshape(()),
                           max=R)
     valid = torch.arange(R, device=dev) < n_valid
-    nc = n_cigar.to(torch.int64)
-    ls = l_seq.to(torch.int64)
+    nc, ls = cols["n_cigar"], cols["l_seq"]
     over = (valid & (nc > cap)).any().to(torch.int32)
-    cig_off = _wrap32(offs.to(torch.int64) + PREFIX
-                      + l_read_name.to(torch.int64))
+    cig_off = _wrap32(offs.to(torch.int64) + PREFIX + cols["l_read_name"])
     k = torch.arange(cap, device=dev, dtype=torch.int64)[None, :]
     widx = _wrap32(cig_off[:, None] + 4 * k)
     word = torch.zeros(widx.shape, dtype=torch.int64, device=dev)
@@ -600,25 +620,42 @@ def interval_cols_plain(buf: torch.Tensor, offs: torch.Tensor,
     act = k < torch.clamp(nc, max=cap)[:, None]
     span = _wrap32(torch.where(act & consumes, oplen, 0).sum(1))
     ref = torch.where(nc > 0, span, torch.clamp(ls, min=0))
-    pos1 = torch.clamp(pos.to(torch.int64), max=_I32_MAX - 1) + 1
+    pos1 = torch.clamp(cols["pos"], max=_I32_MAX - 1) + 1
     room = _wrap32(_I32_MAX - pos1)
     end1 = _wrap32(pos1 + torch.minimum(torch.clamp(ref, min=1) - 1, room))
-    rid = torch.where(valid, refid, torch.full_like(refid, -1))
     zero = torch.zeros((), dtype=torch.int32, device=dev)
-    return (rid, torch.where(valid, pos1.to(torch.int32), zero),
+    return (torch.where(valid, cols["refid"].to(torch.int32),
+                        torch.full((), -1, dtype=torch.int32, device=dev)),
+            torch.where(valid, pos1.to(torch.int32), zero),
             torch.where(valid, end1.to(torch.int32), zero), over)
 
 
-def interval_cols(buf: torch.Tensor, offs: torch.Tensor,
-                  refid: torch.Tensor, pos: torch.Tensor,
-                  l_read_name: torch.Tensor, n_cigar: torch.Tensor,
-                  l_seq: torch.Tensor, n_all: Scalar,
+# K10i's per-stream scratch: one uint64 that counts the launch's CTAs in
+# and is zero between launches (``csrc/interval_cols.cu``), keyed by
+# (device index, stream handle): launches on one stream never overlap
+_K10I_DONE: Dict[Tuple[int, int], torch.Tensor] = {}
+_K10I_DONE_LOCK = threading.Lock()
+
+
+def _k10i_done(dev: torch.device, stream: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    with _K10I_DONE_LOCK:
+        done = _K10I_DONE.get(key)
+        if done is None:
+            done = _K10I_DONE[key] = torch.zeros(1, dtype=torch.int64,
+                                                 device=dev)
+    return done
+
+
+def interval_cols(buf: torch.Tensor, offs: torch.Tensor, n_all: Scalar,
                   cap: int = DEVICE_TILE_CIGAR_CAP):
     """Each walked record's 1-based inclusive (rid, pos1, end1) as int32
-    [R] columns, end1 from its first ``cap`` CIGAR ops (a ``*`` CIGAR
-    takes l_seq), rows at or past min(n_all, R) holding the tile pads
-    (rid -1, pos1 = end1 = 0), and the int32 ``over`` flag (a valid row
-    with more than ``cap`` ops), with ``resolve_walk_intervals``' rules.
+    [R] columns, from the record's own fixed prefix at ``offs`` (refid,
+    pos, l_read_name, n_cigar, l_seq) and its first ``cap`` CIGAR ops (a
+    ``*`` CIGAR takes l_seq), rows at or past min(n_all, R) holding the
+    tile pads (rid -1, pos1 = end1 = 0), and the int32 ``over`` flag (a
+    valid row with more than ``cap`` ops), with ``resolve_walk_intervals``'
+    rules: every byte index clipped to the buffer.
 
     CUDA tensors launch the K10i kernel on the current stream (``n_all``
     may be a device int32, read there: no synchronisation); CPU tensors
@@ -626,35 +663,34 @@ def interval_cols(buf: torch.Tensor, offs: torch.Tensor,
     if buf.dtype != torch.uint8 or buf.dim() != 1 or buf.shape[0] < 1:
         raise ValueError(f"buf must be uint8 [L], got {buf.dtype} "
                          f"{tuple(buf.shape)}")
-    R = offs.shape[0]
-    named = (("offs", offs), ("refid", refid), ("pos", pos),
-             ("l_read_name", l_read_name), ("n_cigar", n_cigar),
-             ("l_seq", l_seq))
-    for name, t in named:
-        if t.dtype != torch.int32 or tuple(t.shape) != (R,):
-            raise ValueError(f"{name} must be int32 [{R}], got {t.dtype} "
-                             f"{tuple(t.shape)}")
-        if t.device != buf.device:
-            raise ValueError(f"{name} must be on {buf.device}")
+    if offs.dtype != torch.int32 or offs.dim() != 1:
+        raise ValueError(f"offs must be int32 [R], got {offs.dtype} "
+                         f"{tuple(offs.shape)}")
+    if offs.device != buf.device:
+        raise ValueError(f"offs must be on {buf.device}")
     if not 0 <= int(cap) <= 4096:
         raise ValueError(f"cigar cap {cap} outside [0, 4096]")
     if not _cuda_or_cpu(buf):
-        return interval_cols_plain(buf, offs, refid, pos, l_read_name,
-                                   n_cigar, l_seq, n_all, cap)
+        return interval_cols_plain(buf, offs, n_all, cap)
     if not buf.is_contiguous():   # the kernel reads buf as bytes
         raise ValueError("buf must be contiguous on the card")
     dev = buf.device
-    cols = [t.contiguous() for _, t in named]
+    R = offs.shape[0]
+    offs = offs.contiguous()
     n_all = _i32_scalar(n_all, dev)
+    # three allocations: the pad sweep's int4 stores need each column
+    # 16-byte aligned
     rid, pos1, end1 = (torch.empty(R, dtype=torch.int32, device=dev)
                        for _ in range(3))
     over = torch.empty(1, dtype=torch.int32, device=dev)
     fn = kernels.kernel("interval_cols")
     with torch.cuda.device(dev):
-        rc = fn(buf.data_ptr(), buf.shape[0],
-                *(t.data_ptr() for t in cols), n_all.data_ptr(), R,
-                int(cap), rid.data_ptr(), pos1.data_ptr(), end1.data_ptr(),
-                over.data_ptr(), _stream(dev))
+        stream = _stream(dev)
+        done = _k10i_done(dev, stream)
+        rc = fn(buf.data_ptr(), buf.shape[0], offs.data_ptr(),
+                n_all.data_ptr(), R, int(cap), rid.data_ptr(),
+                pos1.data_ptr(), end1.data_ptr(), over.data_ptr(),
+                done.data_ptr(), stream)
     kernels.check_launch("interval_cols", rc)
     interval_cols.launches += 1
     return rid, pos1, end1, over[0]
@@ -667,15 +703,24 @@ interval_cols.launches = 0
 # The fused decode steps
 # ---------------------------------------------------------------------------
 
+def _resolve_offsets(tokens, n_tokens, isize, start: int, stop: int,
+                     P: Optional[int]):
+    """resolve + pack + walk: (buf, offs, n_all, tail, bad)."""
+    B, T = tokens.shape
+    P = T if P is None else int(P)
+    buf, total = resolve_pack(tokens, n_tokens, isize, P)
+    offs, n_all, tail, bad = walk_records_device(buf, total, start, stop,
+                                                 records_cap(B, P))
+    return buf, offs, n_all, tail, bad
+
+
 def _resolve_walk(tokens, n_tokens, isize, start: int, stop: int,
                   P: Optional[int]):
     """resolve + pack + walk + K1 at the walk's offsets."""
-    B, T = tokens.shape
-    P = T if P is None else int(P)
-    R = records_cap(B, P)
-    buf, total = resolve_pack(tokens, n_tokens, isize, P)
-    offs, n_all, tail, bad = walk_records_device(buf, total, start, stop, R)
+    buf, offs, n_all, tail, bad = _resolve_offsets(tokens, n_tokens, isize,
+                                                   start, stop, P)
     cols = unpack_fixed_fields(buf, offs)
+    R = offs.shape[0]
     valid = torch.arange(R, device=buf.device) < torch.clamp(n_all, max=R)
     return buf, offs, cols, valid, n_all, tail, bad
 
@@ -725,16 +770,15 @@ def resolve_walk_intervals(tokens: torch.Tensor, n_tokens: torch.Tensor,
                            P: Optional[int] = None,
                            cigar_cap: int = DEVICE_TILE_CIGAR_CAP):
     """The device decode step of the serve-tile family: resolve + pack +
-    walk + K1, then K10i's (rid, pos1, end1) interval columns at the
-    walk's R = records_cap(B, P) rows (the pads past the walked records).
-    Returns (rid, pos1, end1, n_all, tail, bad, over), the four verdicts
-    int32 scalars on the chunk's device: ``over`` (a record with more
-    than ``cigar_cap`` ops) sends the chunk to the host build."""
-    buf, offs, cols, _valid, n_all, tail, bad = _resolve_walk(
-        tokens, n_tokens, isize, start, stop, P)
-    rid, pos1, end1, over = interval_cols(
-        buf, offs, cols["refid"], cols["pos"], cols["l_read_name"],
-        cols["n_cigar"], cols["l_seq"], n_all, cigar_cap)
+    walk, then K10i's (rid, pos1, end1) interval columns at the walk's
+    R = records_cap(B, P) rows (the pads past the walked records); K10i
+    reads each record's prefix itself, so no K1 runs.  Returns (rid,
+    pos1, end1, n_all, tail, bad, over), the four verdicts int32 scalars
+    on the chunk's device: ``over`` (a record with more than
+    ``cigar_cap`` ops) sends the chunk to the host build."""
+    buf, offs, n_all, tail, bad = _resolve_offsets(tokens, n_tokens, isize,
+                                                   start, stop, P)
+    rid, pos1, end1, over = interval_cols(buf, offs, n_all, cigar_cap)
     return rid, pos1, end1, n_all, tail, bad, over
 
 
@@ -746,7 +790,6 @@ def resolve_walk_intervals_plain(tokens: torch.Tensor,
     """``resolve_walk_intervals`` through every kernel's plain version,
     on the tensors' own device (the check a card run holds the kernels
     to)."""
-    from hadoop_bam_torch.ops.unpack_bam import unpack_fixed_fields_plain
     B, T = tokens.shape
     P = T if P is None else int(P)
     R = records_cap(B, P)
@@ -754,10 +797,7 @@ def resolve_walk_intervals_plain(tokens: torch.Tensor,
         resolve_tokens_plain(tokens, n_tokens, P), isize)
     offs, n_all, tail, bad = walk_records_device_plain(buf, total, start,
                                                        stop, R)
-    cols = unpack_fixed_fields_plain(buf, offs)
-    rid, pos1, end1, over = interval_cols_plain(
-        buf, offs, cols["refid"], cols["pos"], cols["l_read_name"],
-        cols["n_cigar"], cols["l_seq"], n_all, cigar_cap)
+    rid, pos1, end1, over = interval_cols_plain(buf, offs, n_all, cigar_cap)
     return rid, pos1, end1, n_all, tail, bad, over
 
 

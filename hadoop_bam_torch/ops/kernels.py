@@ -46,8 +46,8 @@ KERNELS: Dict[str, tuple] = {
                        [_VP, _I64, _VP, _VP, _VP, _VP, _VP, _I64, _I64,
                         _I64, _I64, _VP, _VP, _I64, _I64, _VP]),
     "interval_cols": ("hbam_interval_cols",
-                      [_VP, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64,
-                       _I64, _VP, _VP, _VP, _VP, _VP]),
+                      [_VP, _I64, _VP, _VP, _I64, _I64, _VP, _VP, _VP, _VP,
+                       _VP, _VP]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

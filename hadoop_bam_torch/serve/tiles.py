@@ -19,7 +19,7 @@ the device, keyed by ``(file_identity, chunk range, projection)``:
   out of the ring, so a cached tile is never rewritten by a recycled
   slot (the churn proof in tests/test_torch_serve.py);
 - ``device_build_chunk`` builds a cold tile on the device plane: host
-  tokenize, then K7+K8, K9, K1 and K10i on the card
+  tokenize, then K7+K8, K9 and K10i on the card
   (``ops/inflate_device.resolve_walk_intervals``), so the columns never
   exist on the host.
 
@@ -348,7 +348,7 @@ class TileBuilder:
 def device_build_chunk(builder: TileBuilder, ident: Tuple, path: str,
                        s: int, e: int, config) -> Optional[TileSet]:
     """Cold serve-tile build on the device decode plane: host tokenize
-    (native Huffman) -> K7+K8 resolve, K9 walk, K1 and K10i interval
+    (native Huffman) -> K7+K8 resolve, K9 walk and the K10i interval
     columns on the card (``resolve_walk_intervals``) -> device tiles.
     The (rid, pos1, end1) columns never exist on the host, and the four
     verdict scalars come back in one copy per chunk.

@@ -593,6 +593,67 @@ def payload_rows(name: str, L: int, R: int, seed: int = 0):
     return buf, _wrap32(target - 36 - rn - 4 * nc), l_seq, rn, nc
 
 
+# a record's bytes 4-23, the fields K10i reads [SPEC SAMv1 4.2]
+_PREFIX_FIELDS = np.dtype([("refid", "<i4"), ("pos", "<i4"),
+                           ("l_read_name", "u1"), ("mapq", "u1"),
+                           ("bin", "<u2"), ("n_cigar", "<u2"),
+                           ("flag", "<u2"), ("l_seq", "<i4")])
+
+
+def interval_rows(L: int, R: int, seed: int = 0, cap: int = 64,
+                  over: bool = False):
+    """Inputs for the interval columns' rules (K10i): (buf [L] u8, offs
+    [R] int32, {edge kind: row indices}).  Most rows are records whose
+    bytes 4-23 (refid, pos, l_read_name, n_cigar, l_seq) are written into
+    ``buf`` at their offsets, 24 bytes apart in a random order, every
+    offset residue mod 4 in turn; their CIGAR words are the buffer's
+    random bytes (all 16 ops, lengths whose int32 sum wraps); n_cigar 0
+    to ``cap`` (0 and ``cap`` on rows of their own, ``cap + 1`` on one
+    row with ``over``), l_seq -5 to 399, pos at the int32 edges on four
+    rows.  At random rows sit the edge rows: a prefix cut by byte 0 or by
+    byte L - 1, past either end, or wrapping int32 ("prefix"); and
+    records whose CIGAR is cut by byte L - 1, or ends on it ("cigar").
+    The reference clips every index of those to the buffer."""
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(0, 256, L, dtype=np.uint8)
+    slots = (L - 1024) // 24
+    if slots < R:
+        raise ValueError(f"interval_rows: L = {L} holds {slots} of {R} rows")
+    offs = (24 * rng.choice(slots, R, replace=False)
+            + np.arange(R) % 4).astype(np.int64)
+    f = np.zeros(R, _PREFIX_FIELDS)
+    f["refid"] = rng.integers(-1, 5, R)
+    f["pos"] = rng.integers(-2 ** 31, 2 ** 31, R, dtype=np.int64)
+    f["pos"][:4] = [(1 << 31) - 2, (1 << 31) - 1, -1, -2 ** 31][:R]
+    f["l_read_name"] = rng.integers(0, 256, R)
+    f["n_cigar"] = rng.integers(0, cap + 1, R)
+    f["n_cigar"][4:8] = [0, cap, 0, cap][:max(0, R - 4)]
+    f["l_seq"] = rng.integers(-5, 400, R)
+    if over:
+        f["n_cigar"][R // 2] = cap + 1
+    # prefixes cut by byte 0 or by byte L - 1, past either end, or
+    # wrapping int32
+    cut = (-24, -13, -1, L - 23, L - 12, L - 1, L + 40, (1 << 31) - 20,
+           (1 << 31) - 40)
+    rows = rng.permutation(R)
+    edges = {"prefix": rows[:len(cut)][:R // 2],
+             "cigar": rows[len(cut):len(cut) + 4][
+                 :max(0, R // 2 - len(cut))]}
+    offs[edges["prefix"]] = cut[:len(edges["prefix"])]
+    # CIGARs of n words ending 2 bytes before, on, 1 and 70 bytes past
+    # L - 1, their prefixes 40 bytes apart inside the buffer
+    for i, r in enumerate(edges["cigar"]):
+        n = max(cap - 10 * i, 1)
+        f["n_cigar"][r], f["l_read_name"][r] = n, 3 * i + 1
+        offs[r] = L - 4 * min(n, cap) + (-2, 0, 1, 70)[i] - 37 - 3 * i
+    raw = f.view(np.uint8).reshape(R, 20)
+    for r in range(R):
+        lo = int(offs[r]) + 4
+        if 0 <= lo and lo + 20 <= L:
+            buf[lo:lo + 20] = raw[r]
+    return buf, _wrap32(offs), edges
+
+
 def poison_allocator(dev) -> None:
     """Leave 0xAB in the torch caching allocator's free blocks on ``dev``
     (its large pool and its small one), so that a byte of a later

@@ -891,44 +891,63 @@ def test_query_engine_on_card_equals_cpu(cuda, tmp_path):
     assert len(got[2]) == pos1.size
 
 
-def _k10i_random(n_rows, L, seed, cuda):
-    """K10i inputs on random bytes: offsets anywhere in (and past) the
-    buffer, l_read_name 0-255, n_cigar 0-70 (a few past the 64 cap),
-    pos over the whole int32 range with its edges, refid -1..3."""
-    rng = np.random.default_rng(seed)
-    buf = rng.integers(0, 256, L, dtype=np.uint8)
-    offs = rng.integers(-50, L + 50, n_rows).astype(np.int32)
-    refid = rng.integers(-1, 4, n_rows).astype(np.int32)
-    pos = rng.integers(-2 ** 31, 2 ** 31, n_rows, dtype=np.int64
-                       ).astype(np.int32)
-    pos[:4] = [2 ** 31 - 2, 2 ** 31 - 1, -1, -2 ** 31]
-    lrn = rng.integers(0, 256, n_rows).astype(np.int32)
-    nc = rng.integers(0, 65, n_rows).astype(np.int32)
-    ls = rng.integers(-3, 300, n_rows).astype(np.int32)
-    cols = [torch.from_numpy(a).to(cuda)
-            for a in (buf, offs, refid, pos, lrn, nc, ls)]
-    return cols
+def _k10i_random(n_rows, L, seed, cuda, over=False, shift=0):
+    """K10i inputs (``synth.interval_rows``): records' prefixes written
+    into random bytes at every residue mod 4 with the edge rows (prefixes
+    cut by either end, past both, wrapping int32; CIGARs cut by the end),
+    n_cigar 0 to 64 (65 on row n_rows // 2 with ``over``), pos at the
+    int32 edges; ``shift`` puts buf in a view that many bytes off 16."""
+    from hadoop_bam_torch.synth import interval_rows
+    buf, offs, _ = interval_rows(L, n_rows, seed, over=over)
+    b = torch.from_numpy(buf).to(cuda)
+    if shift:
+        whole = torch.zeros(L + shift, dtype=torch.uint8, device=cuda)
+        whole[shift:] = b
+        b = whole[shift:]
+    return [b, torch.from_numpy(offs).to(cuda)]
 
 
 @pytest.mark.parametrize("n_all", [-1, 0, 1, 777, 4096, 5000])
 def test_k10i_interval_cols_match_plain(cuda, n_all):
     from hadoop_bam_torch.ops import inflate_device as tid
-    args = _k10i_random(4096, 1 << 16, 5, cuda)
     for over in (False, True):
-        a = list(args)
-        if over:
-            nc = a[5].clone()
-            nc[min(max(n_all, 1), 4096) - 1] = 65
-            a[5] = nc
+        for shift in (0, 3):
+            args = _k10i_random(4096, 1 << 17, 5, cuda, over, shift)
+            na = torch.tensor([n_all], dtype=torch.int32, device=cuda)
+            before = tid.interval_cols.launches
+            got = tid.interval_cols(*args, na)
+            want = tid.interval_cols_plain(*args, na)
+            torch.cuda.synchronize()
+            assert tid.interval_cols.launches == before + 1
+            for g, w in zip(got, want):
+                assert torch.equal(g.reshape(-1), w.reshape(-1))
+            if over and n_all > 2048:
+                assert int(got[3]) == 1
+            if n_all <= 0:
+                assert int(got[3]) == 0
+
+
+@pytest.mark.parametrize("R", [16, 17, 4093, 16_384])
+def test_k10i_pads_and_over_across_streams(cuda, R):
+    """Row counts off the int4 pad quads, n_all on every residue, and
+    ``over`` set and cleared launch after launch on two streams (each
+    stream's scratch word must be back at zero after every launch)."""
+    from hadoop_bam_torch.ops import inflate_device as tid
+    streams = [torch.cuda.current_stream(cuda), torch.cuda.Stream(cuda)]
+    for i, n_all in enumerate([R, R - 1, R - 2, R - 3, R // 2, 1, 0]):
+        over = i % 2 == 0
+        args = _k10i_random(R, 1 << 19, 40 + i, cuda, over)
         na = torch.tensor([n_all], dtype=torch.int32, device=cuda)
-        before = tid.interval_cols.launches
-        got = tid.interval_cols(*a, na)
-        want = tid.interval_cols_plain(*a, na)
+        s = streams[i % 2]
+        s.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(s):
+            got = tid.interval_cols(*args, na)
+            want = tid.interval_cols_plain(*args, na)
         torch.cuda.synchronize()
-        assert tid.interval_cols.launches == before + 1
         for g, w in zip(got, want):
-            assert torch.equal(g.reshape(-1), w.reshape(-1))
-        assert int(got[3]) == int(over and n_all > 0)
+            assert torch.equal(g.reshape(-1), w.reshape(-1)), (R, n_all)
+        if over and n_all > R // 2:
+            assert int(got[3]) == 1
 
 
 def test_k10i_serve_step_on_card_matches_plain(cuda, tmp_path):

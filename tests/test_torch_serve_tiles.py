@@ -23,6 +23,7 @@ from hadoop_bam_tpu.config import DEFAULT_CONFIG as JCONFIG
 from hadoop_bam_tpu.formats.bam import SAMHeader
 from hadoop_bam_tpu.formats.sam import SamRecord
 from hadoop_bam_tpu.ops import inflate_device as jid
+from hadoop_bam_tpu.ops.unpack_bam import unpack_fixed_fields_tile
 from hadoop_bam_tpu.utils import metrics as jmetrics
 from hadoop_bam_torch.config import HBamConfig
 from hadoop_bam_torch.ops import inflate_device as tid
@@ -186,17 +187,20 @@ def test_k10i_step_matches_jax_on_native_chunks(cigar_bam, num_spans):
     assert overs >= 1 and edge
 
 
-def _jax_interval_formula(buf, offs, refid, pos, l_read_name, n_cigar,
-                          l_seq, n_all, cap):
-    """hadoop_bam_tpu/ops/inflate_device.py:359-388 as written there, on
-    given columns (the reference computes them inside its jitted step)."""
+def _jax_interval_formula(buf, offs, n_all, cap):
+    """hadoop_bam_tpu/ops/inflate_device.py:359-386 as written there, on a
+    given buffer and walk offsets (the reference computes them inside its
+    jitted step): the prefix gathered with the clip, then the interval."""
     L = buf.shape[0]
     R = offs.shape[0]
     buf, offs = jnp.asarray(buf), jnp.asarray(offs)
-    n_cigar, l_seq = jnp.asarray(n_cigar), jnp.asarray(l_seq)
+    idx = jnp.clip(offs[:, None] + jnp.arange(36, dtype=jnp.int32)[None, :],
+                   0, L - 1)
+    cols = unpack_fixed_fields_tile(buf[idx])
+    n_cigar, l_seq = cols["n_cigar"], cols["l_seq"]
     valid = jnp.arange(R, dtype=jnp.int32) < jnp.minimum(n_all, R)
     over = jnp.any(valid & (n_cigar > cap)).astype(jnp.int32)
-    cig_off = offs + 36 + jnp.asarray(l_read_name)
+    cig_off = offs + 36 + cols["l_read_name"]
     k = jnp.arange(cap, dtype=jnp.int32)[None, :]
     widx = cig_off[:, None] + 4 * k
     b = [buf[jnp.clip(widx + j, 0, L - 1)].astype(jnp.uint32)
@@ -209,47 +213,74 @@ def _jax_interval_formula(buf, offs, refid, pos, l_read_name, n_cigar,
     cig_span = jnp.sum(jnp.where(act & consumes, oplen, 0), axis=1)
     ref_span = jnp.where(n_cigar > 0, cig_span, jnp.maximum(l_seq, 0))
     imax = jnp.int32(I32_MAX)
-    pos1 = jnp.minimum(jnp.asarray(pos), imax - 1) + 1
+    pos1 = jnp.minimum(cols["pos"], imax - 1) + 1
     end1 = pos1 + jnp.minimum(jnp.maximum(ref_span, 1) - 1, imax - pos1)
-    return (jnp.where(valid, jnp.asarray(refid), -1),
+    return (jnp.where(valid, cols["refid"], -1),
             jnp.where(valid, pos1, 0), jnp.where(valid, end1, 0), over)
 
 
 @pytest.mark.parametrize("n_all", [-1, 0, 1, 300, 1024, 1500])
 def test_interval_cols_plain_matches_reference_formula(n_all):
-    """Random bytes as CIGAR words (every op, lengths whose int32 sum
-    wraps), offsets past both ends, pos at the int32 edges, n_cigar past
-    the cap."""
-    rng = np.random.default_rng(n_all + 7)
-    R, L = 1024, 1 << 14
-    buf = rng.integers(0, 256, L, dtype=np.uint8)
-    offs = rng.integers(-100, L + 100, R).astype(np.int32)
-    refid = rng.integers(-1, 5, R).astype(np.int32)
-    pos = rng.integers(-2 ** 31, 2 ** 31, R, dtype=np.int64).astype(np.int32)
-    pos[:4] = [I32_MAX - 1, I32_MAX, -1, -2 ** 31]
-    lrn = rng.integers(0, 256, R).astype(np.int32)
-    nc = rng.integers(0, 67, R).astype(np.int32)
-    ls = rng.integers(-5, 400, R).astype(np.int32)
-    cols = (buf, offs, refid, pos, lrn, nc, ls)
-    want = _jax_interval_formula(*cols, n_all, 64)
-    got = tid.interval_cols(*(torch.from_numpy(a) for a in cols),
+    """Records' prefixes written into random bytes at every offset residue
+    mod 4 (``synth.interval_rows``): CIGAR words of every op with lengths
+    whose int32 sum wraps, n_cigar 0, the cap and one past it, pos at the
+    int32 edges, prefixes cut by either end, past both ends or wrapping
+    int32, CIGARs cut by the end."""
+    from hadoop_bam_torch.synth import interval_rows
+    R = 1024
+    buf, offs, edges = interval_rows(1 << 15, R, seed=n_all + 7, over=True)
+    want = _jax_interval_formula(buf, offs, n_all, 64)
+    got = tid.interval_cols(torch.from_numpy(buf), torch.from_numpy(offs),
                             torch.tensor([n_all], dtype=torch.int32))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    assert int(got[3]) == int(0 < n_all and (nc[:n_all] > 64).any())
+    # row R // 2 has cap + 1 ops (an edge row's clipped bytes may too)
+    assert int(got[3]) >= int(n_all > R // 2)
+    assert len(edges["prefix"]) == 9 and len(edges["cigar"]) == 4
+
+
+# offsets whose 36-byte prefix runs off the buffer's start, its end, or
+# past int32: the reference clips each index, K1 wraps a negative one by
+# L (and sums in int64, so it never wraps past int32)
+_CUT = [-40, -24, -13, -1, "L - 23", "L - 12", "L - 1", "L + 40",
+        I32_MAX - 19]
+
+
+@pytest.mark.parametrize("at", _CUT)
+def test_interval_cols_prefix_off_either_end_takes_the_clip(at):
+    from hadoop_bam_torch.ops.unpack_bam import unpack_fixed_fields_plain
+    from hadoop_bam_torch.synth import interval_rows
+    L, R = 1 << 13, 256
+    buf, offs, _ = interval_rows(L, R, seed=11)
+    o = L + int(at[1:].replace(" ", "")) if isinstance(at, str) else at
+    offs[:R // 2:7] = o
+    for n_all in (R, 7):
+        want = _jax_interval_formula(buf, offs, n_all, 64)
+        got = tid.interval_cols(torch.from_numpy(buf),
+                                torch.from_numpy(offs), n_all)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    # where K1's rule reads other bytes 4-23, the columns follow the clip
+    clip = tid._prefix_columns(torch.from_numpy(buf), torch.from_numpy(offs))
+    wrap = unpack_fixed_fields_plain(torch.from_numpy(buf),
+                                     torch.from_numpy(offs))
+    differs = any(
+        (clip[k][0] != wrap[k][0].to(torch.int64)).item()
+        for k in ("refid", "pos", "l_read_name", "n_cigar", "l_seq"))
+    assert differs == (o + 4 < 0 or o + 23 > I32_MAX)
 
 
 def test_interval_cols_refuses_bad_arguments():
     buf = torch.zeros(64, dtype=torch.uint8)
     col = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError):
-        tid.interval_cols(buf, col, col, col, col, col,
-                          torch.zeros(3, dtype=torch.int32), 4)
+        tid.interval_cols(buf, col.to(torch.int64), 4)
     with pytest.raises(ValueError):
-        tid.interval_cols(buf.to(torch.int32), col, col, col, col, col,
-                          col, 4)
+        tid.interval_cols(buf.to(torch.int32), col, 4)
     with pytest.raises(ValueError):
-        tid.interval_cols(buf, col, col, col, col, col, col, 4, cap=-1)
+        tid.interval_cols(buf, col, 4, cap=-1)
+    with pytest.raises(ValueError):
+        tid.interval_cols(buf, col.reshape(2, 2), 4)
 
 
 # ---------------------------------------------------------------------------
