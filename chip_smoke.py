@@ -103,8 +103,8 @@ Phases (any failure raises and exits non-zero):
    ``seq_stats()``, with batches/s and GB/s delivered to the card; (e)
    ``unpack_step`` over one stacked span group equal to K1's plain
    version.  Walls, reads/s and profiled busy shares of (a) and (d);
-13. coverage (K12) over a 30x BAM of mixed CIGARs through the ``.bai``,
-   1,000 batched region queries (K13) on phase 11's sorted copy, and the
+13. coverage (K12) over a 15x BAM of mixed CIGARs through the ``.bai``,
+   500 batched region queries (K13) on phase 11's sorted copy, and the
    span window's hang defence (``phase_coverage_query``);
 14. the resident region server (``hadoop_bam_torch.serve.ServeLoop``):
    (a) K10i (``interval_cols``, which reads each record's prefix itself)
@@ -127,7 +127,24 @@ Phases (any failure raises and exits non-zero):
    chunks of 1-10 kb regions), and the tile filter timed alone on one
    [1, 4,096] tile group; (c) two tenants over TCP on port 0: 200 batch requests, then an
    interactive one that must be answered while batch answers are still
-   to come.
+   to come;
+15. the variant plane (``parallel/variant_pipeline.py``) over a call set
+   with the genotype layout of the 1000 Genomes Project phase 3
+   release (``synth.write_synthetic_vcf``: 2,504 samples, 100,000
+   records, the last 10,000 on X, as BGZF BCF, raw BCF and a BGZF VCF
+   of the first 20,000; 2% of sites not PASS and 0.5% of calls './.'
+   added): (a) K11 (``variant_prefix``, ``gt_dosage``) bit for bit
+   against its plain versions in every case of ``synth.GT_CASES`` and
+   ``synth.prefix_rows`` and at the main path's chunk (the rows of a
+   64-block chunk of the BGZF BCF), with times and bounds, and K14
+   (``variant_tile_stats``) timed there; (b) ``variant_stats_file`` on
+   the host plane (BGZF BCF, BGZF VCF) and the device plane (BGZF BCF),
+   each equal to the generator's truth, with walls, variants/s,
+   profiled busy shares, launches and the device plane's blocks and
+   records through the card and through the host fixup; (c) the device
+   plane again with every K11 launch held against its plain version;
+   (d) ``open_vcf(bcf).tensor_batches()`` at the host plane's span
+   count, rows equal to the generator's, batches/s and GB/s delivered.
 
 The plan memo would let a repeated call skip planning, so every timed
 driver call of phases 5, 9 and 11 and of ``--times`` / ``--turns``
@@ -148,7 +165,9 @@ chain still ran K1; ``interval_floor``: K10i alone at those chunks,
 walked, with n_all = 0, and in turns against the memset scheme it
 replaced, by the profiler and by one CUDA graph;
 ``device_plane``: the profiled device-plane
-``seq_stats()`` by kernel; ``native_plane``: the native plane's three
+``seq_stats()`` by kernel; ``variant_gt``: K11 checked in phase 15
+(a)'s cases and checked and timed at its chunk of a BCF of the phase's
+layout written beside the BAM; ``variant_plane``: phase 15 alone; ``native_plane``: the native plane's three
 drivers of phase 5, warmed up, five rounds in turn; ``bai_regions``:
 phase 11 (d)'s ``.bai`` runs on a sorted copy of the reads kept beside
 the BAM, with walls and peak resident set sizes) and prints them as
@@ -2555,11 +2574,15 @@ def phase_reads(torch, path, truth, card, dev, args, native_walls):
 
 # ``--times KERNEL``: the timing function of each kernel (or path) that
 # has one, called as fn(torch, path, dev) -> a JSON-able dict
-# phase 13: the coverage BAM piles 2,000,000 reads (at the default
-# --reads) over chr20:1-10,000,000, about 30x
+# phase 13: the coverage BAM piles half of --reads (1,000,000 at the
+# default) over chr20:1-10,000,000, about 15x, and the batch holds the
+# first 500 of QUERY_DRAWN regions (phase 14 serves the first 200 of
+# them, as before the cut): depth cut from 2,000,000 reads and 1,000
+# regions so that the smoke with phase 15 stays near 950 s of its 1200
 COV_SPAN = 10_000_000
 CHR20_LEN = 64_444_167
-QUERY_REGIONS = 1000
+QUERY_DRAWN = 1000
+QUERY_REGIONS = 500
 
 
 def _k12_tiles(torch, cov, dev, rows, mc, copies):
@@ -2696,7 +2719,7 @@ def _host_lines(srt, header, regions):
 
 def phase_coverage_query(torch, path, truth, card, dev, args, srt,
                          srt_truth, native_walls):
-    """Phase 13: coverage (K12) at 30x over mixed CIGARs, batched BAM
+    """Phase 13: coverage (K12) at 15x over mixed CIGARs, batched BAM
     region queries (K13) on phase 11's sorted copy, and the span window's
     hang defence, through the entry points on cuda:0."""
     log("== phase 13: coverage, batched region queries and the hang "
@@ -2718,9 +2741,9 @@ def phase_coverage_query(torch, path, truth, card, dev, args, srt,
     cov = os.path.join(work, "coverage.bam")
     bai = cov + ".bai"
     try:
-        # (a) coverage over a 30x pile of mixed CIGARs
+        # (a) coverage over a 15x pile of mixed CIGARs
         ctruth, w_synth = _timed(lambda: synth.write_coverage_bam(
-            cov, args.reads, args.seed, span=COV_SPAN))
+            cov, args.reads // 2, args.seed, span=COV_SPAN))
         _, w_bai = _timed(lambda: write_bai(cov))
         log(f"(a) coverage BAM: {ctruth.n_reads} reads over "
             f"chr20:1-{COV_SPAN:,} ({ctruth.n_reads * 151 / COV_SPAN:.1f}x), "
@@ -2782,8 +2805,8 @@ def phase_coverage_query(torch, path, truth, card, dev, args, srt,
         # (b) batched region queries on phase 11's sorted copy
         header, _ = read_bam_header(srt)
         rng = np.random.default_rng(args.seed + 13)
-        rid, beg, end = _query_batch(rng, header.ref_names,
-                                     header.ref_lengths, QUERY_REGIONS)
+        rid, beg, end = (a[:QUERY_REGIONS] for a in _query_batch(
+            rng, header.ref_names, header.ref_lengths, QUERY_DRAWN))
         regions = [f"{header.ref_names[r]}:{s}-{e}"
                    for r, s, e in zip(rid, beg, end)]
         want = _query_oracle(srt_truth, rid, beg, end)
@@ -3486,7 +3509,7 @@ def serve_tiles_times(torch, path, dev) -> dict:
     header, _ = read_bam_header(srt)
     rid, beg, end = _query_batch(np.random.default_rng(seed + 13),
                                  header.ref_names, header.ref_lengths,
-                                 QUERY_REGIONS)
+                                 QUERY_DRAWN)
     regions = [f"{header.ref_names[r]}:{s}-{e}"
                for r, s, e in zip(rid, beg, end)][:SERVE_REQUESTS]
     reqs = [qe.QueryRequest(srt, r) for r in regions]
@@ -3656,6 +3679,443 @@ def interval_floor_times(torch, path, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the variant plane
+# ---------------------------------------------------------------------------
+
+# the 1000 Genomes phase 3 layout (synth.write_synthetic_vcf): full width,
+# cut in depth to 100,000 records, the last 10,000 on X; the BGZF VCF
+# holds the first 20,000
+VARIANT_SAMPLES = 2504
+VARIANT_RECORDS = 100_000
+VARIANT_X = 10_000
+VARIANT_VCF = 20_000
+
+
+def _variant_wrappers():
+    from hadoop_bam_torch.ops import inflate_device as tid
+    from hadoop_bam_torch.parallel import variant_pipeline as tv
+    return {"resolve_pack": tid.resolve_pack,
+            "variant_prefix": tid.variant_prefix,
+            "gt_dosage": tid.gt_dosage,
+            "variant_tile_stats": tv.variant_tile_stats}
+
+
+def _variant_launches() -> dict:
+    return {k: w.launches for k, w in _variant_wrappers().items()}
+
+
+def _gt_bytes(G, width, count, n_sample) -> int:
+    """gt_dosage's bytes: each group row reads width x count x n_sample
+    bytes, its 4-byte offset and its 4-byte row index, and writes
+    n_sample dosage bytes."""
+    return G * (width * count * n_sample + 8 + n_sample)
+
+
+def _k11_cases(torch, dev) -> int:
+    """Every case of ``synth.GT_CASES`` (widths 1, 2, 4; ploidy 1, 2, 3
+    and 200; END_OF_VECTOR tails, MISSING and allele-0 calls,
+    saturation, offsets clipped at both ends), buf at an aligned and at
+    an odd address, and ``synth.prefix_rows`` (pads, starts cut by both
+    ends, int32 wrap): each kernel bit-equal to its plain version, twice
+    in a row.  Returns the number of cases."""
+    from hadoop_bam_torch import synth
+    from hadoop_bam_torch.ops import inflate_device as tid
+    n = 0
+    for i, (w, c, ns, G) in enumerate(synth.GT_CASES):
+        buf, offs, rows, R = synth.gt_rows(w, c, ns, G, seed=i)
+        for shift in (0, 3):
+            big = torch.zeros(buf.size + shift, dtype=torch.uint8,
+                              device=dev)
+            big[shift:] = torch.from_numpy(buf).to(dev)
+            b = big[shift:]
+            o, r = (torch.from_numpy(a).to(dev) for a in (offs, rows))
+            want = tid.gt_dosage_plain(b, o, r, w, c, ns, torch.full(
+                (R, ns + 5), -1, dtype=torch.int8, device=dev))
+            for _ in range(2):
+                got = torch.full((R, ns + 5), -1, dtype=torch.int8,
+                                 device=dev)
+                tid.gt_dosage(b, o, r, w, c, ns, got)
+                sync(torch, dev)
+                check(torch.equal(got, want),
+                      f"gt_dosage width {w} ploidy {c} n_sample {ns} "
+                      f"shift {shift}")
+            if c >= 128:
+                check(bool((want == 127).any()), "a saturated call")
+            n += 1
+    for m in (1, 12, 1000, 70_000):
+        buf, starts = synth.prefix_rows(m, seed=m)
+        b, s = (torch.from_numpy(a).to(dev) for a in (buf, starts))
+        want = tid.variant_prefix_plain(b, s)
+        for _ in range(2):
+            got = tid.variant_prefix(b, s)
+            sync(torch, dev)
+            for g, w, what in zip(got, want, ("chrom", "pos")):
+                check(torch.equal(g, w), f"variant_prefix {what}, R = {m}")
+        n += 1
+    return n
+
+
+def _variant_chunk(torch, bcf, dev, samples_pad):
+    """The main path's own K11 inputs: the first span of the device
+    plane's 512 KiB plan over the BGZF BCF, tokenized, staged and
+    resolved by K7+K8 as ``_variant_stats_device_plane`` does it, its
+    records framed and walked on the host.  Returns (buf, starts [R]
+    int32 on the card, the groups [(offs, rows, width, count,
+    n_sample)], n, R)."""
+    import numpy as np
+    from hadoop_bam_torch.api.vcf_dataset import open_vcf
+    from hadoop_bam_torch.formats.bcf_columns import decode_bcf_cursor_meta
+    from hadoop_bam_torch.ops import inflate_device as tid
+    from hadoop_bam_torch.parallel import pipeline as tp
+    from hadoop_bam_torch.parallel import variant_pipeline as tv
+    ds = open_vcf(bcf, device=dev)
+    size = os.path.getsize(bcf)
+    spans = ds.spans(int(np.ceil(size / tp.DEVICE_PLANE_SPAN_BYTES)))
+    span = spans[min(1, len(spans) - 1)]
+    chunk = tp._tokenize_span_tokens(bcf, span, True)
+    tokens, nt, iz = tp._TokenRing(pin_memory=dev.type == "cuda").stage(
+        chunk, dev)
+    buf, _ = tid.resolve_pack(tokens, nt, iz, chunk.P)
+    hbuf = tv._HostBytes().fetch(buf, int(chunk.ubase[chunk.used])).copy()
+    starts, _ = tv._frame_span_records(hbuf, chunk.start, chunk.stop)
+    meta = decode_bcf_cursor_meta(hbuf, ds.header, samples_pad,
+                                  starts=starts)
+    n = int(meta["n"])
+    R = tid.round_pow2(n, 8)
+    s32 = np.zeros(R, np.int32)
+    s32[:n] = meta["starts"]
+    groups = [(torch.from_numpy(offs.astype(np.int32)).to(dev),
+               torch.from_numpy(rows.astype(np.int32)).to(dev), w, c, ns)
+              for rows, offs, w, c, ns in meta["gt_groups"]]
+    return (buf, torch.from_numpy(s32).to(dev), groups, n, R,
+            chunk.used, chunk.n_blocks)
+
+
+def _k11_chunk_times(torch, chunk, samples_pad) -> dict:
+    """K11 at the main path's chunk: each kernel bit-equal to its plain
+    version, then its device ms (profiler, CUDA-graph fallback), its
+    calls in a row by events, the plain version's ms and the bound; and
+    K14 at the device plane's tile of that chunk."""
+    from hadoop_bam_torch.ops import inflate_device as tid
+    from hadoop_bam_torch.parallel import variant_pipeline as tv
+    buf, starts, groups, n, R = chunk[:5]
+    (offs, rows, w, c, ns), = groups
+    got, want = tid.variant_prefix(buf, starts), tid.variant_prefix_plain(
+        buf, starts)
+    for g, x in zip(got, want):
+        check(torch.equal(g, x), "variant_prefix at the main path's chunk")
+    tiles = [torch.full((R, samples_pad), -1, dtype=torch.int8,
+                        device=buf.device) for _ in range(8)]
+    tid.gt_dosage(buf, offs, rows, w, c, ns, tiles[0])
+    want = tid.gt_dosage_plain(buf, offs, rows, w, c, ns, torch.full(
+        (R, samples_pad), -1, dtype=torch.int8, device=buf.device))
+    check(torch.equal(tiles[0], want), "gt_dosage at the main path's chunk")
+    bufs = [buf.clone() for _ in range(8)]
+    pcalls = [lambda b=b: tid.variant_prefix(b, starts) for b in bufs]
+    gcalls = [lambda b=b, t=t: tid.gt_dosage(b, offs, rows, w, c, ns, t)
+              for b, t in zip(bufs, tiles)]
+    out = {}
+    for name, calls, plain, nbytes in (
+            ("variant_prefix", pcalls,
+             [lambda b=b: tid.variant_prefix_plain(b, starts) for b in bufs],
+             20 * R),
+            ("gt_dosage", gcalls,
+             [lambda b=b, t=t: tid.gt_dosage_plain(b, offs, rows, w, c, ns, t)
+              for b, t in zip(bufs, tiles)],
+             _gt_bytes(int(offs.shape[0]), w, c, ns))):
+        out[name] = {"R": R, "records": n, "groups": len(groups),
+                     "nbytes": nbytes,
+                     "ms": device_ms(torch, calls, kernel=name),
+                     "loop_ms": loop_ms(torch, calls),
+                     "plain_ms": device_ms(torch, plain[:2], reps=4),
+                     "bound_ms": nbytes / H100_BYTES_PER_S * 1e3}
+    flags = torch.zeros(R, dtype=torch.uint8, device=buf.device)
+    chrom, pos = got
+    scalls = [lambda t=t: tv.variant_tile_stats(chrom, pos, flags, t, n)
+              for t in tiles]
+    nbytes = R * samples_pad + R + 4 * (4 + samples_pad) + 4
+    out["variant_tile_stats"] = {
+        "shape": f"[{R}, {samples_pad}] int8, {n} records",
+        "nbytes": nbytes, "ms": device_ms(torch, scalls),
+        "graph_ms": graph_ms(torch, scalls), "loop_ms": loop_ms(torch,
+                                                                scalls),
+        "bound_ms": nbytes / H100_BYTES_PER_S * 1e3}
+    return out
+
+
+class _CheckedK11:
+    """Stands in for ``variant_prefix`` and ``gt_dosage`` in
+    parallel/variant_pipeline.py during a checked device-plane pass:
+    each call launches the kernel and holds its output bit for bit
+    against the plain version on the same inputs (``gt_dosage``'s tile
+    cloned before the launch), tallying the shapes seen."""
+
+    def __init__(self, torch, tid, tv):
+        self.torch, self.tid, self.tv = torch, tid, tv
+        self.seen = {"variant_prefix": {}, "gt_dosage": {}}
+
+    def __enter__(self):
+        self.tv.variant_prefix = self.prefix
+        self.tv.gt_dosage = self.dosage
+        return self
+
+    def __exit__(self, *exc):
+        self.tv.variant_prefix = self.tid.variant_prefix
+        self.tv.gt_dosage = self.tid.gt_dosage
+
+    def _tally(self, name, key):
+        self.seen[name][key] = self.seen[name].get(key, 0) + 1
+
+    def prefix(self, buf, starts):
+        got = self.tid.variant_prefix(buf, starts)
+        want = self.tid.variant_prefix_plain(buf, starts)
+        for g, w, what in zip(got, want, ("chrom", "pos")):
+            check(self.torch.equal(g, w),
+                  f"variant_prefix {what} in the checked pass")
+        self._tally("variant_prefix", f"R={starts.shape[0]}")
+        return got
+
+    def dosage(self, buf, offs, rows, width, count, n_sample, dosage):
+        before = dosage.clone()
+        self.tid.gt_dosage(buf, offs, rows, width, count, n_sample, dosage)
+        want = self.tid.gt_dosage_plain(buf, offs, rows, width, count,
+                                        n_sample, before)
+        check(self.torch.equal(dosage, want),
+              "gt_dosage in the checked pass")
+        self._tally("gt_dosage", f"G={offs.shape[0]} width={width} "
+                    f"ploidy={count} n_sample={n_sample} "
+                    f"tile={tuple(dosage.shape)}")
+        return dosage
+
+
+def _same_variant_stats(got, want, what) -> float:
+    """Counts and call rates exact, mean_af within rtol 1e-6; returns the
+    relative difference of mean_af."""
+    import numpy as np
+    for k in ("n_variants", "n_snp", "n_pass", "n_af"):
+        check(int(got[k]) == int(getattr(want, k)),
+              f"{what}: {k} {got[k]} != {getattr(want, k)}")
+    check(np.array_equal(got["sample_callrate"], want.sample_callrate),
+          f"{what}: sample_callrate")
+    rel = abs(got["mean_af"] - want.mean_af) / abs(want.mean_af)
+    check(rel <= 1e-6, f"{what}: mean_af rel err {rel} <= 1e-6")
+    return rel
+
+
+def phase_variant(torch, path, card, dev, seed):
+    """Phase 15: the variant plane on cuda:0 over the 1000 Genomes
+    layout (``VARIANT_*``), written beside the BAM and removed after.
+    Returns the K11 rows of the kernels line, the launches of phase
+    15's device-plane pass (b), and K14's times."""
+    log("== phase 15: the variant plane on cuda:0")
+    import numpy as np
+    from hadoop_bam_torch import synth
+    from hadoop_bam_torch.api.vcf_dataset import open_vcf
+    from hadoop_bam_torch.config import HBamConfig
+    from hadoop_bam_torch.ops import inflate_device as tid
+    from hadoop_bam_torch.parallel import variant_pipeline as tv
+    from hadoop_bam_torch.parallel.pipeline import pipeline_span_count
+    from hadoop_bam_torch.utils.metrics import MetricsContext
+    work = os.path.join(os.path.dirname(os.path.abspath(path)), "phase15")
+    os.makedirs(work, exist_ok=True)
+    bcf, raw, vz = (os.path.join(work, n) for n in (
+        "kg.bcf", "kg.raw.bcf", "kg.vcf.gz"))
+    try:
+        truth, w = _timed(lambda: synth.write_synthetic_vcf(
+            bcf, VARIANT_RECORDS, seed, n_samples=VARIANT_SAMPLES,
+            x_records=VARIANT_X, raw_path=raw, vcf_path=vz,
+            vcf_records=VARIANT_VCF, keep_rows=True))
+        S_pad = tv.VariantGeometry(n_samples=VARIANT_SAMPLES).samples_pad
+        log(f"the 1000 Genomes phase 3 layout ({VARIANT_SAMPLES} samples, "
+            f"diploid phased GT, FORMAT GT, INFO AC AF AN NS DP VT; the "
+            f"last {VARIANT_X} records on X, about half the samples "
+            f"haploid there) cut in depth to {truth.n_variants} records "
+            f"in {w:.1f} s: BGZF BCF {_mb(os.path.getsize(bcf))}, raw BCF "
+            f"{_mb(os.path.getsize(raw))}, BGZF VCF of the first "
+            f"{VARIANT_VCF} {_mb(os.path.getsize(vz))}; {truth.n_snp} "
+            f"SNPs, {truth.n_pass} PASS, mean AF {truth.mean_af:.6f}; "
+            f"additions: {100 * truth.filtered_share:.2f}% of sites not "
+            f"PASS, {100 * truth.missing_share:.3f}% of calls './.'")
+
+        # (a) K11 against its plain versions, then at the main path's
+        # own chunk with its times and bounds
+        cases = _k11_cases(torch, dev)
+        for line in kernels_report("gt_dosage"):
+            log(f"  ptxas: {line}")
+        chunk = _variant_chunk(torch, bcf, dev, S_pad)
+        times = _k11_chunk_times(torch, chunk, S_pad)
+        log(f"(a) K11 bit-equal to its plain versions in {cases} cases, "
+            f"twice each, and at the main path's chunk ({chunk[5]} of "
+            f"its span's {chunk[6]} blocks, {chunk[3]} records, "
+            f"R = {chunk[4]})")
+        for name in ("variant_prefix", "gt_dosage"):
+            x = times[name]
+            log(f"{name} at the main path's chunk: device {x['ms']:.4f} "
+                f"ms (plain {x['plain_ms']:.4f} ms, {x['loop_ms']:.4f} ms a "
+                f"call in a row by events), bound {x['bound_ms']:.6f} ms = "
+                f"{x['nbytes']} B / 3.35 TB/s, "
+                f"{100 * x['bound_ms'] / x['ms']:.1f}% of it [{card}]")
+        x = times["variant_tile_stats"]
+        log(f"K14 (variant_tile_stats, torch ops) at {x['shape']}: "
+            f"{x['ms']:.4f} ms by device_ms, {x['graph_ms']:.4f} ms a call "
+            f"in one CUDA graph, {x['loop_ms']:.4f} ms in a row by events; "
+            f"bound {x['bound_ms']:.6f} ms = {x['nbytes']} B / 3.35 TB/s "
+            f"[{card}]")
+        log("no single PyTorch call computes K11 or K14 (library_ms null)")
+        del chunk
+
+        # (b) variant_stats_file on three planes, each equal to the truth
+        launches = {}
+        rels = {}
+        device_cfg = HBamConfig(inflate_backend="device")
+        runs = (("host plane, BGZF BCF", bcf, None, truth),
+                ("host plane, BGZF VCF", vz, None, truth.vcf),
+                ("device plane, BGZF BCF", bcf, device_cfg, truth))
+        for what, p, cfg, want in runs:
+            kw = {"config": cfg} if cfg is not None else {}
+            cold()
+            before = _variant_launches()
+            with MetricsContext() as m:
+                got, wall = _timed(lambda: tv.variant_stats_file(
+                    p, device=dev, **kw))
+            ran = {k: v - before[k] for k, v in _variant_launches().items()}
+            rels[what] = _same_variant_stats(got, want, what)
+            c = m.counters
+            extra = ""
+            if cfg is not None:
+                launches = ran
+                db, fb = c.get("vcf.device_blocks", 0), \
+                    c.get("vcf.fixup_blocks", 0)
+                dr, fr = c.get("vcf.device_records", 0), \
+                    c.get("vcf.fixup_records", 0)
+                check(dr + fr == want.n_variants,
+                      "device plane: each record counted once")
+                check(ran["variant_prefix"] > 0 and ran["gt_dosage"] > 0
+                      and ran["resolve_pack"] > 0,
+                      "the device plane launched K7+K8 and K11")
+                extra = (f"; blocks through the card {db}, through the host "
+                         f"fixup {fb} ({100 * fb / max(db + fb, 1):.1f}%); "
+                         f"records {dr} / {fr} "
+                         f"({100 * fr / max(dr + fr, 1):.1f}% on the host); "
+                         f"host decode "
+                         f"{m.wall_timers.get('pipeline.host_decode_wall', 0):.3f}"
+                         f" s, resolve "
+                         f"{m.wall_timers.get('vcf.device_resolve_wall', 0):.3f}"
+                         f" s, unpack "
+                         f"{m.wall_timers.get('vcf.device_unpack_wall', 0):.3f}"
+                         f" s")
+            else:
+                check(ran["variant_prefix"] == ran["gt_dosage"] == 0,
+                      f"{what} launched no K11")
+            log(f"(b) {what}: {wall:.3f} s wall, {want.n_variants / wall:,.0f}"
+                f" variants/s; mean_af rel err {rels[what]:.2e}; launches "
+                f"{ran}{extra} [{card}]")
+            pw, busy, by_name = device_busy(torch, lambda: tv.
+                                            variant_stats_file(
+                                                p, device=dev, **kw))
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+            log(f"(b) {what} profiled: {pw:.3f} s wall, device busy "
+                f"{busy:.4f} s ({100 * busy / pw:.2f}%); top: "
+                + "; ".join(f"{k[:50]} {v * 1e3:.2f} ms"
+                            for k, v in top) + f" [{card}]")
+
+        # (c) the device plane again, every K11 launch held against its
+        # plain version
+        with _CheckedK11(torch, tid, tv) as chk:
+            got = tv.variant_stats_file(bcf, device=dev, config=device_cfg)
+        _same_variant_stats(got, truth, "checked device plane")
+        n_chk = {k: sum(v.values()) for k, v in chk.seen.items()}
+        check(n_chk["variant_prefix"] > 0 and n_chk["gt_dosage"] > 0,
+              "the checked pass launched K11")
+        log(f"(c) checked device-plane pass: all {n_chk} K11 launches "
+            f"bit-equal to plain; shapes seen {chk.seen}")
+
+        # (d) the tensor feed: every batch kept on the card while timed,
+        # then its rows held against the generator's
+        # the host plane's span count (the dataset's default plan is one
+        # span a split_size, which decodes this file on one thread)
+        ds = open_vcf(bcf, device=dev)
+        tile = tv.VariantGeometry(n_samples=VARIANT_SAMPLES).tile_records
+        n_spans = pipeline_span_count(bcf, 1)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        batches = list(ds.tensor_batches(num_spans=n_spans))
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+        nbytes = sum(t.numel() * t.element_size() for b in batches
+                     for t in b.values())
+        rows = {k: [] for k in ("chrom", "pos", "flags", "dosage")}
+        for b in batches:
+            n = int(b["n_records"][0])
+            check(tuple(b["dosage"].shape) == (1, tile, S_pad),
+                  "every batch has tile_records rows")
+            for k in rows:
+                rows[k].append(b[k][0, :n].cpu().numpy())
+            check(bool((b["dosage"][0, n:] == -1).all()),
+                  "tensor_batches dosage pads are -1")
+        for k in ("chrom", "pos", "flags"):
+            check(np.array_equal(np.concatenate(rows[k]), getattr(truth, k)),
+                  f"tensor_batches {k} rows equal the generator's")
+        check(np.array_equal(np.concatenate(rows["dosage"])[
+            :, :VARIANT_SAMPLES], truth.dosage),
+            "tensor_batches dosage rows equal the generator's")
+        log(f"(d) open_vcf(bcf).tensor_batches(num_spans={n_spans}): "
+            f"{len(batches)} batches of "
+            f"{tuple(batches[0]['dosage'].shape)} in {wall:.3f} s, "
+            f"{len(batches) / wall:,.1f} batches/s, "
+            f"{nbytes / wall / 1e9:.3f} GB/s delivered, "
+            f"{truth.n_variants / wall:,.0f} variants/s; rows equal the "
+            f"generator's [{card}]")
+        del batches
+    finally:
+        for p in (bcf, raw, vz):
+            if os.path.exists(p):
+                os.remove(p)
+        if os.path.isdir(work) and not os.listdir(work):
+            os.rmdir(work)
+    rows_out = {}
+    for name in ("variant_prefix", "gt_dosage"):
+        x = times[name]
+        rows_out[name] = {
+            "name": name, "route": "cuda",
+            "source": "hadoop_bam_torch/csrc/variant_gt.cu",
+            "replaces": "hadoop_bam_tpu/ops/inflate_device.py:" + (
+                "391" if name == "variant_prefix" else "413"),
+            "max_abs_err": 0, "ms": x["ms"], "loop_ms": x["loop_ms"],
+            "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "main_path_shape": f"R = {x['R']}, {x['records']} records of "
+                               f"{VARIANT_SAMPLES} samples"}
+    return rows_out, launches, dict(times["variant_tile_stats"],
+                                    launches=launches["variant_tile_stats"])
+
+
+def variant_gt_times(torch, path, dev) -> dict:
+    """``--times variant_gt``: K11 alone at phase 15 (a)'s shapes: the
+    cases, checked, then the main path's chunk of a BCF of the phase's
+    layout written beside the BAM (``VARIANT_RECORDS // 10`` records,
+    enough for the first spans), checked and timed."""
+    from hadoop_bam_torch import synth
+    from hadoop_bam_torch.parallel import variant_pipeline as tv
+    cases = _k11_cases(torch, dev)
+    bcf = path[:-len(".bam")] + "_kg.bcf"
+    if not os.path.exists(bcf):
+        synth.write_synthetic_vcf(bcf, VARIANT_RECORDS // 10, 0,
+                                  n_samples=VARIANT_SAMPLES, x_records=0)
+    S_pad = tv.VariantGeometry(n_samples=VARIANT_SAMPLES).samples_pad
+    out = _k11_chunk_times(torch, _variant_chunk(torch, bcf, dev, S_pad),
+                           S_pad)
+    out["cases"] = cases
+    return out
+
+
+def variant_plane_times(torch, path, dev) -> dict:
+    """``--times variant_plane``: phase 15 alone."""
+    rows, launches, k14 = phase_variant(torch, path, card_line(), dev, 0)
+    return {"kernels": rows, "launches": launches, "K14": k14}
+
+
 TIMES = {"walk_records_device": k9_times, "resolve_pack": k7_times,
          "payload_gather": k10p_times, "device_plane": device_plane_times,
          "native_plane": native_plane_times, "k2_window": k2_window_times,
@@ -3663,7 +4123,8 @@ TIMES = {"walk_records_device": k9_times, "resolve_pack": k7_times,
          "coverage_query": coverage_query_times,
          "serve_tiles": serve_tiles_times,
          "interval_chain": interval_chain_times,
-         "interval_floor": interval_floor_times}
+         "interval_floor": interval_floor_times,
+         "variant_gt": variant_gt_times, "variant_plane": variant_plane_times}
 
 
 def check_truth(flag, stats, truth) -> None:
@@ -3750,6 +4211,9 @@ def main(argv=None) -> int:
     k10i, serve_launches, tile_filter = phase_serve(
         torch, path, card, dev, args.seed, srt, srt_truth, served)
     rows["interval_cols"] = k10i
+    k11, variant_launches, k14 = phase_variant(torch, path, card, dev,
+                                               args.seed)
+    rows.update(k11)
     rows["seq_qual_stats"].update(k2_window)
     for name, x in list(rows.items()) + [
             ("seq_qual_stats at the window shape",
@@ -3772,13 +4236,15 @@ def main(argv=None) -> int:
                    "resilience": on(resilience_launches),
                    "planning": on(planning_launches),
                    "reads": on(reads_launches),
-                   "serve": serve_launches[name]}
+                   "serve": serve_launches.get(name, 0),
+                   "variant": variant_launches.get(name, 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
     steps["K13 rest (tile_filter_step)"] = dict(
         tile_filter, launches=serve_launches["tile_filter_step"])
-    log(f"torch-op steps of phases 13-14 (no hand kernel): "
+    steps["K14 (variant_tile_stats)"] = k14
+    log(f"torch-op steps of phases 13-15 (no hand kernel): "
         f"{json.dumps(steps)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))

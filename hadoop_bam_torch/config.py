@@ -23,6 +23,31 @@ from hadoop_bam_torch.utils.errors import PlanError
 INFLATE_BACKENDS = ("auto", "native", "zlib", "device")
 
 
+class ValidationStringency(enum.Enum):
+    """What a malformed text record does (htsjdk ValidationStringency):
+    STRICT raises, LENIENT and SILENT skip it."""
+
+    STRICT = "STRICT"
+    LENIENT = "LENIENT"
+    SILENT = "SILENT"
+
+    @classmethod
+    def parse(cls, s) -> "ValidationStringency":
+        """None -> SILENT; a member of this or any other
+        ``ValidationStringency`` enum (the reference's included) or a
+        name -> the member of that name."""
+        if s is None:
+            return cls.SILENT
+        if isinstance(s, cls):
+            return s
+        name = s.name if isinstance(s, enum.Enum) else str(s)
+        try:
+            return cls[name.upper()]
+        except KeyError:
+            raise PlanError(f"unknown validation stringency {s!r}; "
+                            f"expected STRICT, LENIENT or SILENT") from None
+
+
 class BaseQualityEncoding(enum.Enum):
     """FASTQ/QSEQ base-quality encodings [SPEC offsets]: Sanger is
     Phred+33, Illumina (1.3-1.7) Phred+64."""
@@ -166,6 +191,13 @@ class HBamConfig:
         BaseQualityEncoding.ILLUMINA
     qseq_filter_failed_qc: bool = False
 
+    # VCF / BCF input (api/dispatch.py, api/vcf_dataset.py): trust a
+    # .vcf / .vcf.gz / .bcf extension over the magic bytes, and what a
+    # malformed text VCF line does
+    vcf_trust_exts: bool = True
+    validation_stringency: ValidationStringency = \
+        ValidationStringency.SILENT
+
     def __post_init__(self):
         for name, default in (
                 ("fastq_base_quality_encoding", BaseQualityEncoding.SANGER),
@@ -173,6 +205,9 @@ class HBamConfig:
                  BaseQualityEncoding.ILLUMINA)):
             object.__setattr__(self, name, BaseQualityEncoding.parse(
                 getattr(self, name), default))
+        object.__setattr__(self, "validation_stringency",
+                           ValidationStringency.parse(
+                               self.validation_stringency))
         if self.inflate_backend not in INFLATE_BACKENDS:
             raise PlanError(f"unknown inflate backend "
                             f"{self.inflate_backend!r}; expected one of "

@@ -1,0 +1,446 @@
+"""Columnar BCF record decode (copy of hadoop_bam_tpu/formats/bcf_columns.py):
+typed columns out, no per-record Python objects and no per-typed-value
+``struct`` calls.
+
+* record framing is one cursor walk over the ``l_shared``/``l_indiv``
+  length prefixes (or comes from the span reader, which walks them to
+  find the span's end);
+* the 24-byte fixed shared prefix of every record is one [n, 24]
+  gather, so CHROM/POS/rlen/QUAL/n_info/n_allele/n_sample/n_fmt are
+  NumPy views;
+* the typed-value region (ID, alleles, FILTER, FORMAT keys and
+  descriptors) is walked by a *lockstep cursor*: one int64 cursor per
+  record advances through the same structural position of every record
+  at once, so each step is a few NumPy ops over all records.  The
+  number of steps is max(n_allele) + max(n_fmt) + 3;
+* INFO is never touched: the shared block's length jumps the cursor to
+  the per-sample block;
+* GT payloads are gathered per (width, ploidy, n_sample) group and
+  reduced to the ALT-dosage matrix with the semantics of
+  ``formats/bcf.scan_variant_columns`` / ``VariantBatch.dosage_matrix``.
+
+``decode_bcf_cursor_meta`` is the device plane's half: the same walk,
+with the GT layout handed to the K11 kernels
+(``ops/inflate_device.variant_prefix`` / ``gt_dosage``) instead of
+gathered here.
+
+Eligibility: geometry that would make the lockstep rounds degenerate
+(thousands of alleles or FORMAT fields, GT ploidy past 256, more
+samples than the tile) returns None and the caller takes the
+record-serial scanner.  Corruption (truncated records, undefined type
+codes, overrunning vectors) raises ``BCFError`` on both paths.
+"""
+from __future__ import annotations
+
+import struct
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+from hadoop_bam_torch.formats.bcf import (
+    BCFError, FLOAT_MISSING_BITS, T_CHAR, T_FLOAT, T_INT8, T_INT16,
+    T_INT32, T_MISSING, _INT_EOV, _INT_MISSING,
+)
+from hadoop_bam_torch.formats.vcf import VCFHeader
+
+# FLAG bits shared with parallel/variant_pipeline.py
+FLAG_PASS = 1
+FLAG_SNP = 2
+
+# the stats/tensor tile schema (what the device feed ships)
+STAT_KEYS = ("chrom", "pos", "flags", "dosage")
+
+# element byte width per typed-value type code [SPEC BCF2.2 6.3.3];
+# -1 marks the reserved codes — hitting one is corruption, not data
+_ELEM_SIZE = np.full(16, -1, np.int64)
+for _t, _w in ((T_MISSING, 0), (T_INT8, 1), (T_INT16, 2), (T_INT32, 4),
+               (T_FLOAT, 4), (T_CHAR, 1)):
+    _ELEM_SIZE[_t] = _w
+
+_INT_TYPES = (T_INT8, T_INT16, T_INT32)
+_GT_DTYPES = {T_INT8: np.dtype("i1"), T_INT16: np.dtype("<i2"),
+              T_INT32: np.dtype("<i4")}
+_SNP_BASE_VALS = np.frombuffer(b"ACGTN", np.uint8)
+
+# lockstep-round guards: past these the vectorized passes degenerate
+# into as many rounds as a scalar loop — fall back to the record scan
+_MAX_ALLELE_ROUNDS = 512
+_MAX_FMT_ROUNDS = 64
+_MAX_GT_PLOIDY = 256
+
+
+class _Ineligible(Exception):
+    """Span cannot take the columnar path; caller falls back."""
+
+
+def frame_record_starts(buf: bytes) -> np.ndarray:
+    """Start offset of every record in concatenated BCF record bytes.
+
+    One add-chase over the ``l_shared``/``l_indiv`` prefixes — the only
+    sequentially dependent step of the columnar decode (span readers
+    that walk records anyway hand their starts in instead).  Raises
+    ``BCFError`` if the final record overruns or trailing bytes remain.
+    """
+    n = len(buf)
+    starts = []
+    unpack = struct.Struct("<II").unpack_from
+    p = 0
+    while p + 8 <= n:
+        starts.append(p)
+        l_shared, l_indiv = unpack(buf, p)
+        p += 8 + l_shared + l_indiv
+    if p != n:
+        raise BCFError("truncated BCF record in columnar frame")
+    return np.asarray(starts, np.int64)
+
+
+def stat_columns(cols: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Subset a full column dict to the device-tile schema (STAT_KEYS)."""
+    return {k: cols[k] for k in STAT_KEYS}
+
+
+def decode_bcf_columns(buf: bytes, header: VCFHeader, samples_pad: int,
+                       starts: Optional[np.ndarray] = None
+                       ) -> Optional[Dict[str, np.ndarray]]:
+    """All records in ``buf`` -> typed columns, or None when only the
+    record-serial path should decode them (pathological geometry).
+
+    Returns {chrom i32, pos i32 (1-based), rlen i32, qual f32 (NaN =
+    missing), n_allele i16, n_fmt i16, flags u8 (bit0 PASS, bit1 SNP),
+    dosage i8 [n, samples_pad]}.  ``STAT_KEYS`` columns are equal to
+    ``formats/bcf.scan_variant_columns`` output and the extended columns
+    to the ``VariantBatch`` view of ``BCFRecordCodec.decode`` —
+    tests/test_bcf_columns.py pins both.  Corrupt input raises
+    ``BCFError``; it is never decoded loosely.
+    """
+    try:
+        return _decode_columns(buf, header, samples_pad, starts)
+    except _Ineligible:
+        return None
+
+
+# ---------------------------------------------------------------------------
+# lockstep typed-value primitives
+# ---------------------------------------------------------------------------
+
+def _gather_u32(b: np.ndarray, off: np.ndarray) -> np.ndarray:
+    """Little-endian u32 at each offset (offsets must be in bounds)."""
+    r = b[off[:, None] + np.arange(4)].astype(np.uint32)
+    return r[:, 0] | r[:, 1] << 8 | r[:, 2] << 16 | r[:, 3] << 24
+
+
+def _gather_ints(b: np.ndarray, off: np.ndarray, typ: np.ndarray,
+                 mask: np.ndarray) -> np.ndarray:
+    """Sign-extended typed int (width per-row from ``typ``) at ``off``
+    for rows where ``mask``; other rows read clamped junk and return 0.
+    Callers bounds-check masked rows beforehand."""
+    idx = np.minimum(off[:, None] + np.arange(4), b.size - 1)
+    r = b[idx].astype(np.int64)
+    u = r[:, 0] | r[:, 1] << 8 | r[:, 2] << 16 | r[:, 3] << 24
+    sx8 = ((u & 0xFF) ^ 0x80) - 0x80
+    sx16 = ((u & 0xFFFF) ^ 0x8000) - 0x8000
+    sx32 = ((u & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
+    out = np.where(typ == T_INT8, sx8,
+                   np.where(typ == T_INT16, sx16, sx32))
+    return np.where(mask, out, 0)
+
+
+def _elem_size(typ: np.ndarray, active: np.ndarray) -> np.ndarray:
+    es = _ELEM_SIZE[typ]
+    if bool((active & (es < 0)).any()):
+        bad = int(typ[active & (es < 0)][0])
+        raise BCFError(f"unknown typed-value type {bad}")
+    return np.where(active, es, 0)
+
+
+def _read_descriptor(b: np.ndarray, q: np.ndarray, active: np.ndarray,
+                     rec_end: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Lockstep read of one typed-value descriptor: (count, typ,
+    cursor-after-header) for rows where ``active`` (inactive rows pass
+    through with count 0 / type MISSING / unchanged cursor)."""
+    if bool((active & (q >= rec_end)).any()):
+        raise BCFError("typed-value descriptor overruns record")
+    safe = np.where(active, q, 0)
+    desc = b[safe].astype(np.int64)
+    count = desc >> 4
+    typ = desc & 0x0F
+    hdr = np.ones_like(q)
+    ext = active & (count == 15)
+    if bool(ext.any()):
+        # real count follows as a typed scalar int [SPEC]
+        q2 = safe + 1
+        if bool((ext & (q2 >= rec_end)).any()):
+            raise BCFError("extended count overruns record")
+        d2 = b[np.where(ext, q2, 0)].astype(np.int64)
+        etyp = d2 & 0x0F
+        ecnt = d2 >> 4
+        if bool((ext & ((ecnt != 1) | ~np.isin(etyp, _INT_TYPES))).any()):
+            raise BCFError("malformed extended-count scalar")
+        esize = np.where(ext, _ELEM_SIZE[etyp], 0)
+        if bool((ext & (q2 + 1 + esize > rec_end)).any()):
+            raise BCFError("extended count overruns record")
+        val = _gather_ints(b, q2 + 1, etyp, ext)
+        if bool((ext & (val < 0)).any()):
+            raise BCFError("negative typed-value count")
+        count = np.where(ext, val, count)
+        hdr = np.where(ext, 2 + esize, hdr)
+    count = np.where(active, count, 0)
+    typ = np.where(active, typ, T_MISSING)
+    return count, typ, q + np.where(active, hdr, 0)
+
+
+def _skip_typed(b: np.ndarray, q: np.ndarray, active: np.ndarray,
+                rec_end: np.ndarray) -> np.ndarray:
+    count, typ, q2 = _read_descriptor(b, q, active, rec_end)
+    q3 = q2 + _elem_size(typ, active) * count
+    if bool((active & (q3 > rec_end)).any()):
+        raise BCFError("typed value overruns record")
+    return q3
+
+
+# ---------------------------------------------------------------------------
+# the decode
+# ---------------------------------------------------------------------------
+
+def _empty_columns(samples_pad: int) -> Dict[str, np.ndarray]:
+    return {
+        "chrom": np.zeros(0, np.int32), "pos": np.zeros(0, np.int32),
+        "rlen": np.zeros(0, np.int32), "qual": np.zeros(0, np.float32),
+        "n_allele": np.zeros(0, np.int16), "n_fmt": np.zeros(0, np.int16),
+        "flags": np.zeros(0, np.uint8),
+        "dosage": np.empty((0, samples_pad), np.int8),
+    }
+
+
+def _cursor_walk(b: np.ndarray, header: VCFHeader,
+                 starts: np.ndarray) -> Dict[str, np.ndarray]:
+    """The sequentially dependent half of the columnar decode: bounds
+    checks, the fixed 24-byte prefix views, and the lockstep typed-value
+    walk (alleles -> SNP test, FILTER -> PASS, FORMAT -> GT layout).
+
+    Shared verbatim by the host columnar decode (``_decode_columns``,
+    which adds the GT->dosage gather) and the device unpack route
+    (``decode_bcf_cursor_meta``, which hands the GT layout to the card
+    and gathers there).  Raises ``BCFError`` on corruption and
+    ``_Ineligible`` on pathological geometry — identically for both
+    consumers, so the planes agree on every input's outcome class."""
+    n = starts.size
+    if bool((starts < 0).any()) or int(starts.max()) + 32 > b.size:
+        raise BCFError("BCF record start out of range")
+    l_shared = _gather_u32(b, starts).astype(np.int64)
+    l_indiv = _gather_u32(b, starts + 4).astype(np.int64)
+    if bool((l_shared < 24).any()):
+        raise BCFError("BCF shared block shorter than its fixed fields")
+    end_shared = starts + 8 + l_shared
+    rec_end = end_shared + l_indiv
+    if int(rec_end.max()) > b.size:
+        raise BCFError("truncated BCF record in columnar scan")
+
+    # ---- fixed 24-byte shared prefix: one gather, then views ------------
+    fixed = b[starts[:, None] + np.arange(8, 32)]
+    chrom = fixed[:, 0:4].copy().view("<i4").ravel()
+    pos0 = fixed[:, 4:8].copy().view("<i4").ravel()
+    rlen = fixed[:, 8:12].copy().view("<i4").ravel()
+    qual_bits = fixed[:, 12:16].copy().view("<u4").ravel()
+    qual = fixed[:, 12:16].copy().view("<f4").ravel().copy()
+    qual[qual_bits == FLOAT_MISSING_BITS] = np.nan
+    n_allele = fixed[:, 18:20].copy().view("<u2").ravel().astype(np.int64)
+    ns_nf = fixed[:, 20:24].copy().view("<u4").ravel()
+    n_sample = (ns_nf & 0xFFFFFF).astype(np.int64)
+    n_fmt = (ns_nf >> 24).astype(np.int64)
+
+    max_allele = int(n_allele.max(initial=0))
+    max_fmt = int(n_fmt.max(initial=0))
+    if max_allele > _MAX_ALLELE_ROUNDS or max_fmt > _MAX_FMT_ROUNDS:
+        raise _Ineligible("lockstep round count too large")
+
+    all_rows = np.ones(n, bool)
+    q = _skip_typed(b, starts + 32, all_rows, rec_end)      # ID
+
+    # ---- alleles: SNP test in max(n_allele) lockstep rounds -------------
+    snp = n_allele >= 2
+    for k in range(max_allele):
+        active = n_allele > k
+        count, typ, q2 = _read_descriptor(b, q, active, rec_end)
+        if bool((active & (typ != T_CHAR)).any()):
+            raise BCFError("allele is not a char vector")
+        q3 = q2 + count
+        if bool((active & (q3 > rec_end)).any()):
+            raise BCFError("allele overruns record")
+        # REF (k == 0) only needs length 1; ALTs must also be bases
+        # (matches VariantBatch.is_snp / scan_variant_columns)
+        ok = active & (count == 1)
+        if k > 0:
+            base = b[np.where(ok, q2, 0)]
+            ok &= np.isin(base, _SNP_BASE_VALS)
+        snp &= ~active | ok
+        q = q3
+
+    # ---- FILTER: PASS == exactly the one int value 0 --------------------
+    count, typ, q2 = _read_descriptor(b, q, all_rows, rec_end)
+    es = _elem_size(typ, all_rows)
+    if bool((q2 + es * count > rec_end).any()):
+        raise BCFError("FILTER vector overruns record")
+    int_filter = np.isin(typ, _INT_TYPES)
+    one = int_filter & (count == 1)
+    fval = _gather_ints(b, q2, typ, one)
+    is_pass = one & (fval == 0)
+
+    # ---- per-sample block (INFO is jumped over wholesale) ---------------
+    strings = header.string_dictionary()
+    try:
+        gt_key = strings.index("GT")
+    except ValueError:
+        gt_key = -1
+    q = end_shared
+    gt_typ = np.zeros(n, np.int64)          # 0 = no GT seen
+    gt_count = np.zeros(n, np.int64)
+    gt_off = np.zeros(n, np.int64)
+    for _j in range(max_fmt):
+        # n_fmt overruns are tolerated exactly like the record path:
+        # the walk stops at the block end, it does not raise
+        active = (n_fmt > _j) & (q < rec_end)
+        if not bool(active.any()):
+            break
+        kcnt, ktyp, q2 = _read_descriptor(b, q, active, rec_end)
+        if bool((active & (~np.isin(ktyp, _INT_TYPES) | (kcnt != 1))).any()):
+            raise BCFError("malformed FORMAT key")
+        if bool((active & (q2 + _elem_size(ktyp, active) > rec_end)).any()):
+            raise BCFError("FORMAT key overruns record")
+        key = _gather_ints(b, q2, ktyp, active)
+        q3 = q2 + _elem_size(ktyp, active) * kcnt
+        fcnt, ftyp, q4 = _read_descriptor(b, q3, active, rec_end)
+        data_len = _elem_size(ftyp, active) * fcnt * n_sample
+        if bool((active & (q4 + data_len > rec_end)).any()):
+            raise BCFError("FORMAT data overruns record")
+        is_gt = (active & (key == gt_key) & np.isin(ftyp, _INT_TYPES)
+                 & (n_sample > 0)) if gt_key >= 0 else np.zeros(n, bool)
+        if bool(is_gt.any()):
+            gt_typ[is_gt] = ftyp[is_gt]
+            gt_count[is_gt] = fcnt[is_gt]
+            gt_off[is_gt] = q4[is_gt]
+        q = q4 + data_len
+
+    return {
+        "chrom": chrom, "pos0": pos0, "rlen": rlen, "qual": qual,
+        "n_allele": n_allele, "n_fmt": n_fmt, "n_sample": n_sample,
+        "snp": snp, "is_pass": is_pass,
+        "gt_typ": gt_typ, "gt_count": gt_count, "gt_off": gt_off,
+    }
+
+
+def decode_bcf_cursor_meta(buf: bytes, header: VCFHeader,
+                           samples_pad: int,
+                           starts: Optional[np.ndarray] = None
+                           ) -> Optional[Dict[str, object]]:
+    """Host-side record metadata for the DEVICE variant unpack: the
+    cursor walk runs here (it is serially dependent and branch-heavy —
+    the half that does NOT vectorize), but the bulk byte work (the
+    24-byte prefix assembly and the GT payload gathers) is left to the
+    card, where the K11 kernels read them straight out of the resolved
+    buffer (``ops/inflate_device.variant_prefix`` / ``gt_dosage``).
+
+    Returns None when the span is ineligible for the columnar layout
+    (same geometry guards as ``decode_bcf_columns``); raises the same
+    ``BCFError`` taxonomy on corruption.  Dict:
+
+    - ``n``: record count; ``starts`` i64 [n] record start offsets;
+    - ``flags``: u8 [n] — the PASS|SNP byte, fully host-derived;
+    - ``gt_groups``: list of (rows i64[], offs i64[], width, ploidy,
+      n_sample) — one entry per distinct GT layout, the grouping the
+      device gather is keyed by (rows not covered by any group keep the
+      all-missing dosage row).
+    """
+    b = np.frombuffer(buf, np.uint8)
+    if starts is None:
+        starts = frame_record_starts(buf)
+    starts = np.asarray(starts, np.int64)
+    n = starts.size
+    if n == 0:
+        return {"n": 0, "starts": starts, "flags": np.zeros(0, np.uint8),
+                "gt_groups": []}
+    try:
+        wk = _cursor_walk(b, header, starts)
+        gt_typ, gt_count = wk["gt_typ"], wk["gt_count"]
+        n_sample = wk["n_sample"]
+        have = gt_typ > 0
+        if bool((have & (gt_count > _MAX_GT_PLOIDY)).any()):
+            raise _Ineligible("GT ploidy too large")
+        if bool((have & (n_sample > samples_pad)).any()):
+            raise _Ineligible("record carries more samples than the tile")
+    except _Ineligible:
+        return None
+    groups = []
+    if bool(have.any()):
+        combo = (gt_typ << 48) | (gt_count << 24) | n_sample
+        for c in np.unique(combo[have]):
+            rows = np.flatnonzero(have & (combo == c))
+            groups.append((rows, wk["gt_off"][rows],
+                           _GT_DTYPES[int(gt_typ[rows[0]])].itemsize,
+                           int(gt_count[rows[0]]),
+                           int(n_sample[rows[0]])))
+    flags = (wk["is_pass"].astype(np.uint8) * FLAG_PASS
+             | wk["snp"].astype(np.uint8) * FLAG_SNP)
+    return {"n": n, "starts": starts, "flags": flags, "gt_groups": groups}
+
+
+def _decode_columns(buf: bytes, header: VCFHeader, samples_pad: int,
+                    starts: Optional[np.ndarray]) -> Dict[str, np.ndarray]:
+    b = np.frombuffer(buf, np.uint8)
+    if starts is None:
+        starts = frame_record_starts(buf)
+    starts = np.asarray(starts, np.int64)
+    n = starts.size
+    if n == 0:
+        return _empty_columns(samples_pad)
+    wk = _cursor_walk(b, header, starts)
+    chrom, pos0, rlen, qual = (wk["chrom"], wk["pos0"], wk["rlen"],
+                               wk["qual"])
+    n_allele, n_fmt, n_sample = (wk["n_allele"], wk["n_fmt"],
+                                 wk["n_sample"])
+    snp, is_pass = wk["snp"], wk["is_pass"]
+    gt_typ, gt_count, gt_off = (wk["gt_typ"], wk["gt_count"],
+                                wk["gt_off"])
+
+    # ---- GT -> dosage, gathered per (width, ploidy, n_sample) group -----
+    dosage = np.full((n, samples_pad), -1, np.int8)
+    have = gt_typ > 0
+    if bool((have & (gt_count > _MAX_GT_PLOIDY)).any()):
+        raise _Ineligible("GT ploidy too large")
+    if bool((have & (n_sample > samples_pad)).any()):
+        raise _Ineligible("record carries more samples than the tile")
+    if bool(have.any()):
+        combo = (gt_typ << 48) | (gt_count << 24) | n_sample
+        for c in np.unique(combo[have]):
+            sel = have & (combo == c)
+            rows = np.flatnonzero(sel)
+            typ_g = int(gt_typ[rows[0]])
+            cnt = int(gt_count[rows[0]])
+            ns = int(n_sample[rows[0]])
+            dt = _GT_DTYPES[typ_g]
+            w = dt.itemsize
+            raw = b[gt_off[rows, None] + np.arange(w * cnt * ns)]
+            g = raw.view(dt).reshape(rows.size, ns, cnt).astype(np.int64)
+            present = g != _INT_EOV[typ_g]          # pre-EOV entries
+            # allele index = (g >> 1) - 1; masking the phase bit is
+            # required: a phased missing allele ('0|.') encodes as 1
+            missing = present & (((g >> 1) == 0)
+                                 | (g == _INT_MISSING[typ_g]))
+            alt = present & (((g >> 1) - 1) > 0)
+            d = np.where(present.any(axis=2) & ~missing.any(axis=2),
+                         alt.sum(axis=2), -1)
+            dosage[rows[:, None], np.arange(ns)] = \
+                np.minimum(d, 127).astype(np.int8)
+
+    return {
+        "chrom": chrom.astype(np.int32),
+        "pos": (pos0 + 1).astype(np.int32),
+        "rlen": rlen.astype(np.int32),
+        "qual": qual.astype(np.float32),
+        "n_allele": n_allele.astype(np.int16),
+        "n_fmt": n_fmt.astype(np.int16),
+        "flags": (is_pass.astype(np.uint8) * FLAG_PASS
+                  | snp.astype(np.uint8) * FLAG_SNP),
+        "dosage": dosage,
+    }

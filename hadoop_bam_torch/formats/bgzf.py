@@ -197,6 +197,16 @@ class BGZFReader:
         self._uoffset = 0
         self._next_coffset = 0
 
+    def voffset(self) -> int:
+        """The current position as a packed virtual offset (the start of
+        the next block once a block is read to its end)."""
+        coff = self._block_coffset if self._block_coffset >= 0 \
+            else self._next_coffset
+        if self._uoffset == len(self._block_data) \
+                and self._block_coffset >= 0:
+            return self._next_coffset << 16
+        return (coff << 16) | self._uoffset
+
     def seek_voffset(self, v: int) -> None:
         coffset, uoffset = v >> 16, v & 0xFFFF
         self._load_block(coffset)
@@ -239,6 +249,29 @@ class BGZFReader:
             self._uoffset += take
             n -= take
         return bytes(out)
+
+    def read_to_voffset(self, v_end: int) -> bytes:
+        """The inflated bytes from the current position up to ``v_end``
+        (exclusive), never past it."""
+        out = bytearray()
+        c_end, u_end = v_end >> 16, v_end & 0xFFFF
+        while self.voffset() < v_end:
+            if self._block_coffset == c_end:
+                out += self.read(u_end - self._uoffset)
+                break
+            avail = len(self._block_data) - self._uoffset
+            got = self.read(avail if avail > 0 else 1)
+            if not got:
+                break
+            out += got
+        return bytes(out)
+
+    def read_all_from(self, voffset: int = 0) -> bytes:
+        self.seek_voffset(voffset)
+        chunks = [self.read(1 << 20)]
+        while chunks[-1]:
+            chunks.append(self.read(1 << 20))
+        return b"".join(chunks)
 
 
 class BGZFWriter:
@@ -296,3 +329,12 @@ def decompress_bytes(data: bytes, check_crc: bool = True) -> bytes:
     """One-shot: inflate a whole BGZF byte string."""
     return b"".join(inflate_block(data, info, check_crc=check_crc)
                     for info in scan_blocks(data))
+
+
+def is_bgzf(head: bytes) -> bool:
+    """Does ``head`` start with a BGZF block header?  (format sniffing)"""
+    try:
+        parse_block_header(head[:MAX_BLOCK_SIZE], 0)
+        return True
+    except BGZFError:
+        return False

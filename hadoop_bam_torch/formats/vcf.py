@@ -1,0 +1,382 @@
+"""VCF text: the header model, the line codec and the structure-of-arrays
+variant batch (copy of hadoop_bam_tpu/formats/vcf.py).
+
+[SPEC] VCFv4.x: ``##``-prefixed meta lines, one ``#CHROM`` column line
+(8 fixed columns, optional FORMAT + per-sample columns), then one
+tab-separated data line per variant.  BCF2 keys its records against two
+dictionaries derived from the header: the *dictionary of strings*
+(FILTER/INFO/FORMAT IDs in order of appearance, "PASS" always index 0,
+explicit ``IDX=`` overrides) and the *dictionary of contigs*
+(``##contig`` lines in order).
+"""
+from __future__ import annotations
+
+import re
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+
+
+class VCFError(ValueError):
+    pass
+
+
+MISSING = "."
+
+_META_DEF_RE = re.compile(r"^##(?P<kind>FILTER|INFO|FORMAT|contig)=<(?P<body>.*)>\s*$")
+
+
+def _parse_meta_fields(body: str) -> Dict[str, str]:
+    """Parse the ``ID=DP,Number=1,Type=Integer,Description="..."`` body of a
+    structured meta line, honoring quoted values with embedded commas."""
+    fields: Dict[str, str] = {}
+    i, n = 0, len(body)
+    while i < n:
+        eq = body.find("=", i)
+        if eq < 0:
+            break
+        key = body[i:eq].strip()
+        j = eq + 1
+        if j < n and body[j] == '"':
+            k = j + 1
+            while k < n and body[k] != '"':
+                k += 2 if body[k] == "\\" else 1
+            value = body[j + 1:k]
+            i = k + 2  # past quote and comma
+        else:
+            k = body.find(",", j)
+            k = n if k < 0 else k
+            value = body[j:k]
+            i = k + 1
+        fields[key] = value
+    return fields
+
+
+@dataclass
+class VCFHeaderLine:
+    """One structured ##FILTER/##INFO/##FORMAT/##contig line."""
+    kind: str                     # FILTER | INFO | FORMAT | contig
+    id: str
+    fields: Dict[str, str]        # all key=value pairs, including ID
+    raw: str                      # the original line (round-trip safe)
+
+    @property
+    def number(self) -> Optional[str]:
+        return self.fields.get("Number")
+
+    @property
+    def type(self) -> Optional[str]:
+        return self.fields.get("Type")
+
+    @property
+    def idx(self) -> Optional[int]:
+        v = self.fields.get("IDX")
+        return int(v) if v is not None else None
+
+
+@dataclass
+class VCFHeader:
+    """Parsed VCF header: raw meta text (round-trip safe) + the derived
+    dictionaries BCF2 and the split machinery need."""
+
+    meta_lines: List[str] = field(default_factory=list)   # the ## lines, raw
+    samples: List[str] = field(default_factory=list)
+    filters: Dict[str, VCFHeaderLine] = field(default_factory=dict)
+    infos: Dict[str, VCFHeaderLine] = field(default_factory=dict)
+    formats: Dict[str, VCFHeaderLine] = field(default_factory=dict)
+    contigs: List[str] = field(default_factory=list)
+    contig_lengths: Dict[str, int] = field(default_factory=dict)
+
+    # --- derived dictionaries ------------------------------------------------
+    @property
+    def n_contigs(self) -> int:
+        return len(self.contigs)
+
+    @property
+    def n_samples(self) -> int:
+        return len(self.samples)
+
+    def contig_index(self, name: str) -> int:
+        try:
+            return self.contigs.index(name)
+        except ValueError:
+            return -1
+
+    def string_dictionary(self) -> List[str]:
+        """BCF2 dictionary of strings [SPEC BCF2 section 6.2.1]: "PASS" at
+        index 0, then FILTER/INFO/FORMAT IDs in order of first appearance;
+        explicit IDX= fields override positions."""
+        explicit: Dict[int, str] = {}
+        implicit: List[str] = []
+        seen = {"PASS"}
+
+        def add(line: VCFHeaderLine) -> None:
+            if line.id in seen:
+                return
+            seen.add(line.id)
+            if line.idx is not None:
+                explicit[line.idx] = line.id
+            else:
+                implicit.append(line.id)
+        for raw in self.meta_lines:   # order of appearance across kinds
+            m = _META_DEF_RE.match(raw)
+            if m and m.group("kind") in ("FILTER", "INFO", "FORMAT"):
+                kind = m.group("kind")
+                f = _parse_meta_fields(m.group("body"))
+                table = {"FILTER": self.filters, "INFO": self.infos,
+                         "FORMAT": self.formats}[kind]
+                line = table.get(f.get("ID", ""))
+                if line is not None:
+                    add(line)
+        out: List[str] = ["PASS"]
+        for s in implicit:
+            out.append(s)
+        for idx in sorted(explicit):
+            while len(out) <= idx:
+                out.append("")
+            out[idx] = explicit[idx]
+        return out
+
+    # --- text round-trip -----------------------------------------------------
+    def to_text(self) -> str:
+        cols = ["#CHROM", "POS", "ID", "REF", "ALT", "QUAL", "FILTER", "INFO"]
+        if self.samples:
+            cols += ["FORMAT"] + list(self.samples)
+        return "".join(l if l.endswith("\n") else l + "\n"
+                       for l in self.meta_lines) + "\t".join(cols) + "\n"
+
+    @classmethod
+    def from_text(cls, text: str) -> "VCFHeader":
+        h = cls()
+        for line in text.splitlines():
+            if line.startswith("##"):
+                h._add_meta_line(line)
+            elif line.startswith("#CHROM"):
+                parts = line.rstrip("\n").split("\t")
+                if len(parts) > 9:
+                    h.samples = parts[9:]
+            elif line.strip():
+                break
+        if not h.meta_lines:
+            raise VCFError("no ## meta lines — not a VCF header")
+        return h
+
+    def _add_meta_line(self, line: str) -> None:
+        line = line.rstrip("\n")
+        self.meta_lines.append(line)
+        m = _META_DEF_RE.match(line)
+        if not m:
+            return
+        kind = m.group("kind")
+        f = _parse_meta_fields(m.group("body"))
+        hid = f.get("ID")
+        if hid is None:
+            return
+        hl = VCFHeaderLine(kind=kind, id=hid, fields=f, raw=line)
+        if kind == "FILTER":
+            self.filters[hid] = hl
+        elif kind == "INFO":
+            self.infos[hid] = hl
+        elif kind == "FORMAT":
+            self.formats[hid] = hl
+        elif kind == "contig":
+            self.contigs.append(hid)
+            if "length" in f:
+                try:
+                    self.contig_lengths[hid] = int(f["length"])
+                except ValueError:
+                    pass
+
+
+@dataclass
+class VcfRecord:
+    """One variant line in VCF-field terms (POS 1-based; "." sentinels kept
+    as None/empty so text round-trips exactly)."""
+
+    chrom: str
+    pos: int                       # 1-based
+    id: Optional[str] = None       # None = '.'
+    ref: str = "N"
+    alts: Tuple[str, ...] = ()     # () = '.'
+    qual: Optional[float] = None   # None = '.'
+    filters: Optional[Tuple[str, ...]] = None  # None='.', () invalid, ('PASS',)
+    info: "OrderedInfo" = field(default_factory=lambda: {})  # id -> str | True
+    fmt: Tuple[str, ...] = ()      # FORMAT keys; () = no genotype block
+    genotypes: List[str] = field(default_factory=list)  # raw colon-joined
+
+    @property
+    def rlen(self) -> int:
+        """Length of the record on the reference: END-POS+1 if INFO/END is
+        set, else len(REF) [SPEC BCF2 rlen]."""
+        end = self.info.get("END")
+        if isinstance(end, str):
+            try:
+                return int(end) - self.pos + 1
+            except ValueError:
+                pass
+        return len(self.ref)
+
+    @property
+    def n_allele(self) -> int:
+        return 1 + len(self.alts)
+
+    def to_line(self) -> str:
+        info_parts = []
+        for k, v in self.info.items():
+            info_parts.append(k if v is True else f"{k}={v}")
+        fields = [
+            self.chrom, str(self.pos),
+            self.id if self.id is not None else MISSING,
+            self.ref,
+            ",".join(self.alts) if self.alts else MISSING,
+            _fmt_qual(self.qual),
+            ";".join(self.filters) if self.filters else MISSING,
+            ";".join(info_parts) if info_parts else MISSING,
+        ]
+        if self.fmt:
+            fields.append(":".join(self.fmt))
+            fields.extend(self.genotypes)
+        return "\t".join(fields)
+
+    @classmethod
+    def from_line(cls, line: str) -> "VcfRecord":
+        parts = line.rstrip("\n").split("\t")
+        if len(parts) < 8:
+            raise VCFError(f"VCF line has {len(parts)} fields, need >= 8")
+        info: Dict[str, Union[str, bool]] = {}
+        if parts[7] != MISSING:
+            for item in parts[7].split(";"):
+                if not item:
+                    continue
+                if "=" in item:
+                    k, v = item.split("=", 1)
+                    info[k] = v
+                else:
+                    info[item] = True
+        fmt: Tuple[str, ...] = ()
+        genotypes: List[str] = []
+        if len(parts) > 8:
+            fmt = tuple(parts[8].split(":"))
+            genotypes = parts[9:]
+        return cls(
+            chrom=parts[0], pos=int(parts[1]),
+            id=None if parts[2] == MISSING else parts[2],
+            ref=parts[3],
+            alts=() if parts[4] == MISSING else tuple(parts[4].split(",")),
+            qual=None if parts[5] == MISSING else float(parts[5]),
+            filters=None if parts[6] == MISSING
+            else tuple(parts[6].split(";")),
+            info=info, fmt=fmt, genotypes=genotypes,
+        )
+
+
+def _fmt_qual(q: Optional[float]) -> str:
+    if q is None:
+        return MISSING
+    if q == int(q) and abs(q) < 1e15:
+        return str(int(q))
+    # shortest text that round-trips the float32 the wire format stores
+    return np.format_float_positional(np.float32(q), unique=True, trim="0")
+
+
+def read_vcf_header_text(read_chunk) -> Tuple[VCFHeader, int]:
+    """Read header lines from the start of a text VCF stream.
+
+    ``read_chunk(offset, size) -> bytes`` (see utils/seekable).  Returns
+    (header, byte offset of the first data line) — the rebuild of
+    hb/util/VCFHeaderReader.java, which every task re-reads from file start.
+    """
+    buf = bytearray()
+    off = 0
+    while True:
+        got = read_chunk(off, 1 << 16)
+        if not got:
+            break
+        buf += got
+        off += len(got)
+        # stop once a complete non-# line exists
+        end = _header_end(buf)
+        if end is not None:
+            return VCFHeader.from_text(buf[:end].decode()), end
+    end = _header_end(buf, at_eof=True)
+    if end is None:
+        raise VCFError("no #CHROM line found")
+    return VCFHeader.from_text(buf[:end].decode()), end
+
+
+def _header_end(buf: bytes, at_eof: bool = False) -> Optional[int]:
+    pos = 0
+    n = len(buf)
+    while pos < n:
+        nl = buf.find(b"\n", pos)
+        if nl < 0:
+            if at_eof and buf[pos:pos + 1] != b"#":
+                return pos
+            if at_eof:
+                return n
+            return None
+        if buf[pos:pos + 1] != b"#":
+            return pos
+        pos = nl + 1
+    return n if at_eof else None
+
+
+# ---------------------------------------------------------------------------
+# SoA batch: numeric columns for device-side variant ops
+# ---------------------------------------------------------------------------
+
+class VariantBatch:
+    """Structure-of-arrays view over a list of variants: the numeric columns
+    (contig index, POS, rlen, QUAL, n_allele, PASS flag) feed device ops the
+    same way BamBatch's fixed fields do; full records stay host-side."""
+
+    def __init__(self, records: Sequence[VcfRecord], header: VCFHeader):
+        self.records = list(records)
+        self.header = header
+        n = len(self.records)
+        self.chrom = np.full(n, -1, dtype=np.int32)
+        self.pos = np.zeros(n, dtype=np.int64)
+        self.rlen = np.zeros(n, dtype=np.int32)
+        self.qual = np.full(n, np.nan, dtype=np.float32)
+        self.n_allele = np.zeros(n, dtype=np.int16)
+        self.is_pass = np.zeros(n, dtype=bool)
+        self.is_snp = np.zeros(n, dtype=bool)
+        for i, r in enumerate(self.records):
+            self.chrom[i] = header.contig_index(r.chrom)
+            self.pos[i] = r.pos
+            self.rlen[i] = r.rlen
+            if r.qual is not None:
+                self.qual[i] = r.qual
+            self.n_allele[i] = r.n_allele
+            self.is_pass[i] = bool(r.filters) and r.filters == ("PASS",)
+            self.is_snp[i] = (len(r.ref) == 1 and len(r.alts) > 0 and
+                              all(len(a) == 1 and a in "ACGTN"
+                                  for a in r.alts))
+
+    def __len__(self) -> int:
+        return len(self.records)
+
+    def dosage_matrix(self) -> np.ndarray:
+        """ALT-allele dosage per (variant, sample): 0/1/2 for diploid GTs,
+        summed alt count for polyploid, -1 for missing ('./.' or no GT
+        field) — the genotype tensor of the variant device feed."""
+        S = self.header.n_samples
+        out = np.full((len(self), S), -1, dtype=np.int8)
+        for i, r in enumerate(self.records):
+            if not r.fmt or r.fmt[0] != "GT":
+                continue
+            for s, g in enumerate(r.genotypes[:S]):
+                gt = g.split(":", 1)[0]
+                if not gt or gt.startswith("."):
+                    continue
+                dose = 0
+                ok = True
+                for a in gt.replace("|", "/").split("/"):
+                    if not a.isdigit():
+                        ok = False
+                        break
+                    dose += 1 if int(a) > 0 else 0
+                if ok:
+                    out[i, s] = min(dose, 127)
+        return out

@@ -19,6 +19,10 @@ Everything after that runs here, on one chunk of at most 64 blocks:
 - ``interval_cols`` (K10i, ``csrc/interval_cols.cu``): each record's
   (rid, pos1, end1) interval columns from its own prefix, end1 from its
   own CIGAR, for the serve tiles (no K1 on that chain).
+- ``variant_prefix`` and ``gt_dosage`` (K11, ``csrc/variant_gt.cu``):
+  a BCF record's CHROM and POS, and its samples' ALT dosages from its
+  GT vectors, for the variant plane
+  (``parallel/variant_pipeline.py``).
 
 ``resolve_walk_fields``, ``resolve_walk_payload`` and
 ``resolve_walk_intervals`` chain them, so the inflated bytes never
@@ -697,6 +701,177 @@ def interval_cols(buf: torch.Tensor, offs: torch.Tensor, n_all: Scalar,
 
 
 interval_cols.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K11: the BCF device unpack
+# ---------------------------------------------------------------------------
+
+def variant_prefix_plain(buf: torch.Tensor, starts: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``variant_prefix``: the reference's formula
+    (``variant_prefix_device`` :391), each byte index ``starts + k`` in
+    int32 arithmetic (the sum wraps) clipped to [0, L - 1], the words
+    assembled in int64 and wrapped to int32."""
+    L = buf.shape[0]
+    k = torch.arange(8, 16, device=buf.device, dtype=torch.int64)
+    idx = _wrap32(starts.to(torch.int64)[:, None] + k[None, :]).clamp(
+        0, L - 1)
+    t = buf[idx].to(torch.int64)
+
+    def le32(at: int) -> torch.Tensor:
+        return (t[:, at] | (t[:, at + 1] << 8) | (t[:, at + 2] << 16)
+                | (t[:, at + 3] << 24))
+    return (_wrap32(le32(0)).to(torch.int32),
+            _wrap32(le32(4) + 1).to(torch.int32))
+
+
+def variant_prefix(buf: torch.Tensor, starts: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each BCF record's CHROM and 1-based POS, as int32 [R] columns,
+    from bytes 8..15 of the record at ``starts`` (int32 [R]) in the
+    resolved buffer ``buf`` (uint8 [L]), every byte index clipped to the
+    buffer: a pad start of 0 or below still gathers, and the caller
+    masks it by its count.
+
+    CUDA tensors launch the K11 prefix kernel on the current stream;
+    CPU tensors take ``variant_prefix_plain``."""
+    if buf.dtype != torch.uint8 or buf.dim() != 1 or buf.shape[0] < 1:
+        raise ValueError(f"buf must be uint8 [L], got {buf.dtype} "
+                         f"{tuple(buf.shape)}")
+    if starts.dtype != torch.int32 or starts.dim() != 1:
+        raise ValueError(f"starts must be int32 [R], got {starts.dtype} "
+                         f"{tuple(starts.shape)}")
+    if starts.device != buf.device:
+        raise ValueError(f"starts must be on {buf.device}")
+    if not _cuda_or_cpu(buf):
+        return variant_prefix_plain(buf, starts)
+    if not buf.is_contiguous():
+        raise ValueError("buf must be contiguous on the card")
+    dev = buf.device
+    R = starts.shape[0]
+    starts = starts.contiguous()
+    chrom = torch.empty(R, dtype=torch.int32, device=dev)
+    pos = torch.empty(R, dtype=torch.int32, device=dev)
+    if R == 0:
+        return chrom, pos
+    fn = kernels.kernel("variant_prefix")
+    with torch.cuda.device(dev):
+        rc = fn(buf.data_ptr(), buf.shape[0], starts.data_ptr(), R,
+                chrom.data_ptr(), pos.data_ptr(), _stream(dev))
+    kernels.check_launch("variant_prefix", rc)
+    variant_prefix.launches += 1
+    return chrom, pos
+
+
+variant_prefix.launches = 0
+
+# GT entry widths (int8, int16, int32) and the widest ploidy the
+# columnar decode hands to the card (formats/bcf_columns._MAX_GT_PLOIDY)
+GT_WIDTHS = (1, 2, 4)
+GT_MAX_COUNT = 256
+
+
+def gt_dosage_plain(buf: torch.Tensor, gt_off: torch.Tensor,
+                    rows: torch.Tensor, width: int, count: int,
+                    n_sample: int, dosage: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``gt_dosage``: the reference's formula
+    (``variant_gt_dosage_device`` :413) on an index [G, width * count *
+    n_sample] (``gt_off + j`` in int32 arithmetic, clipped to the
+    buffer), the words held in int64, then the reference's scatter into
+    ``dosage`` at ``rows`` (rows outside the tile are dropped, as a JAX
+    scatter drops them).  Returns ``dosage``."""
+    L = buf.shape[0]
+    G = gt_off.shape[0]
+    dev = buf.device
+    if G == 0 or n_sample == 0:
+        return dosage
+    j = torch.arange(width * count * n_sample, device=dev,
+                     dtype=torch.int64)
+    idx = _wrap32(gt_off.to(torch.int64)[:, None] + j[None, :]).clamp(
+        0, L - 1)
+    raw = buf[idx].to(torch.int64).reshape(G, n_sample, count, width)
+    shifts = 8 * torch.arange(width, device=dev, dtype=torch.int64)
+    w = (raw << shifts).sum(-1)
+    if width < 4:
+        sbit = 1 << (8 * width - 1)
+        g = (w ^ sbit) - sbit
+    else:
+        g = _wrap32(w)
+    missing = -(1 << (8 * width - 1))
+    present = g != missing + 1              # END_OF_VECTOR trims ploidy
+    miss = present & (((g >> 1) == 0) | (g == missing))
+    alt = present & (((g >> 1) - 1) > 0)
+    d = torch.where(present.any(2) & ~miss.any(2), alt.sum(2),
+                    torch.full((), -1, dtype=torch.int64, device=dev))
+    d = torch.clamp(d, max=127).to(torch.int8)
+    r = rows.to(torch.int64)
+    keep = (r >= 0) & (r < dosage.shape[0])
+    dosage[r[keep][:, None], torch.arange(n_sample, device=dev)] = d[keep]
+    return dosage
+
+
+def gt_dosage(buf: torch.Tensor, gt_off: torch.Tensor, rows: torch.Tensor,
+              width: int, count: int, n_sample: int,
+              dosage: torch.Tensor) -> torch.Tensor:
+    """One GT layout group's ALT dosages, written straight into the int8
+    tile ``dosage`` [R, S_pad] at ``rows``: for each of the G records of
+    the group (``gt_off`` int32 [G], the offset of its GT data in
+    ``buf``; ``rows`` int32 [G], its row of the tile) ``n_sample``
+    vectors of ``count`` little-endian sign-extended ints ``width``
+    bytes wide, with ``variant_gt_dosage_device``'s rules:
+    END_OF_VECTOR trims ploidy, any MISSING allele or allele value 0
+    makes the call -1, else the count of ALT alleles saturated at 127;
+    every byte index clipped to the buffer.  Columns past ``n_sample``
+    and rows of no group are left as they are.  Returns ``dosage``.
+
+    CUDA tensors launch the K11 dosage kernel on the current stream
+    (no [G, n_sample] intermediate, no scatter); CPU tensors take
+    ``gt_dosage_plain``."""
+    if buf.dtype != torch.uint8 or buf.dim() != 1 or buf.shape[0] < 1:
+        raise ValueError(f"buf must be uint8 [L], got {buf.dtype} "
+                         f"{tuple(buf.shape)}")
+    for name, t in (("gt_off", gt_off), ("rows", rows)):
+        if t.dtype != torch.int32 or t.dim() != 1 \
+                or t.shape[0] != gt_off.shape[0]:
+            raise ValueError(f"{name} must be int32 [{gt_off.shape[0]}], "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != buf.device:
+            raise ValueError(f"{name} must be on {buf.device}")
+    if dosage.dtype != torch.int8 or dosage.dim() != 2 \
+            or dosage.device != buf.device:
+        raise ValueError(f"dosage must be int8 [R, S_pad] on {buf.device}, "
+                         f"got {dosage.dtype} {tuple(dosage.shape)} on "
+                         f"{dosage.device}")
+    width, count, n_sample = int(width), int(count), int(n_sample)
+    if width not in GT_WIDTHS or not 1 <= count <= GT_MAX_COUNT \
+            or not 0 <= n_sample <= dosage.shape[1]:
+        raise ValueError(f"GT layout width {width}, count {count}, "
+                         f"n_sample {n_sample} outside widths {GT_WIDTHS}, "
+                         f"counts [1, {GT_MAX_COUNT}], samples "
+                         f"[0, {dosage.shape[1]}]")
+    if not _cuda_or_cpu(buf):
+        return gt_dosage_plain(buf, gt_off, rows, width, count, n_sample,
+                               dosage)
+    if not (buf.is_contiguous() and dosage.is_contiguous()):
+        raise ValueError("buf and dosage must be contiguous on the card")
+    G = gt_off.shape[0]
+    if G == 0 or n_sample == 0:
+        return dosage
+    dev = buf.device
+    gt_off, rows = gt_off.contiguous(), rows.contiguous()
+    fn = kernels.kernel("gt_dosage")
+    with torch.cuda.device(dev):
+        rc = fn(buf.data_ptr(), buf.shape[0], gt_off.data_ptr(),
+                rows.data_ptr(), G, width, count, n_sample,
+                dosage.data_ptr(), dosage.shape[0], dosage.shape[1],
+                _stream(dev))
+    kernels.check_launch("gt_dosage", rc)
+    gt_dosage.launches += 1
+    return dosage
+
+
+gt_dosage.launches = 0
 
 
 # ---------------------------------------------------------------------------

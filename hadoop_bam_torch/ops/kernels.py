@@ -28,8 +28,10 @@ _VP = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int32
 
-# source stem -> (C entry point, argtypes); every entry point returns the
-# cudaGetLastError() code after its launch
+# kernel name -> (C entry point, argtypes[, source stem]); the source
+# stem is the name unless given (one source may hold several entry
+# points); every entry point returns the cudaGetLastError() code after
+# its launch
 KERNELS: Dict[str, tuple] = {
     "unpack_bam": ("hbam_unpack_fixed_fields",
                    [_VP, _I64, _VP, _I64, _VP, _VP]),
@@ -48,7 +50,18 @@ KERNELS: Dict[str, tuple] = {
     "interval_cols": ("hbam_interval_cols",
                       [_VP, _I64, _VP, _VP, _I64, _I64, _VP, _VP, _VP, _VP,
                        _VP, _VP]),
+    "variant_prefix": ("hbam_variant_prefix",
+                       [_VP, _I64, _VP, _I64, _VP, _VP, _VP], "variant_gt"),
+    "gt_dosage": ("hbam_gt_dosage",
+                  [_VP, _I64, _VP, _VP, _I64, _I64, _I64, _I64, _VP, _I64,
+                   _I64, _VP], "variant_gt"),
 }
+
+
+def source_of(name: str) -> str:
+    """The ``csrc`` source stem that holds kernel ``name``."""
+    entry = KERNELS[name]
+    return entry[2] if len(entry) > 2 else name
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -76,9 +89,11 @@ def nvcc_path() -> str:
 
 
 def _paths(name: str) -> tuple:
-    return (os.path.join(CSRC, f"{name}.cu"),
-            os.path.join(BUILD_DIR, f"lib{name}.so"),
-            os.path.join(BUILD_DIR, f"{name}.log"))
+    """(source, library, build log) of kernel ``name``'s source."""
+    stem = source_of(name)
+    return (os.path.join(CSRC, f"{stem}.cu"),
+            os.path.join(BUILD_DIR, f"lib{stem}.so"),
+            os.path.join(BUILD_DIR, f"{stem}.log"))
 
 
 def _stale(name: str) -> bool:
@@ -92,9 +107,11 @@ def build(names: Optional[Iterable[str]] = None,
     older than their source, one nvcc process per source, all started
     together.  Returns the wall seconds; raises KernelBuildError with the
     compiler's output when a build fails.  nvcc's ptxas report of each
-    kernel (registers, shared memory, spills) lands in ``<name>.log``."""
+    source (registers, shared memory, spills) lands in ``<source>.log``."""
     names = list(KERNELS if names is None else names)
-    todo = [n for n in names if force or _stale(n)]
+    # one build a source, however many of its entry points are named
+    todo = list({source_of(n): n for n in names
+                 if force or _stale(n)}.values())
     t0 = time.perf_counter()
     if not todo:
         return 0.0
@@ -128,7 +145,7 @@ def kernel(name: str) -> ctypes._CFuncPtr:
         fn = _fns.get(name)
         if fn is None:
             build([name])
-            symbol, argtypes = KERNELS[name]
+            symbol, argtypes = KERNELS[name][:2]
             lib = ctypes.CDLL(_paths(name)[1])
             fn = getattr(lib, symbol)
             fn.restype = ctypes.c_int

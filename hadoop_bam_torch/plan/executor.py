@@ -4,11 +4,13 @@
 plane a driver call (or a serve request's cold tile builds) runs on and
 why every other plane was rejected:
 the device gates of the reference (:176-194) -- the plane was named,
-no interval filter, no ``skip_bad_spans``, and the device fault
-domain's breaker lets the run through -- and the fused-decode gates
+the source has a device plane (``device_capable``: the reference's
+``_DEVICE_DAGS`` row, which only the variant driver can fail), no
+interval filter, no ``skip_bad_spans``, and the device fault domain's
+breaker lets the run through -- and the fused-decode gates
 (``_use_fused``, ``_fused_stream_gate``).  No IR: every driver family
-the port routes (flagstat, payload, serve tiles) has a device plane and
-the same gates, so one decision serves them all.  ``plane_report`` is
+the port routes (flagstat, payload, serve tiles, variant stats) passes
+its capability, so one decision serves them all.  ``plane_report`` is
 the display-only decision of the serve ``health()``.
 ``run_chunk_columns`` is the reference's
 query-chunk runner (``_run_chunk_columns``), called by the query engine
@@ -73,10 +75,13 @@ def _fused_stream_gate(config: Optional[HBamConfig], intervals) -> bool:
 
 
 def select_plane(config: Optional[HBamConfig], *, intervals=None,
-                 ladder=None) -> PlaneDecision:
+                 ladder=None, device_capable: bool = True) -> PlaneDecision:
     """THE plane-selection table.  ``intervals`` is the parsed interval
-    filter (None: no filtering; a serve chunk has none).  ``ladder`` is
-    the file's
+    filter (None: no filtering; a serve chunk has none).
+    ``device_capable`` is the reference's capability row
+    (``_device_capable``): False for a source the device plane does not
+    decode (the variant driver passes True for a ``.bcf`` path only,
+    its ``VARIANT_DAG`` row).  ``ladder`` is the file's
     ``DemotionLadder`` when adaptive planes are on; its device breaker
     is consulted LAST, only when every other device gate passed, since
     ``allow_plane`` uses up a half-open probe slot."""
@@ -101,6 +106,11 @@ def select_plane(config: Optional[HBamConfig], *, intervals=None,
     if backend != "device":
         rejected.append(
             ("device", f"inflate_backend resolved to {backend!r}"))
+    elif not device_capable:
+        rejected.append(
+            ("device", "no device decode plane for this source (token-"
+                       "feed families: BAM flagstat/payload/serve-tile, "
+                       "BCF variant)"))
     elif intervals is not None:
         rejected.append(
             ("device", "interval filtering needs whole-span offsets "

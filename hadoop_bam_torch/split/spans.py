@@ -1,7 +1,7 @@
 """The units of distributable work (copy of hadoop_bam_tpu/split/spans.py):
 ``FileVirtualSpan``, a path plus [start, end) virtual offsets (BAM), and
 ``FileByteSpan``, a path plus a plain [start, end) byte range (FASTQ,
-QSEQ, FASTA).  Any host can decode any span on its own."""
+QSEQ, FASTA, text VCF).  Any host can decode any span on its own."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -34,6 +34,11 @@ class FileVirtualSpan:
         return {"path": self.path, "start": int(self.start_voffset),
                 "end": int(self.end_voffset),
                 "locations": list(self.locations)}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "FileVirtualSpan":
+        return cls(d["path"], int(d["start"]), int(d["end"]),
+                   tuple(d.get("locations", ())))
 
 
 @dataclass(frozen=True)

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import struct
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -937,3 +938,411 @@ def coverage_oracle(truth: CoverageTruth, refid: int, win_start: int,
     diff = np.bincount(s, minlength=window + 1)[:window + 1] - \
         np.bincount(e, minlength=window + 1)[:window + 1]
     return np.cumsum(diff[:window]).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# A synthetic call set with the genotype layout of the 1000 Genomes
+# Project phase 3 integrated release (ALL.chr*.phase3_shapeit2_mvncall_
+# integrated_v5a.20130502.genotypes): 2,504 samples, diploid phased GT,
+# FORMAT = GT only, INFO AC, AF, AN, NS, DP and VT, written as BCF (BGZF
+# and raw) and as a BGZF VCF, with its variant stats
+# ---------------------------------------------------------------------------
+
+KG_SAMPLES = 2504
+KG_CONTIGS: Tuple[Tuple[str, int], ...] = (("20", 63025520),
+                                           ("X", 155270560))
+KG_SNP_SHARE = 0.92          # SNPs; the rest are indels
+KG_MULTI_SHARE = 0.01        # sites with two ALT alleles
+# two additions the release lacks, so that no counter is vacuous
+KG_FILTERED_SHARE = 0.02     # sites not PASS (FILTER=LowQual)
+KG_MISSING_SHARE = 0.005     # './.' calls
+_KG_CHUNK = 2048             # records generated at a time
+
+_T_INT8, _T_INT16, _T_INT32, _T_FLOAT, _T_CHAR = 1, 2, 3, 5, 7
+_INT8_EOV = 0x81             # int8 END_OF_VECTOR (-127), haploid pads
+
+
+def kg_header(n_samples: int = KG_SAMPLES) -> "VCFHeader":
+    """The release's header lines (and a LowQual FILTER, the addition),
+    with ``n_samples`` sample columns."""
+    from hadoop_bam_torch.formats.vcf import VCFHeader
+    lines = [
+        "##fileformat=VCFv4.1",
+        '##FILTER=<ID=PASS,Description="All filters passed">',
+        '##FILTER=<ID=LowQual,Description="Synthetic addition: a site '
+        'that failed a filter">',
+        "##source=1000GenomesPhase3Pipeline (synthetic genotypes)",
+    ] + [f"##contig=<ID={c},assembly=b37,length={n}>"
+         for c, n in KG_CONTIGS] + [
+        '##INFO=<ID=AC,Number=A,Type=Integer,Description="Total number '
+        'of alternate alleles in called genotypes">',
+        '##INFO=<ID=AF,Number=A,Type=Float,Description="Estimated allele '
+        'frequency in the range (0,1)">',
+        '##INFO=<ID=AN,Number=1,Type=Integer,Description="Total number '
+        'of alleles in called genotypes">',
+        '##INFO=<ID=NS,Number=1,Type=Integer,Description="Number of '
+        'samples with data">',
+        '##INFO=<ID=DP,Number=1,Type=Integer,Description="Total read '
+        'depth; only low coverage data were counted towards the DP, '
+        'exome data were not used">',
+        '##INFO=<ID=VT,Number=.,Type=String,Description="indicates what '
+        'type of variant the line represents">',
+        '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">',
+    ]
+    text = "\n".join(lines) + "\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\t" \
+        "INFO\tFORMAT\t" + "\t".join(f"HG{96 + i:05d}"
+                                     for i in range(n_samples)) + "\n"
+    return VCFHeader.from_text(text)
+
+
+def _typed_desc(count: int, typ: int) -> bytes:
+    if count < 15:
+        return bytes([(count << 4) | typ])
+    return bytes([0xF0 | typ]) + _typed_ints([count])
+
+
+def _typed_ints(vals: Sequence[int]) -> bytes:
+    lo, hi = min(vals), max(vals)
+    if lo >= -120 and hi <= 127:
+        typ, fmt = _T_INT8, "b"
+    elif lo >= -32760 and hi <= 32767:
+        typ, fmt = _T_INT16, "h"
+    else:
+        typ, fmt = _T_INT32, "i"
+    return _typed_desc(len(vals), typ) + struct.pack(f"<{len(vals)}{fmt}",
+                                                     *vals)
+
+
+def _typed_str(s: str) -> bytes:
+    b = s.encode()
+    return _typed_desc(len(b), _T_CHAR) + b
+
+
+def _typed_floats(vals: Sequence[float]) -> bytes:
+    return _typed_desc(len(vals), _T_FLOAT) + struct.pack(
+        f"<{len(vals)}f", *vals)
+
+
+def _fmt_f32(v: float) -> str:
+    """The shortest text of the f32 the BCF stores."""
+    if v == int(v):
+        return str(int(v))
+    return np.format_float_positional(np.float32(v), unique=True,
+                                      trim="0")
+
+
+@dataclasses.dataclass
+class VariantTruth:
+    """The stats ``variant_stats_file`` must return over the records the
+    generator wrote (``vcf``: over the first ``vcf_records`` of them, the
+    BGZF VCF's), and with ``keep_rows`` each record's tile row (chrom,
+    pos, flags, dosage [n, n_samples]) in file order."""
+    n_variants: int
+    n_snp: int
+    n_pass: int
+    n_af: int
+    mean_af: float
+    sample_callrate: np.ndarray    # float64 [n_samples]
+    vcf: Optional["VariantTruth"] = None
+    chrom: Optional[np.ndarray] = None
+    pos: Optional[np.ndarray] = None
+    flags: Optional[np.ndarray] = None
+    dosage: Optional[np.ndarray] = None
+    filtered_share: float = 0.0    # the additions, as written
+    missing_share: float = 0.0
+
+    def stats(self) -> Dict[str, object]:
+        return {"n_variants": self.n_variants, "n_snp": self.n_snp,
+                "n_pass": self.n_pass, "n_af": self.n_af,
+                "mean_af": self.mean_af,
+                "sample_callrate": self.sample_callrate}
+
+
+class _VariantTally:
+    def __init__(self, n_samples: int):
+        self.n = self.snp = self.pas = self.n_af = self.miss = 0
+        self.sum_af = 0.0
+        self.called = np.zeros(n_samples, np.int64)
+
+    def add(self, dose: np.ndarray, flags: np.ndarray) -> None:
+        called = dose >= 0
+        n_called = called.sum(1)
+        alt = np.where(called, dose, 0).sum(1)
+        has = n_called > 0
+        # the reference's f32 division: sum / (2 x called)
+        af = np.float32(alt) / np.float32(2 * np.maximum(n_called, 1))
+        self.sum_af += float(af[has].astype(np.float64).sum())
+        self.n_af += int(has.sum())
+        self.n += dose.shape[0]
+        self.snp += int(((flags & 2) != 0).sum())
+        self.pas += int(((flags & 1) != 0).sum())
+        self.called += called.sum(0)
+        self.miss += int((~called).sum())
+
+    def truth(self) -> VariantTruth:
+        return VariantTruth(
+            n_variants=self.n, n_snp=self.snp, n_pass=self.pas,
+            n_af=self.n_af, mean_af=self.sum_af / max(self.n_af, 1),
+            sample_callrate=self.called / max(self.n, 1))
+
+
+def _kg_sites(rng: np.random.Generator, n: int, n_x: int):
+    """Per-site columns: contig, 1-based position (sorted within each
+    contig), ALT frequency (log-uniform between one allele in 5,008 and
+    1/2: skewed rare), SNP / multi-allelic / filtered flags."""
+    chrom = np.zeros(n, np.int32)
+    chrom[n - n_x:] = 1
+    pos = np.empty(n, np.int64)
+    for c, (_, length) in enumerate(KG_CONTIGS):
+        sel = chrom == c
+        pos[sel] = np.sort(rng.integers(60_001, length - 60_000,
+                                        int(sel.sum())))
+    p = 10.0 ** rng.uniform(np.log10(1 / 5008), np.log10(0.5), n)
+    snp = rng.random(n) < KG_SNP_SHARE
+    multi = rng.random(n) < KG_MULTI_SHARE
+    filtered = rng.random(n) < KG_FILTERED_SHARE
+    return chrom, pos, p.astype(np.float32), snp, multi, filtered
+
+
+def _kg_alleles(rng: np.random.Generator, snp: bool, multi: bool
+                ) -> Tuple[str, Tuple[str, ...]]:
+    bases = "ACGT"
+    r = int(rng.integers(4))
+    ref = bases[r]
+    if snp:
+        alts = [bases[(r + 1 + i) % 4] for i in
+                rng.permutation(3)[:2 if multi else 1]]
+        return ref, tuple(alts)
+    k = int(rng.integers(1, 6))
+    tail = "".join(bases[i] for i in rng.integers(0, 4, k))
+    if rng.random() < 0.5:                    # deletion
+        second = (ref + tail[:-1] if k > 1 else ref + tail + "T",)
+        return ref + tail, (ref,) + (second if multi else ())
+    return ref, (ref + tail,) + ((ref + tail + "T",) if multi else ())
+
+
+def write_synthetic_vcf(path: str, n_records: int, seed: int, *,
+                        n_samples: int = KG_SAMPLES,
+                        x_records: Optional[int] = None,
+                        raw_path: Optional[str] = None,
+                        vcf_path: Optional[str] = None,
+                        vcf_records: int = 0,
+                        keep_rows: bool = False) -> VariantTruth:
+    """Write ``n_records`` variants with the 1000 Genomes phase 3 layout
+    (``kg_header``) as a BGZF BCF at ``path``, the same records as a raw
+    BCF at ``raw_path`` and the first ``vcf_records`` as a BGZF VCF at
+    ``vcf_path``; return the truth (``VariantTruth``, computed from the
+    generating arrays, not by reading the files back).
+
+    The last ``x_records`` (default a tenth) lie on X, where a fixed
+    half of the samples (the males) are haploid, their second GT entry
+    END_OF_VECTOR; the text VCF's records must all lie on 20.  ALT
+    frequencies are skewed rare, ~92% of sites SNPs and the rest indels,
+    ~1% with two ALTs; ~2% of sites are not PASS and ~0.5% of calls
+    './.' (both additions).  The genotype bytes are built with NumPy a
+    chunk of records at a time; only each record's shared block is
+    encoded in Python."""
+    from hadoop_bam_torch.formats import bgzf
+    from hadoop_bam_torch.formats.bcf import encode_header
+
+    n_x = n_records // 10 if x_records is None else int(x_records)
+    if vcf_records > n_records - n_x:
+        raise ValueError("the text VCF holds diploid records only: "
+                         "vcf_records must not reach the X records")
+    rng = np.random.default_rng(seed)
+    header = kg_header(n_samples)
+    strings = header.string_dictionary()
+    key = {s: i for i, s in enumerate(strings)}
+    S = n_samples
+    chrom, pos, p, snp, multi, filtered = _kg_sites(rng, n_records, n_x)
+    male = rng.random(S) < 0.5
+    whole, text_tally = _VariantTally(S), _VariantTally(S)
+    kept = {"chrom": [], "pos": [], "flags": [], "dosage": []}
+    indiv_head = (_typed_ints([key["GT"]]) + _typed_desc(2, _T_INT8))
+    l_indiv = len(indiv_head) + 2 * S
+    with contextlib.ExitStack() as stack:
+        bz = stack.enter_context(bgzf.BGZFWriter(
+            stack.enter_context(open(path, "wb"))))
+        raw = stack.enter_context(open(raw_path, "wb")) if raw_path \
+            else None
+        vz = None
+        if vcf_path and vcf_records:
+            vz = stack.enter_context(bgzf.BGZFWriter(
+                stack.enter_context(open(vcf_path, "wb"))))
+            vz.write(header.to_text().encode())
+        head = encode_header(header)
+        bz.write(head)
+        if raw is not None:
+            raw.write(head)
+        for lo in range(0, n_records, _KG_CHUNK):
+            hi = min(n_records, lo + _KG_CHUNK)
+            m = hi - lo
+            hap = (chrom[lo:hi] == 1)[:, None] & male[None, :]   # [m, S]
+            alt = rng.random((m, S, 2), dtype=np.float32) \
+                < p[lo:hi, None, None]
+            allele = alt.astype(np.uint8)
+            two = np.flatnonzero(multi[lo:hi])
+            if two.size:
+                pick = rng.random((two.size, S, 2), dtype=np.float32) < 0.5
+                allele[two] += (alt[two] & pick).astype(np.uint8)
+            miss = rng.random((m, S), dtype=np.float32) < KG_MISSING_SHARE
+            gt = np.empty((m, S, 2), np.uint8)
+            gt[..., 0] = (allele[..., 0] + 1) << 1
+            gt[..., 1] = ((allele[..., 1] + 1) << 1) | 1
+            gt[miss] = 0
+            gt[..., 1][hap] = _INT8_EOV
+            dose = np.where(
+                miss, -1, (allele[..., 0] > 0).astype(np.int8)
+                + np.where(hap, 0, allele[..., 1] > 0).astype(np.int8)
+            ).astype(np.int8)
+            pres = ~miss
+            an_c = (pres * np.where(hap, 1, 2)).sum(1)
+            ac_c = [(((allele[..., 0] == k) & pres).sum(1)
+                     + ((allele[..., 1] == k) & pres & ~hap).sum(1))
+                    for k in (1, 2)]
+            rec_flags = np.zeros(m, np.uint8)
+            parts, lines = [], []
+            for j in range(m):
+                i = lo + j
+                ref, alts = _kg_alleles(rng, bool(snp[i]), bool(multi[i]))
+                is_snp = len(ref) == 1 and all(len(a) == 1 for a in alts)
+                rec_flags[j] = (0 if filtered[i] else 1) | \
+                    (2 if is_snp else 0)
+                an = int(an_c[j])
+                ac = [int(c[j]) for c in ac_c[:len(alts)]]
+                af = [a / max(an, 1) for a in ac]
+                dp = int(rng.integers(5000, 30000))
+                vt = "SNP" if is_snp else "INDEL"
+                vid = f"rs{1000000 + i}" if i % 10 < 7 else "."
+                filt = key["LowQual"] if filtered[i] else 0
+                shared = struct.pack(
+                    "<iiifHHI", int(chrom[i]), int(pos[i]) - 1, len(ref),
+                    100.0, 6, 1 + len(alts), S | (1 << 24))
+                shared += _typed_str(vid) + _typed_str(ref) + b"".join(
+                    _typed_str(a) for a in alts) + _typed_ints([filt])
+                shared += (_typed_ints([key["AC"]]) + _typed_ints(ac)
+                           + _typed_ints([key["AF"]]) + _typed_floats(af)
+                           + _typed_ints([key["AN"]]) + _typed_ints([an])
+                           + _typed_ints([key["NS"]]) + _typed_ints([S])
+                           + _typed_ints([key["DP"]]) + _typed_ints([dp])
+                           + _typed_ints([key["VT"]]) + _typed_str(vt))
+                parts.append(struct.pack("<II", len(shared), l_indiv)
+                             + shared + indiv_head)
+                parts.append(gt[j].tobytes())
+                if vz is not None and i < vcf_records:
+                    info = (f"AC={','.join(map(str, ac))};AF="
+                            + ",".join(_fmt_f32(float(np.float32(a)))
+                                       for a in af)
+                            + f";AN={an};NS={S};DP={dp};VT={vt}")
+                    lines.append(
+                        f"{KG_CONTIGS[chrom[i]][0]}\t{pos[i]}\t{vid}\t{ref}"
+                        f"\t{','.join(alts)}\t100\t"
+                        f"{'LowQual' if filtered[i] else 'PASS'}\t{info}"
+                        f"\tGT\t".encode())
+            block = b"".join(parts)
+            bz.write(block)
+            if raw is not None:
+                raw.write(block)
+            whole.add(dose, rec_flags)
+            if lines:
+                k = len(lines)
+                txt = np.empty((k, S, 4), np.uint8)
+                txt[..., 0] = ord("0") + allele[:k, :, 0]
+                txt[..., 1] = ord("|")
+                txt[..., 2] = ord("0") + allele[:k, :, 1]
+                txt[..., 3] = ord("\t")
+                txt[miss[:k]] = np.frombuffer(b"./.\t", np.uint8)
+                txt[:, -1, 3] = ord("\n")
+                vz.write(b"".join(line + row.tobytes()
+                                  for line, row in zip(lines, txt)))
+                text_tally.add(dose[:k], rec_flags[:k])
+            if keep_rows:
+                kept["chrom"].append(chrom[lo:hi].copy())
+                kept["pos"].append(pos[lo:hi].astype(np.int32))
+                kept["flags"].append(rec_flags)
+                kept["dosage"].append(dose)
+    truth = whole.truth()
+    truth.filtered_share = float(filtered.mean()) if n_records else 0.0
+    truth.missing_share = whole.miss / max(1, n_records * S)
+    if vcf_path and vcf_records:
+        truth.vcf = text_tally.truth()
+    if keep_rows:
+        for k, v in kept.items():
+            setattr(truth, k, np.concatenate(v) if v else None)
+    return truth
+
+
+# K11's edge cases, shared by the CPU parity tests, the card tests and
+# chip_smoke.py phase 15 (a): (width, ploidy, n_sample, G group rows)
+GT_CASES: Tuple[Tuple[int, int, int, int], ...] = (
+    (1, 2, 2504, 64), (2, 2, 2504, 16), (4, 2, 517, 9),
+    (1, 1, 300, 33), (2, 3, 300, 7), (4, 3, 300, 5),
+    (1, 200, 40, 6),       # saturation past 127 ALT alleles
+)
+_GT_SPECIAL = {1: (-128, -127), 2: (-32768, -32767),
+               4: (-(1 << 31), -(1 << 31) + 1)}
+
+
+def gt_rows(width: int, count: int, n_sample: int, G: int, seed: int = 0
+            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """One GT layout group for ``gt_dosage``: (buf u8 [L], gt_off i32
+    [G], rows i32 [G], R) with G records' ``n_sample`` x ``count``
+    vectors of ``width``-byte little-endian entries: phased and unphased
+    ALT / REF alleles (some above 127), MISSING, allele value 0 and 1,
+    END_OF_VECTOR tails of every length, junk; the last rows' offsets
+    clip at the buffer's start (negative, wrapping int32) and end (past
+    L); rows are a permutation of R >= G tile rows (so some rows belong
+    to no group)."""
+    rng = np.random.default_rng(seed)
+    miss, eov = _GT_SPECIAL[width]
+    n = G * n_sample * count
+    allele = rng.integers(0, 4, n) * (rng.random(n) < 0.3)
+    if count >= 128:
+        allele[rng.random(n) < 0.9] = 1          # mostly ALT: saturates
+    g = ((allele + 1) << 1) | rng.integers(0, 2, n)
+    # MISSING, allele values 0 / 1 and junk, rarer in long vectors so
+    # that most of their calls stay whole (and saturate)
+    pick = rng.random(n) / (1.0 if count < 128 else 0.025)
+    g = np.where(pick < 0.02, miss, g)
+    g = np.where((pick >= 0.02) & (pick < 0.04), rng.integers(0, 2, n), g)
+    g = np.where((pick >= 0.04) & (pick < 0.05),
+                 rng.integers(-(1 << (8 * width - 1)),
+                              1 << (8 * width - 1), n), g)
+    g = g.reshape(G, n_sample, count)
+    tails = rng.integers(0, count + 1, (G, n_sample))
+    tails[:, :3] = [0, count, max(count - 1, 0)][:min(3, n_sample)] \
+        if n_sample >= 3 else tails[:, :3]
+    g = np.where(np.arange(count)[None, None, :]
+                 >= count - tails[..., None] * (rng.random((G, n_sample, 1))
+                                                < 0.2), eov, g)
+    dt = {1: "<i1", 2: "<i2", 4: "<i4"}[width]
+    body = g.astype(dt).tobytes()
+    pad = rng.integers(0, 256, 64, dtype=np.uint8).tobytes()
+    buf = np.frombuffer(pad + body + pad, np.uint8).copy()
+    L = buf.size
+    stride = width * count * n_sample
+    offs = 64 + np.arange(G, dtype=np.int64) * stride
+    edge = [L - 1, L - stride // 2, L + 5, -3, -stride - 9,
+            (1 << 31) - 7]
+    k = min(len(edge), max(0, G - 2))
+    if k:
+        offs[G - k:] = edge[:k]
+    offs = ((offs + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+    R = G + 5
+    rows = rng.permutation(R)[:G].astype(np.int32)
+    return buf, offs.astype(np.int32), rows, R
+
+
+def prefix_rows(n: int, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """``variant_prefix`` inputs: (buf u8 [L], starts i32 [R]) with
+    starts inside the buffer, pads of 0, and starts cut by either end:
+    negative, within 16 bytes of L, past L and wrapping int32."""
+    rng = np.random.default_rng(seed)
+    L = 64 * n + 40
+    buf = rng.integers(0, 256, L, dtype=np.uint8)
+    starts = rng.integers(0, L - 16, n).astype(np.int64)
+    edge = [0, 0, -1, -8, -12, L - 16, L - 9, L - 1, L, L + 100,
+            (1 << 31) - 10, -(1 << 31)]
+    k = min(len(edge), n)
+    starts[n - k:] = edge[:k]
+    return buf, starts.astype(np.int32)

@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 import torch
 
+from hadoop_bam_torch import synth
 from hadoop_bam_torch.ops import seq_stats as tss
 from hadoop_bam_torch.ops import unpack_bam as tub
 
@@ -1020,3 +1021,76 @@ def test_serve_loop_on_card_equals_cpu_engine(cuda, tmp_path, backend):
     assert st.tile_filter_step.launches > steps
     if backend == "device":
         assert tid.interval_cols.launches > k10i
+
+
+# ---------------------------------------------------------------------------
+# K11: the BCF device unpack (variant_prefix, gt_dosage)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", range(len(synth.GT_CASES)))
+@pytest.mark.parametrize("shift", [0, 3])
+def test_k11_gt_dosage_matches_plain(cuda, case, shift):
+    """Every GT layout case (widths 1, 2, 4; ploidy 1-3 and 200;
+    END_OF_VECTOR tails, MISSING and allele-0 calls, saturation, offsets
+    clipped at both ends), buf at an aligned and an odd address, twice
+    in a row: bit-equal to the plain version, rows of no group left
+    as they were."""
+    from hadoop_bam_torch.ops import inflate_device as tid
+    w, c, ns, G = synth.GT_CASES[case]
+    buf, offs, rows, R = synth.gt_rows(w, c, ns, G, seed=case)
+    big = torch.zeros(buf.size + shift, dtype=torch.uint8, device=cuda)
+    big[shift:] = torch.from_numpy(buf).to(cuda)
+    b = big[shift:]
+    o, r = (torch.from_numpy(a).to(cuda) for a in (offs, rows))
+    want = tid.gt_dosage_plain(b, o, r, w, c, ns, torch.full(
+        (R, ns + 5), -1, dtype=torch.int8, device=cuda))
+    for _ in range(2):
+        got = torch.full((R, ns + 5), -1, dtype=torch.int8, device=cuda)
+        before = tid.gt_dosage.launches
+        tid.gt_dosage(b, o, r, w, c, ns, got)
+        torch.cuda.synchronize()
+        assert tid.gt_dosage.launches == before + 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 12, 1000, 70_000])
+def test_k11_variant_prefix_matches_plain(cuda, n):
+    from hadoop_bam_torch.ops import inflate_device as tid
+    buf, starts = synth.prefix_rows(n, seed=n)
+    b, s = (torch.from_numpy(a).to(cuda) for a in (buf, starts))
+    before = tid.variant_prefix.launches
+    got = tid.variant_prefix(b, s)
+    want = tid.variant_prefix_plain(b, s)
+    torch.cuda.synchronize()
+    assert tid.variant_prefix.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_variant_planes_on_card_match_truth(cuda, tmp_path):
+    """variant_stats_file on the card, host plane (BGZF and raw BCF,
+    BGZF VCF) and device plane (K7+K8, K11, K14), equal to the
+    generator's truth; the device plane launched K11."""
+    from hadoop_bam_torch.config import HBamConfig
+    from hadoop_bam_torch.ops import inflate_device as tid
+    from hadoop_bam_torch.parallel.variant_pipeline import (
+        variant_stats_file,
+    )
+    p, raw, vz = (str(tmp_path / n) for n in ("v.bcf", "v.raw.bcf",
+                                              "v.vcf.gz"))
+    truth = synth.write_synthetic_vcf(p, 3000, 5, n_samples=300,
+                                      raw_path=raw, vcf_path=vz,
+                                      vcf_records=1000)
+    before = (tid.variant_prefix.launches, tid.gt_dosage.launches)
+    runs = [(p, None, truth), (raw, None, truth), (vz, None, truth.vcf),
+            (p, HBamConfig(inflate_backend="device"), truth)]
+    for path, cfg, want in runs:
+        kw = {"config": cfg} if cfg is not None else {}
+        got = variant_stats_file(path, **kw)
+        for k in ("n_variants", "n_snp", "n_pass", "n_af"):
+            assert got[k] == getattr(want, k), (path, k)
+        np.testing.assert_allclose(got["mean_af"], want.mean_af, rtol=1e-6)
+        np.testing.assert_array_equal(got["sample_callrate"],
+                                      want.sample_callrate)
+    assert tid.variant_prefix.launches > before[0]
+    assert tid.gt_dosage.launches > before[1]
