@@ -133,16 +133,22 @@ Phases (any failure raises and exits non-zero):
    release (``synth.write_synthetic_vcf``: 2,504 samples, 100,000
    records, the last 10,000 on X, as BGZF BCF, raw BCF and a BGZF VCF
    of the first 20,000; 2% of sites not PASS and 0.5% of calls './.'
-   added): (a) K11 (``variant_prefix``, ``gt_dosage``) bit for bit
-   against its plain versions in every case of ``synth.GT_CASES`` and
-   ``synth.prefix_rows`` and at the main path's chunk (the rows of a
-   64-block chunk of the BGZF BCF), with times and bounds, and K14
+   added): (a) K11 (``variant_unpack``: one launch a span writes CHROM /
+   POS, every GT group's dosages, the tile's pads and the flags from
+   one packed metadata array) bit for bit against its plain version in
+   every case of ``synth.UNPACK_CASES``, its prefix-only and one-group
+   modes (``variant_prefix``, ``gt_dosage``) in every case of
+   ``synth.prefix_rows`` and ``synth.GT_CASES``, and at the main path's
+   chunk (the rows of a 64-block chunk of the BGZF BCF), with times and
+   bound, ``device_variant_unpack`` split by kernel there, and K14
    (``variant_tile_stats``) timed there; (b) ``variant_stats_file`` on
    the host plane (BGZF BCF, BGZF VCF) and the device plane (BGZF BCF),
    each equal to the generator's truth, with walls, variants/s,
-   profiled busy shares, launches and the device plane's blocks and
-   records through the card and through the host fixup; (c) the device
-   plane again with every K11 launch held against its plain version;
+   profiled busy shares, launches (``variant_unpack`` once a span
+   unpacked on the card) and the device plane's blocks and records
+   through the card and through the host fixup; (c) the device plane
+   again with every ``variant_unpack`` launch held against its plain
+   version;
    (d) ``open_vcf(bcf).tensor_batches()`` at the host plane's span
    count, rows equal to the generator's, batches/s and GB/s delivered.
 
@@ -166,8 +172,13 @@ walked, with n_all = 0, and in turns against the memset scheme it
 replaced, by the profiler and by one CUDA graph;
 ``device_plane``: the profiled device-plane
 ``seq_stats()`` by kernel; ``variant_gt``: K11 checked in phase 15
-(a)'s cases and checked and timed at its chunk of a BCF of the phase's
-layout written beside the BAM; ``variant_plane``: phase 15 alone; ``native_plane``: the native plane's three
+(a)'s cases, checked and timed at its chunk of a BCF of the phase's
+layout written beside the BAM (K11 alone, and
+``device_variant_unpack`` split by kernel), and that BCF's device-plane
+pass with its unpack wall;
+``variant_floor``: K11's launch at that chunk split by part (the
+header's mode set to each part alone);
+``variant_plane``: phase 15 alone; ``native_plane``: the native plane's three
 drivers of phase 5, warmed up, five rounds in turn; ``bai_regions``:
 phase 11 (d)'s ``.bai`` runs on a sorted copy of the reads kept beside
 the BAM, with walls and peak resident set sizes) and prints them as
@@ -1761,6 +1772,19 @@ class FakeClock:
         return self.t
 
 
+def _jobs_reaped(native, t0: float, delay: float) -> int:
+    """The fused native jobs left once every copy wedged at ``t0`` for
+    ``delay`` s has woken, started its span's job and handed it to the
+    window's cleanup: polled for up to 15 s from half a second past the
+    wake, so a job still running when the call returned is waited for,
+    not counted."""
+    time.sleep(max(0.0, t0 + delay + 0.5 - time.perf_counter()))
+    t1 = time.perf_counter()
+    while native.live_jobs() and time.perf_counter() - t1 < 15:
+        time.sleep(0.05)
+    return native.live_jobs()
+
+
 def _timed(fn):
     t0 = time.perf_counter()
     out = fn()
@@ -2373,8 +2397,10 @@ def k2_window_check(torch, batches, dev, card="") -> dict:
     copies = [(s_t.clone(), q_t.clone(), l_t.clone()) for _ in range(2)]
     calls = [lambda c=c: seq_qual_stats(*c) for c in copies]
     ms = device_ms(torch, calls, kernel="seq_stats_kernel")
+    # the plain version launches ~1,750 kernels a call: 4 calls a
+    # profiler session, not 32, keep the sessions short
     plain_ms = device_ms(torch, [lambda c=c: seq_qual_stats_plain(*c)
-                                 for c in copies])
+                                 for c in copies], reps=4)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     ev_ms = time_ms(torch, lambda: seq_qual_stats(*copies[0]), flush)
     split = kernel_split(torch, calls, kernel="seq_stats_kernel")
@@ -2909,13 +2935,8 @@ def phase_coverage_query(torch, path, truth, card, dev, args, srt,
             check(METRICS.get("pipeline.bad_spans") == 0,
                   "nothing quarantined: the window raises outside the "
                   "span policy, as in the reference")
-            # the wedged tasks wake after the delay, start their span's
-            # native job and hand it to the window's cleanup
-            time.sleep(max(0.0, t0 + delay + 0.5 - time.perf_counter()))
-            t1 = time.perf_counter()
-            while native.live_jobs() and time.perf_counter() - t1 < 15:
-                time.sleep(0.05)
-            check(native.live_jobs() == 0, "no native job left running")
+            check(_jobs_reaped(native, t0, delay) == 0,
+                  "no native job left running")
             log(f"(c) every pool task wedged {delay} s, timeout {timeout} s"
                 f"{', skip_bad_spans' if skip else ''}: TransientIOError in "
                 f"{wall:.3f} s ({msg}); timeouts "
@@ -2938,13 +2959,16 @@ def phase_coverage_query(torch, path, truth, card, dev, args, srt,
                 pass
         METRICS.reset()
         cold()
+        t0 = time.perf_counter()
         with chaos.fault_points_on("pool.task", [chaos.PointFault(
                 kind="delay", at_call=1, delay_s=delay)]):
             flag, wall = _timed(open_bam(path, config=cfg).flagstat)
         check(flag == want_flag, "one wedged task: the truth")
         check(METRICS.get("pool.task_timeouts") == 1 ==
               METRICS.get("jobs.timeout_resubmits"), "one resubmit")
-        check(native.live_jobs() == 0, "no native job left running")
+        # the call may return before or after the wedged copy wakes
+        check(_jobs_reaped(native, t0, delay) == 0,
+              "no native job left running")
         log(f"(c) coverage_file on a wedged pool raises TransientIOError; "
             f"one wedged task: resubmitted once, flagstat equals the "
             f"truth in {wall:.3f} s (phase 5 "
@@ -3107,7 +3131,8 @@ def _k10i_times(torch, args) -> dict:
             "ms": device_ms(torch, calls, kernel="interval_cols"),
             "loop_ms": loop_ms(torch, calls),
             "plain_ms": device_ms(torch, [
-                lambda c=c: tid.interval_cols_plain(*c) for c in copies]),
+                lambda c=c: tid.interval_cols_plain(*c) for c in copies],
+                reps=4),
             "bound_ms": nbytes / H100_BYTES_PER_S * 1e3}
 
 
@@ -3696,6 +3721,7 @@ def _variant_wrappers():
     from hadoop_bam_torch.ops import inflate_device as tid
     from hadoop_bam_torch.parallel import variant_pipeline as tv
     return {"resolve_pack": tid.resolve_pack,
+            "variant_unpack": tid.variant_unpack,
             "variant_prefix": tid.variant_prefix,
             "gt_dosage": tid.gt_dosage,
             "variant_tile_stats": tv.variant_tile_stats}
@@ -3705,30 +3731,54 @@ def _variant_launches() -> dict:
     return {k: w.launches for k, w in _variant_wrappers().items()}
 
 
-def _gt_bytes(G, width, count, n_sample) -> int:
-    """gt_dosage's bytes: each group row reads width x count x n_sample
-    bytes, its 4-byte offset and its 4-byte row index, and writes
-    n_sample dosage bytes."""
-    return G * (width * count * n_sample + 8 + n_sample)
+def _unpack_bytes(chunk, samples_pad) -> int:
+    """variant_unpack's bytes at a chunk: the packed array read once, each
+    group row's GT bytes, the 8 prefix bytes of each record (the pad rows
+    all read the same 8 at start 0), and the outputs written once: CHROM
+    and POS 8 bytes a row, the flags, the [R, s_pad] tile."""
+    R, n = chunk["R"], chunk["n"]
+    gt = sum(len(rows) * w * c * ns
+             for rows, _, w, c, ns in chunk["meta"]["gt_groups"])
+    prefix = 8 * (n + (R > n))
+    return (4 * chunk["packed"].size + gt + prefix
+            + R * (8 + 1 + samples_pad))
 
 
 def _k11_cases(torch, dev) -> int:
-    """Every case of ``synth.GT_CASES`` (widths 1, 2, 4; ploidy 1, 2, 3
-    and 200; END_OF_VECTOR tails, MISSING and allele-0 calls,
-    saturation, offsets clipped at both ends), buf at an aligned and at
-    an odd address, and ``synth.prefix_rows`` (pads, starts cut by both
-    ends, int32 wrap): each kernel bit-equal to its plain version, twice
-    in a row.  Returns the number of cases."""
+    """K11 bit-equal to its plain versions, twice in a row, buf at an
+    aligned and at an odd address: ``variant_unpack`` in every case of
+    ``synth.UNPACK_CASES`` (multi-group spans, widths 1, 2 and 4,
+    saturation, rows of no group, pad rows and columns, the clip and wrap
+    edges), over a poisoned allocator; ``gt_dosage`` (its one-group mode)
+    in every case of ``synth.GT_CASES``; ``variant_prefix`` (its prefix
+    mode) in ``synth.prefix_rows``.  Returns the number of cases."""
     from hadoop_bam_torch import synth
     from hadoop_bam_torch.ops import inflate_device as tid
     n = 0
+
+    def at(buf, shift):
+        big = torch.zeros(buf.size + shift, dtype=torch.uint8, device=dev)
+        big[shift:] = torch.from_numpy(buf).to(dev)
+        return big[shift:]
+    for i, (label, groups, m, s_pad) in enumerate(synth.UNPACK_CASES):
+        buf, meta, R, s_pad = synth.unpack_span(groups, m, s_pad, seed=i)
+        packed = tid.pack_variant_meta(meta, R)
+        for shift in (0, 3):
+            b = at(buf, shift)
+            want = tid.variant_unpack_plain(b, packed, R, s_pad)
+            for _ in range(2):
+                synth.poison_allocator(dev)
+                got = tid.variant_unpack(b, packed, R, s_pad)
+                sync(torch, dev)
+                for g, w, what in zip(got, want, ("chrom", "pos", "flags",
+                                                  "dosage")):
+                    check(torch.equal(g, w), f"variant_unpack {what}, "
+                          f"{label}, shift {shift}")
+        n += 1
     for i, (w, c, ns, G) in enumerate(synth.GT_CASES):
         buf, offs, rows, R = synth.gt_rows(w, c, ns, G, seed=i)
         for shift in (0, 3):
-            big = torch.zeros(buf.size + shift, dtype=torch.uint8,
-                              device=dev)
-            big[shift:] = torch.from_numpy(buf).to(dev)
-            b = big[shift:]
+            b = at(buf, shift)
             o, r = (torch.from_numpy(a).to(dev) for a in (offs, rows))
             want = tid.gt_dosage_plain(b, o, r, w, c, ns, torch.full(
                 (R, ns + 5), -1, dtype=torch.int8, device=dev))
@@ -3742,7 +3792,7 @@ def _k11_cases(torch, dev) -> int:
                       f"shift {shift}")
             if c >= 128:
                 check(bool((want == 127).any()), "a saturated call")
-            n += 1
+        n += 1
     for m in (1, 12, 1000, 70_000):
         buf, starts = synth.prefix_rows(m, seed=m)
         b, s = (torch.from_numpy(a).to(dev) for a in (buf, starts))
@@ -3756,13 +3806,13 @@ def _k11_cases(torch, dev) -> int:
     return n
 
 
-def _variant_chunk(torch, bcf, dev, samples_pad):
+def _variant_chunk(torch, bcf, dev, samples_pad) -> dict:
     """The main path's own K11 inputs: the first span of the device
     plane's 512 KiB plan over the BGZF BCF, tokenized, staged and
     resolved by K7+K8 as ``_variant_stats_device_plane`` does it, its
-    records framed and walked on the host.  Returns (buf, starts [R]
-    int32 on the card, the groups [(offs, rows, width, count,
-    n_sample)], n, R)."""
+    records framed and walked on the host.  Returns buf, the cursor
+    metadata (meta), n, R, the chunk's blocks (used, n_blocks) and the
+    packed array on the host (packed)."""
     import numpy as np
     from hadoop_bam_torch.api.vcf_dataset import open_vcf
     from hadoop_bam_torch.formats.bcf_columns import decode_bcf_cursor_meta
@@ -3783,55 +3833,67 @@ def _variant_chunk(torch, bcf, dev, samples_pad):
                                   starts=starts)
     n = int(meta["n"])
     R = tid.round_pow2(n, 8)
-    s32 = np.zeros(R, np.int32)
-    s32[:n] = meta["starts"]
-    groups = [(torch.from_numpy(offs.astype(np.int32)).to(dev),
-               torch.from_numpy(rows.astype(np.int32)).to(dev), w, c, ns)
-              for rows, offs, w, c, ns in meta["gt_groups"]]
-    return (buf, torch.from_numpy(s32).to(dev), groups, n, R,
-            chunk.used, chunk.n_blocks)
+    return {"buf": buf, "meta": meta, "n": n, "R": R,
+            "packed": tid.pack_variant_meta(meta, R), "used": chunk.used,
+            "n_blocks": chunk.n_blocks}
+
+
+def _k11_alone(torch, chunk, samples_pad, bufs) -> dict:
+    """K11 alone at the chunk: ``variant_unpack`` bit-equal to its plain
+    version, then the kernel's device ms and its calls in a row by
+    events (the packed array copied to the card beforehand, as the
+    wrapper copies it, and fresh outputs a call), its plain ms and its
+    bound."""
+    from hadoop_bam_torch.ops import inflate_device as tid
+    buf, R, n, packed = chunk["buf"], chunk["R"], chunk["n"], chunk["packed"]
+    dev = buf.device
+    got = tid.variant_unpack(buf, packed, R, samples_pad)
+    want = tid.variant_unpack_plain(buf, packed, R, samples_pad)
+    for g, x, what in zip(got, want, ("chrom", "pos", "flags", "dosage")):
+        check(torch.equal(g, x),
+              f"variant_unpack {what} at the main path's chunk")
+    meta = torch.from_numpy(packed).to(dev)
+
+    def launch(b):
+        tid.launch_unpack(
+            b, meta, R, samples_pad,
+            torch.empty(R, dtype=torch.int32, device=dev),
+            torch.empty(R, dtype=torch.int32, device=dev),
+            torch.empty(R, dtype=torch.uint8, device=dev),
+            torch.empty((R, samples_pad), dtype=torch.int8, device=dev))
+    calls = [lambda b=b: launch(b) for b in bufs]
+    nbytes = _unpack_bytes(chunk, samples_pad)
+    return {"variant_unpack": {
+        "R": R, "records": n, "groups": len(chunk["meta"]["gt_groups"]),
+        "nbytes": nbytes,
+        "ms": device_ms(torch, calls, kernel="variant_unpack"),
+        "loop_ms": loop_ms(torch, calls),
+        "plain_ms": device_ms(torch, [
+            lambda b=b: tid.variant_unpack_plain(b, packed, R, samples_pad)
+            for b in bufs[:2]], reps=4),
+        "bound_ms": nbytes / H100_BYTES_PER_S * 1e3}}
 
 
 def _k11_chunk_times(torch, chunk, samples_pad) -> dict:
-    """K11 at the main path's chunk: each kernel bit-equal to its plain
-    version, then its device ms (profiler, CUDA-graph fallback), its
-    calls in a row by events, the plain version's ms and the bound; and
-    K14 at the device plane's tile of that chunk."""
-    from hadoop_bam_torch.ops import inflate_device as tid
+    """K11 at the main path's chunk (``_k11_alone``); the whole
+    ``device_variant_unpack`` of the chunk split by kernel (kernels,
+    fills and copies, each call's device time) and its calls in a row by
+    events (the host's packing and launches included); and K14 at the
+    device plane's tile of that chunk."""
     from hadoop_bam_torch.parallel import variant_pipeline as tv
-    buf, starts, groups, n, R = chunk[:5]
-    (offs, rows, w, c, ns), = groups
-    got, want = tid.variant_prefix(buf, starts), tid.variant_prefix_plain(
-        buf, starts)
-    for g, x in zip(got, want):
-        check(torch.equal(g, x), "variant_prefix at the main path's chunk")
-    tiles = [torch.full((R, samples_pad), -1, dtype=torch.int8,
-                        device=buf.device) for _ in range(8)]
-    tid.gt_dosage(buf, offs, rows, w, c, ns, tiles[0])
-    want = tid.gt_dosage_plain(buf, offs, rows, w, c, ns, torch.full(
-        (R, samples_pad), -1, dtype=torch.int8, device=buf.device))
-    check(torch.equal(tiles[0], want), "gt_dosage at the main path's chunk")
+    buf, R, n = chunk["buf"], chunk["R"], chunk["n"]
     bufs = [buf.clone() for _ in range(8)]
-    pcalls = [lambda b=b: tid.variant_prefix(b, starts) for b in bufs]
-    gcalls = [lambda b=b, t=t: tid.gt_dosage(b, offs, rows, w, c, ns, t)
-              for b, t in zip(bufs, tiles)]
-    out = {}
-    for name, calls, plain, nbytes in (
-            ("variant_prefix", pcalls,
-             [lambda b=b: tid.variant_prefix_plain(b, starts) for b in bufs],
-             20 * R),
-            ("gt_dosage", gcalls,
-             [lambda b=b, t=t: tid.gt_dosage_plain(b, offs, rows, w, c, ns, t)
-              for b, t in zip(bufs, tiles)],
-             _gt_bytes(int(offs.shape[0]), w, c, ns))):
-        out[name] = {"R": R, "records": n, "groups": len(groups),
-                     "nbytes": nbytes,
-                     "ms": device_ms(torch, calls, kernel=name),
-                     "loop_ms": loop_ms(torch, calls),
-                     "plain_ms": device_ms(torch, plain[:2], reps=4),
-                     "bound_ms": nbytes / H100_BYTES_PER_S * 1e3}
-    flags = torch.zeros(R, dtype=torch.uint8, device=buf.device)
-    chrom, pos = got
+    out = _k11_alone(torch, chunk, samples_pad, bufs)
+    meta = chunk["meta"]
+    ucalls = [lambda b=b: tv.device_variant_unpack(b, meta, samples_pad)
+              for b in bufs]
+    split = kernel_split(torch, ucalls)
+    out["device_variant_unpack"] = {
+        "by_kernel": split, "device_ms": sum(split.values()),
+        "loop_ms": loop_ms(torch, ucalls)}
+    chrom, pos, flags, tile, _ = tv.device_variant_unpack(buf, meta,
+                                                          samples_pad)
+    tiles = [tile.clone() for _ in range(8)]
     scalls = [lambda t=t: tv.variant_tile_stats(chrom, pos, flags, t, n)
               for t in tiles]
     nbytes = R * samples_pad + R + 4 * (4 + samples_pad) + 4
@@ -3845,48 +3907,32 @@ def _k11_chunk_times(torch, chunk, samples_pad) -> dict:
 
 
 class _CheckedK11:
-    """Stands in for ``variant_prefix`` and ``gt_dosage`` in
-    parallel/variant_pipeline.py during a checked device-plane pass:
-    each call launches the kernel and holds its output bit for bit
-    against the plain version on the same inputs (``gt_dosage``'s tile
-    cloned before the launch), tallying the shapes seen."""
+    """Stands in for ``variant_unpack`` in parallel/variant_pipeline.py
+    during a checked device-plane pass: each call launches the kernel and
+    holds its four outputs bit for bit against the plain version on the
+    same inputs, tallying the shapes seen."""
 
     def __init__(self, torch, tid, tv):
         self.torch, self.tid, self.tv = torch, tid, tv
-        self.seen = {"variant_prefix": {}, "gt_dosage": {}}
+        self.seen = {}
 
     def __enter__(self):
-        self.tv.variant_prefix = self.prefix
-        self.tv.gt_dosage = self.dosage
+        self.tv.variant_unpack = self.unpack
         return self
 
     def __exit__(self, *exc):
-        self.tv.variant_prefix = self.tid.variant_prefix
-        self.tv.gt_dosage = self.tid.gt_dosage
+        self.tv.variant_unpack = self.tid.variant_unpack
 
-    def _tally(self, name, key):
-        self.seen[name][key] = self.seen[name].get(key, 0) + 1
-
-    def prefix(self, buf, starts):
-        got = self.tid.variant_prefix(buf, starts)
-        want = self.tid.variant_prefix_plain(buf, starts)
-        for g, w, what in zip(got, want, ("chrom", "pos")):
+    def unpack(self, buf, meta, R, s_pad):
+        got = self.tid.variant_unpack(buf, meta, R, s_pad)
+        want = self.tid.variant_unpack_plain(buf, meta, R, s_pad)
+        for g, w, what in zip(got, want, ("chrom", "pos", "flags",
+                                          "dosage")):
             check(self.torch.equal(g, w),
-                  f"variant_prefix {what} in the checked pass")
-        self._tally("variant_prefix", f"R={starts.shape[0]}")
+                  f"variant_unpack {what} in the checked pass")
+        key = f"R={R} s_pad={s_pad}"
+        self.seen[key] = self.seen.get(key, 0) + 1
         return got
-
-    def dosage(self, buf, offs, rows, width, count, n_sample, dosage):
-        before = dosage.clone()
-        self.tid.gt_dosage(buf, offs, rows, width, count, n_sample, dosage)
-        want = self.tid.gt_dosage_plain(buf, offs, rows, width, count,
-                                        n_sample, before)
-        check(self.torch.equal(dosage, want),
-              "gt_dosage in the checked pass")
-        self._tally("gt_dosage", f"G={offs.shape[0]} width={width} "
-                    f"ploidy={count} n_sample={n_sample} "
-                    f"tile={tuple(dosage.shape)}")
-        return dosage
 
 
 def _same_variant_stats(got, want, what) -> float:
@@ -3901,6 +3947,18 @@ def _same_variant_stats(got, want, what) -> float:
     rel = abs(got["mean_af"] - want.mean_af) / abs(want.mean_af)
     check(rel <= 1e-6, f"{what}: mean_af rel err {rel} <= 1e-6")
     return rel
+
+
+def _log_k11_times(times, card) -> None:
+    x = times["variant_unpack"]
+    log(f"variant_unpack at the main path's chunk: device {x['ms']:.4f} ms "
+        f"(plain {x['plain_ms']:.4f} ms, {x['loop_ms']:.4f} ms a call in a "
+        f"row by events), bound {x['bound_ms']:.6f} ms = {x['nbytes']} B / "
+        f"3.35 TB/s, {100 * x['bound_ms'] / x['ms']:.1f}% of it [{card}]")
+    x = times["device_variant_unpack"]
+    log(f"device_variant_unpack at that chunk: {x['device_ms']:.4f} ms of "
+        f"device work a span ({x['by_kernel']}), {x['loop_ms']:.4f} ms a "
+        f"call in a row by events [{card}]")
 
 
 def phase_variant(torch, path, card, dev, seed):
@@ -3941,21 +3999,15 @@ def phase_variant(torch, path, card, dev, seed):
         # (a) K11 against its plain versions, then at the main path's
         # own chunk with its times and bounds
         cases = _k11_cases(torch, dev)
-        for line in kernels_report("gt_dosage"):
+        for line in kernels_report("variant_unpack"):
             log(f"  ptxas: {line}")
         chunk = _variant_chunk(torch, bcf, dev, S_pad)
         times = _k11_chunk_times(torch, chunk, S_pad)
         log(f"(a) K11 bit-equal to its plain versions in {cases} cases, "
-            f"twice each, and at the main path's chunk ({chunk[5]} of "
-            f"its span's {chunk[6]} blocks, {chunk[3]} records, "
-            f"R = {chunk[4]})")
-        for name in ("variant_prefix", "gt_dosage"):
-            x = times[name]
-            log(f"{name} at the main path's chunk: device {x['ms']:.4f} "
-                f"ms (plain {x['plain_ms']:.4f} ms, {x['loop_ms']:.4f} ms a "
-                f"call in a row by events), bound {x['bound_ms']:.6f} ms = "
-                f"{x['nbytes']} B / 3.35 TB/s, "
-                f"{100 * x['bound_ms'] / x['ms']:.1f}% of it [{card}]")
+            f"twice each, and at the main path's chunk ({chunk['used']} of "
+            f"its span's {chunk['n_blocks']} blocks, {chunk['n']} records, "
+            f"R = {chunk['R']})")
+        _log_k11_times(times, card)
         x = times["variant_tile_stats"]
         log(f"K14 (variant_tile_stats, torch ops) at {x['shape']}: "
             f"{x['ms']:.4f} ms by device_ms, {x['graph_ms']:.4f} ms a call "
@@ -3991,10 +4043,18 @@ def phase_variant(torch, path, card, dev, seed):
                     c.get("vcf.fixup_records", 0)
                 check(dr + fr == want.n_variants,
                       "device plane: each record counted once")
-                check(ran["variant_prefix"] > 0 and ran["gt_dosage"] > 0
-                      and ran["resolve_pack"] > 0,
-                      "the device plane launched K7+K8 and K11")
-                extra = (f"; blocks through the card {db}, through the host "
+                spans = c.get("vcf.device_spans", 0)
+                check(ran["resolve_pack"] > 0 and spans > 0
+                      and ran["variant_unpack"] == spans,
+                      f"the device plane launched K7+K8, and K11 once a "
+                      f"span unpacked on the card ({ran['variant_unpack']} "
+                      f"launches, {spans} spans)")
+                check(ran["variant_prefix"] == ran["gt_dosage"] == 0,
+                      "the device plane launched K11 as variant_unpack "
+                      "only")
+                extra = (f"; spans unpacked on the card {spans}, "
+                         f"variant_unpack launches {ran['variant_unpack']}"
+                         f"; blocks through the card {db}, through the host "
                          f"fixup {fb} ({100 * fb / max(db + fb, 1):.1f}%); "
                          f"records {dr} / {fr} "
                          f"({100 * fr / max(dr + fr, 1):.1f}% on the host); "
@@ -4006,8 +4066,8 @@ def phase_variant(torch, path, card, dev, seed):
                          f"{m.wall_timers.get('vcf.device_unpack_wall', 0):.3f}"
                          f" s")
             else:
-                check(ran["variant_prefix"] == ran["gt_dosage"] == 0,
-                      f"{what} launched no K11")
+                check(ran["variant_unpack"] == ran["variant_prefix"]
+                      == ran["gt_dosage"] == 0, f"{what} launched no K11")
             log(f"(b) {what}: {wall:.3f} s wall, {want.n_variants / wall:,.0f}"
                 f" variants/s; mean_af rel err {rels[what]:.2e}; launches "
                 f"{ran}{extra} [{card}]")
@@ -4025,11 +4085,11 @@ def phase_variant(torch, path, card, dev, seed):
         with _CheckedK11(torch, tid, tv) as chk:
             got = tv.variant_stats_file(bcf, device=dev, config=device_cfg)
         _same_variant_stats(got, truth, "checked device plane")
-        n_chk = {k: sum(v.values()) for k, v in chk.seen.items()}
-        check(n_chk["variant_prefix"] > 0 and n_chk["gt_dosage"] > 0,
-              "the checked pass launched K11")
-        log(f"(c) checked device-plane pass: all {n_chk} K11 launches "
-            f"bit-equal to plain; shapes seen {chk.seen}")
+        n_chk = sum(chk.seen.values())
+        check(n_chk == launches["variant_unpack"],
+              f"the checked pass launched K11 once a span ({n_chk})")
+        log(f"(c) checked device-plane pass: all {n_chk} variant_unpack "
+            f"launches bit-equal to plain; shapes seen {chk.seen}")
 
         # (d) the tensor feed: every batch kept on the card while timed,
         # then its rows held against the generator's
@@ -4074,39 +4134,104 @@ def phase_variant(torch, path, card, dev, seed):
                 os.remove(p)
         if os.path.isdir(work) and not os.listdir(work):
             os.rmdir(work)
-    rows_out = {}
-    for name in ("variant_prefix", "gt_dosage"):
-        x = times[name]
-        rows_out[name] = {
-            "name": name, "route": "cuda",
-            "source": "hadoop_bam_torch/csrc/variant_gt.cu",
-            "replaces": "hadoop_bam_tpu/ops/inflate_device.py:" + (
-                "391" if name == "variant_prefix" else "413"),
-            "max_abs_err": 0, "ms": x["ms"], "loop_ms": x["loop_ms"],
-            "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
-            "bound_by": "bytes", "library_ms": None,
-            "main_path_shape": f"R = {x['R']}, {x['records']} records of "
-                               f"{VARIANT_SAMPLES} samples"}
+    x = times["variant_unpack"]
+    rows_out = {"variant_unpack": {
+        "name": "variant_unpack", "route": "cuda",
+        "source": "hadoop_bam_torch/csrc/variant_gt.cu",
+        "replaces": "hadoop_bam_tpu/ops/inflate_device.py:413",
+        "also_replaces": "hadoop_bam_tpu/ops/inflate_device.py:391",
+        "max_abs_err": 0, "ms": x["ms"], "loop_ms": x["loop_ms"],
+        "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "main_path_shape": f"R = {x['R']}, {x['records']} records of "
+                           f"{VARIANT_SAMPLES} samples"}}
     return rows_out, launches, dict(times["variant_tile_stats"],
                                     launches=launches["variant_tile_stats"])
 
 
 def variant_gt_times(torch, path, dev) -> dict:
-    """``--times variant_gt``: K11 alone at phase 15 (a)'s shapes: the
-    cases, checked, then the main path's chunk of a BCF of the phase's
-    layout written beside the BAM (``VARIANT_RECORDS // 10`` records,
-    enough for the first spans), checked and timed."""
+    """``--times variant_gt``: K11 at phase 15's shapes: the cases
+    checked, then the main path's chunk of a BCF of the phase's layout
+    written beside the BAM (or found there): K11 alone,
+    ``device_variant_unpack`` split by kernel, and two device-plane
+    ``variant_stats_file`` passes of that BCF with their
+    ``vcf.device_unpack_wall``."""
     from hadoop_bam_torch import synth
+    from hadoop_bam_torch.config import HBamConfig
     from hadoop_bam_torch.parallel import variant_pipeline as tv
+    from hadoop_bam_torch.utils.metrics import MetricsContext
+    card = card_line()
     cases = _k11_cases(torch, dev)
     bcf = path[:-len(".bam")] + "_kg.bcf"
     if not os.path.exists(bcf):
-        synth.write_synthetic_vcf(bcf, VARIANT_RECORDS // 10, 0,
-                                  n_samples=VARIANT_SAMPLES, x_records=0)
+        _, w = _timed(lambda: synth.write_synthetic_vcf(
+            bcf, VARIANT_RECORDS, 0, n_samples=VARIANT_SAMPLES,
+            x_records=VARIANT_X))
+        log(f"wrote {bcf} ({VARIANT_RECORDS} records) in {w:.1f} s")
     S_pad = tv.VariantGeometry(n_samples=VARIANT_SAMPLES).samples_pad
-    out = _k11_chunk_times(torch, _variant_chunk(torch, bcf, dev, S_pad),
-                           S_pad)
+    chunk = _variant_chunk(torch, bcf, dev, S_pad)
+    out = _k11_chunk_times(torch, chunk, S_pad)
+    out.pop("variant_tile_stats")
+    _log_k11_times(out, card)
+    del chunk
+    cfg = HBamConfig(inflate_backend="device")
+    planes = []
+    for _ in range(2):
+        cold()
+        with MetricsContext() as m:
+            got, wall = _timed(lambda: tv.variant_stats_file(
+                bcf, device=dev, config=cfg))
+        check(got["n_variants"] == VARIANT_RECORDS,
+              "the device plane counted every record")
+        c, wt = m.counters, m.wall_timers
+        planes.append({
+            "wall_s": wall,
+            "unpack_wall_s": wt.get("vcf.device_unpack_wall", 0.0),
+            "resolve_wall_s": wt.get("vcf.device_resolve_wall", 0.0),
+            "host_decode_s": wt.get("pipeline.host_decode_wall", 0.0),
+            "device_records": c.get("vcf.device_records", 0),
+            "device_spans": c.get("vcf.device_spans")})
+        log(f"device plane over {VARIANT_RECORDS} records: {planes[-1]} "
+            f"[{card}]")
+    out["device_plane"] = planes
     out["cases"] = cases
+    return out
+
+
+def variant_floor_times(torch, path, dev) -> dict:
+    """``--times variant_floor``: K11's one launch at the main path's chunk
+    of the ``variant_gt`` BCF split by part, the header's mode set to
+    each part alone (no part: the launch and the header; CHROM / POS and
+    the flags; the tile; all), each read by the profiler over launches
+    into one set of outputs."""
+    from hadoop_bam_torch.ops import inflate_device as tid
+    from hadoop_bam_torch.parallel import variant_pipeline as tv
+    bcf = path[:-len(".bam")] + "_kg.bcf"
+    if not os.path.exists(bcf):
+        from hadoop_bam_torch import synth
+        synth.write_synthetic_vcf(bcf, VARIANT_RECORDS, 0,
+                                  n_samples=VARIANT_SAMPLES,
+                                  x_records=VARIANT_X)
+    S_pad = tv.VariantGeometry(n_samples=VARIANT_SAMPLES).samples_pad
+    chunk = _variant_chunk(torch, bcf, dev, S_pad)
+    buf, packed, R = chunk["buf"], chunk["packed"], chunk["R"]
+    bufs = [buf.clone() for _ in range(8)]
+    outs = [torch.empty(R, dtype=torch.int32, device=dev),
+            torch.empty(R, dtype=torch.int32, device=dev),
+            torch.empty(R, dtype=torch.uint8, device=dev),
+            torch.empty((R, S_pad), dtype=torch.int8, device=dev)]
+    out = {"R": R, "records": chunk["n"]}
+    for part, mode in (("no part", 0),
+                       ("CHROM, POS, flags", tid.MODE_PREFIX | tid.MODE_FLAGS),
+                       ("tile", tid.MODE_DOSAGE | tid.MODE_FILL),
+                       ("all", tid.MODE_ALL)):
+        meta = packed.copy()
+        meta[2] = mode
+        meta = torch.from_numpy(meta).to(dev)
+        out[part] = device_ms(torch, [
+            lambda b=b, m=meta: tid.launch_unpack(b, m, R, S_pad, *outs)
+            for b in bufs], kernel="variant_unpack")
+    log(f"variant_unpack by part at R = {R}: {out} [{card_line()}]")
     return out
 
 
@@ -4124,7 +4249,8 @@ TIMES = {"walk_records_device": k9_times, "resolve_pack": k7_times,
          "serve_tiles": serve_tiles_times,
          "interval_chain": interval_chain_times,
          "interval_floor": interval_floor_times,
-         "variant_gt": variant_gt_times, "variant_plane": variant_plane_times}
+         "variant_gt": variant_gt_times, "variant_floor": variant_floor_times,
+         "variant_plane": variant_plane_times}
 
 
 def check_truth(flag, stats, truth) -> None:

@@ -20,8 +20,8 @@ typed columns out, no per-record Python objects and no per-typed-value
   ``formats/bcf.scan_variant_columns`` / ``VariantBatch.dosage_matrix``.
 
 ``decode_bcf_cursor_meta`` is the device plane's half: the same walk,
-with the GT layout handed to the K11 kernels
-(``ops/inflate_device.variant_prefix`` / ``gt_dosage``) instead of
+with the GT layout handed to the K11 kernel
+(``ops/inflate_device.variant_unpack``) instead of
 gathered here.
 
 Eligibility: geometry that would make the lockstep rounds degenerate
@@ -338,8 +338,8 @@ def decode_bcf_cursor_meta(buf: bytes, header: VCFHeader,
     cursor walk runs here (it is serially dependent and branch-heavy —
     the half that does NOT vectorize), but the bulk byte work (the
     24-byte prefix assembly and the GT payload gathers) is left to the
-    card, where the K11 kernels read them straight out of the resolved
-    buffer (``ops/inflate_device.variant_prefix`` / ``gt_dosage``).
+    card, where the K11 kernel reads them straight out of the resolved
+    buffer (``ops/inflate_device.variant_unpack``).
 
     Returns None when the span is ineligible for the columnar layout
     (same geometry guards as ``decode_bcf_columns``); raises the same

@@ -19,10 +19,13 @@ Everything after that runs here, on one chunk of at most 64 blocks:
 - ``interval_cols`` (K10i, ``csrc/interval_cols.cu``): each record's
   (rid, pos1, end1) interval columns from its own prefix, end1 from its
   own CIGAR, for the serve tiles (no K1 on that chain).
-- ``variant_prefix`` and ``gt_dosage`` (K11, ``csrc/variant_gt.cu``):
-  a BCF record's CHROM and POS, and its samples' ALT dosages from its
-  GT vectors, for the variant plane
-  (``parallel/variant_pipeline.py``).
+- ``variant_unpack`` (K11, ``csrc/variant_gt.cu``): one span's variant
+  tile in one launch, each BCF record's CHROM and POS, its samples' ALT
+  dosages from its GT vectors, the tile's pads and the flags, from one
+  packed metadata array (``pack_variant_meta``), for the variant plane
+  (``parallel/variant_pipeline.py``); ``variant_prefix`` and
+  ``gt_dosage`` launch the same kernel for the prefix alone or one
+  group.
 
 ``resolve_walk_fields``, ``resolve_walk_payload`` and
 ``resolve_walk_intervals`` chain them, so the inflated bytes never
@@ -707,6 +710,91 @@ interval_cols.launches = 0
 # K11: the BCF device unpack
 # ---------------------------------------------------------------------------
 
+# GT entry widths (int8, int16, int32) and the widest ploidy the
+# columnar decode hands to the card (formats/bcf_columns._MAX_GT_PLOIDY)
+GT_WIDTHS = (1, 2, 4)
+GT_MAX_COUNT = 256
+
+# K11's packed metadata (``csrc/variant_gt.cu``): eight int32 header words
+# (n, row entries P, mode, the word offsets of the starts and of the
+# flags, three zeros), then P row entries of four words (GT offset, tile
+# row, width | count << 8, n_sample; width 0 writes -1), the starts and
+# the flags.  The mode's bits name the outputs a launch writes; with
+# MODE_FILL every column of the tile is written.
+META_HEADER = 8
+MODE_PREFIX, MODE_FLAGS, MODE_DOSAGE, MODE_FILL = 1, 2, 4, 8
+MODE_ALL = MODE_PREFIX | MODE_FLAGS | MODE_DOSAGE | MODE_FILL
+
+
+def _entries(offs, rows, width: int, count: int, n_sample: int
+             ) -> np.ndarray:
+    """Row entries [k, 4] int32 of one GT layout."""
+    e = np.empty((len(rows), 4), np.int32)
+    e[:, 0] = np.asarray(offs).astype(np.int32)
+    e[:, 1] = np.asarray(rows).astype(np.int32)
+    e[:, 2] = width | count << 8
+    e[:, 3] = n_sample
+    return e
+
+
+def pack_variant_meta(meta: Dict[str, object], R: int) -> np.ndarray:
+    """One span's cursor metadata (``decode_bcf_cursor_meta``: n, starts,
+    flags, gt_groups) as K11's int32 array for a tile of R >= n rows: a
+    row entry (GT offset, row, width | count << 8, n_sample) for every
+    row of every GT layout group, group by group, then a width-0 entry
+    for each row of no group and each pad row n..R-1 (their dosage rows
+    are -1); the starts and flags padded with 0 to R.  Mode: every
+    output, every column."""
+    n = int(meta["n"])
+    if not 0 <= n <= R:
+        raise ValueError(f"{n} records do not fit a tile of {R} rows")
+    covered = np.zeros(R, bool)
+    parts = []
+    for rows, offs, width, count, n_sample in meta["gt_groups"]:
+        covered[np.asarray(rows)] = True
+        parts.append(_entries(offs, rows, width, count, n_sample))
+    rest = np.flatnonzero(~covered)
+    parts.append(_entries(np.zeros(rest.size), rest, 0, 0, 0))
+    entries = np.concatenate(parts)
+    P = entries.shape[0]
+    starts_at = META_HEADER + 4 * P
+    flags_at = starts_at + R
+    out = np.zeros(flags_at + (R + 3) // 4, np.int32)
+    out[:META_HEADER] = (n, P, MODE_ALL, starts_at, flags_at, 0, 0, 0)
+    out[META_HEADER:starts_at] = entries.ravel()
+    out[starts_at:starts_at + n] = np.asarray(meta["starts"]).astype(
+        np.int32)
+    out[flags_at:].view(np.uint8)[:n] = meta["flags"]
+    return out
+
+
+def unpack_variant_meta(packed) -> Dict[str, object]:
+    """``pack_variant_meta``'s array (numpy or a tensor) back to its
+    parts: n, R, mode, starts int64 [R], flags uint8 [R], gt_groups
+    [(rows int64, offs int64, width, count, n_sample)] in the order of
+    their first entries, and fill_rows int64 (the rows [0, n) of no
+    group)."""
+    if isinstance(packed, torch.Tensor):
+        packed = packed.cpu().numpy()
+    a = np.asarray(packed, np.int32)
+    n, P, mode, starts_at, flags_at = (int(x) for x in a[:5])
+    R = flags_at - starts_at
+    e = a[META_HEADER:META_HEADER + 4 * P].reshape(P, 4).astype(np.int64)
+    layouts = list(dict.fromkeys(zip(e[:, 2], e[:, 3])))
+    groups = []
+    for lay, n_sample in layouts:
+        if lay & 0xFF == 0:
+            continue
+        sel = (e[:, 2] == lay) & (e[:, 3] == n_sample)
+        groups.append((e[sel, 1], e[sel, 0], int(lay & 0xFF),
+                       int(lay >> 8), int(n_sample)))
+    fill = e[(e[:, 2] & 0xFF) == 0, 1]
+    return {"n": n, "R": R, "mode": mode,
+            "starts": a[starts_at:flags_at].astype(np.int64),
+            "flags": a[flags_at:].view(np.uint8)[:R].copy(),
+            "gt_groups": groups, "fill_rows": fill[fill < n]}
+
+
 def variant_prefix_plain(buf: torch.Tensor, starts: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``variant_prefix``: the reference's formula
@@ -724,52 +812,6 @@ def variant_prefix_plain(buf: torch.Tensor, starts: torch.Tensor
                 | (t[:, at + 3] << 24))
     return (_wrap32(le32(0)).to(torch.int32),
             _wrap32(le32(4) + 1).to(torch.int32))
-
-
-def variant_prefix(buf: torch.Tensor, starts: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Each BCF record's CHROM and 1-based POS, as int32 [R] columns,
-    from bytes 8..15 of the record at ``starts`` (int32 [R]) in the
-    resolved buffer ``buf`` (uint8 [L]), every byte index clipped to the
-    buffer: a pad start of 0 or below still gathers, and the caller
-    masks it by its count.
-
-    CUDA tensors launch the K11 prefix kernel on the current stream;
-    CPU tensors take ``variant_prefix_plain``."""
-    if buf.dtype != torch.uint8 or buf.dim() != 1 or buf.shape[0] < 1:
-        raise ValueError(f"buf must be uint8 [L], got {buf.dtype} "
-                         f"{tuple(buf.shape)}")
-    if starts.dtype != torch.int32 or starts.dim() != 1:
-        raise ValueError(f"starts must be int32 [R], got {starts.dtype} "
-                         f"{tuple(starts.shape)}")
-    if starts.device != buf.device:
-        raise ValueError(f"starts must be on {buf.device}")
-    if not _cuda_or_cpu(buf):
-        return variant_prefix_plain(buf, starts)
-    if not buf.is_contiguous():
-        raise ValueError("buf must be contiguous on the card")
-    dev = buf.device
-    R = starts.shape[0]
-    starts = starts.contiguous()
-    chrom = torch.empty(R, dtype=torch.int32, device=dev)
-    pos = torch.empty(R, dtype=torch.int32, device=dev)
-    if R == 0:
-        return chrom, pos
-    fn = kernels.kernel("variant_prefix")
-    with torch.cuda.device(dev):
-        rc = fn(buf.data_ptr(), buf.shape[0], starts.data_ptr(), R,
-                chrom.data_ptr(), pos.data_ptr(), _stream(dev))
-    kernels.check_launch("variant_prefix", rc)
-    variant_prefix.launches += 1
-    return chrom, pos
-
-
-variant_prefix.launches = 0
-
-# GT entry widths (int8, int16, int32) and the widest ploidy the
-# columnar decode hands to the card (formats/bcf_columns._MAX_GT_PLOIDY)
-GT_WIDTHS = (1, 2, 4)
-GT_MAX_COUNT = 256
 
 
 def gt_dosage_plain(buf: torch.Tensor, gt_off: torch.Tensor,
@@ -811,6 +853,180 @@ def gt_dosage_plain(buf: torch.Tensor, gt_off: torch.Tensor,
     return dosage
 
 
+def variant_unpack_plain(buf: torch.Tensor, meta, R: int, s_pad: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor, torch.Tensor]:
+    """Plain version of ``variant_unpack``: the packed array's parts
+    (``unpack_variant_meta``), ``variant_prefix_plain`` at the R starts,
+    the flags as packed, and ``gt_dosage_plain`` a group over a tile of
+    -1, as the reference builds the tile."""
+    m = unpack_variant_meta(meta)
+    if m["mode"] != MODE_ALL or m["R"] != R:
+        raise ValueError(f"not a packed span of {R} rows: mode "
+                         f"{m['mode']}, {m['R']} rows")
+    dev = buf.device
+
+    def i32(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a.astype(np.int32)).to(dev)
+    chrom, pos = variant_prefix_plain(buf, i32(m["starts"]))
+    dosage = torch.full((R, s_pad), -1, dtype=torch.int8, device=dev)
+    for rows, offs, width, count, n_sample in m["gt_groups"]:
+        gt_dosage_plain(buf, i32(offs), i32(rows), width, count, n_sample,
+                        dosage)
+    return chrom, pos, torch.from_numpy(m["flags"]).to(dev), dosage
+
+
+def prefix_meta_head(R: int) -> np.ndarray:
+    """The header ``variant_prefix`` puts before its R starts: no row
+    entry, the prefix alone."""
+    return np.array([R, 0, MODE_PREFIX, META_HEADER, 0, 0, 0, 0], np.int32)
+
+
+def group_meta_head(R: int, G: int) -> np.ndarray:
+    """The header ``gt_dosage`` puts before its G row entries: the calls
+    alone, columns [0, n_sample) only."""
+    return np.array([R, G, MODE_DOSAGE, 0, 0, 0, 0, 0], np.int32)
+
+
+def host_to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A small host array on ``dev``: through pinned memory and an
+    asynchronous copy on CUDA (the caching host allocator keeps the
+    pinned block until the copy is done), a private copy on the CPU."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.clone()
+
+
+def check_variant_meta(meta, R: int) -> np.ndarray:
+    """``meta`` (a host int32 array, numpy or a CPU tensor) as the int32
+    array K11 reads, its header checked on the host: a span of every
+    output and every column (``MODE_ALL``) whose n records fit the R
+    rows, whose P row entries, R starts and R flag bytes follow the
+    header in that order, inside the array.  Raises ValueError
+    otherwise, so that the kernel's own check of the sections (a trap,
+    which would leave the CUDA context unusable) never fires."""
+    if isinstance(meta, torch.Tensor):
+        if meta.device.type != "cpu":
+            raise ValueError(f"meta must be a host array, got a tensor "
+                             f"on {meta.device}")
+        meta = meta.numpy()
+    a = np.asarray(meta)
+    if a.dtype != np.int32 or a.ndim != 1 or a.shape[0] < META_HEADER:
+        raise ValueError(f"meta must be int32 [>= {META_HEADER}], got "
+                         f"{a.dtype} {a.shape}")
+    n, P, mode, starts_at, flags_at = (int(x) for x in a[:5])
+    m = a.shape[0]
+    if mode != MODE_ALL or not 0 <= n <= R or P < 0 \
+            or META_HEADER + 4 * P > starts_at \
+            or starts_at + R != flags_at or 4 * flags_at + R > 4 * m:
+        raise ValueError(
+            f"meta's header (n {n}, {P} row entries, mode {mode}, starts "
+            f"at {starts_at}, flags at {flags_at}) is not a packed span of "
+            f"{R} rows in {m} words")
+    return a
+
+
+def _check_buf(buf: torch.Tensor) -> None:
+    if buf.dtype != torch.uint8 or buf.dim() != 1 or buf.shape[0] < 1:
+        raise ValueError(f"buf must be uint8 [L], got {buf.dtype} "
+                         f"{tuple(buf.shape)}")
+
+
+def launch_unpack(buf: torch.Tensor, meta: torch.Tensor, R: int,
+                  s_pad: int, chrom: Optional[torch.Tensor],
+                  pos: Optional[torch.Tensor],
+                  flags: Optional[torch.Tensor],
+                  dosage: Optional[torch.Tensor]) -> None:
+    """One K11 launch over CUDA tensors the caller checked (``meta`` on
+    the card): the outputs given (None leaves a part out of the header's
+    mode).  Counts nothing."""
+    dev = buf.device
+
+    def ptr(t: Optional[torch.Tensor]) -> int:
+        return t.data_ptr() if t is not None else 0
+    fn = kernels.kernel("variant_unpack")
+    with torch.cuda.device(dev):
+        rc = fn(buf.data_ptr(), buf.shape[0], meta.data_ptr(),
+                meta.shape[0], R, s_pad, ptr(chrom), ptr(pos), ptr(flags),
+                ptr(dosage), _stream(dev))
+    kernels.check_launch("variant_unpack", rc)
+
+
+def variant_unpack(buf: torch.Tensor, meta, R: int, s_pad: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    """One span's tile from its resolved buffer ``buf`` (uint8 [L]) and
+    its packed metadata ``meta`` (``pack_variant_meta``: a host int32
+    array, its header checked by ``check_variant_meta``): (chrom int32
+    [R], pos int32 [R] 1-based, flags uint8 [R], dosage int8 [R, s_pad])
+    with ``variant_prefix_device``'s and ``variant_gt_dosage_device``'s
+    rules, every byte index clipped to the buffer; pad rows and rows of
+    no group hold -1, and so do the columns past each group's n_sample.
+
+    CUDA tensors copy ``meta`` to the card once from pinned memory and
+    launch the K11 kernel once on the current stream (the prefix, every
+    GT group, the pads and the flags); CPU tensors take
+    ``variant_unpack_plain``."""
+    _check_buf(buf)
+    R, s_pad = int(R), int(s_pad)
+    if R < 0 or s_pad < 0:
+        raise ValueError(f"tile [{R}, {s_pad}] has a negative side")
+    meta = check_variant_meta(meta, R)
+    if not _cuda_or_cpu(buf):
+        return variant_unpack_plain(buf, meta, R, s_pad)
+    if not buf.is_contiguous():
+        raise ValueError("buf must be contiguous on the card")
+    dev = buf.device
+    meta = host_to_device(meta, dev)
+    chrom = torch.empty(R, dtype=torch.int32, device=dev)
+    pos = torch.empty(R, dtype=torch.int32, device=dev)
+    flags = torch.empty(R, dtype=torch.uint8, device=dev)
+    dosage = torch.empty((R, s_pad), dtype=torch.int8, device=dev)
+    launch_unpack(buf, meta, R, s_pad, chrom, pos, flags, dosage)
+    variant_unpack.launches += 1
+    return chrom, pos, flags, dosage
+
+
+variant_unpack.launches = 0
+
+
+def variant_prefix(buf: torch.Tensor, starts: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each BCF record's CHROM and 1-based POS, as int32 [R] columns,
+    from bytes 8..15 of the record at ``starts`` (int32 [R]) in the
+    resolved buffer ``buf`` (uint8 [L]), every byte index clipped to the
+    buffer: a pad start of 0 or below still gathers, and the caller
+    masks it by its count.
+
+    CUDA tensors launch the K11 kernel with no row entry (the
+    header and the starts joined on the card); CPU tensors take
+    ``variant_prefix_plain``."""
+    _check_buf(buf)
+    if starts.dtype != torch.int32 or starts.dim() != 1:
+        raise ValueError(f"starts must be int32 [R], got {starts.dtype} "
+                         f"{tuple(starts.shape)}")
+    if starts.device != buf.device:
+        raise ValueError(f"starts must be on {buf.device}")
+    if not _cuda_or_cpu(buf):
+        return variant_prefix_plain(buf, starts)
+    if not buf.is_contiguous():
+        raise ValueError("buf must be contiguous on the card")
+    dev = buf.device
+    R = starts.shape[0]
+    chrom = torch.empty(R, dtype=torch.int32, device=dev)
+    pos = torch.empty(R, dtype=torch.int32, device=dev)
+    if R == 0:
+        return chrom, pos
+    meta = torch.cat([host_to_device(prefix_meta_head(R), dev), starts])
+    launch_unpack(buf, meta, R, 0, chrom, pos, None, None)
+    variant_prefix.launches += 1
+    return chrom, pos
+
+
+variant_prefix.launches = 0
+
+
 def gt_dosage(buf: torch.Tensor, gt_off: torch.Tensor, rows: torch.Tensor,
               width: int, count: int, n_sample: int,
               dosage: torch.Tensor) -> torch.Tensor:
@@ -825,12 +1041,10 @@ def gt_dosage(buf: torch.Tensor, gt_off: torch.Tensor, rows: torch.Tensor,
     every byte index clipped to the buffer.  Columns past ``n_sample``
     and rows of no group are left as they are.  Returns ``dosage``.
 
-    CUDA tensors launch the K11 dosage kernel on the current stream
-    (no [G, n_sample] intermediate, no scatter); CPU tensors take
-    ``gt_dosage_plain``."""
-    if buf.dtype != torch.uint8 or buf.dim() != 1 or buf.shape[0] < 1:
-        raise ValueError(f"buf must be uint8 [L], got {buf.dtype} "
-                         f"{tuple(buf.shape)}")
+    CUDA tensors launch the K11 kernel with a row entry a group row and
+    no pad fill (the header and the entries joined on the card);
+    CPU tensors take ``gt_dosage_plain``."""
+    _check_buf(buf)
     for name, t in (("gt_off", gt_off), ("rows", rows)):
         if t.dtype != torch.int32 or t.dim() != 1 \
                 or t.shape[0] != gt_off.shape[0]:
@@ -859,14 +1073,11 @@ def gt_dosage(buf: torch.Tensor, gt_off: torch.Tensor, rows: torch.Tensor,
     if G == 0 or n_sample == 0:
         return dosage
     dev = buf.device
-    gt_off, rows = gt_off.contiguous(), rows.contiguous()
-    fn = kernels.kernel("gt_dosage")
-    with torch.cuda.device(dev):
-        rc = fn(buf.data_ptr(), buf.shape[0], gt_off.data_ptr(),
-                rows.data_ptr(), G, width, count, n_sample,
-                dosage.data_ptr(), dosage.shape[0], dosage.shape[1],
-                _stream(dev))
-    kernels.check_launch("gt_dosage", rc)
+    R = dosage.shape[0]
+    meta = torch.cat([host_to_device(group_meta_head(R, G), dev), torch.stack(
+        [gt_off, rows, torch.full_like(gt_off, width | count << 8),
+         torch.full_like(gt_off, n_sample)], 1).reshape(-1)])
+    launch_unpack(buf, meta, R, dosage.shape[1], None, None, None, dosage)
     gt_dosage.launches += 1
     return dosage
 

@@ -50,11 +50,9 @@ KERNELS: Dict[str, tuple] = {
     "interval_cols": ("hbam_interval_cols",
                       [_VP, _I64, _VP, _VP, _I64, _I64, _VP, _VP, _VP, _VP,
                        _VP, _VP]),
-    "variant_prefix": ("hbam_variant_prefix",
-                       [_VP, _I64, _VP, _I64, _VP, _VP, _VP], "variant_gt"),
-    "gt_dosage": ("hbam_gt_dosage",
-                  [_VP, _I64, _VP, _VP, _I64, _I64, _I64, _I64, _VP, _I64,
-                   _I64, _VP], "variant_gt"),
+    "variant_unpack": ("hbam_variant_unpack",
+                       [_VP, _I64, _VP, _I64, _I64, _I64, _VP, _VP, _VP, _VP,
+                        _VP], "variant_gt"),
 }
 
 

@@ -19,16 +19,19 @@ threads tokenize each span's BGZF blocks; on the card K7+K8
 (``resolve_pack``) resolves them into one buffer, which is copied to
 pinned host memory ONCE a span (the serial cursor walk over the typed
 values, ``decode_bcf_cursor_meta``, runs there); K11
-(``variant_prefix``, ``gt_dosage``) then reads each record's CHROM / POS
-and GT vectors straight out of the device buffer into the tile, and K14
+(``variant_unpack``, one launch a span from one packed metadata copy)
+then reads each record's CHROM / POS and GT vectors straight out of the
+device buffer into the whole tile, pads and flags included, and K14
 reduces it.  Records cut at a chunk's end, blocks past the chunk and
 spans the columnar walk declines take the host oracle
 (``bcf_span_stat_columns``), each exactly once.
 
 Counters (utils/metrics.py): ``vcf.device_blocks`` / ``vcf.fixup_blocks``
 and ``vcf.device_records`` / ``vcf.fixup_records`` split the device
-plane's work between the card and the host fixup; ``pipeline.records``
-counts the records the card unpacked, as the reference does.
+plane's work between the card and the host fixup, ``vcf.device_spans``
+counts the spans unpacked on the card (one K11 launch each), and
+``pipeline.records`` counts the records the card unpacked, as the
+reference does.
 """
 from __future__ import annotations
 
@@ -52,7 +55,8 @@ from hadoop_bam_torch.formats.bcf_columns import (
 )
 from hadoop_bam_torch.formats.vcf import VariantBatch, VCFHeader
 from hadoop_bam_torch.ops.inflate_device import (
-    gt_dosage, require_tokenizer, resolve_pack, round_pow2, variant_prefix,
+    host_to_device, pack_variant_meta, require_tokenizer, resolve_pack,
+    round_pow2, variant_unpack,
 )
 from hadoop_bam_torch.parallel.pipeline import (
     DEVICE_PLANE_SPAN_BYTES, _copy_to, _CopiesDone, _decode_pool,
@@ -567,16 +571,6 @@ def _variant_stats_result(totals: _StatTotals,
 # The device plane (BGZF BCF through K7+K8, K11, K14)
 # ---------------------------------------------------------------------------
 
-def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """A small host array on ``dev``: through pinned memory and an
-    asynchronous copy on CUDA (the caching host allocator keeps the
-    pinned block until the copy is done), a private copy on the CPU."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if dev.type == "cuda":
-        return t.pin_memory().to(dev, non_blocking=True)
-    return t.clone()
-
-
 class _HostBytes:
     """The resolved span's one copy to the host: a pinned buffer, grown
     when a span needs more, filled on the device's current stream and
@@ -636,7 +630,7 @@ def _pad_cols_device(cols: Dict[str, np.ndarray], samples_pad: int,
     def pad(a, fill):
         out = np.full((R,) + a.shape[1:], fill, a.dtype)
         out[:n] = a
-        return _to_device(out, dev)
+        return host_to_device(out, dev)
 
     dosage = cols["dosage"]
     if dosage.shape[1] != samples_pad:
@@ -652,25 +646,17 @@ def device_variant_unpack(buf: torch.Tensor, meta: Dict[str, object],
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor, torch.Tensor, int]:
     """One span's tile on the card from its resolved buffer ``buf`` and
-    its cursor metadata (``decode_bcf_cursor_meta``): CHROM / POS by
-    ``variant_prefix`` at the records' starts and the dosage tile by one
-    ``gt_dosage`` a GT layout group, R = ``round_pow2(n, 8)`` rows
-    (pads: start 0, flags 0, dosage -1).  Returns (chrom, pos, flags,
-    dosage, n), the arguments of ``variant_tile_stats``."""
-    dev = buf.device
+    its cursor metadata (``decode_bcf_cursor_meta``): the metadata packed
+    into one int32 array (``pack_variant_meta``), which ``variant_unpack``
+    checks, copies to the card once from pinned memory and reads in one
+    launch that writes CHROM / POS, the flags and the whole dosage tile,
+    R = ``round_pow2(n, 8)`` rows (pads: start 0, flags 0, dosage -1).
+    Returns (chrom, pos, flags, dosage, n), the arguments of
+    ``variant_tile_stats``."""
     n = int(meta["n"])
     R = round_pow2(n, 8)
-    s32 = np.zeros(R, np.int32)
-    s32[:n] = meta["starts"]
-    flags = np.zeros(R, np.uint8)
-    flags[:n] = meta["flags"]
-    chrom, pos = variant_prefix(buf, _to_device(s32, dev))
-    dosage = torch.full((R, samples_pad), -1, dtype=torch.int8, device=dev)
-    for rows, offs, width, cnt, ns in meta["gt_groups"]:
-        gt_dosage(buf, _to_device(offs.astype(np.int32), dev),
-                  _to_device(rows.astype(np.int32), dev), width, cnt, ns,
-                  dosage)
-    return chrom, pos, _to_device(flags, dev), dosage, n
+    return (*variant_unpack(buf, pack_variant_meta(meta, R), R,
+                            samples_pad), n)
 
 
 def _variant_stats_device_plane(ds, axis: DataAxis, config: HBamConfig,
@@ -761,6 +747,7 @@ def _variant_stats_device_plane(ds, axis: DataAxis, config: HBamConfig,
                     _add_stats(totals, variant_tile_stats(
                         *device_variant_unpack(buf, meta, samples_pad)),
                         home)
+                METRICS.count("vcf.device_spans")
         finally:
             stream.close()
     METRICS.count("pipeline.records", n_records)

@@ -1283,17 +1283,12 @@ _GT_SPECIAL = {1: (-128, -127), 2: (-32768, -32767),
                4: (-(1 << 31), -(1 << 31) + 1)}
 
 
-def gt_rows(width: int, count: int, n_sample: int, G: int, seed: int = 0
-            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
-    """One GT layout group for ``gt_dosage``: (buf u8 [L], gt_off i32
-    [G], rows i32 [G], R) with G records' ``n_sample`` x ``count``
-    vectors of ``width``-byte little-endian entries: phased and unphased
-    ALT / REF alleles (some above 127), MISSING, allele value 0 and 1,
-    END_OF_VECTOR tails of every length, junk; the last rows' offsets
-    clip at the buffer's start (negative, wrapping int32) and end (past
-    L); rows are a permutation of R >= G tile rows (so some rows belong
-    to no group)."""
-    rng = np.random.default_rng(seed)
+def _gt_body(rng: np.random.Generator, width: int, count: int,
+             n_sample: int, G: int) -> bytes:
+    """G records' GT data, ``n_sample`` x ``count`` little-endian entries
+    ``width`` bytes wide each: phased and unphased ALT / REF alleles (some
+    above 127), MISSING, allele value 0 and 1, END_OF_VECTOR tails of
+    every length, junk."""
     miss, eov = _GT_SPECIAL[width]
     n = G * n_sample * count
     allele = rng.integers(0, 4, n) * (rng.random(n) < 0.3)
@@ -1316,21 +1311,106 @@ def gt_rows(width: int, count: int, n_sample: int, G: int, seed: int = 0
                  >= count - tails[..., None] * (rng.random((G, n_sample, 1))
                                                 < 0.2), eov, g)
     dt = {1: "<i1", 2: "<i2", 4: "<i4"}[width]
-    body = g.astype(dt).tobytes()
+    return g.astype(dt).tobytes()
+
+
+def _gt_edges(offs: np.ndarray, L: int, stride: int) -> np.ndarray:
+    """``offs`` (int64) with its last rows (all but two) moved to the
+    clip and wrap edges: cut by the buffer's end, past it, before its
+    start, and wrapping int32; returned as int32."""
+    edge = [L - 1, L - stride // 2, L + 5, -3, -stride - 9, (1 << 31) - 7]
+    G = offs.size
+    k = min(len(edge), max(0, G - 2))
+    if k:
+        offs[G - k:] = edge[:k]
+    return (((offs + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).astype(np.int32)
+
+
+def gt_rows(width: int, count: int, n_sample: int, G: int, seed: int = 0
+            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """One GT layout group for ``gt_dosage``: (buf u8 [L], gt_off i32
+    [G], rows i32 [G], R) with G records' GT data (``_gt_body``); the
+    last rows' offsets clip at the buffer's start (negative, wrapping
+    int32) and end (past L); rows are a permutation of R >= G tile rows
+    (so some rows belong to no group)."""
+    rng = np.random.default_rng(seed)
+    body = _gt_body(rng, width, count, n_sample, G)
     pad = rng.integers(0, 256, 64, dtype=np.uint8).tobytes()
     buf = np.frombuffer(pad + body + pad, np.uint8).copy()
     L = buf.size
     stride = width * count * n_sample
-    offs = 64 + np.arange(G, dtype=np.int64) * stride
-    edge = [L - 1, L - stride // 2, L + 5, -3, -stride - 9,
-            (1 << 31) - 7]
-    k = min(len(edge), max(0, G - 2))
-    if k:
-        offs[G - k:] = edge[:k]
-    offs = ((offs + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+    offs = _gt_edges(64 + np.arange(G, dtype=np.int64) * stride, L, stride)
     R = G + 5
     rows = rng.permutation(R)[:G].astype(np.int32)
-    return buf, offs.astype(np.int32), rows, R
+    return buf, offs, rows, R
+
+
+# ``variant_unpack``'s cases (a whole span's tile in one launch), shared
+# like GT_CASES: (label, GT layout groups [(width, ploidy, n_sample, G)],
+# records n, samples_pad).  Every group's last rows sit at the clip and
+# wrap edges, as do some records' starts; rows past the groups' are of no
+# group.
+UNPACK_CASES: Tuple[Tuple[str, Tuple[Tuple[int, int, int, int], ...], int,
+                          int], ...] = (
+    ("diploid and haploid, n_sample < samples_pad",
+     ((1, 2, 300, 20), (1, 1, 300, 12)), 40, 304),
+    ("width 2", ((2, 2, 130, 10),), 14, 136),
+    ("width 4, two ploidies", ((4, 3, 50, 7), (4, 2, 50, 5)), 15, 56),
+    ("saturation", ((1, 200, 40, 6),), 9, 40),
+    ("rows of no group only", (), 12, 16),
+    ("no pad row or column", ((1, 2, 256, 16),), 16, 256),
+    ("the main path's width", ((1, 2, 2504, 60), (1, 1, 2504, 4)), 70,
+     2504),
+)
+
+
+def unpack_span(groups, n: int, samples_pad: int, seed: int = 0):
+    """One span for ``variant_unpack``: (buf u8 [L], meta, R, s_pad)
+    with ``meta`` shaped as ``decode_bcf_cursor_meta``'s (n, starts
+    int64 [n], flags uint8 [n], gt_groups [(rows int64, offs int64,
+    width, ploidy, n_sample)]).  The buffer holds a random head that the
+    starts point into (some at the edges of ``prefix_rows``), then each
+    group's GT data (``_gt_body``) after a gap of 1-15 bytes, so the
+    groups start at every alignment; the groups take random rows of
+    [0, n), the rest are of no group; R = the next power of two >= n,
+    at least 8."""
+    rng = np.random.default_rng(seed)
+    if sum(g[3] for g in groups) > n:
+        raise ValueError("more group rows than records")
+    head = rng.integers(0, 256, 24 * n + 40, dtype=np.uint8).tobytes()
+    parts, at, bases = [head], len(head), []
+    for width, count, n_sample, G in groups:
+        gap = rng.integers(0, 256, int(rng.integers(1, 16)),
+                           dtype=np.uint8).tobytes()
+        bases.append(at + len(gap))
+        body = _gt_body(rng, width, count, n_sample, G)
+        parts += [gap, body]
+        at += len(gap) + len(body)
+    parts.append(rng.integers(0, 256, 64, dtype=np.uint8).tobytes())
+    buf = np.frombuffer(b"".join(parts), np.uint8).copy()
+    L = buf.size
+    starts = rng.integers(0, len(head) - 16, n).astype(np.int64)
+    edge = [0, -1, -8, L - 16, L - 9, L - 1, L, L + 100, (1 << 31) - 10,
+            -(1 << 31)]
+    k = min(len(edge), n // 2)
+    starts[n - k:] = edge[:k]
+    rows = rng.permutation(n)
+    gt_groups, used = [], 0
+    for (width, count, n_sample, G), base in zip(groups, bases):
+        stride = width * count * n_sample
+        offs = _gt_edges(base + np.arange(G, dtype=np.int64) * stride, L,
+                         stride)
+        gt_groups.append((np.sort(rows[used:used + G]).astype(np.int64),
+                          offs.astype(np.int64), width, count, n_sample))
+        used += G
+    meta = {"n": n,
+            "starts": ((starts + (1 << 31)) & 0xFFFFFFFF) - (1 << 31),
+            "flags": rng.integers(0, 4, n, dtype=np.uint8),
+            "gt_groups": gt_groups}
+    R = 8
+    while R < n:
+        R <<= 1
+    return buf, meta, R, samples_pad
 
 
 def prefix_rows(n: int, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:

@@ -1024,8 +1024,55 @@ def test_serve_loop_on_card_equals_cpu_engine(cuda, tmp_path, backend):
 
 
 # ---------------------------------------------------------------------------
-# K11: the BCF device unpack (variant_prefix, gt_dosage)
+# K11: the BCF device unpack (variant_unpack; variant_prefix and gt_dosage
+# launch the same kernel for the prefix alone or one group)
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", range(len(synth.UNPACK_CASES)))
+@pytest.mark.parametrize("shift", [0, 3])
+def test_k11_variant_unpack_matches_plain(cuda, case, shift):
+    """One launch a span: multi-group spans (diploid and haploid),
+    widths 2 and 4, saturation, rows of no group, pad rows, n_sample <
+    samples_pad, the clip and wrap edges; buf at an aligned and an odd
+    address, twice in a row over a poisoned allocator: bit-equal to
+    the plain version."""
+    from hadoop_bam_torch.ops import inflate_device as tid
+    _, groups, n, s_pad = synth.UNPACK_CASES[case]
+    buf, meta, R, s_pad = synth.unpack_span(groups, n, s_pad, seed=case)
+    big = torch.zeros(buf.size + shift, dtype=torch.uint8, device=cuda)
+    big[shift:] = torch.from_numpy(buf).to(cuda)
+    b = big[shift:]
+    packed = tid.pack_variant_meta(meta, R)
+    want = tid.variant_unpack_plain(b, packed, R, s_pad)
+    for _ in range(2):
+        synth.poison_allocator(cuda)
+        before = tid.variant_unpack.launches
+        got = tid.variant_unpack(b, packed, R, s_pad)
+        torch.cuda.synchronize()
+        assert tid.variant_unpack.launches == before + 1
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_k11_bad_header_raises_before_the_launch(cuda):
+    """A packed array whose sections do not fit raises ValueError on the
+    host, with no launch, and the card still takes the next span."""
+    from hadoop_bam_torch.ops import inflate_device as tid
+    _, groups, n, s_pad = synth.UNPACK_CASES[0]
+    buf, meta, R, s_pad = synth.unpack_span(groups, n, s_pad, seed=0)
+    b = torch.from_numpy(buf).to(cuda)
+    packed = tid.pack_variant_meta(meta, R)
+    for word, value in ((1, R + 10_000), (3, 2), (4, packed.size)):
+        bad = packed.copy()
+        bad[word] = value
+        before = tid.variant_unpack.launches
+        with pytest.raises(ValueError):
+            tid.variant_unpack(b, bad, R, s_pad)
+        assert tid.variant_unpack.launches == before
+    got = tid.variant_unpack(b, packed, R, s_pad)
+    for g, w in zip(got, tid.variant_unpack_plain(b, packed, R, s_pad)):
+        assert torch.equal(g, w)
+
 
 @pytest.mark.parametrize("case", range(len(synth.GT_CASES)))
 @pytest.mark.parametrize("shift", [0, 3])
@@ -1070,27 +1117,31 @@ def test_k11_variant_prefix_matches_plain(cuda, n):
 def test_variant_planes_on_card_match_truth(cuda, tmp_path):
     """variant_stats_file on the card, host plane (BGZF and raw BCF,
     BGZF VCF) and device plane (K7+K8, K11, K14), equal to the
-    generator's truth; the device plane launched K11."""
+    generator's truth; the device plane launched K11 once a span it
+    unpacked on the card, and the host planes never."""
     from hadoop_bam_torch.config import HBamConfig
     from hadoop_bam_torch.ops import inflate_device as tid
     from hadoop_bam_torch.parallel.variant_pipeline import (
         variant_stats_file,
     )
+    from hadoop_bam_torch.utils.metrics import MetricsContext
     p, raw, vz = (str(tmp_path / n) for n in ("v.bcf", "v.raw.bcf",
                                               "v.vcf.gz"))
     truth = synth.write_synthetic_vcf(p, 3000, 5, n_samples=300,
                                       raw_path=raw, vcf_path=vz,
                                       vcf_records=1000)
-    before = (tid.variant_prefix.launches, tid.gt_dosage.launches)
     runs = [(p, None, truth), (raw, None, truth), (vz, None, truth.vcf),
             (p, HBamConfig(inflate_backend="device"), truth)]
     for path, cfg, want in runs:
         kw = {"config": cfg} if cfg is not None else {}
-        got = variant_stats_file(path, **kw)
+        before = tid.variant_unpack.launches
+        with MetricsContext() as m:
+            got = variant_stats_file(path, **kw)
         for k in ("n_variants", "n_snp", "n_pass", "n_af"):
             assert got[k] == getattr(want, k), (path, k)
         np.testing.assert_allclose(got["mean_af"], want.mean_af, rtol=1e-6)
         np.testing.assert_array_equal(got["sample_callrate"],
                                       want.sample_callrate)
-    assert tid.variant_prefix.launches > before[0]
-    assert tid.gt_dosage.launches > before[1]
+        spans = m.counters.get("vcf.device_spans", 0)
+        assert tid.variant_unpack.launches - before == spans
+        assert (spans > 0) == (cfg is not None)

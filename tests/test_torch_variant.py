@@ -666,8 +666,9 @@ def test_a_kernel_fault_raises_and_never_demotes(cross_bcf, monkeypatch):
     from hadoop_bam_torch.ops.kernels import KernelLaunchError
 
     def broken(*a, **k):
-        raise KernelLaunchError("gt_dosage launch failed: CUDA error 700")
-    monkeypatch.setattr(tv, "gt_dosage", broken)
+        raise KernelLaunchError("variant_unpack launch failed: CUDA error "
+                                "700")
+    monkeypatch.setattr(tv, "variant_unpack", broken)
     with pytest.raises(KernelLaunchError):
         tv.variant_stats_file(cross_bcf, device="cpu",
                               config=_tcfg(inflate_backend="device"))
