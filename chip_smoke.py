@@ -150,7 +150,19 @@ Phases (any failure raises and exits non-zero):
    again with every ``variant_unpack`` launch held against its plain
    version;
    (d) ``open_vcf(bcf).tensor_batches()`` at the host plane's span
-   count, rows equal to the generator's, batches/s and GB/s delivered.
+   count, rows equal to the generator's, batches/s and GB/s delivered;
+16. region queries and the mesh sort: (a) ``.tbi`` sidecars of phase
+   15's BGZF BCF and BGZF VCF (``split.tabix.write_tabix``), timed, then
+   200 regions of 1-5 kb a file in one ``QueryEngine`` batch on cuda:0
+   (K13's overlap step) and 20 through ``VcfDataset.query``, each equal
+   to the generator's full scan; (b) the main path's BAM sorted on
+   cuda:0 by ``sort_bam_mesh`` with the index, bytes and spill
+   (``SORT_ROUNDS`` rounds) exchanges, each output and its ``.bai`` and
+   ``.sbi`` byte-identical to the port's host ``sort_bam``, K1 launched
+   inside the index step; K15's index step (at the main path's shape)
+   and bytes step (at a spill round's) equal to their CPU runs, and the
+   index step timed beside K1's plain gather, one stable ``torch.sort``
+   of its keys and its bound.
 
 The plan memo would let a repeated call skip planning, so every timed
 driver call of phases 5, 9 and 11 and of ``--times`` / ``--turns``
@@ -178,7 +190,8 @@ layout written beside the BAM (K11 alone, and
 pass with its unpack wall;
 ``variant_floor``: K11's launch at that chunk split by part (the
 header's mode set to each part alone);
-``variant_plane``: phase 15 alone; ``native_plane``: the native plane's three
+``variant_plane``: phase 15 alone; ``sort_query``: phase 16 alone
+(its variant files written here); ``native_plane``: the native plane's three
 drivers of phase 5, warmed up, five rounds in turn; ``bai_regions``:
 phase 11 (d)'s ``.bai`` runs on a sorted copy of the reads kept beside
 the BAM, with walls and peak resident set sizes) and prints them as
@@ -341,7 +354,9 @@ def device_ms(torch, calls, reps: int = 32, kernel=None) -> float:
     a hand kernel's calls (``kernel`` named), ``graph_ms`` (the calls in
     one CUDA graph, its replay timed by events: device time with no host
     launches), else or where the calls cannot be captured ``loop_ms`` (an
-    upper bound), and says which."""
+    upper bound), and says which, also in ``device_ms.how`` ("the
+    profiler", "one CUDA graph" or "events in a row")."""
+    device_ms.how = "the profiler"
     if not torch.cuda.is_available():
         return float("nan")   # a rehearsal on the CPU measures nothing
     for call in calls:
@@ -367,10 +382,15 @@ def device_ms(torch, calls, reps: int = 32, kernel=None) -> float:
     if ms == ms:
         log(f"torch.profiler gave no whole session in 6: the calls in one "
             f"CUDA graph by events instead ({ms:.4f} ms)")
+        device_ms.how = "one CUDA graph"
         return ms
     log("torch.profiler gave no whole session in 6: the calls in a row "
         "by events instead (an upper bound)")
+    device_ms.how = "events in a row"
     return loop_ms(torch, calls)
+
+
+device_ms.how = "the profiler"
 
 
 def loop_ms(torch, calls, reps: int = 48) -> float:
@@ -2665,6 +2685,7 @@ def k12_times(torch, cov, dev, card) -> dict:
         calls = [lambda t=t: tp.coverage_step(t, rows, 0, 0, COV_SPAN, mc,
                                               out=diff) for t in tiles]
         ms = device_ms(torch, calls)
+        how = device_ms.how
         nbytes = rows * row_w + 16 * aligned
         bound = 1e3 * nbytes / H100_BYTES_PER_S
         out[f"width_{mc}"] = {"rows": rows, "tile_bytes": rows * row_w,
@@ -2672,7 +2693,7 @@ def k12_times(torch, cov, dev, card) -> dict:
                               "bound_ms": bound, "bytes": nbytes}
         log(f"K12 coverage_step at {rows} rows, op width {mc} "
             f"({rows * row_w} B tile, {aligned} aligned ops): {ms:.4f} ms "
-            f"by the profiler, bound {bound:.4f} ms ({nbytes} B / "
+            f"by {how}, bound {bound:.4f} ms ({nbytes} B / "
             f"3.35 TB/s, {100 * bound / ms:.1f}%); card equals CPU "
             f"[{card}]")
     for window in (COV_SPAN, CHR20_LEN):
@@ -2907,7 +2928,7 @@ def phase_coverage_query(torch, path, truth, card, dev, args, srt,
         nbytes = cap * (4 * len(qe.TILE_COLUMNS) + 1) + 4
         k13 = {"rows": cap, "ms": ms, "bytes": nbytes,
                "bound_ms": 1e3 * nbytes / H100_BYTES_PER_S}
-        log(f"K13 overlap_step at {cap} rows: {ms:.4f} ms by the profiler, "
+        log(f"K13 overlap_step at {cap} rows: {ms:.4f} ms by {device_ms.how}, "
             f"bound {k13['bound_ms']:.5f} ms ({nbytes} B / 3.35 TB/s, "
             f"{100 * k13['bound_ms'] / ms:.1f}%); card equals CPU [{card}]")
         del copies, eng
@@ -3961,11 +3982,13 @@ def _log_k11_times(times, card) -> None:
         f"call in a row by events [{card}]")
 
 
-def phase_variant(torch, path, card, dev, seed):
+def phase_variant(torch, path, card, dev, seed, keep=None):
     """Phase 15: the variant plane on cuda:0 over the 1000 Genomes
-    layout (``VARIANT_*``), written beside the BAM and removed after.
-    Returns the K11 rows of the kernels line, the launches of phase
-    15's device-plane pass (b), and K14's times."""
+    layout (``VARIANT_*``), written beside the BAM and removed after
+    (with a ``keep`` dict, the BGZF BCF and VCF stay for phase 16 and
+    their paths and truth go into it).  Returns the K11 rows of the
+    kernels line, the launches of phase 15's device-plane pass (b), and
+    K14's times."""
     log("== phase 15: the variant plane on cuda:0")
     import numpy as np
     from hadoop_bam_torch import synth
@@ -4129,11 +4152,14 @@ def phase_variant(torch, path, card, dev, seed):
             f"generator's [{card}]")
         del batches
     finally:
-        for p in (bcf, raw, vz):
+        left = (raw,) if keep is not None else (bcf, raw, vz)
+        for p in left:
             if os.path.exists(p):
                 os.remove(p)
         if os.path.isdir(work) and not os.listdir(work):
             os.rmdir(work)
+    if keep is not None:
+        keep.update(bcf=bcf, vcf=vz, truth=truth, work=work)
     x = times["variant_unpack"]
     rows_out = {"variant_unpack": {
         "name": "variant_unpack", "route": "cuda",
@@ -4241,6 +4267,283 @@ def variant_plane_times(torch, path, dev) -> dict:
     return {"kernels": rows, "launches": launches, "K14": k14}
 
 
+QUERY_VARIANT_REGIONS = 200  # phase 16 (a): regions a file
+SORT_ROUNDS = 4              # phase 16 (b): the spill exchange's rounds
+
+
+def _variant_regions(rng, truth, n, limit=None):
+    """``n`` regions of 1-5 kb around records drawn from the generator's
+    rows (the first ``limit`` only, when given): (contig, start, end)
+    1-based inclusive."""
+    from hadoop_bam_torch.synth import KG_CONTIGS
+    m = truth.pos.size if limit is None else limit
+    out = []
+    for i in rng.integers(0, m, n):
+        width = int(rng.integers(1_000, 5_000))
+        start = max(1, int(truth.pos[i]) - int(rng.integers(0, width)))
+        out.append((KG_CONTIGS[int(truth.chrom[i])][0], start,
+                    start + width - 1))
+    return out
+
+
+def _variant_oracle(truth, region):
+    """The (contig, pos) of every generated record overlapping a region,
+    in file order: a full scan of the generator's rows."""
+    import numpy as np
+    from hadoop_bam_torch.synth import KG_CONTIGS
+    name, beg, end = region
+    cid = [c for c, _ in KG_CONTIGS].index(name)
+    pos = truth.pos.astype(np.int64)
+    hit = (truth.chrom == cid) & (pos <= end) \
+        & (pos + np.maximum(truth.rlen, 1) - 1 >= beg)
+    return [(name, int(p)) for p in pos[hit]]
+
+
+def _digest(path: str) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 24), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _k15_inputs(torch, path, dev):
+    """The index exchange's step inputs at the main path's shape: the
+    whole BAM as one decoded span (``plan_bam_spans_balanced(path, 1)``,
+    as ``sort_bam_mesh`` plans it on one device), padded as the sort pads
+    it."""
+    import numpy as np
+    from hadoop_bam_torch.config import DEFAULT_CONFIG
+    from hadoop_bam_torch.parallel import mesh_sort as ms
+    from hadoop_bam_torch.split.planners import plan_bam_spans_balanced
+    (span,) = plan_bam_spans_balanced(path, 1)
+    data, offs = ms._decode(path, span, DEFAULT_CONFIG)
+    n = int(offs.size)
+    R = ms._round_up(n, 8)
+    D = ms._round_up(data.size, 256)
+    host = np.zeros(D, np.uint8)
+    host[:data.size] = data
+    o = np.zeros(R, np.int32)
+    o[:n] = offs
+    none = torch.zeros(0, dtype=torch.int64, device=dev)
+    return (torch.from_numpy(host).to(dev), torch.from_numpy(o).to(dev), n,
+            0, none, none), data, offs
+
+
+def _k15_check_and_time(torch, path, dev, card) -> dict:
+    """K15's index step on the card against its CPU run on the same
+    inputs at the main path's shape, and its bytes step at the spill
+    round's shape; then the index step's device time, its calls in a
+    row, its version with K1's plain PyTorch gather, the one stable
+    ``torch.sort`` its (hi, lo) sort reduces to, and its bound."""
+    import numpy as np
+    from hadoop_bam_torch.ops import unpack_bam
+    from hadoop_bam_torch.parallel import mesh_sort as ms
+    args, data, offs = _k15_inputs(torch, path, dev)
+    n, R = args[2], args[1].shape[0]
+    got = ms.sort_step(*args)
+    cpu_args = tuple(a.cpu() if hasattr(a, "cpu") else a for a in args)
+    want = ms.sort_step(*cpu_args)
+    check(torch.equal(got.cpu(), want), "K15 index step equals its CPU run")
+    # the bytes step at one spill round's rows
+    m = -(-n // SORT_ROUNDS)
+    lens = ms._record_lens(data, offs[:m])
+    stride = 1 << max(6, int(max(int(lens.max()), 36) - 1).bit_length())
+    Rb = ms._round_up(m, 1024)
+    none = args[4]
+    rows, ln = ms.pack_rows(args[0], offs[:m], lens, Rb, stride)
+    g = ms.bytes_sort_step(rows, ln, m, 0, none, none)
+    w = ms.bytes_sort_step(rows.cpu(), ln.cpu(), m, 0, none.cpu(),
+                           none.cpu())
+    for a, b, what in zip(g, w, ("rows", "lengths", "indices")):
+        check(torch.equal(a.cpu(), b), f"K15 bytes step {what} equal its "
+                                       f"CPU run")
+    log(f"(b) K15 on the card equals its CPU run: the index step at the "
+        f"main path's shape (R = {R}, {n} records, D = {args[0].numel()}) "
+        f"and the bytes step at a spill round's ([{Rb}, {stride}], {m} "
+        f"records)")
+    del rows, ln, g, w, cpu_args, want
+    calls = [lambda: ms.sort_step(*args)]
+    # each call launches K1 once: sessions that lost no launch are kept,
+    # and without one the calls' CUDA graph gives the device time
+    ms_ = device_ms(torch, calls, reps=16,
+                    kernel="unpack_fixed_fields_kernel")
+    ms_by = device_ms.how
+    looped = loop_ms(torch, calls, reps=16)
+
+    def plain_step():
+        real = unpack_bam.unpack_fixed_fields
+        unpack_bam.unpack_fixed_fields = unpack_bam.unpack_fixed_fields_plain
+        try:
+            return ms.sort_step(*args)
+        finally:
+            unpack_bam.unpack_fixed_fields = real
+    plain_ms = device_ms(torch, [plain_step], reps=8)
+    key = torch.randint(-(1 << 62), 1 << 32, (R,), device=dev)
+    lib_ms = device_ms(torch, [lambda: torch.sort(key, stable=True)],
+                       reps=16)
+    bytes_ms = device_ms(torch, [lambda: ms.bytes_sort_step(
+        *ms.pack_rows(args[0], offs[:m], lens, Rb, stride), m, 0, none,
+        none)], reps=8)
+    # each record's 8 key bytes and 4-byte offset read once, each row's
+    # int32 global index written once
+    nbytes = 12 * n + 4 * R
+    bound = nbytes / H100_BYTES_PER_S * 1e3
+    log(f"K15 index step at R = {R}: {ms_:.4f} ms by {ms_by}, "
+        f"{looped:.4f} ms a call in a row by events, {plain_ms:.4f} ms with "
+        f"K1's plain gather, one stable torch.sort of its {R} int64 keys "
+        f"{lib_ms:.4f} ms (the step's one sort), bound {bound:.6f} ms = "
+        f"{nbytes} B / 3.35 TB/s; the bytes step with its row packing at "
+        f"[{Rb}, {stride}] {bytes_ms:.4f} ms [{card}]")
+    return {"name": "mesh_sort_step", "route": "cuda",
+            "form": "torch ops (no hand kernel; K1 inside)",
+            "source": "hadoop_bam_torch/parallel/mesh_sort.py",
+            "replaces": "hadoop_bam_tpu/parallel/mesh_sort.py:179",
+            "also_replaces": "hadoop_bam_tpu/parallel/mesh_sort.py:251",
+            "max_abs_err": 0, "ms": ms_, "ms_by": ms_by, "loop_ms": looped,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": lib_ms, "bytes_step_ms": bytes_ms,
+            "main_path_shape": f"R = {R}, {n} records"}
+
+
+def phase_sort_query(torch, path, card, dev, seed, variant):
+    """Phase 16: (a) region queries through ``.tbi`` sidecars on phase
+    15's BGZF BCF and VCF (``variant`` from ``phase_variant(keep=...)``;
+    or written here when None), each equal to the generator's full scan;
+    (b) the mesh sort of the main path's BAM through each exchange on
+    cuda:0, byte-identical to the port's host ``sort_bam``, then K15
+    against its CPU run and timed.  Returns the K15 row and the
+    launches of (b)'s sorts."""
+    log("== phase 16: variant region queries and the mesh sort on cuda:0")
+    import numpy as np
+    from hadoop_bam_torch import synth
+    from hadoop_bam_torch.api.vcf_dataset import open_vcf
+    from hadoop_bam_torch.ops.unpack_bam import unpack_fixed_fields
+    from hadoop_bam_torch.parallel import mesh_sort as ms
+    from hadoop_bam_torch.query import QueryEngine, QueryRequest
+    from hadoop_bam_torch.query.engine import overlap_step
+    from hadoop_bam_torch.split.tabix import write_tabix
+    from hadoop_bam_torch.utils.sort import sort_bam
+    rng = np.random.default_rng(seed)
+    made = variant is None
+    if made:
+        variant = {"work": os.path.join(os.path.dirname(
+            os.path.abspath(path)), "phase15")}
+        os.makedirs(variant["work"], exist_ok=True)
+        variant["bcf"] = os.path.join(variant["work"], "kg.bcf")
+        variant["vcf"] = os.path.join(variant["work"], "kg.vcf.gz")
+        variant["truth"] = synth.write_synthetic_vcf(
+            variant["bcf"], VARIANT_RECORDS, seed,
+            n_samples=VARIANT_SAMPLES, x_records=VARIANT_X,
+            vcf_path=variant["vcf"], vcf_records=VARIANT_VCF,
+            keep_rows=True)
+    truth = variant["truth"]
+    outs = []
+    try:
+        # (a) the .tbi sidecars, then batched queries through them
+        for what, p, limit in (("BGZF BCF", variant["bcf"], None),
+                               ("BGZF VCF", variant["vcf"], VARIANT_VCF)):
+            out, wall = _timed(lambda: write_tabix(p))
+            outs.append(out)
+            regions = _variant_regions(rng, truth, QUERY_VARIANT_REGIONS,
+                                       limit)
+            eng = QueryEngine(device=dev)
+            before = overlap_step.launches
+            res, qwall = _timed(lambda: eng.query_records(
+                [QueryRequest(p, f"{c}:{b}-{e}") for c, b, e in regions]))
+            k13 = overlap_step.launches - before
+            n_rec = 0
+            for region, r in zip(regions, res):
+                got = [(x.chrom, x.pos) for x in r.records]
+                check(got == _variant_oracle(truth, region),
+                      f"{what} region {region}: the full scan's records")
+                n_rec += len(got)
+            check(n_rec > 0 and k13 > 0, f"{what}: records found on the "
+                                         f"card's overlap step")
+            log(f"(a) {what}: .tbi built in {wall:.3f} s "
+                f"({os.path.getsize(out)} B); {len(regions)} regions of "
+                f"1-5 kb in one batch: {qwall:.3f} s, {n_rec} records, each "
+                f"region equal to the generator's full scan; "
+                f"{sum(r.n_candidates for r in res)} candidate rows, K13 "
+                f"steps {k13} [{card}]")
+        regions = _variant_regions(rng, truth, 20, VARIANT_VCF)
+        ds = open_vcf(variant["vcf"], device=dev)
+        qs, qwall = _timed(lambda: [
+            [(x.chrom, x.pos) for x in ds.query(f"{c}:{b}-{e}")]
+            for c, b, e in regions])
+        for region, got in zip(regions, qs):
+            check(got == _variant_oracle(truth, region),
+                  f"VcfDataset.query {region}")
+        log(f"(a) VcfDataset.query over 20 regions of the BGZF VCF: "
+            f"{qwall:.3f} s, {sum(map(len, qs))} records, each equal to "
+            f"the full scan [{card}]")
+    finally:
+        for p in outs + [variant["bcf"], variant["vcf"]]:
+            if os.path.exists(p):
+                os.remove(p)
+        if os.path.isdir(variant["work"]) and \
+                not os.listdir(variant["work"]):
+            os.rmdir(variant["work"])
+
+    # (b) the mesh sort of the main path's reads
+    work = os.path.splitext(path)[0] + "_sort"
+    os.makedirs(work, exist_ok=True)
+    oracle = os.path.join(work, "host.bam")
+    try:
+        n, wall = _timed(lambda: sort_bam(path, oracle,
+                                          run_records=1 << 40))
+        log(f"(b) host sort_bam (one run, the oracle): {n} records in "
+            f"{wall:.3f} s, {n / wall:,.0f} records/s [{card}]")
+        want = {suffix: _digest(oracle + suffix)
+                for suffix in ("", ".bai", ".sbi")}
+        rr = -(-n // SORT_ROUNDS)
+        runs = (("index", {}), ("bytes", {"exchange": "bytes"}),
+                ("spill", {"round_records": rr}))
+        k1_before = unpack_fixed_fields.launches
+        ms.sort_step.launches = ms.bytes_sort_step.launches = 0
+        steps = {}
+        for what, kw in runs:
+            out = os.path.join(work, f"{what}.bam")
+            before = ms.sort_step.launches + ms.bytes_sort_step.launches
+            got, wall = _timed(lambda: ms.sort_bam_mesh(path, out,
+                                                        device=dev, **kw))
+            steps[what] = ms.sort_step.launches \
+                + ms.bytes_sort_step.launches - before
+            check(got == n, f"{what} exchange sorted every record")
+            for suffix, digest in want.items():
+                check(_digest(out + suffix) == digest,
+                      f"{what} exchange{suffix}: byte-identical to sort_bam")
+            log(f"(b) sort_bam_mesh exchange={what}"
+                f"{f', round_records={rr}' if kw.get('round_records') else ''}"
+                f": {wall:.3f} s, {n / wall:,.0f} records/s, K15 steps "
+                f"{steps[what]}; output, .bai and .sbi byte-identical to "
+                f"sort_bam [{card}]")
+            os.remove(out)
+            for suffix in (".bai", ".sbi"):
+                os.remove(out + suffix)
+        k1 = unpack_fixed_fields.launches - k1_before
+        check(steps["spill"] >= 3, f"the spill exchange took "
+                                   f"{steps['spill']} rounds (>= 3)")
+        check(k1 >= steps["index"] >= 1, "the index exchange launched K1 "
+                                         "inside its step")
+        launches = {"mesh_sort_step": sum(steps.values()),
+                    "unpack_fixed_fields": k1}
+        row = _k15_check_and_time(torch, path, dev, card)
+    finally:
+        import shutil
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 16 launches: {launches} (K15 steps by exchange {steps})")
+    return row, launches
+
+
+def sort_query_times(torch, path, dev) -> dict:
+    """``--times sort_query``: phase 16 alone (its variant files written
+    here)."""
+    row, launches = phase_sort_query(torch, path, card_line(), dev, 0, None)
+    return {"K15": row, "launches": launches}
+
+
 TIMES = {"walk_records_device": k9_times, "resolve_pack": k7_times,
          "payload_gather": k10p_times, "device_plane": device_plane_times,
          "native_plane": native_plane_times, "k2_window": k2_window_times,
@@ -4250,7 +4553,8 @@ TIMES = {"walk_records_device": k9_times, "resolve_pack": k7_times,
          "interval_chain": interval_chain_times,
          "interval_floor": interval_floor_times,
          "variant_gt": variant_gt_times, "variant_floor": variant_floor_times,
-         "variant_plane": variant_plane_times}
+         "variant_plane": variant_plane_times,
+         "sort_query": sort_query_times}
 
 
 def check_truth(flag, stats, truth) -> None:
@@ -4337,19 +4641,24 @@ def main(argv=None) -> int:
     k10i, serve_launches, tile_filter = phase_serve(
         torch, path, card, dev, args.seed, srt, srt_truth, served)
     rows["interval_cols"] = k10i
+    variant_files = {}
     k11, variant_launches, k14 = phase_variant(torch, path, card, dev,
-                                               args.seed)
+                                               args.seed, keep=variant_files)
     rows.update(k11)
+    k15, sort_launches = phase_sort_query(torch, path, card, dev, args.seed,
+                                          variant_files)
+    rows["mesh_sort_step"] = k15
     rows["seq_qual_stats"].update(k2_window)
     for name, x in list(rows.items()) + [
             ("seq_qual_stats at the window shape",
              k2_window["window_shape"])]:
         # the profiler's reading against this process's event timing of
         # the same calls back to back (an upper bound) and the bound
-        log(f"{name}: {x['ms']:.4f} ms by the profiler, {x['loop_ms']:.4f}"
-            f" ms a call in a row by events, bound {x['bound_ms']:.4f} ms")
+        log(f"{name}: {x['ms']:.4f} ms by {x.get('ms_by', 'device_ms')}, "
+            f"{x['loop_ms']:.4f} ms a call in a row by events, bound "
+            f"{x['bound_ms']:.4f} ms")
         check(x["bound_ms"] <= x["ms"] <= 1.2 * x["loop_ms"],
-              f"{name}: the profiler's {x['ms']:.4f} ms lies between the "
+              f"{name}: device_ms's {x['ms']:.4f} ms lies between the "
               f"bound and the back-to-back event time")
     counted = set(_wrappers())   # the kernels every earlier path counts
     for name, row in rows.items():
@@ -4363,7 +4672,8 @@ def main(argv=None) -> int:
                    "planning": on(planning_launches),
                    "reads": on(reads_launches),
                    "serve": serve_launches.get(name, 0),
-                   "variant": variant_launches.get(name, 0)}
+                   "variant": variant_launches.get(name, 0),
+                   "sort": sort_launches.get(name, 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["share_of_bound"] = row["bound_ms"] / row["ms"]

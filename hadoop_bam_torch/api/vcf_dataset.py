@@ -221,11 +221,48 @@ class VcfDataset:
                                   config=self.config, header=self.header)
 
     def query(self, region: str) -> Iterator[VcfRecord]:
-        """Region access through a ``.tbi`` sidecar: not ported yet
-        (ROADMAP Queue 1, the VCF/BCF region query); raises PlanError."""
-        raise PlanError(
-            f"VcfDataset.query({region!r}) needs the tabix index reader, "
-            f"which the port does not have yet")
+        """The records of a BGZF VCF overlapping a samtools-style region
+        (``chr``, ``chr:start-end``), reading only the chunks of its
+        ``.tbi`` sidecar (``split.tabix.write_tabix`` builds one).  Other
+        containers raise PlanError (a BCF region goes through
+        ``query.QueryEngine``); a missing sidecar FileNotFoundError."""
+        from hadoop_bam_torch.split.intervals import parse_interval
+        from hadoop_bam_torch.split.tabix import TBI_SUFFIX, load_tabix_for
+
+        if self.container is not VCFContainer.VCF_BGZF:
+            raise PlanError("query() needs a BGZF-compressed VCF "
+                            "(.vcf.gz); plain text or gzip cannot be "
+                            "random-accessed")
+        idx = load_tabix_for(self.path)
+        if idx is None:
+            raise FileNotFoundError(
+                f"{self.path}{TBI_SUFFIX} not found; build it with "
+                "split.tabix.write_tabix")
+        iv = parse_interval(region)
+        ranges = idx.query(iv.rname, iv.start - 1, iv.end)
+        src = as_byte_source(self.path)
+        try:
+            r = bgzf.BGZFReader(src)
+            for v0, v1 in ranges:
+                r.seek_voffset(v0)
+                text = r.read_to_voffset(v1)
+                for line in text.split(b"\n"):
+                    if not line or line[:1] == b"#":
+                        continue
+                    try:
+                        rec = VcfRecord.from_line(line.decode())
+                    except Exception:
+                        if (self.config.validation_stringency
+                                is ValidationStringency.STRICT):
+                            raise
+                        continue
+                    if rec.chrom != iv.rname:
+                        continue
+                    if rec.pos <= iv.end and \
+                            rec.pos + rec.rlen - 1 >= iv.start:
+                        yield rec
+        finally:
+            src.close()
 
     # -- checkpoint / resume -------------------------------------------------
     def state_dict(self) -> Dict:

@@ -191,6 +191,22 @@ class HBamConfig:
         BaseQualityEncoding.ILLUMINA
     qseq_filter_failed_qc: bool = False
 
+    # the write path (write/, utils/sort.py, parallel/mesh_sort.py): the
+    # BGZF deflate level, the deflates in flight (None: the shared decode
+    # pool's size, 0: serial in-line), the sidecars written beside the
+    # output ("auto" is bai + sbi for a BAM, "none", or a comma list) and
+    # the splitting index's records a sample
+    write_compress_level: int = 6
+    write_parallel_workers: Optional[int] = None
+    write_index_kinds: str = "auto"
+    splitting_index_granularity: int = 4096
+
+    # the mesh sort's jobs (jobs/journal.py): fsync the journal after
+    # every record, and keep the spill runs after a sort for a
+    # post-mortem
+    journal_fsync: bool = True
+    debug_keep_spill: bool = False
+
     # VCF / BCF input (api/dispatch.py, api/vcf_dataset.py): trust a
     # .vcf / .vcf.gz / .bcf extension over the magic bytes, and what a
     # malformed text VCF line does

@@ -304,6 +304,17 @@ class BCFRecordCodec:
         return rec, end
 
 
+def shared_only(rec: bytes) -> bytes:
+    """A BCF record cut to its shared part (no samples, no FORMAT): the
+    codec decodes CHROM, POS, the alleles, FILTER and INFO of it, a few
+    hundred times faster than the whole record of a wide call set."""
+    (l_shared,) = struct.unpack_from("<I", rec, 0)
+    out = bytearray(rec[:8 + l_shared])
+    struct.pack_into("<I", out, 4, 0)
+    struct.pack_into("<I", out, 28, 0)          # n_sample | n_fmt << 24
+    return bytes(out)
+
+
 def peek_record_sizes(buf: bytes, off: int) -> Tuple[int, int]:
     l_shared, l_indiv = struct.unpack_from("<II", buf, off)
     return l_shared, l_indiv

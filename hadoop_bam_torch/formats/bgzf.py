@@ -149,6 +149,16 @@ def deflate_blocks(payloads: List[bytes], level: int = 6) -> List[bytes]:
     return [_frame_block(p, c, level) for p, c in zip(payloads, cdatas)]
 
 
+def deflate_block(payload: bytes, level: int = 6) -> bytes:
+    """One complete BGZF block around ``payload`` (<= 64 KiB): the bytes
+    ``deflate_blocks`` makes of it, compressed on the calling thread."""
+    if len(payload) > MAX_UNCOMPRESSED:
+        raise BGZFError("payload exceeds 64 KiB BGZF limit")
+    from hadoop_bam_torch.utils import native
+    (cdata,) = native.deflate_batch([payload], level, n_threads=1)
+    return _frame_block(payload, cdata, level)
+
+
 def scan_blocks(buf: bytes, offset: int = 0,
                 limit: Optional[int] = None) -> List[BlockInfo]:
     """Walk consecutive BGZF blocks from a known block start."""

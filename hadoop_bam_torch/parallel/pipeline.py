@@ -975,7 +975,15 @@ def map_file_spans(path: str, fn: Callable) -> List:
     ``INDEX_SPAN_BYTES`` with no sidecar read), on the decode pool; the
     results in file order.  What the index builders read their columns
     from."""
-    cfg = DEFAULT_CONFIG
+    return list(iter_file_spans(path, fn))
+
+
+def iter_file_spans(path: str, fn: Callable,
+                    config: HBamConfig = DEFAULT_CONFIG) -> Iterator:
+    """``map_file_spans`` as a stream: each span's result as soon as it
+    and every earlier one is ready, at most two windows of spans in
+    memory (the host sort's reader)."""
+    cfg = config
     with as_byte_source(path) as src:
         size = src.size
     plan = iter_bam_spans(
@@ -983,7 +991,7 @@ def map_file_spans(path: str, fn: Callable) -> List:
         config=dataclasses.replace(cfg, use_splitting_index=False))
 
     def one(span):
-        data, offs, voffs, _ = _decode_span_core(src, span, False,
+        data, offs, voffs, _ = _decode_span_core(src, span, cfg.check_crc,
                                                  cfg.host_backend)
         return fn(data, offs, voffs)
 
@@ -991,7 +999,7 @@ def map_file_spans(path: str, fn: Callable) -> List:
             cfg.pool_size(), thread_name_prefix="hbam-index") as pool:
         stream = iter_windowed(pool, plan, one, 2 * cfg.pool_size())
         try:
-            return list(stream)
+            yield from stream
         finally:
             stream.close()
 

@@ -1,5 +1,5 @@
 """QueryEngine: batched random-access region queries over indexed BAMs
-(counterpart of hadoop_bam_tpu/query/engine.py, BAM only).
+(counterpart of hadoop_bam_tpu/query/engine.py: BAM, VCF and BCF).
 
 A request is a BATCH of ``(path, region)`` pairs.  The engine:
 
@@ -20,14 +20,17 @@ Chunk decodes run under ``decode_with_retry`` (transient faults retry,
 corrupt ones fail fast, ``skip_bad_spans`` serves a bad chunk empty);
 admission and deadline pressure raise ``TransientIOError``; bad requests
 (no index, unknown contig, a container the port cannot query) raise
-``PlanError``.  Deliberate differences: VCF, BCF and CRAM files raise
-``PlanError`` until the port has their readers, and the engine takes a
-``device`` where the reference takes a mesh.
+``PlanError``.  BAM regions resolve through a ``.bai`` / ``.csi``, BGZF
+VCF and BGZF BCF regions through a ``.tbi`` (``split/tabix.py``); their
+rows go through the same ``overlap_step``.  Deliberate differences: CRAM
+files raise ``PlanError`` until the port reads CRAM, and the engine takes
+a ``device`` where the reference takes a mesh.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import struct
 import threading
 import time
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
@@ -63,7 +66,7 @@ class QueryRequest:
 @dataclasses.dataclass
 class QueryResult:
     request: QueryRequest
-    records: List[object]          # SamRecord
+    records: List[object]          # SamRecord or VcfRecord
     n_candidates: int = 0          # rows the index surfaced pre-predicate
 
 
@@ -100,14 +103,33 @@ def _sniff_kind(path: str) -> str:
     if lower.endswith(".cram"):
         raise PlanError(
             f"cannot region-query {path!r} here: the port reads no CRAM "
-            f"yet (ROADMAP Queue 1 item 13a); .bam is supported")
-    if lower.endswith((".bcf", ".vcf.gz", ".vcf.bgz")):
-        raise PlanError(
-            f"cannot region-query {path!r} here: the port has no variant "
-            f"plane yet (ROADMAP Queue 1 item 8); .bam is supported")
+            f"yet (ROADMAP Queue 1 item 13a); .bam, .vcf.gz and .bcf "
+            f"are supported")
+    if lower.endswith(".bcf"):
+        return "bcf"
+    if lower.endswith((".vcf.gz", ".vcf.bgz")):
+        return "vcf"
     raise PlanError(
         f"cannot region-query {path!r}: supported containers are .bam "
-        f"(.bai/.csi sidecar)")
+        f"(.bai/.csi sidecar), .vcf.gz/.vcf.bgz and .bcf (.tbi sidecar)")
+
+
+class _BcfRows:
+    """A BCF chunk's records, decoded whole only when asked for: the
+    overlap columns come from each record's shared part, so a wide call
+    set pays the sample columns for the matched rows alone."""
+
+    __slots__ = ("codec", "raws")
+
+    def __init__(self, codec, raws: List[bytes]):
+        self.codec = codec
+        self.raws = raws
+
+    def __len__(self) -> int:
+        return len(self.raws)
+
+    def __getitem__(self, row: int):
+        return self.codec.decode(self.raws[row], 0)[0]
 
 
 class _FileMeta:
@@ -158,15 +180,27 @@ class QueryEngine:
                 self._meta.move_to_end(ident)
                 return meta
         kind = _sniff_kind(path)
-        from hadoop_bam_torch.formats.bamio import read_bam_header
-        from hadoop_bam_torch.split.bai import load_bai_for
-        header, _ = read_bam_header(path)
-        index = load_bai_for(path)
-        if index is None:
-            raise PlanError(
-                f"{path} has no .bai/.csi sidecar -- region queries need a "
-                f"genomic index; build one with split.bai.write_bai")
-        meta = _FileMeta(path, ident, kind, header, header.ref_names, index)
+        if kind == "bam":
+            from hadoop_bam_torch.formats.bamio import read_bam_header
+            from hadoop_bam_torch.split.bai import load_bai_for
+            header, _ = read_bam_header(path)
+            index = load_bai_for(path)
+            if index is None:
+                raise PlanError(
+                    f"{path} has no .bai/.csi sidecar -- region queries "
+                    f"need a genomic index; build one with "
+                    f"split.bai.write_bai")
+            names = header.ref_names
+        else:
+            from hadoop_bam_torch.split.tabix import load_tabix_for
+            header = self._variant_header(path, kind)
+            index = load_tabix_for(path)
+            if index is None:
+                raise PlanError(
+                    f"{path} has no .tbi sidecar -- region queries need a "
+                    f"tabix index; build one with split.tabix.write_tabix")
+            names = header.contigs
+        meta = _FileMeta(path, ident, kind, header, names, index)
         with self._meta_lock:
             # two threads may have built the same meta: the first insert
             # wins so every caller shares one instance
@@ -178,6 +212,29 @@ class QueryEngine:
             self._meta[ident] = meta
         return meta
 
+    @staticmethod
+    def _variant_header(path: str, kind: str):
+        from hadoop_bam_torch.formats import bgzf
+        from hadoop_bam_torch.utils.seekable import scoped_byte_source
+        with scoped_byte_source(path) as src:
+            if kind == "bcf":
+                from hadoop_bam_torch.formats.bcfio import read_bcf_header
+                header, _first, is_bgzf = read_bcf_header(src)
+                if not is_bgzf:
+                    raise PlanError(
+                        f"{path} is a raw (non-BGZF) BCF -- virtual-offset "
+                        f"random access needs the BGZF container")
+                return header
+            from hadoop_bam_torch.formats.vcf import read_vcf_header_text
+            r = bgzf.BGZFReader(src)
+
+            def read_chunk(off: int, size: int) -> bytes:
+                r.seek_voffset(0)
+                r.read(off)           # header-sized positions only
+                return r.read(size)
+            header, _ = read_vcf_header_text(read_chunk)
+            return header
+
     # -- resolution ----------------------------------------------------------
 
     def _resolve(self, meta: _FileMeta, region: str
@@ -187,8 +244,10 @@ class QueryEngine:
             raise PlanError(
                 f"region contig {iv.rname!r} is not in {meta.path}'s "
                 f"reference dictionary")
-        rid = meta.ref_names.index(iv.rname)
-        return iv, meta.index.query(rid, iv.start - 1, iv.end)
+        if meta.kind == "bam":
+            rid = meta.ref_names.index(iv.rname)
+            return iv, meta.index.query(rid, iv.start - 1, iv.end)
+        return iv, meta.index.query(iv.rname, iv.start - 1, iv.end)
 
     def _coalesce(self, ranges: Sequence[Tuple[int, int]], kind: str
                   ) -> List[Tuple[int, int]]:
@@ -231,7 +290,15 @@ class QueryEngine:
         from hadoop_bam_torch.plan.executor import run_chunk_columns
         return run_chunk_columns(
             FileVirtualSpan(meta.path, s, e), self.config,
-            lambda sp: self._decode_bam_chunk(meta, sp))
+            lambda sp: self._decode_chunk(meta, sp))
+
+    def _decode_chunk(self, meta: _FileMeta,
+                      span: FileVirtualSpan) -> Dict[str, object]:
+        if meta.kind == "vcf":
+            return self._decode_vcf_chunk(meta, span)
+        if meta.kind == "bcf":
+            return self._decode_bcf_chunk(meta, span)
+        return self._decode_bam_chunk(meta, span)
 
     def _decode_bam_chunk(self, meta: _FileMeta,
                           span: FileVirtualSpan) -> Dict[str, object]:
@@ -252,7 +319,81 @@ class QueryEngine:
         }
 
     @staticmethod
+    def _variant_columns(meta: _FileMeta, records) -> Dict[str, object]:
+        rid_of = {c: i for i, c in enumerate(meta.ref_names)}
+        n = len(records)
+        rid = np.fromiter((rid_of.get(r.chrom, -1) for r in records),
+                          np.int32, n)
+        pos1 = np.fromiter((r.pos for r in records), np.int64, n)
+        end1 = pos1 + np.fromiter((max(r.rlen, 1) for r in records),
+                                  np.int64, n) - 1
+        return {
+            "rid": rid,
+            "pos1": np.minimum(pos1, _I32_MAX).astype(np.int32),
+            "end1": np.minimum(end1, _I32_MAX).astype(np.int32),
+            "records": records,
+            "n": n,
+        }
+
+    def _decode_vcf_chunk(self, meta: _FileMeta,
+                          span: FileVirtualSpan) -> Dict[str, object]:
+        from hadoop_bam_torch.config import ValidationStringency
+        from hadoop_bam_torch.formats import bgzf
+        from hadoop_bam_torch.formats.vcf import VcfRecord
+        from hadoop_bam_torch.utils.seekable import scoped_byte_source
+        records: List[VcfRecord] = []
+        with METRICS.timer("pipeline.host_decode"), \
+                METRICS.wall_timer("pipeline.host_decode_wall"), \
+                scoped_byte_source(meta.path) as src:
+            r = bgzf.BGZFReader(src)
+            r.seek_voffset(span.start_voffset)
+            text = r.read_to_voffset(span.end_voffset)
+            for line in text.split(b"\n"):
+                if not line or line[:1] == b"#":
+                    continue
+                try:
+                    records.append(VcfRecord.from_line(line.decode()))
+                except Exception:
+                    if (self.config.validation_stringency
+                            is ValidationStringency.STRICT):
+                        raise
+        out = self._variant_columns(meta, records)
+        out["nbytes"] = 2 * len(text) + 64
+        return out
+
+    def _decode_bcf_chunk(self, meta: _FileMeta,
+                          span: FileVirtualSpan) -> Dict[str, object]:
+        from hadoop_bam_torch.formats import bgzf
+        from hadoop_bam_torch.formats.bcf import BCFRecordCodec, shared_only
+        from hadoop_bam_torch.utils.seekable import scoped_byte_source
+        codec = BCFRecordCodec(meta.header)
+        records, raws = [], []
+        nbytes = 0
+        with METRICS.timer("pipeline.host_decode"), \
+                METRICS.wall_timer("pipeline.host_decode_wall"), \
+                scoped_byte_source(meta.path) as src:
+            r = bgzf.BGZFReader(src)
+            r.seek_voffset(span.start_voffset)
+            while r.voffset() < span.end_voffset:
+                head = r.read(8)
+                if len(head) < 8:
+                    break
+                l_shared, l_indiv = struct.unpack("<II", head)
+                raw = head + r.read(l_shared + l_indiv)
+                if len(raw) < 8 + l_shared + l_indiv:
+                    codec.decode(raw, 0)     # the codec's truncation error
+                records.append(codec.decode(shared_only(raw), 0)[0])
+                raws.append(raw)
+                nbytes += len(raw)
+        out = self._variant_columns(meta, records)
+        out["records"] = _BcfRows(codec, raws)
+        out["nbytes"] = 2 * nbytes + 64
+        return out
+
+    @staticmethod
     def _materialize(meta: _FileMeta, value: Dict[str, object], row: int):
+        if meta.kind != "bam":
+            return value["records"][row]
         from hadoop_bam_torch.formats.sam import SamRecord
         return SamRecord.from_line(value["batch"].to_sam_line(row))
 

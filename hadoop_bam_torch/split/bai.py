@@ -11,8 +11,10 @@ index (bins over 16 KiB..512 Mbp regions, each holding chunks of (begin,
 end) virtual offsets) and a linear index of the smallest virtual offset
 overlapping each 16 KiB window.  ``build_bai`` takes refid, pos,
 reference span and voffsets from the port's host span decode and builds
-the index in ``bai_from_columns`` (vectorized); the reference's
-record-by-record ``BAIBuilder`` belongs to the write path, not ported.
+the index in ``bai_from_columns`` (vectorized), as the write path's
+indexing sink does.  ``BAIBuilder`` takes one record at a time; it and
+``split/tabix.TabixBuilder`` share ``IncrementalBinningCore``, the
+chunk and linear-index rules both families write.
 """
 from __future__ import annotations
 
@@ -256,6 +258,71 @@ class CsiIndex:
                 bins[bin_no] = (lin, list(chunks))
             refs.append(bins)
         return cls(min_shift=min_shift, depth=depth, refs=refs)
+
+
+class IncrementalBinningCore:
+    """The chunk and linear-index rules of ``BAIBuilder`` and
+    ``split/tabix.TabixBuilder`` (both use the 14/5 bins and 16 KiB
+    windows).  Subclasses own ``self.refs`` and call ``_observe`` for
+    each mapped record after resolving its reference id.
+
+    A chunk's end is deferred: record i's chunk closes at record i+1's
+    start voffset, or at ``finalize``'s end voffset for the last record,
+    so every stored end lies on a block boundary or a record start."""
+
+    refs: List[RefIndex]
+
+    def __init__(self):
+        self._pending: Optional[Tuple[int, int, int]] = None
+
+    def _close(self, v1: int) -> None:
+        if self._pending is None:
+            return
+        rid, b, v0 = self._pending
+        self._pending = None
+        chunks = self.refs[rid].bins.setdefault(b, [])
+        if chunks and chunks[-1][1] >= v0:          # adjacent: extend
+            chunks[-1] = (chunks[-1][0], v1)
+        else:
+            chunks.append((v0, v1))
+
+    def _observe(self, rid: int, beg: int, end: int, voffset: int) -> None:
+        """Open one mapped record's (deferred-end) chunk and fold it into
+        the linear index."""
+        ref = self.refs[rid]
+        self._pending = (rid, reg2bin(beg, end), voffset)
+        w0 = beg >> _LINEAR_SHIFT
+        w1 = max(end - 1, beg) >> _LINEAR_SHIFT
+        if len(ref.linear) <= w1:
+            ref.linear.extend([0] * (w1 + 1 - len(ref.linear)))
+        for w in range(w0, w1 + 1):
+            if ref.linear[w] == 0 or voffset < ref.linear[w]:
+                ref.linear[w] = voffset
+
+
+class BAIBuilder(IncrementalBinningCore):
+    """A BAI built one coordinate-sorted record at a time: ``add`` each,
+    then ``finalize`` closes the trailing chunk.  ``bai_from_columns``
+    writes the same bytes from whole columns."""
+
+    def __init__(self, n_ref: int):
+        super().__init__()
+        self.refs = [RefIndex() for _ in range(n_ref)]
+
+    def add(self, rid: int, beg: int, end: int, voffset: int) -> None:
+        """One record: 0-based half-open [beg, end) on reference ``rid``
+        (negative = unmapped: it only closes the previous chunk),
+        starting at packed virtual offset ``voffset``."""
+        self._close(voffset)
+        if rid < 0:
+            return
+        self._observe(rid, beg, end, voffset)
+
+    def finalize(self, end_voffset: int) -> BaiIndex:
+        """Close the trailing chunk at ``end_voffset`` (the end of the
+        data) and return the index."""
+        self._close(end_voffset)
+        return BaiIndex(refs=self.refs)
 
 
 def _reg2bin_vec(beg: np.ndarray, end: np.ndarray) -> np.ndarray:

@@ -192,6 +192,41 @@ def plan_bam_spans(path: str, *, num_spans: Optional[int] = None,
                                header=header, index=index))
 
 
+def plan_bam_spans_balanced(path: str, num_spans: int, *,
+                            header: Optional[SAMHeader] = None,
+                            index: Optional[SplittingIndex] = None,
+                            granularity: int = 0,
+                            ) -> List[FileVirtualSpan]:
+    """Record-balanced spans from a splitting index: the sampled record
+    voffsets cut into ``num_spans`` runs of near-equal record count.  The
+    cuts are whole virtual offsets, so a span may start inside a BGZF
+    block and even a one-block BAM fills every device.  With no sidecar
+    an index is built in memory, every record sampled (``granularity``
+    0 or below) or every ``granularity``-th."""
+    from hadoop_bam_torch.split.splitting_index import build_splitting_index
+    del header
+    if index is None:
+        index = SplittingIndex.load_for(path)
+    if index is None:
+        index = build_splitting_index(path,
+                                      granularity=max(1, granularity))
+    samples = index.voffsets[:-1]           # drop the end sentinel
+    end_sentinel = index.voffsets[-1]
+    if not samples:
+        return []
+    num_spans = max(1, min(num_spans, len(samples)))
+    bounds = np.unique(np.linspace(0, len(samples), num_spans + 1)
+                       .astype(np.int64))
+    spans: List[FileVirtualSpan] = []
+    for i in range(len(bounds) - 1):
+        s = samples[int(bounds[i])]
+        e = (end_sentinel if i == len(bounds) - 2
+             else samples[int(bounds[i + 1])])
+        if s < e:
+            spans.append(FileVirtualSpan(path, s, e))
+    return spans
+
+
 def _next_name_group_start(src, path: str, boundary: int,
                            header: SAMHeader, first_voffset: int,
                            end_sentinel: int, index, guesser) -> int:

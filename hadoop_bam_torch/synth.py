@@ -1036,7 +1036,8 @@ class VariantTruth:
     """The stats ``variant_stats_file`` must return over the records the
     generator wrote (``vcf``: over the first ``vcf_records`` of them, the
     BGZF VCF's), and with ``keep_rows`` each record's tile row (chrom,
-    pos, flags, dosage [n, n_samples]) in file order."""
+    pos, flags, dosage [n, n_samples]) and its length on the reference
+    (``rlen``: len(REF); no record has INFO END) in file order."""
     n_variants: int
     n_snp: int
     n_pass: int
@@ -1048,6 +1049,7 @@ class VariantTruth:
     pos: Optional[np.ndarray] = None
     flags: Optional[np.ndarray] = None
     dosage: Optional[np.ndarray] = None
+    rlen: Optional[np.ndarray] = None   # each record's length on the reference
     filtered_share: float = 0.0    # the additions, as written
     missing_share: float = 0.0
 
@@ -1157,7 +1159,7 @@ def write_synthetic_vcf(path: str, n_records: int, seed: int, *,
     chrom, pos, p, snp, multi, filtered = _kg_sites(rng, n_records, n_x)
     male = rng.random(S) < 0.5
     whole, text_tally = _VariantTally(S), _VariantTally(S)
-    kept = {"chrom": [], "pos": [], "flags": [], "dosage": []}
+    kept = {"chrom": [], "pos": [], "flags": [], "dosage": [], "rlen": []}
     indiv_head = (_typed_ints([key["GT"]]) + _typed_desc(2, _T_INT8))
     l_indiv = len(indiv_head) + 2 * S
     with contextlib.ExitStack() as stack:
@@ -1201,11 +1203,13 @@ def write_synthetic_vcf(path: str, n_records: int, seed: int, *,
                      + ((allele[..., 1] == k) & pres & ~hap).sum(1))
                     for k in (1, 2)]
             rec_flags = np.zeros(m, np.uint8)
+            rlen = np.zeros(m, np.int32)
             parts, lines = [], []
             for j in range(m):
                 i = lo + j
                 ref, alts = _kg_alleles(rng, bool(snp[i]), bool(multi[i]))
                 is_snp = len(ref) == 1 and all(len(a) == 1 for a in alts)
+                rlen[j] = len(ref)
                 rec_flags[j] = (0 if filtered[i] else 1) | \
                     (2 if is_snp else 0)
                 an = int(an_c[j])
@@ -1261,6 +1265,7 @@ def write_synthetic_vcf(path: str, n_records: int, seed: int, *,
                 kept["pos"].append(pos[lo:hi].astype(np.int32))
                 kept["flags"].append(rec_flags)
                 kept["dosage"].append(dose)
+                kept["rlen"].append(rlen)
     truth = whole.truth()
     truth.filtered_share = float(filtered.mean()) if n_records else 0.0
     truth.missing_share = whole.miss / max(1, n_records * S)

@@ -57,6 +57,13 @@ def decode_pool(config=None) -> cf.ThreadPoolExecutor:
         return _POOL
 
 
+def decode_pool_size(config=None) -> int:
+    """Worker count of the shared pool (creating it if needed): what the
+    parallel BGZF writer bounds its deflates in flight by."""
+    decode_pool(config)
+    return _POOL_SIZE
+
+
 def _timed_task(fn, t_submit: float, args, kwargs):
     from hadoop_bam_torch.utils.metrics import current_metrics
 

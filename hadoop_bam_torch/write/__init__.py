@@ -1,0 +1,14 @@
+"""The write path: ``parallel_bgzf.ParallelBGZFWriter`` (deflates on the
+shared pool, blocks committed in order), ``indexing`` (BAI and splitting
+index sidecars built during the write) and ``api.write_bam_records``,
+the front door ``utils/sort.py`` and ``parallel/mesh_sort.py`` write
+through."""
+from hadoop_bam_torch.write.api import (            # noqa: F401
+    WriteResult, write_bam_records,
+)
+from hadoop_bam_torch.write.indexing import (       # noqa: F401
+    BamIndexingSink, resolve_index_kinds,
+)
+from hadoop_bam_torch.write.parallel_bgzf import (  # noqa: F401
+    ParallelBGZFWriter,
+)

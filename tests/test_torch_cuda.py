@@ -1145,3 +1145,87 @@ def test_variant_planes_on_card_match_truth(cuda, tmp_path):
         spans = m.counters.get("vcf.device_spans", 0)
         assert tid.variant_unpack.launches - before == spans
         assert (spans > 0) == (cfg is not None)
+
+
+# ---------------------------------------------------------------------------
+# K15: the mesh sort's steps on the card, and the sort through them
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def shuffled_bam(tmp_path_factory):
+    """A synthetic BAM (paired reads, unmapped mates, unsorted) and the
+    port's host sort of it."""
+    from hadoop_bam_torch.utils.sort import sort_bam
+    d = tmp_path_factory.mktemp("k15")
+    path = str(d / "s.bam")
+    synth.write_synthetic_bam(path, 30_000, 4)
+    ref = str(d / "ref.bam")
+    sort_bam(path, ref)
+    return path, open(ref, "rb").read()
+
+
+@pytest.mark.parametrize("n,n_bounds", [(1, 0), (1000, 0), (30_000, 0),
+                                        (5000, 7)])
+def test_k15_steps_on_card_equal_their_cpu_run(cuda, shuffled_bam, n,
+                                               n_bounds):
+    """Both steps over the first ``n`` records of a span, with no bounds
+    (one device) and with seven (the bucket pack of eight devices before
+    the one-device exchange refuses)."""
+    from hadoop_bam_torch.config import DEFAULT_CONFIG
+    from hadoop_bam_torch.parallel import mesh_sort as ms
+    from hadoop_bam_torch.split.planners import plan_bam_spans_balanced
+    path, _ = shuffled_bam
+    (span,) = plan_bam_spans_balanced(path, 1)
+    data, offs = ms._decode(path, span, DEFAULT_CONFIG)
+    offs = offs[:n]
+    R = ms._round_up(n, 8)
+    host = np.zeros(ms._round_up(data.size, 256), np.uint8)
+    host[:data.size] = data
+    o = np.zeros(R, np.int32)
+    o[:n] = offs
+    rng = np.random.default_rng(n)
+    bhi = torch.from_numpy(np.sort(rng.integers(0, 3, n_bounds)))
+    blo = torch.from_numpy(rng.integers(0, 1 << 32, n_bounds))
+    lens = ms._record_lens(data, offs)
+    stride = ms._round_up(int(lens.max()), 64)
+    rows, ln = ms.pack_rows(torch.from_numpy(data), offs, lens, R, stride)
+    if n_bounds:
+        with pytest.raises(Exception, match="one device"):
+            ms.sort_step(torch.from_numpy(host).to(cuda),
+                         torch.from_numpy(o).to(cuda), n, 5, bhi.to(cuda),
+                         blo.to(cuda))
+        for dev in ("cpu", cuda):
+            hi, lo, _ = ms._device_keys(
+                torch.from_numpy(o).to(dev), torch.from_numpy(o).to(dev),
+                torch.arange(R, device=dev) < n, 5, R)
+            got = ms._bucket_pack(hi, lo, bhi.to(dev), blo.to(dev), R)
+            if dev == "cpu":
+                want = got
+            else:
+                for g, w in zip(got, want):
+                    assert torch.equal(g.cpu(), w)
+        return
+    before = tub.unpack_fixed_fields.launches
+    got = ms.sort_step(torch.from_numpy(host).to(cuda),
+                       torch.from_numpy(o).to(cuda), n, 5, bhi.to(cuda),
+                       blo.to(cuda))
+    assert tub.unpack_fixed_fields.launches == before + 1
+    want = ms.sort_step(torch.from_numpy(host), torch.from_numpy(o), n, 5,
+                        bhi, blo)
+    assert torch.equal(got.cpu(), want)
+    g = ms.bytes_sort_step(rows.to(cuda), ln.to(cuda), n, 5, bhi.to(cuda),
+                           blo.to(cuda))
+    w = ms.bytes_sort_step(rows, ln, n, 5, bhi, blo)
+    for a, b in zip(g, w):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("kw", [{}, {"exchange": "bytes"},
+                                {"round_records": 7000}])
+def test_mesh_sort_on_card_equals_host_sort(cuda, shuffled_bam, tmp_path,
+                                            kw):
+    from hadoop_bam_torch.parallel import mesh_sort as ms
+    path, want = shuffled_bam
+    out = str(tmp_path / "o.bam")
+    assert ms.sort_bam_mesh(path, out, device=cuda, **kw) == 30_000
+    assert open(out, "rb").read() == want

@@ -266,7 +266,10 @@ def test_port_imports_with_jax_blocked():
     mods = _port_modules()
     assert len(mods) >= 20, mods
     for m in ("api.read_datasets", "formats.fastq", "formats.qseq",
-              "formats.fasta", "split.read_planners"):
+              "formats.fasta", "split.read_planners", "split.tabix",
+              "split.kmerge", "write.api", "write.parallel_bgzf",
+              "write.indexing", "jobs.journal", "jobs.runner",
+              "parallel.mesh_sort", "parallel.distributed", "utils.sort"):
         assert f"hadoop_bam_torch.{m}" in mods
     code = f"""
 import importlib, sys

@@ -4,8 +4,9 @@ packages' ``QueryEngine`` on the same file, index and settings.
 
 Records compare line for line (``SamRecord.to_line``) with each other
 and with the full-scan oracle; counters, cache stats and error classes
-compare exactly.  The VCF, BCF and CRAM cases are left out: the port
-queries BAM only, and a case of its own shows the other kinds raise
+compare exactly.  The VCF and BCF cases are in
+tests/test_torch_query_variant.py; the CRAM cases are left out (the port
+reads no CRAM yet), and a case of its own shows CRAM raises
 ``PlanError``.
 """
 import dataclasses
@@ -466,14 +467,26 @@ def test_unknown_contig_and_container_are_plan_errors(indexed_bam,
     assert "region-query" in str(g)
 
 
-@pytest.mark.parametrize("name,item", [("q.vcf.gz", "item 8"),
-                                       ("q.bcf", "item 8"),
+@pytest.mark.parametrize("name,item", [("q.vcf.gz", "tbi"),
+                                       ("q.bcf", "tbi"),
                                        ("q.cram", "item 13a")])
 def test_variant_and_cram_kinds_raise_plan_error(tmp_path, name, item):
-    """A deliberate difference: the reference queries these kinds; the
-    port raises PlanError naming the roadmap item that brings them."""
+    """A VCF or BCF with no ``.tbi`` raises PlanError naming the sidecar,
+    as the reference does (tests/test_torch_query_variant.py queries
+    them).  CRAM is a deliberate difference: the reference queries it;
+    the port raises PlanError naming the roadmap item that brings it."""
     p = tmp_path / name
-    p.write_bytes(b"\x00" * 64)
+    if name == "q.cram":
+        p.write_bytes(b"\x00" * 64)
+    else:
+        from hadoop_bam_tpu.api.writers import open_vcf_writer
+        from hadoop_bam_tpu.formats.vcf import VCFHeader, VcfRecord
+        header = VCFHeader.from_text(
+            "##fileformat=VCFv4.2\n##contig=<ID=chr1,length=1000>\n"
+            "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        with open_vcf_writer(str(p), header) as w:
+            w.write_record(VcfRecord.from_line(
+                "chr1\t5\t.\tA\tC\t.\tPASS\t."))
     with pytest.raises(terr.PlanError, match=item):
         QueryEngine(device="cpu").query_records(
             [QueryRequest(str(p), "chr1:1-100")])
