@@ -72,7 +72,8 @@ Phases (any failure raises and exits non-zero):
 11. span planning and the fused decode through the entry points, on a
    hard link to the same BAM (its sidecars never sit next to the file of
    phases 5-10) and on a coordinate-sorted copy of the same reads (a
-   ``.bai`` indexes a sorted BAM): (a) the ``.splitting-bai``
+   ``.bai`` indexes a sorted BAM; the host ``sort_bam`` of the BAM, whose
+   digests are phase 16's oracle): (a) the ``.splitting-bai``
    (granularity 4096) and ``.bai`` writers, timed; (b) the native
    drivers and the device plane planned from the ``.splitting-bai``:
    the truth, plan walls against phase 9's guessed plan, span counts,
@@ -104,7 +105,7 @@ Phases (any failure raises and exits non-zero):
    ``unpack_step`` over one stacked span group equal to K1's plain
    version.  Walls, reads/s and profiled busy shares of (a) and (d);
 13. coverage (K12) over a 15x BAM of mixed CIGARs through the ``.bai``,
-   500 batched region queries (K13) on phase 11's sorted copy, and the
+   250 batched region queries (K13) on phase 11's sorted copy, and the
    span window's hang defence (``phase_coverage_query``);
 14. the resident region server (``hadoop_bam_torch.serve.ServeLoop``):
    (a) K10i (``interval_cols``, which reads each record's prefix itself)
@@ -130,9 +131,9 @@ Phases (any failure raises and exits non-zero):
    to come;
 15. the variant plane (``parallel/variant_pipeline.py``) over a call set
    with the genotype layout of the 1000 Genomes Project phase 3
-   release (``synth.write_synthetic_vcf``: 2,504 samples, 100,000
-   records, the last 10,000 on X, as BGZF BCF, raw BCF and a BGZF VCF
-   of the first 20,000; 2% of sites not PASS and 0.5% of calls './.'
+   release (``synth.write_synthetic_vcf``: 2,504 samples, 50,000
+   records, the last 5,000 on X, as BGZF BCF, raw BCF and a BGZF VCF
+   of the first 10,000; 2% of sites not PASS and 0.5% of calls './.'
    added): (a) K11 (``variant_unpack``: one launch a span writes CHROM /
    POS, every GT group's dosages, the tile's pads and the flags from
    one packed metadata array) bit for bit against its plain version in
@@ -158,11 +159,29 @@ Phases (any failure raises and exits non-zero):
    to the generator's full scan; (b) the main path's BAM sorted on
    cuda:0 by ``sort_bam_mesh`` with the index, bytes and spill
    (``SORT_ROUNDS`` rounds) exchanges, each output and its ``.bai`` and
-   ``.sbi`` byte-identical to the port's host ``sort_bam``, K1 launched
-   inside the index step; K15's index step (at the main path's shape)
-   and bytes step (at a spill round's) equal to their CPU runs, and the
-   index step timed beside K1's plain gather, one stable ``torch.sort``
-   of its keys and its bound.
+   ``.sbi`` byte-identical to the port's host ``sort_bam`` (phase 11's
+   sorted copy), K1 launched inside the index step; K15's index step (at
+   the main path's shape) and bytes step (at a spill round's) equal to
+   their CPU runs, and the index step timed beside K1's plain gather,
+   one stable ``torch.sort`` of its keys and its bound;
+17. duplicate marking (``prep.markdup_bam_mesh``): (a) K16a
+   (``markdup_columns``, ``csrc/markdup_cols.cu``) bit for bit against
+   its plain version on every ``synth.MARKDUP_CASES`` row (clips on
+   either end, all-clip, no CIGAR, both strands, mate unmapped,
+   secondary, supplementary, 0xFF qualities, pos near 0, wraps), pads
+   and a CIGAR past the tile; (b) ``MKDUP_READS`` reads of
+   ``synth.write_markdup_bam`` (about 10% of pairs copies of another,
+   three read groups over two libraries) marked with
+   ``library_from="rg"`` in rounds of ``MKDUP_ROUND``: every record's
+   flag equal to the generator's truth, the co-written ``.bai`` serving
+   a region with ``build_bai`` refused, the three stages' walls, the
+   device-busy share of a profiled re-run; (b2)
+   ``MKDUP_ORACLE_READS`` reads byte-identical (with ``.bai`` and
+   ``.sbi``) to the port's ``markdup_bam_oracle`` in both library
+   modes, one removing duplicates; K16a checked and timed at (b)'s
+   round tile, and (c) K16b (``markdup_exchange_step``, torch ops) equal
+   to its CPU run at (b)'s shape and timed beside one stable
+   ``torch.sort`` of as many keys.
 
 The plan memo would let a repeated call skip planning, so every timed
 driver call of phases 5, 9 and 11 and of ``--times`` / ``--turns``
@@ -191,7 +210,8 @@ pass with its unpack wall;
 ``variant_floor``: K11's launch at that chunk split by part (the
 header's mode set to each part alone);
 ``variant_plane``: phase 15 alone; ``sort_query``: phase 16 alone
-(its variant files written here); ``native_plane``: the native plane's three
+(its variant files written here); ``mkdup``: phase 17 alone;
+``native_plane``: the native plane's three
 drivers of phase 5, warmed up, five rounds in turn; ``bai_regions``:
 phase 11 (d)'s ``.bai`` runs on a sorted copy of the reads kept beside
 the BAM, with walls and peak resident set sizes) and prints them as
@@ -531,7 +551,8 @@ def make_bam(args):
     # --times runs earlier trees too, whose generator has no regions and
     # no FASTQ copy; phase 12 reads the FASTQ of the same generation
     extra = {} if args.times else {"regions": REGIONS,
-                                   "fastq": fastq_path(path)}
+                                   "fastq": fastq_path(path),
+                                   "keep_columns": True}
     truth = write_synthetic_bam(path, args.reads, args.seed, **extra)
     log(f"synthesized {args.reads} reads (seed {args.seed}) -> "
         f"{os.path.getsize(path)} bytes in {time.perf_counter() - t0:.1f} s"
@@ -2090,12 +2111,16 @@ def _sidecars(path):
 
 
 def phase_planning(torch, path, truth, card, dev, args, native_walls,
-                   device_walls, guessed_plan_s, interval_walls):
+                   device_walls, guessed_plan_s, interval_walls,
+                   sorted_oracle=None):
     """Phase 11: the splitting index, the plan memo, .bai trimming and
     the fused decode through the entry points; returns the launches of
-    its runs, and the coordinate-sorted copy with its ``.bai`` and its
-    truth (refid and pos columns kept), which phase 13 queries and then
-    removes."""
+    its runs, and the coordinate-sorted copy (the host ``sort_bam`` of
+    the BAM) with its ``.bai`` and its truth (the generator's refid and
+    pos columns in the sort's order), which phase 13 queries and then
+    removes.  ``sorted_oracle``
+    (a dict) receives the copy's wall, record count and SHA-256 digests
+    with its co-written ``.bai`` and ``.sbi``: phase 16's oracle."""
     log("== phase 11: span planning and fused decode on cuda:0")
     import numpy as np
     from hadoop_bam_torch.api import open_bam
@@ -2106,8 +2131,8 @@ def phase_planning(torch, path, truth, card, dev, args, native_walls,
     from hadoop_bam_torch.split.splitting_index import (
         SplittingIndex, write_splitting_index,
     )
-    from hadoop_bam_torch.synth import write_synthetic_bam
     from hadoop_bam_torch.utils.metrics import METRICS
+    from hadoop_bam_torch.utils.sort import sort_bam
     reset_launches()
     size = os.path.getsize(path)
     work = os.path.join(os.path.dirname(path), "phase11")
@@ -2131,15 +2156,29 @@ def phase_planning(torch, path, truth, card, dev, args, native_walls,
         idx = SplittingIndex.load_for(link)
         check(len(idx.voffsets) == -(-truth.n_reads // 4096) + 1,
               "the splitting index samples every 4096th read")
-        srt_truth, w_synth = _timed(lambda: write_synthetic_bam(
-            srt, args.reads, args.seed, regions=REGIONS,
-            coordinate_sorted=True, keep_columns=True))
+        # the sorted copy is the port's host sort of the same reads (the
+        # generator's sorted rewrite took 59.5 s of the 1200), and phase
+        # 16 holds its mesh sorts to these bytes
+        n_sorted, w_sort = _timed(lambda: sort_bam(path, srt,
+                                                   run_records=1 << 40))
+        check(n_sorted == truth.n_reads, "the sorted copy holds every read")
+        if sorted_oracle is not None:
+            sorted_oracle.update(wall=w_sort, n=n_sorted, digests={
+                suffix: _digest(srt + suffix)
+                for suffix in ("", ".bai", ".sbi")})
+        # the query oracle's columns: the generator's, in the order a
+        # coordinate sort gives (unplaced reads last, ties by input index)
+        order = np.lexsort((np.arange(truth.n_reads), truth.pos,
+                            np.where(truth.refid < 0, 2**32,
+                                     truth.refid.astype(np.int64))))
+        srt_truth = dataclasses.replace(truth, refid=truth.refid[order],
+                                        pos=truth.pos[order])
         _, w_bai = _timed(lambda: write_bai(srt))
         log(f"(a) .splitting-bai of {size} bytes: {len(idx.voffsets)} "
             f"offsets, {os.path.getsize(link + '.splitting-bai')} bytes in "
-            f"{w_sbai:.3f} s; the reads coordinate-sorted "
-            f"({os.path.getsize(srt)} bytes, {w_synth:.1f} s), its .bai "
-            f"{os.path.getsize(srt + '.bai')} bytes in {w_bai:.3f} s "
+            f"{w_sbai:.3f} s; the reads coordinate-sorted by the host "
+            f"sort_bam ({os.path.getsize(srt)} bytes, {w_sort:.1f} s), its "
+            f".bai {os.path.getsize(srt + '.bai')} bytes in {w_bai:.3f} s "
             f"[{card}]")
 
         # (b) plans snapped to the splitting index
@@ -2622,13 +2661,13 @@ def phase_reads(torch, path, truth, card, dev, args, native_walls):
 # has one, called as fn(torch, path, dev) -> a JSON-able dict
 # phase 13: the coverage BAM piles half of --reads (1,000,000 at the
 # default) over chr20:1-10,000,000, about 15x, and the batch holds the
-# first 500 of QUERY_DRAWN regions (phase 14 serves the first 200 of
-# them, as before the cut): depth cut from 2,000,000 reads and 1,000
-# regions so that the smoke with phase 15 stays near 950 s of its 1200
+# first 250 of QUERY_DRAWN regions (phase 14 serves the first 200 of
+# them, as before the cuts): depth cut from 2,000,000 reads and 1,000
+# regions (500 until phase 17 came) to keep the smoke in its 1200 s
 COV_SPAN = 10_000_000
 CHR20_LEN = 64_444_167
 QUERY_DRAWN = 1000
-QUERY_REGIONS = 500
+QUERY_REGIONS = 250
 
 
 def _k12_tiles(torch, cov, dev, rows, mc, copies):
@@ -3730,12 +3769,12 @@ def interval_floor_times(torch, path, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 # the 1000 Genomes phase 3 layout (synth.write_synthetic_vcf): full width,
-# cut in depth to 100,000 records, the last 10,000 on X; the BGZF VCF
-# holds the first 20,000
+# cut in depth to 50,000 records (100,000 until phase 17 came), the last
+# 5,000 on X; the BGZF VCF holds the first 10,000
 VARIANT_SAMPLES = 2504
-VARIANT_RECORDS = 100_000
-VARIANT_X = 10_000
-VARIANT_VCF = 20_000
+VARIANT_RECORDS = 50_000
+VARIANT_X = 5_000
+VARIANT_VCF = 10_000
 
 
 def _variant_wrappers():
@@ -4407,13 +4446,14 @@ def _k15_check_and_time(torch, path, dev, card) -> dict:
             "main_path_shape": f"R = {R}, {n} records"}
 
 
-def phase_sort_query(torch, path, card, dev, seed, variant):
+def phase_sort_query(torch, path, card, dev, seed, variant, oracle=None):
     """Phase 16: (a) region queries through ``.tbi`` sidecars on phase
     15's BGZF BCF and VCF (``variant`` from ``phase_variant(keep=...)``;
     or written here when None), each equal to the generator's full scan;
     (b) the mesh sort of the main path's BAM through each exchange on
-    cuda:0, byte-identical to the port's host ``sort_bam``, then K15
-    against its CPU run and timed.  Returns the K15 row and the
+    cuda:0, byte-identical to the port's host ``sort_bam`` (phase 11's
+    run of it when ``oracle`` holds its digests, else run here), then
+    K15 against its CPU run and timed.  Returns the K15 row and the
     launches of (b)'s sorts."""
     log("== phase 16: variant region queries and the mesh sort on cuda:0")
     import numpy as np
@@ -4489,14 +4529,19 @@ def phase_sort_query(torch, path, card, dev, seed, variant):
     # (b) the mesh sort of the main path's reads
     work = os.path.splitext(path)[0] + "_sort"
     os.makedirs(work, exist_ok=True)
-    oracle = os.path.join(work, "host.bam")
     try:
-        n, wall = _timed(lambda: sort_bam(path, oracle,
-                                          run_records=1 << 40))
-        log(f"(b) host sort_bam (one run, the oracle): {n} records in "
-            f"{wall:.3f} s, {n / wall:,.0f} records/s [{card}]")
-        want = {suffix: _digest(oracle + suffix)
-                for suffix in ("", ".bai", ".sbi")}
+        if oracle:
+            n, wall, want = oracle["n"], oracle["wall"], oracle["digests"]
+            log(f"(b) host sort_bam (one run, the oracle): phase 11's, {n} "
+                f"records in {wall:.3f} s, {n / wall:,.0f} records/s")
+        else:
+            host = os.path.join(work, "host.bam")
+            n, wall = _timed(lambda: sort_bam(path, host,
+                                              run_records=1 << 40))
+            log(f"(b) host sort_bam (one run, the oracle): {n} records in "
+                f"{wall:.3f} s, {n / wall:,.0f} records/s [{card}]")
+            want = {suffix: _digest(host + suffix)
+                    for suffix in ("", ".bai", ".sbi")}
         rr = -(-n // SORT_ROUNDS)
         runs = (("index", {}), ("bytes", {"exchange": "bytes"}),
                 ("spill", {"round_records": rr}))
@@ -4544,6 +4589,345 @@ def sort_query_times(torch, path, dev) -> dict:
     return {"K15": row, "launches": launches}
 
 
+MKDUP_READS = 2_000_000      # phase 17 (b): reads of the duplicate-bearing BAM
+MKDUP_ROUND = 1_000_000      # the reference's default round: two rounds
+MKDUP_ORACLE_READS = 100_000  # phase 17 (b2): the depth held to the oracle
+
+
+def _flags_of(path):
+    """Every record's FLAG in file order (the host span decode)."""
+    import numpy as np
+    from hadoop_bam_torch.parallel.pipeline import map_file_spans
+    return np.concatenate([
+        d[o.astype(np.int64)[:, None] + np.arange(18, 20)].copy()
+        .view("<u2").ravel()
+        for d, o in map_file_spans(path, lambda d, o, v: (d, o))]
+    ).astype(np.int64)
+
+
+def _k16a_cases(torch, dev) -> int:
+    """K16a against its plain version on ``synth.MARKDUP_CASES`` (and
+    ``markdup_rows``' pads and tile-end row), at the rows' CIGAR width and
+    below it, the tile 16 bytes off its allocation too, twice each."""
+    from hadoop_bam_torch import synth
+    from hadoop_bam_torch.prep import markdup as md
+    n = 0
+    for seed in (0, 1):
+        rows, lib, count, _ = synth.markdup_rows(seed=seed)
+        for kmax in (synth.rows_kmax(rows), 2, 0):
+            want = md.markdup_columns_plain(
+                torch.from_numpy(rows), torch.arange(rows.shape[0]) < count,
+                torch.from_numpy(lib), kmax)
+            for shift in (0, 16):
+                base = torch.zeros(rows.size + shift, dtype=torch.uint8,
+                                   device=dev)
+                rt = base[shift:].view(rows.shape)
+                rt.copy_(torch.from_numpy(rows))
+                for _ in range(2):
+                    got = md.markdup_columns(rt, count,
+                                             torch.from_numpy(lib).to(dev),
+                                             kmax)
+                    sync(torch, dev)
+                    check(torch.equal(got[0].cpu(), want[0])
+                          and torch.equal(got[1].cpu(), want[1]),
+                          f"K16a equals its plain version (seed {seed}, "
+                          f"kmax {kmax}, offset {shift})")
+                n += 1
+    return n
+
+
+def _k16_round(torch, path, dev):
+    """Round 0 of (b)'s run as the pipeline packs it: its rows, lengths,
+    library column (``library_from="rg"``) and CIGAR width."""
+    import numpy as np
+    from hadoop_bam_torch.config import DEFAULT_CONFIG
+    from hadoop_bam_torch.formats.bamio import read_bam_header
+    from hadoop_bam_torch.parallel import mesh_sort as ms
+    from hadoop_bam_torch.prep import markdup as md
+    from hadoop_bam_torch.prep.oracle import library_column, library_map
+    header, _ = read_bam_header(path)
+    span = ms._spill_plan(path, header, MKDUP_ROUND, 1)[0]
+    data, offs = ms._decode(path, span, DEFAULT_CONFIG)
+    lens = ms._record_lens(data, offs)
+    count = int(offs.size)
+    R = ms._round_up(count, 1024)
+    stride = 1 << max(6, int(max(int(lens.max()), 36) - 1).bit_length())
+    kmax = md.host_kmax(data, offs)
+    lib = np.zeros(R, np.uint32)
+    lib[:count] = library_column(data, offs, lens, library_map(header, "rg"))
+    rows, ln = ms.pack_rows(torch.from_numpy(data).to(dev), offs, lens, R,
+                            stride)
+    b = offs.astype(np.int64)
+    n_cigar = data[b[:, None] + np.arange(16, 18)].view("<u2").ravel()
+    l_seq = data[b[:, None] + np.arange(20, 24)].view("<i4").ravel()
+    # each row's 28 bytes of fixed fields (refid through next_pos) and
+    # library number read, its 25 output bytes written; each record's
+    # CIGAR words and quality run read
+    nbytes = R * (28 + 4 + 25) + int(4 * n_cigar.astype(np.int64).sum()
+                                     + l_seq.astype(np.int64).sum())
+    return {"rows": rows, "lens": ln, "count": count, "R": R,
+            "stride": stride, "kmax": 1 << (kmax - 1).bit_length(),
+            "lib": torch.from_numpy(lib).to(dev), "nbytes": nbytes}
+
+
+def _k16a_check_and_time(torch, rnd, card) -> dict:
+    """K16a at a round's tile: bit for bit against its plain version on
+    the same card inputs, then its device time, its calls in a row, the
+    plain version's time and its bound."""
+    from hadoop_bam_torch.prep import markdup as md
+    rows, lib, count, kmax = rnd["rows"], rnd["lib"], rnd["count"], rnd["kmax"]
+    valid = torch.arange(rnd["R"], device=rows.device) < count
+    got = md.markdup_columns(rows, count, lib, kmax)
+    want = md.markdup_columns_plain(rows, valid, lib, kmax)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "K16a equals its plain version at the round's tile")
+    del want
+    calls = [lambda: md.markdup_columns(rows, count, lib, kmax)]
+    ms_ = device_ms(torch, calls, reps=16, kernel="markdup_cols_kernel")
+    ms_by = device_ms.how
+    looped = loop_ms(torch, calls, reps=16)
+    plain_ms = device_ms(torch, [lambda: md.markdup_columns_plain(
+        rows, valid, lib, kmax)], reps=4)
+    bound = rnd["nbytes"] / H100_BYTES_PER_S * 1e3
+    log(f"(a) K16a at the round's tile [{rnd['R']}, {rnd['stride']}] "
+        f"({count} records, CIGAR width {kmax}): bit-equal to plain; "
+        f"{ms_:.4f} ms by {ms_by}, {looped:.4f} ms a call in a row by "
+        f"events, plain {plain_ms:.4f} ms, bound {bound:.6f} ms = "
+        f"{rnd['nbytes']} B / 3.35 TB/s, {100 * bound / ms_:.1f}% of it "
+        f"[{card}]")
+    return {"name": "markdup_columns", "route": "cuda",
+            "source": "hadoop_bam_torch/csrc/markdup_cols.cu",
+            "replaces": "hadoop_bam_tpu/prep/markdup.py:69",
+            "max_abs_err": 0, "ms": ms_, "ms_by": ms_by, "loop_ms": looped,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": None,
+            "main_path_shape": f"[{rnd['R']}, {rnd['stride']}], {count} "
+                               f"records"}
+
+
+def _k16b_check_and_time(torch, cols_files, dev, card) -> dict:
+    """K16b at (b)'s shape (every eligible record's columns, as stage 2
+    loads them from the round sidecars): equal to its CPU run, then its
+    device time, its calls in a row, one stable ``torch.sort`` of as many
+    int64 keys and its bound."""
+    import numpy as np
+    from hadoop_bam_torch.parallel.mesh_sort import _round_up
+    from hadoop_bam_torch.prep import markdup as md
+    from hadoop_bam_torch.prep.pipeline import _SIG
+    sig = {n: [] for n in _SIG}
+    for p in cols_files:
+        with np.load(p) as z:
+            for n in _SIG:
+                sig[n].append(z[n])
+    m = int(sum(a.size for a in sig["gidx"]))
+    cap = _round_up(m, 1024)
+
+    def padded(name, dtype):
+        out = torch.zeros(cap, dtype=dtype)
+        out[:m] = torch.from_numpy(np.concatenate(sig[name]))
+        return out
+
+    host = [padded(n, torch.uint32) for n in _SIG[:6]] + \
+        [padded("gidx", torch.int32)]
+    args = [a.to(dev) for a in host]
+    got = md.markdup_exchange_step(*args, m)
+    want = md.markdup_exchange_step(*host, m)
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+          "K16b on the card equals its CPU run")
+    calls = [lambda: md.markdup_exchange_step(*args, m)]
+    ms_ = device_ms(torch, calls, reps=8)
+    ms_by = device_ms.how
+    if ms_by == "events in a row":
+        # no profiler session was whole: the step's kernels in one CUDA
+        # graph give its device time without the host's launches
+        graphed = graph_ms(torch, calls, reps=8)
+        if graphed == graphed:
+            ms_, ms_by = graphed, "one CUDA graph"
+    looped = loop_ms(torch, calls, reps=8)
+    key = torch.randint(-(1 << 62), 1 << 32, (m,), device=dev)
+    lib_ms = device_ms(torch, [lambda: torch.sort(key, stable=True)],
+                       reps=16)
+    # the 7 columns of each eligible record read once, each row's int32
+    # index and duplicate bit written once
+    nbytes = 28 * m + 5 * cap
+    bound = nbytes / H100_BYTES_PER_S * 1e3
+    log(f"(c) K16b at (b)'s shape ({m} eligible records, {cap} rows): "
+        f"equal to its CPU run; {ms_:.4f} ms by {ms_by}, {looped:.4f} ms a "
+        f"call in a row by events, one stable torch.sort of {m} int64 "
+        f"keys {lib_ms:.4f} ms, bound {bound:.6f} ms = {nbytes} B / "
+        f"3.35 TB/s [{card}]")
+    return {"name": "markdup_exchange_step", "route": "cuda",
+            "form": "torch ops (no hand kernel)",
+            "source": "hadoop_bam_torch/prep/markdup.py",
+            "replaces": "hadoop_bam_tpu/prep/markdup.py:214",
+            "max_abs_err": 0, "ms": ms_, "ms_by": ms_by, "loop_ms": looped,
+            "plain_ms": ms_, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": lib_ms,
+            "main_path_shape": f"{m} eligible records, {cap} rows"}
+
+
+def _scan_overlaps(path, rid, beg, end) -> int:
+    """Records of a BAM overlapping a 1-based inclusive region, by a full
+    decode (the query engine's overlap rule)."""
+    import numpy as np
+    from hadoop_bam_torch.formats.bam import BamBatch
+    from hadoop_bam_torch.parallel.pipeline import map_file_spans
+    n = 0
+    for data, offs in map_file_spans(path, lambda d, o, v: (d, o)):
+        b = BamBatch(data, offs)
+        pos1 = b.pos.astype(np.int64) + 1
+        end1 = pos1 + np.maximum(b.reference_span(), 1) - 1
+        n += int(((b.refid == rid) & (pos1 <= end) & (end1 >= beg)).sum())
+    return n
+
+
+def phase_mkdup(torch, path, card, dev, seed):
+    """Phase 17: duplicate marking on cuda:0.  (a) K16a against its plain
+    version in every ``synth.MARKDUP_CASES`` case; (b) ``markdup_bam_mesh``
+    over ``MKDUP_READS`` reads of ``synth.write_markdup_bam`` in rounds of
+    ``MKDUP_ROUND`` with ``library_from="rg"``: every record's flag equal
+    to the generator's truth, the co-written ``.bai`` serving a region
+    with no rescan, a profiled re-run's busy share; (b2) at
+    ``MKDUP_ORACLE_READS`` reads, byte-identical
+    to the port's ``markdup_bam_oracle`` with both library modes (one
+    removing duplicates); K16a checked and timed at (b)'s round tile and
+    (c) K16b at (b)'s shape.  Returns the K16a and K16b rows and the
+    launches of (b)'s run."""
+    log("== phase 17: duplicate marking (mkdup) on cuda:0")
+    import dataclasses
+    import shutil
+    import numpy as np
+    from hadoop_bam_torch import synth
+    from hadoop_bam_torch.config import DEFAULT_CONFIG
+    from hadoop_bam_torch.parallel import mesh_sort as ms
+    from hadoop_bam_torch.prep import markdup as md
+    from hadoop_bam_torch.prep import markdup_bam_mesh, markdup_bam_oracle
+    from hadoop_bam_torch.query import QueryEngine, QueryRequest
+    from hadoop_bam_torch.split import bai as bai_mod
+    from hadoop_bam_torch.utils.metrics import MetricsContext
+    n_cases = _k16a_cases(torch, dev)
+    log(f"(a) K16a bit-equal to its plain version in {n_cases} tiles of "
+        f"the {len(synth.MARKDUP_CASES)} MARKDUP_CASES rows, twice each")
+    work = os.path.join(os.path.dirname(os.path.abspath(path)), "phase17")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        src = os.path.join(work, "md.bam")
+        truth, wall = _timed(lambda: synth.write_markdup_bam(
+            src, MKDUP_READS, seed))
+        log(f"(b) {MKDUP_READS} paired 151-bp reads, {truth.copy_pairs} "
+            f"pairs copying another (5' clips, other qualities, three read "
+            f"groups over two libraries) in {wall:.1f} s: "
+            f"{os.path.getsize(src)} bytes; the truth marks "
+            f"{int(truth.dup['rg'].sum())} ('rg') / "
+            f"{int(truth.dup['none'].sum())} ('none') duplicates")
+        out = os.path.join(work, "out.bam")
+        keep = dataclasses.replace(DEFAULT_CONFIG, debug_keep_spill=True)
+        wrappers = (md.markdup_columns, md.markdup_exchange_step,
+                    ms.bytes_sort_step, md.fused_sort_markdup_step)
+        for w in wrappers:
+            w.launches = 0
+        with MetricsContext() as mc:
+            n, wall = _timed(lambda: markdup_bam_mesh(
+                src, out, device=dev, library_from="rg",
+                round_records=MKDUP_ROUND, config=keep))
+        launches = {"markdup_columns": md.markdup_columns.launches,
+                    "markdup_exchange_step":
+                        md.markdup_exchange_step.launches,
+                    "mesh_sort_step": ms.bytes_sort_step.launches}
+        snap = mc.snapshot()
+        check(n == MKDUP_READS, f"mkdup wrote {n} records")
+        check(np.array_equal(_flags_of(out), truth.output_flags("rg")),
+              "every output flag equals the generator's truth")
+        n_dup = int(snap["counters"].get("prep.duplicates_marked", -1))
+        check(n_dup == int(truth.dup["rg"].sum()),
+              "the duplicates marked equal the truth's")
+        check(launches["markdup_columns"] == 2
+              and launches["markdup_exchange_step"] == 1
+              and launches["mesh_sort_step"] == 2,
+              f"the run launched K16a a round, K16b once: {launches}")
+        walls = snap["wall_timers"]
+        log(f"(b) markdup_bam_mesh(library_from='rg', round_records="
+            f"{MKDUP_ROUND}): {wall:.3f} s, {n / wall:,.0f} records/s, "
+            f"{n_dup} duplicates marked ({100 * n_dup / n:.2f}%), every "
+            f"flag equal to the truth; stages: sort "
+            f"{walls.get('prep.sort_wall', 0):.3f} s, markdup "
+            f"{walls.get('prep.markdup_wall', 0):.3f} s, write "
+            f"{walls.get('prep.write_wall', 0):.3f} s; launches {launches} "
+            f"[{card}]")
+        cols_files = sorted(
+            os.path.join(out + ".mkdup-spill", f)
+            for f in os.listdir(out + ".mkdup-spill") if f.startswith("cols"))
+        busy_out = os.path.join(work, "busy.bam")
+        pwall, busy, by_name = device_busy(torch, lambda: markdup_bam_mesh(
+            src, busy_out, device=dev, library_from="rg",
+            round_records=MKDUP_ROUND))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        log(f"(b) the same run profiled: {pwall:.3f} s wall, device busy "
+            f"{busy:.4f} s ({100 * busy / pwall:.2f}%); top: "
+            + "; ".join(f"{k[:60]} {v * 1e3:.2f} ms" for k, v in top)
+            + f" [{card}]")
+        for suffix in ("", ".bai", ".sbi"):
+            os.remove(busy_out + suffix)
+        real = bai_mod.build_bai
+
+        def no_rescan(*a, **kw):
+            raise RuntimeError("build_bai called: the co-written .bai "
+                               "should serve the query")
+        bai_mod.build_bai = no_rescan
+        try:
+            (res,), qwall = _timed(lambda: QueryEngine(device=dev)
+                                   .query_records([QueryRequest(
+                                       out, "chr20:20000000-20500000")]))
+        finally:
+            bai_mod.build_bai = real
+        want = _scan_overlaps(out, 0, 20_000_000, 20_500_000)
+        check(len(res.records) == want > 0,
+              f"the .bai query found {len(res.records)} of {want} records")
+        log(f"(b) chr20:20000000-20500000 through the co-written .bai, "
+            f"build_bai refused: {len(res.records)} records in {qwall:.3f} "
+            f"s, equal to a full scan")
+
+        # (b2) byte identity with the oracle, at a cut depth
+        small = os.path.join(work, "small.bam")
+        st = synth.write_markdup_bam(small, MKDUP_ORACLE_READS, seed + 1)
+        for lf, rm in (("rg", False), ("none", True)):
+            a, b = os.path.join(work, "m.bam"), os.path.join(work, "o.bam")
+            na, wa = _timed(lambda: markdup_bam_mesh(
+                small, a, device=dev, library_from=lf, remove_duplicates=rm,
+                round_records=MKDUP_ORACLE_READS // 2))
+            nb, wb = _timed(lambda: markdup_bam_oracle(
+                small, b, library_from=lf, remove_duplicates=rm))
+            check(na == nb == MKDUP_ORACLE_READS - (
+                int(st.dup[lf].sum()) if rm else 0), f"(b2) {lf} counts")
+            for suffix in ("", ".bai", ".sbi"):
+                check(_digest(a + suffix) == _digest(b + suffix),
+                      f"(b2) {lf}{suffix} byte-identical to the oracle")
+            if not rm:
+                check(np.array_equal(_flags_of(a), st.output_flags(lf)),
+                      f"(b2) {lf}: every flag equals the truth")
+            log(f"(b2) {MKDUP_ORACLE_READS} reads, library_from={lf!r}, "
+                f"remove_duplicates={rm}: the pipeline {wa:.3f} s, the "
+                f"oracle {wb:.3f} s, {na} records; output, .bai and .sbi "
+                f"byte-identical [{card}]")
+
+        rnd = _k16_round(torch, src, dev)
+        row_a = _k16a_check_and_time(torch, rnd, card)
+        del rnd
+        row_b = _k16b_check_and_time(torch, cols_files, dev, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 17 launches: {launches}")
+    return {"markdup_columns": row_a, "markdup_exchange_step": row_b}, \
+        launches
+
+
+def mkdup_times(torch, path, dev) -> dict:
+    """``--times mkdup``: phase 17 alone."""
+    rows, launches = phase_mkdup(torch, path, card_line(), dev, 0)
+    return {"K16": rows, "launches": launches}
+
+
 TIMES = {"walk_records_device": k9_times, "resolve_pack": k7_times,
          "payload_gather": k10p_times, "device_plane": device_plane_times,
          "native_plane": native_plane_times, "k2_window": k2_window_times,
@@ -4554,7 +4938,7 @@ TIMES = {"walk_records_device": k9_times, "resolve_pack": k7_times,
          "interval_floor": interval_floor_times,
          "variant_gt": variant_gt_times, "variant_floor": variant_floor_times,
          "variant_plane": variant_plane_times,
-         "sort_query": sort_query_times}
+         "sort_query": sort_query_times, "mkdup": mkdup_times}
 
 
 def check_truth(flag, stats, truth) -> None:
@@ -4631,9 +5015,10 @@ def main(argv=None) -> int:
     resilience_launches = phase_resilience(torch, path, truth, card, dev,
                                            native_walls, args.seed,
                                            interval_walls)
+    sorted_oracle = {}
     planning_launches, srt, srt_truth = phase_planning(
         torch, path, truth, card, dev, args, native_walls, device_walls,
-        plan_s, interval_walls)
+        plan_s, interval_walls, sorted_oracle)
     reads_launches, k2_window = phase_reads(torch, path, truth, card, dev,
                                             args, native_walls)
     steps, served = phase_coverage_query(torch, path, truth, card, dev, args,
@@ -4646,8 +5031,10 @@ def main(argv=None) -> int:
                                                args.seed, keep=variant_files)
     rows.update(k11)
     k15, sort_launches = phase_sort_query(torch, path, card, dev, args.seed,
-                                          variant_files)
+                                          variant_files, sorted_oracle)
     rows["mesh_sort_step"] = k15
+    k16, mkdup_launches = phase_mkdup(torch, path, card, dev, args.seed)
+    rows.update(k16)
     rows["seq_qual_stats"].update(k2_window)
     for name, x in list(rows.items()) + [
             ("seq_qual_stats at the window shape",
@@ -4673,7 +5060,8 @@ def main(argv=None) -> int:
                    "reads": on(reads_launches),
                    "serve": serve_launches.get(name, 0),
                    "variant": variant_launches.get(name, 0),
-                   "sort": sort_launches.get(name, 0)}
+                   "sort": sort_launches.get(name, 0),
+                   "mkdup": mkdup_launches.get(name, 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["share_of_bound"] = row["bound_ms"] / row["ms"]

@@ -13,15 +13,19 @@ from hadoop_bam_torch.utils.seekable import as_byte_source
 
 class BamWriter:
     """Streaming BAM writer: header, then pre-encoded record bytes, then
-    the BGZF EOF block."""
+    the BGZF EOF block.  ``write_header`` / ``write_eof`` off make the
+    headerless, unterminated parts a sharded write concatenates."""
 
-    def __init__(self, sink, header: SAMHeader, *, level: int = 6):
+    def __init__(self, sink, header: SAMHeader, *, level: int = 6,
+                 write_header: bool = True, write_eof: bool = True):
         self._own = isinstance(sink, str)
         self._sink = open(sink, "wb") if self._own else sink
         self.header = header
-        self._w = bgzf.BGZFWriter(self._sink, level=level)
+        self._w = bgzf.BGZFWriter(self._sink, level=level,
+                                  write_eof=write_eof)
         self.records_written = 0
-        self._w.write(header.to_bam_bytes())
+        if write_header:
+            self._w.write(header.to_bam_bytes())
 
     def write_record_bytes(self, rec: bytes) -> None:
         self._w.write(rec)

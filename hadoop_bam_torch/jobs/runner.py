@@ -1,9 +1,9 @@
 """Job-level resume policy (trimmed copy of hadoop_bam_tpu/jobs/runner.py):
 which config fields a job kind's resume contract fingerprints, the
 job-grain idempotence wrapper, and ``resume_job``, which re-drives the
-job a journal describes.  The port resumes the mesh sort's kinds; the
-duplicate-marking and cohort kinds raise PlanError until the port has
-those pipelines (ROADMAP Queue 1 items 10 and 11).
+job a journal describes.  The port resumes the mesh sort's kinds and
+duplicate marking; the cohort kind raises PlanError until the port has
+that pipeline (ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -113,10 +113,28 @@ def resume_job(journal_path: str, config=None, device=None) -> Dict:
                 round_records=params.get("round_records"),
                 journal_path=journal_path)
             return {"kind": kind, "output": params["output"], "records": n}
-    if kind in ("mkdup", "cohort_join"):
+        if kind == "mkdup":
+            from hadoop_bam_torch.prep.pipeline import markdup_bam_mesh
+            missing = [k for k in ("input", "output") if k not in params]
+            if missing:
+                raise PlanError(
+                    f"journal {journal_path} records a 'mkdup' job without "
+                    f"its {missing} params: no duplicate-marking run of "
+                    f"the port wrote it")
+            n = markdup_bam_mesh(
+                params["input"], params["output"], device=device,
+                config=config,
+                remove_duplicates=bool(params.get("remove_duplicates",
+                                                  False)),
+                library_from=params.get("library_from", "none"),
+                round_records=params.get("round_records"),
+                journal_path=journal_path)
+            return {"kind": kind, "output": params["output"], "records": n}
+    if kind == "cohort_join":
         raise PlanError(
             f"journal {journal_path} records a {kind!r} job: the port has "
-            f"no such pipeline yet (ROADMAP Queue 1 items 10 and 11)")
+            f"no such pipeline yet (ROADMAP Queue 1 item 11)")
     raise PlanError(
         f"journal {journal_path} records job kind {kind!r}, which the port "
-        f"cannot resume (resumable kinds: mesh_sort_spill, mesh_sort)")
+        f"cannot resume (resumable kinds: mesh_sort_spill, mesh_sort, "
+        f"mkdup)")

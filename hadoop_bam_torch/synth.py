@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import re
 import struct
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -169,6 +170,27 @@ def flagstat_oracle(flag: np.ndarray, refid: np.ndarray,
 def _chunk(rng: np.random.Generator, first_pair: int, n_pairs: int):
     """Records of pairs [first_pair, first_pair + n_pairs), mates adjacent."""
     n = 2 * n_pairs
+    rec, cols = _chunk_fields(rng, first_pair, n_pairs)
+    codes = _CODES[np.searchsorted(np.cumsum(_CODE_P),
+                                   rng.random((n, READ_LEN)), side="right")
+                   .clip(max=_CODES.size - 1)]
+    cycle = np.arange(READ_LEN)[None, :]
+    qual = np.rint(rng.normal(37.0 - 0.04 * cycle, 3.0, (n, READ_LEN)))
+    low = rng.random((n, READ_LEN)) < 0.03
+    qual = np.where(low, rng.integers(2, 13, (n, READ_LEN)), qual)
+    qual = qual.clip(2, 41).astype(np.uint8)
+    padded = np.concatenate([codes, np.zeros((n, 1), np.uint8)], 1) \
+        if READ_LEN % 2 else codes
+    rec["seq"] = (padded[:, 0::2] << 4) | padded[:, 1::2]
+    rec["qual"] = qual
+    return rec, codes, qual, cols
+
+
+def _chunk_fields(rng: np.random.Generator, first_pair: int, n_pairs: int):
+    """The fixed fields, names and 151M CIGARs of ``_chunk``'s records
+    (placement, flags, MAPQ, mates) and its flagstat columns, drawn
+    first from ``rng``; bases and qualities are left zero."""
+    n = 2 * n_pairs
     lens = np.array([l for _, l in CONTIGS], np.int64)
     pair = first_pair + np.arange(n_pairs)
     contig = rng.integers(0, len(CONTIGS), n_pairs)
@@ -208,15 +230,6 @@ def _chunk(rng: np.random.Generator, first_pair: int, n_pairs: int):
                                           rng.integers(5, 61, n)))
     tlen = np.where(proper, np.where(first, 1, -1) * np.repeat(insert, 2), 0)
 
-    codes = _CODES[np.searchsorted(np.cumsum(_CODE_P),
-                                   rng.random((n, READ_LEN)), side="right")
-                   .clip(max=_CODES.size - 1)]
-    cycle = np.arange(READ_LEN)[None, :]
-    qual = np.rint(rng.normal(37.0 - 0.04 * cycle, 3.0, (n, READ_LEN)))
-    low = rng.random((n, READ_LEN)) < 0.03
-    qual = np.where(low, rng.integers(2, 13, (n, READ_LEN)), qual)
-    qual = qual.clip(2, 41).astype(np.uint8)
-
     rec = np.zeros(n, RECORD)
     rec["block_size"] = RECORD.itemsize - 4
     rec["refid"] = refid
@@ -237,12 +250,7 @@ def _chunk(rng: np.random.Generator, first_pair: int, n_pairs: int):
     rec["name"][:, 0] = ord("r")
     rec["name"][:, 1:9] = 48 + digits
     rec["cigar"] = (READ_LEN << 4) | 0                 # 151M
-    padded = np.concatenate([codes, np.zeros((n, 1), np.uint8)], 1) \
-        if READ_LEN % 2 else codes
-    rec["seq"] = (padded[:, 0::2] << 4) | padded[:, 1::2]
-    rec["qual"] = qual
-    cols = dict(flag=flag, refid=refid, mate_refid=mate_ref, mapq=mapq)
-    return rec, codes, qual, cols
+    return rec, dict(flag=flag, refid=refid, mate_refid=mate_ref, mapq=mapq)
 
 
 def write_synthetic_bam(path: str, n_reads: int, seed: int,
@@ -1431,3 +1439,354 @@ def prefix_rows(n: int, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
     k = min(len(edge), n)
     starts[n - k:] = edge[:k]
     return buf, starts.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# duplicate marking (prep/): K16a's edge rows and a duplicate-bearing BAM
+# ---------------------------------------------------------------------------
+
+_U32 = 0xFFFFFFFF
+_MD_STRIDE = 512                  # a row of the round tile at 151 bp reads
+
+# (name, record fields): "cigar" None is a '*' CIGAR (n_cigar 0); "qual"
+# is "random", "ff" (a missing quality string) or "edge" (14/15/16);
+# "l_seq_field" overrides the l_seq written (the quality run then leaves
+# the record); "lib" is the library column beside the row; a record
+# longer than the row (the long CIGAR) is cut at its end
+MARKDUP_CASES: Tuple[Tuple[str, Dict], ...] = (
+    ("forward 151M", dict(flag=99, pos=10_000, cigar="151M")),
+    ("forward 5S146M", dict(flag=99, pos=10_005, cigar="5S146M")),
+    ("forward 3H148M", dict(flag=99, pos=10_003, cigar="3H148M")),
+    ("forward 2H4S145M", dict(flag=99, pos=10_006, cigar="2H4S145M")),
+    ("reverse 146M5S", dict(flag=147, pos=10_300, cigar="146M5S")),
+    ("reverse 148M3H", dict(flag=147, pos=10_300, cigar="148M3H")),
+    ("reverse 2S144M5H", dict(flag=83, pos=10_300, cigar="2S144M5H")),
+    ("both ends 4S140M7S", dict(flag=163, pos=20_000, cigar="4S140M7S")),
+    ("all clip 10S5H", dict(flag=0, pos=5_000, cigar="10S5H", l_seq=10)),
+    ("all clip reverse", dict(flag=16, pos=5_000, cigar="3H10S5H",
+                              l_seq=10)),
+    ("no CIGAR", dict(flag=0, pos=7_000, cigar=None, l_seq=50)),
+    ("D N I", dict(flag=16, pos=8_000, cigar="10M2D8M3N12M2I7M")),
+    ("= X P", dict(flag=0, pos=8_100, cigar="5=1X20M2P9=")),
+    ("long CIGAR", dict(flag=16, pos=9_000,
+                        cigar="3S" + "4M1I2M1D" * 19 + "9M2H")),
+    ("mate unmapped", dict(flag=73, pos=30_000, cigar="151M")),
+    ("mate reverse", dict(flag=97, pos=30_100, cigar="151M")),
+    ("unpaired reverse", dict(flag=16, pos=30_200, cigar="151M")),
+    ("secondary", dict(flag=355, pos=40_000, cigar="151M")),
+    ("supplementary", dict(flag=2145, pos=40_000, cigar="5H146M")),
+    ("unmapped at its mate", dict(flag=69, pos=40_100, cigar=None)),
+    ("unmapped sentinel", dict(flag=77, refid=-1, pos=-1, cigar=None,
+                               next_refid=-1, next_pos=-1)),
+    ("mate fields -1", dict(flag=1, pos=50_000, cigar="151M",
+                            next_refid=-1, next_pos=-1)),
+    ("duplicate flag set", dict(flag=1123, pos=50_100, cigar="151M")),
+    ("0xFF qualities", dict(flag=99, pos=60_000, cigar="151M", qual="ff")),
+    ("qualities 14 / 15 / 16", dict(flag=99, pos=60_100, cigar="151M",
+                                    qual="edge")),
+    ("pos 0, 5S", dict(flag=99, pos=0, cigar="5S146M")),
+    ("pos 2, 4H", dict(flag=0, pos=2, cigar="4H147M")),
+    ("pos at the int32 edge, reverse", dict(flag=16, pos=2**31 - 100,
+                                            cigar="151M")),
+    ("even l_seq", dict(flag=0, pos=61_000, cigar="150M", l_seq=150)),
+    ("library past 2^29", dict(flag=99, pos=62_000, cigar="151M",
+                               lib=0x3FFFFFFF)),
+    ("library 2^32 - 1", dict(flag=99, pos=62_000, cigar="151M",
+                              lib=_U32)),
+    ("qualities past the row", dict(flag=0, pos=63_000, cigar="151M",
+                                    l_seq_field=5_000)),
+    ("negative l_seq", dict(flag=0, pos=63_100, cigar="151M",
+                            l_seq_field=-3)),
+    ("l_seq 2^31 - 1", dict(flag=0, pos=63_200, cigar="151M",
+                            l_seq_field=2**31 - 1)),
+    ("CIGAR past the row", dict(flag=0, pos=64_000, name_len=200,
+                                cigar="1M" * 120, l_seq=8)),
+)
+# the last (pad) row of ``markdup_rows``: its CIGAR runs past the tile
+_MD_TILE_END = dict(flag=0, pos=65_000, name_len=240, cigar="1M" * 100,
+                    l_seq=8)
+
+
+def _cigar_words(cigar: Optional[str]) -> np.ndarray:
+    if cigar is None:
+        return np.zeros(0, "<u4")
+    return np.asarray([(int(n) << 4) | _OP_CHARS.index(op) for n, op in
+                       re.findall(r"(\d+)([MIDNSHP=X])", cigar)], "<u4")
+
+
+def markdup_record(rng: np.random.Generator, *, flag: int, pos: int,
+                   cigar: Optional[str], refid: int = 0, l_seq: int = 151,
+                   qual: str = "random", next_refid: int = 0,
+                   next_pos: int = 10_250, name_len: int = NAME_LEN,
+                   l_seq_field: Optional[int] = None) -> bytes:
+    """One raw BAM record (block_size first) of a ``MARKDUP_CASES``
+    entry."""
+    words = _cigar_words(cigar)
+    codes = rng.choice(_CODES[:4], l_seq)
+    if l_seq % 2:
+        codes = np.concatenate([codes, [0]])
+    seq = ((codes[0::2] << 4) | codes[1::2]).astype(np.uint8)
+    if qual == "ff":
+        q = np.full(l_seq, 0xFF, np.uint8)
+    elif qual == "edge":
+        q = np.resize(np.array([14, 15, 16], np.uint8), l_seq)
+    else:
+        q = rng.integers(2, 42, l_seq).astype(np.uint8)
+    name = b"m" * (name_len - 1) + b"\x00"
+    body = struct.pack(
+        "<iiBBHHHiiii", refid, pos, name_len, 60, 4680, words.size, flag,
+        l_seq if l_seq_field is None else l_seq_field, next_refid, next_pos,
+        0) + name + words.tobytes() + seq.tobytes() + q.tobytes()
+    return struct.pack("<i", len(body)) + body
+
+
+def markdup_rows(seed: int = 0, stride: int = _MD_STRIDE, pads: int = 5
+                 ) -> Tuple[np.ndarray, np.ndarray, int, Tuple[str, ...]]:
+    """K16a's edge rows: every ``MARKDUP_CASES`` record in a row of a
+    ``stride``-byte tile (cut at the row's end), then ``pads`` rows of
+    random bytes (n_cigar under 256) past ``count``, the last holding a
+    record whose CIGAR runs past the tile.  Returns (rows uint8 [R,
+    stride], lib uint32 [R], count, case names)."""
+    rng = np.random.default_rng(seed)
+    count = len(MARKDUP_CASES)
+    R = count + pads + 1
+    rows = rng.integers(0, 256, (R, stride), dtype=np.uint8)
+    rows[:, 17] = 0
+    lib = rng.integers(0, 4, R).astype(np.uint32)
+    for r, (_name, case) in enumerate(MARKDUP_CASES):
+        case = dict(case)
+        lib[r] = case.pop("lib", lib[r])
+        raw = np.frombuffer(markdup_record(rng, **case), np.uint8)[:stride]
+        rows[r] = 0
+        rows[r, :raw.size] = raw
+    raw = np.frombuffer(markdup_record(rng, **_MD_TILE_END), np.uint8)
+    rows[-1] = 0
+    rows[-1, :min(raw.size, stride)] = raw[:stride]
+    return rows, lib, count, tuple(n for n, _ in MARKDUP_CASES)
+
+
+def rows_kmax(rows: np.ndarray) -> int:
+    """The largest n_cigar of a tile's rows (pads included)."""
+    return int(rows[:, 16:18].copy().view("<u2").max()) if rows.size else 0
+
+
+MARKDUP_READ_GROUPS = (("grpA", "libA"), ("grpB", "libA"), ("grpC", "libB"))
+MARKDUP_COPY_SHARE = 0.10          # pairs that copy an earlier pair
+_RG_LIB = np.array([1, 1, 2])      # library numbers of "rg" mode (sorted LB)
+
+
+def markdup_header() -> SAMHeader:
+    text = "@HD\tVN:1.6\tSO:unsorted\n" + "".join(
+        f"@SQ\tSN:{n}\tLN:{l}\n" for n, l in CONTIGS) + "".join(
+        f"@RG\tID:{g}\tLB:{lb}\tSM:s1\n" for g, lb in MARKDUP_READ_GROUPS)
+    return SAMHeader(text=text, ref_names=[n for n, _ in CONTIGS],
+                     ref_lengths=[l for _, l in CONTIGS])
+
+
+@dataclasses.dataclass
+class MarkdupTruth:
+    """The generator's columns of ``write_markdup_bam``'s file in file
+    order, and each record's expected duplicate bit by library mode
+    (``dup["rg"]``, ``dup["none"]``): the oracle's rule applied to the
+    generator's own arrays (signature from the known unclipped ends,
+    score from the qualities written), never to the file's bytes."""
+    flag: np.ndarray               # int64 [n], as written
+    refid: np.ndarray              # int64 [n]
+    pos: np.ndarray                # int64 [n]
+    dup: Dict[str, np.ndarray]     # library_from -> uint8 [n]
+    copy_pairs: int
+
+    @property
+    def n_reads(self) -> int:
+        return int(self.flag.size)
+
+    def output_order(self) -> np.ndarray:
+        """Coordinate order with the input index breaking ties: unmapped
+        (refid -1) last, pos + 1 wrapped to 32 bits."""
+        hi = np.where(self.refid < 0, _U32, self.refid)
+        lo = (self.pos + 1) & _U32
+        return np.lexsort((np.arange(hi.size), lo, hi))
+
+    def output_flags(self, library_from: str) -> np.ndarray:
+        """Each output record's FLAG, in output order, when duplicates
+        are marked (not removed)."""
+        d = self.dup[library_from].astype(np.int64)
+        return ((self.flag & ~FDUP) | (d << 10))[self.output_order()]
+
+
+_MD_SEQ = (READ_LEN + 1) // 2
+# a record's widest layout: prefix and name, two CIGAR words, bases,
+# qualities, the RG tag
+_MD_COLS = np.arange(_COV_PREFIX + 8 + _MD_SEQ + READ_LEN + 8)
+_MD_AUX = np.frombuffer(b"".join(b"RGZ" + g.encode() + b"\x00"
+                                 for g, _ in MARKDUP_READ_GROUPS),
+                        np.uint8).reshape(len(MARKDUP_READ_GROUPS), 8)
+
+
+def _markdup_chunk(rec, codes, qual, cigar, l_seq, drop, rg):
+    """Raw record bytes of a chunk of reads, and each read's score: all
+    reads laid out at the widest layout (``rec``'s prefix and name, two
+    CIGAR words, bases and qualities from column ``drop`` on, an RG
+    tag), then the columns each read has kept in row order."""
+    n = rec.size
+    n_cigar = (cigar[:, 1] != 0).astype(np.int64) + 1
+    seq_len = (l_seq + 1) // 2
+    cut = np.flatnonzero(drop)                 # forward hard clips
+    if cut.size:
+        k = np.minimum(np.arange(READ_LEN)[None, :] + drop[cut, None],
+                       READ_LEN - 1)
+        codes[cut] = np.take_along_axis(codes[cut], k, 1)
+        qual[cut] = np.take_along_axis(qual[cut], k, 1)
+    tail = np.arange(READ_LEN)[None, :] >= l_seq[:, None]
+    codes[tail] = 0
+    qual[tail] = 0
+    head = np.ascontiguousarray(
+        rec.view(np.uint8).reshape(n, RECORD.itemsize)[:, :_COV_PREFIX]
+    ).view(_COV_HEAD).reshape(n)
+    head["block_size"] = 32 + NAME_LEN + 4 * n_cigar + seq_len + l_seq + 8
+    head["n_cigar"] = n_cigar
+    head["l_seq"] = l_seq
+    c = np.concatenate([codes, np.zeros((n, 1), np.uint8)], 1)
+    src = np.concatenate([
+        head.view(np.uint8).reshape(n, _COV_PREFIX),
+        cigar.astype("<u4").view(np.uint8).reshape(n, 8),
+        (c[:, 0:READ_LEN:2] << 4) | c[:, 1:READ_LEN + 1:2], qual,
+        _MD_AUX[rg]], 1)
+    col = _MD_COLS[None, :]
+    o = _COV_PREFIX
+    keep = (col < o) | ((col >= o) & (col < o + 4 * n_cigar[:, None]))
+    o += 8
+    keep |= (col >= o) & (col < o + seq_len[:, None])
+    o += _MD_SEQ
+    keep |= (col >= o) & (col < o + l_seq[:, None])
+    keep |= col >= o + READ_LEN
+    score = np.where(qual >= 15, qual, 0).sum(1)
+    return src[keep], score
+
+
+def write_markdup_bam(path: str, n_reads: int, seed: int,
+                      chunk_pairs: int = 1 << 15) -> MarkdupTruth:
+    """Write ``n_reads`` (even) paired reads with duplicates to ``path``
+    and return their truth (``MarkdupTruth``).
+
+    The reads have ``write_synthetic_bam``'s fields (151 bp, the same
+    contigs and flag mix, its duplicate flags included, which the
+    marking clears and re-derives) with uniform A/C/G/T bases and
+    qualities 2-41, each pair in one of three read groups over two
+    libraries.  About ``MARKDUP_COPY_SHARE`` of the pairs copy an earlier
+    pair: the same strands, 5' ends, mate placement and flags (the 0x400
+    bit drawn anew), their own bases, qualities and read group (so the
+    same library or the other), and on each mapped read a 5' clip of 1-5
+    bases (S or H, with pos moved on the forward strand) three times in
+    five; the copy's mate fields follow its own mates."""
+    if n_reads % 2:
+        raise ValueError("n_reads must be even (reads come in pairs)")
+    rng = np.random.default_rng(seed)
+    P, n = n_reads // 2, n_reads
+    is_copy = rng.random(P) < MARKDUP_COPY_SHARE
+    is_copy[0] = False
+    originals = np.flatnonzero(~is_copy)
+    before = np.searchsorted(originals, np.arange(P))
+    src = originals[np.minimum((rng.random(P) * before).astype(np.int64),
+                               np.maximum(before - 1, 0))]
+    rg = rng.integers(0, len(MARKDUP_READ_GROUPS), P)
+    clip = np.where(rng.random(n) < 0.6, rng.integers(1, 6, n), 0)
+    hard = rng.random(n) < 0.5
+    fdup = rng.random(n) < 0.03
+    g = {k: np.zeros(n, np.int64) for k in
+         ("flag", "refid", "pos", "mate_ref", "mate_pos", "tlen", "mapq",
+          "upos", "score")}
+    with BamWriter(path, markdup_header()) as w:
+        for p0 in range(0, P, chunk_pairs):
+            k = min(chunk_pairs, P - p0)
+            rec, _cols = _chunk_fields(rng, p0, k)
+            codes = _CODES[:4][rng.integers(0, 4, (2 * k, READ_LEN))]
+            qual = rng.integers(2, 42, (2 * k, READ_LEN), dtype=np.uint8)
+            gi = 2 * p0 + np.arange(2 * k)
+            for key, col in (("flag", "flag"), ("refid", "refid"),
+                             ("pos", "pos"), ("mate_ref", "mate_refid"),
+                             ("mate_pos", "mate_pos"), ("tlen", "tlen"),
+                             ("mapq", "mapq")):
+                g[key][gi] = rec[col]
+            cp = np.repeat(is_copy[p0:p0 + k], 2)
+            si = (2 * np.repeat(src[p0:p0 + k], 2)
+                  + np.tile([0, 1], k))[cp]
+            ci = gi[cp]
+            for key in ("refid", "pos", "mate_ref", "mate_pos", "tlen",
+                        "mapq"):
+                g[key][ci] = g[key][si]
+            g["flag"][ci] = (g["flag"][si] & ~FDUP) \
+                | np.where(fdup[ci], FDUP, 0)
+            flag = g["flag"][gi]
+            mapped = (flag & FUNMAP) == 0
+            rev = (flag & FREVERSE) != 0
+            c = np.where(cp & mapped, clip[gi], 0)
+            h = hard[gi] & (c > 0)
+            g["pos"][gi] += np.where(rev, 0, c)
+            # a copy's unmapped read sits at its mate's new place, and
+            # its mate fields name its own mates
+            pos = g["pos"][gi].reshape(-1, 2)
+            ref = g["refid"][gi].reshape(-1, 2)
+            um = (~mapped & ((flag & FMUNMAP) == 0)).reshape(-1, 2)
+            pos = np.where(um, pos[:, ::-1], pos)
+            g["pos"][gi] = np.where(cp, pos.reshape(-1), g["pos"][gi])
+            pos = g["pos"][gi].reshape(-1, 2)
+            g["mate_pos"][gi] = np.where(cp, pos[:, ::-1].reshape(-1),
+                                         g["mate_pos"][gi])
+            g["mate_ref"][gi] = np.where(cp, ref[:, ::-1].reshape(-1),
+                                         g["mate_ref"][gi])
+            ref_len = READ_LEN - c
+            op = np.where(h, 5, 4)
+            clip_w = (c << 4) | op
+            m_w = ref_len << 4
+            cigar = np.stack([np.where(c == 0, m_w, np.where(rev, m_w,
+                                                             clip_w)),
+                              np.where(c == 0, 0, np.where(rev, clip_w,
+                                                           m_w))], 1)
+            l_seq = np.where(h, READ_LEN - c, READ_LEN)
+            drop = np.where(h & ~rev, c, 0)
+            g["upos"][gi] = np.where(rev, g["pos"][gi] + ref_len - 1 + c,
+                                     g["pos"][gi] - c)
+            for key, col in (("flag", "flag"), ("refid", "refid"),
+                             ("pos", "pos"), ("mate_ref", "mate_refid"),
+                             ("mate_pos", "mate_pos"), ("tlen", "tlen"),
+                             ("mapq", "mapq")):
+                rec[col] = g[key][gi]
+            p = g["pos"][gi]
+            rec["bin"] = np.where(p >= 0, _reg2bin(np.maximum(p, 0),
+                                                   np.maximum(p, 0)
+                                                   + ref_len), 4680)
+            buf, score = _markdup_chunk(rec, codes, qual, cigar, l_seq, drop,
+                                        np.repeat(rg[p0:p0 + k], 2))
+            g["score"][gi] = score
+            w.write_raw(buf.tobytes(), 2 * k)
+    return MarkdupTruth(flag=g["flag"], refid=g["refid"], pos=g["pos"],
+                        dup={m: _markdup_truth(g, np.repeat(rg, 2), m)
+                             for m in ("none", "rg")},
+                        copy_pairs=int(is_copy.sum()))
+
+
+def _markdup_truth(g: Dict[str, np.ndarray], rg: np.ndarray,
+                   mode: str) -> np.ndarray:
+    """The expected duplicate bits: among eligible reads (mapped,
+    primary) of one signature (refid, unclipped 5' end, library, strand
+    and pair bits, raw mate key) every read but the best scored (ties to
+    the lowest index) is a duplicate."""
+    flag = g["flag"]
+    idx = np.flatnonzero((flag & (FUNMAP | FSECONDARY | FSUPPLEMENTARY)) == 0)
+    f = flag[idx]
+    pair = ((f & FPAIRED) != 0) & ((f & FMUNMAP) == 0)
+    lib = _RG_LIB[rg[idx]] if mode == "rg" else np.zeros(idx.size, np.int64)
+    keys = [g["refid"][idx] & _U32, (g["upos"][idx] + 1) & _U32,
+            (lib << 3) | (np.where(pair, (f >> 5) & 1, 0) << 2)
+            | (((f >> 4) & 1) << 1) | pair,
+            np.where(pair, (g["mate_ref"][idx] + 1) & _U32, 0),
+            np.where(pair, (g["mate_pos"][idx] + 1) & _U32, 0)]
+    order = np.lexsort([idx, -g["score"][idx]] + keys[::-1])
+    same = np.ones(idx.size - 1 if idx.size else 0, bool)
+    for key in keys:
+        s = key[order]
+        same &= s[1:] == s[:-1]
+    dup = np.zeros(flag.size, np.uint8)
+    dup[idx[order][1:][same]] = 1
+    return dup

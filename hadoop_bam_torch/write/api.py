@@ -1,6 +1,6 @@
 """write_bam_records: the parallel write path's front door (trimmed copy
-of hadoop_bam_tpu/write/api.py: the BAM writer; the BCF writer and the
-sharded concatenation wait in ROADMAP.md).
+of hadoop_bam_tpu/write/api.py: the BAM writer and the sharded
+concatenation; the BCF writer waits in ROADMAP.md).
 
 Sorted record chunks (the mesh sort's buckets, ``utils/sort.sort_bam``'s
 runs) go to a BGZF BAM through ``ParallelBGZFWriter``, with the index
@@ -18,7 +18,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -139,3 +139,43 @@ def write_bam_records(path: str, header, chunks: Iterable[Tuple],
     METRICS.count("write.records", records)
     return WriteResult(path=path, records=records, bytes_out=w.bytes_out,
                        sidecars=sidecars)
+
+
+def write_bam_shards_concat(parts: Sequence[str], path: str, header,
+                            *, config: HBamConfig = DEFAULT_CONFIG,
+                            index_kinds: Optional[Sequence[str]] = None
+                            ) -> WriteResult:
+    """Re-block headerless record parts into one continuous BGZF stream
+    through ``write_bam_records``: the bytes equal writing the same
+    records through one streaming writer, and the sidecars ride along.
+    Each part is read through the byte-source layer with the span retry
+    policy (a transient fault retries with backoff, counted as
+    ``write.part_read_retries``) and its records walked by the host
+    library's walker."""
+    from hadoop_bam_torch.ops import inflate as inflate_ops
+    from hadoop_bam_torch.utils.resilient import (
+        call_with_retry, span_retry_policy,
+    )
+    from hadoop_bam_torch.utils.seekable import as_byte_source
+
+    policy = span_retry_policy(config)
+
+    def read_part(p: str) -> bytes:
+        with as_byte_source(p) as src:
+            return src.pread(0, src.size)
+
+    def chunks() -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        for p in parts:
+            raw = call_with_retry(lambda p=p: read_part(p), policy,
+                                  what=f"shard part read {p}",
+                                  counter="write.part_read_retries")
+            if not raw:
+                continue
+            data, _ = inflate_ops.inflate_span(
+                raw, inflate_ops.block_table(raw))
+            if not data.size:
+                continue
+            yield data, inflate_ops.walk_records(data)[0]
+
+    return write_bam_records(path, header, chunks(), config=config,
+                             index_kinds=index_kinds)

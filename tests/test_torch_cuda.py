@@ -1229,3 +1229,98 @@ def test_mesh_sort_on_card_equals_host_sort(cuda, shuffled_bam, tmp_path,
     out = str(tmp_path / "o.bam")
     assert ms.sort_bam_mesh(path, out, device=cuda, **kw) == 30_000
     assert open(out, "rb").read() == want
+
+
+# ---------------------------------------------------------------------------
+# K16: the duplicate-signature columns (K16a) and the signature exchange
+# (K16b) on the card, and the duplicate-marking pipeline through them
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kmax", ["rows", 2, 0])
+@pytest.mark.parametrize("shift", [0, 16])
+def test_k16a_markdup_columns_match_plain(cuda, kmax, shift):
+    """Every ``synth.MARKDUP_CASES`` row, random pad rows and a last row
+    whose CIGAR runs past the tile, at the rows' own CIGAR width and
+    below it; the tile at a 16-byte offset from its allocation."""
+    from hadoop_bam_torch.prep import markdup as md
+    rows, lib, count, _ = synth.markdup_rows(seed=3)
+    k = synth.rows_kmax(rows) if kmax == "rows" else kmax
+    base = torch.zeros(rows.size + shift, dtype=torch.uint8, device=cuda)
+    rt = base[shift:].view(rows.shape)
+    rt.copy_(torch.from_numpy(rows))
+    lt = torch.from_numpy(lib).to(cuda)
+    before = md.markdup_columns.launches
+    for _ in range(2):
+        got = md.markdup_columns(rt, count, lt, k)
+    want = md.markdup_columns_plain(torch.from_numpy(rows),
+                                    torch.arange(rows.shape[0]) < count,
+                                    torch.from_numpy(lib), k)
+    torch.cuda.synchronize()
+    assert md.markdup_columns.launches == before + 2
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_k16a_refuses_unaligned_rows(cuda):
+    from hadoop_bam_torch.prep import markdup as md
+    rows, lib, count, _ = synth.markdup_rows()
+    base = torch.zeros(rows.size + 4, dtype=torch.uint8, device=cuda)
+    rt = base[4:].view(rows.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        md.markdup_columns(rt, count, torch.from_numpy(lib).to(cuda), 4)
+
+
+@pytest.fixture(scope="module")
+def markdup_bam(tmp_path_factory):
+    d = tmp_path_factory.mktemp("k16")
+    path = str(d / "md.bam")
+    return path, synth.write_markdup_bam(path, 20_000, 6)
+
+
+def test_k16_steps_on_card_equal_their_cpu_run(cuda, markdup_bam):
+    """The fused step and the exchange step over a round of a
+    duplicate-bearing BAM: every output equal to the CPU run's."""
+    from hadoop_bam_torch.config import DEFAULT_CONFIG
+    from hadoop_bam_torch.parallel import mesh_sort as ms
+    from hadoop_bam_torch.prep import markdup as md
+    from hadoop_bam_torch.split.planners import plan_bam_spans_balanced
+    path, _ = markdup_bam
+    (span,) = plan_bam_spans_balanced(path, 1)
+    data, offs = ms._decode(path, span, DEFAULT_CONFIG)
+    n = int(offs.size)
+    lens = ms._record_lens(data, offs)
+    R = ms._round_up(n, 1024)
+    rows, ln = ms.pack_rows(torch.from_numpy(data), offs, lens, R, 512)
+    lib = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 3, R).astype(np.uint32))
+    none = torch.zeros(0, dtype=torch.int64)
+    kmax = md.host_kmax(data, offs)
+    g = md.fused_sort_markdup_step(rows.to(cuda), ln.to(cuda), n, 7,
+                                   lib.to(cuda), none.to(cuda),
+                                   none.to(cuda), kmax)
+    w = md.fused_sort_markdup_step(rows, ln, n, 7, lib, none, none, kmax)
+    for a, b in zip(g[0] + g[1], w[0] + w[1]):
+        assert torch.equal(a.cpu(), b)
+    cols, elig = w[1]
+    el = elig[:n].bool()
+    keys = [c[:n][el] for c in cols]
+    gidx = (7 + torch.arange(n, dtype=torch.int32))[el]
+    m = int(el.sum())
+    g2 = md.markdup_exchange_step(*(k.to(cuda) for k in keys),
+                                  gidx.to(cuda), m)
+    w2 = md.markdup_exchange_step(*keys, gidx, m)
+    for a, b in zip(g2, w2):
+        assert torch.equal(a.cpu(), b)
+    assert int(w2[1].sum()) > 0
+
+
+@pytest.mark.parametrize("library_from", ["none", "rg"])
+def test_markdup_on_card_equals_oracle_and_truth(cuda, markdup_bam,
+                                                 tmp_path, library_from):
+    from hadoop_bam_torch.prep import markdup_bam_mesh, markdup_bam_oracle
+    path, truth = markdup_bam
+    out, ref = str(tmp_path / "o.bam"), str(tmp_path / "ref.bam")
+    assert markdup_bam_mesh(path, out, device=cuda, round_records=7_000,
+                            library_from=library_from) == 20_000
+    markdup_bam_oracle(path, ref, library_from=library_from)
+    assert open(out, "rb").read() == open(ref, "rb").read()

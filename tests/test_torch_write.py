@@ -371,3 +371,178 @@ def test_spill_merge_equals_the_reference(tmp_path):
     assert payload == jpayload == b"".join(chunks)
     assert lens.tolist() == jlens.tolist() == [len(c) for c in chunks]
     assert lens.dtype == np.int64
+
+
+# ---------------------------------------------------------------------------
+# ShardedFileWriter and write_bam_shards_concat against the reference's
+# ---------------------------------------------------------------------------
+
+def _writers(tmp_path, **kw):
+    from hadoop_bam_tpu.write import ShardedFileWriter as JSharded
+    from hadoop_bam_torch.write import ShardedFileWriter
+    return [cls(str(tmp_path / f"{name}.bam"), 3, **kw)
+            for name, cls in (("port", ShardedFileWriter),
+                              ("ref", JSharded))]
+
+
+def test_sharded_writer_commits_and_sweeps_like_the_reference(tmp_path):
+    from hadoop_bam_tpu.utils.metrics import METRICS as JMETRICS
+    for sw in _writers(tmp_path):
+        assert [os.path.basename(p) for p in sw.parts()] == \
+            ["part-00000", "part-00001", "part-00002"]
+        with sw.open_shard(1) as f:
+            f.write(b"one")
+            # the part is visible only once its block exits
+            assert not os.path.exists(sw.shard_path(1))
+        assert open(sw.shard_path(1), "rb").read() == b"one"
+        with pytest.raises(RuntimeError, match="mid-part"):
+            with sw.open_shard(2) as f:
+                f.write(b"half")
+                raise RuntimeError("mid-part")
+        assert sorted(os.listdir(sw.shard_dir)) == ["part-00001"]
+        assert sw.missing_parts() == [sw.shard_path(0), sw.shard_path(2)]
+        for name in ("part-00000.tmp", "part-00002.tmp"):
+            open(os.path.join(sw.shard_dir, name), "wb").write(b"debris")
+        metrics = METRICS if "port" in sw.final_path else JMETRICS
+        metrics.reset()
+        assert sw.sweep_stale_temps() == 2
+        assert metrics.snapshot()["counters"]["write.stale_temps_swept"] == 2
+        assert sorted(os.listdir(sw.shard_dir)) == ["part-00001"]
+        sw.prepare()
+        assert not os.path.exists(sw.shard_dir)
+        assert sw.sweep_stale_temps() == 0
+
+
+def test_sharded_writer_journal_verifies_committed_parts(tmp_path):
+    """The port's producer records each part as a ``("shard", k)`` unit
+    itself (the reference's writer does it through its ``journal``
+    knob); both units match, and both writers verify them alike."""
+    from hadoop_bam_tpu.jobs import JobJournal as JJournal
+    from hadoop_bam_torch.jobs import (
+        JobJournal, file_digest, file_identity_digest,
+    )
+    inp = tmp_path / "in.dat"
+    inp.write_bytes(b"x" * 100)
+    ident = [(str(inp), file_identity_digest(str(inp)))]
+    units = []
+    for sw, journal in zip(_writers(tmp_path), (JobJournal, JJournal)):
+        jp = sw.final_path + ".j"
+        hdr = dict(kind="k", output=sw.final_path, fingerprint="f",
+                   params={}, inputs=ident, fsync=False)
+        jr, _ = journal.resume(jp, **hdr)
+        port = journal is JobJournal
+        if not port:
+            sw.journal = jr
+        for k in range(3):
+            with sw.open_shard(k) as f:
+                f.write(bytes([k]) * (k + 5))
+            if port:
+                size, crc = file_digest(sw.shard_path(k))
+                jr.unit_done("shard", k,
+                             path=os.path.abspath(sw.shard_path(k)),
+                             size=size, crc=crc)
+        jr.close()
+        if not port:
+            sw.journal = None
+        jr, state = journal.resume(jp, **hdr)
+        jr.close()
+        units.append([(state.unit("shard", k)["size"],
+                       state.unit("shard", k)["crc"]) for k in range(3)])
+        sw.resume_state = state
+        assert [sw.shard_committed(k) for k in range(3)] == [True] * 3
+        open(sw.shard_path(1), "wb").write(b"\x01" * 5)   # torn part
+        os.unlink(sw.shard_path(2))
+        assert [sw.shard_committed(k) for k in range(3)] == \
+            [True, False, False]
+    assert units[0] == units[1]
+
+
+def test_concatenate_refuses_missing_parts(tmp_path):
+    from hadoop_bam_torch.utils.errors import TransientIOError
+    port, ref = _writers(tmp_path)
+    for sw in (port, ref):
+        with sw.open_shard(0) as f:
+            f.write(b"a")
+        with pytest.raises(OSError, match="missing") as e:
+            sw.concatenate(lambda parts: None)
+        assert type(e.value).__name__ == "TransientIOError"
+        assert os.path.isdir(sw.shard_dir)
+    with pytest.raises(TransientIOError):
+        port.concatenate(lambda parts: None)
+    for k in (1, 2):
+        with port.open_shard(k) as f:
+            f.write(b"b")
+    assert port.concatenate(lambda parts: len(parts)) == 3
+    assert not os.path.exists(port.shard_dir)
+
+
+def _headerless_parts(tmp_path, header, recs, cuts, level):
+    """Record parts written as headerless, unterminated BAM pieces by the
+    port's BamWriter (``cuts`` the record index each part starts at)."""
+    from hadoop_bam_torch.formats.bamio import BamWriter as TWriter
+    blobs = [r.to_bam_bytes(header) for r in recs]
+    bounds = list(cuts) + [len(blobs)]
+    parts = []
+    for k, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
+        p = str(tmp_path / f"part-{k:05d}")
+        with TWriter(p, header, level=level, write_header=False,
+                     write_eof=False) as w:
+            w.write_raw(b"".join(blobs[a:b]), b - a)
+        parts.append(p)
+    return parts
+
+
+@pytest.mark.parametrize("cuts,level", [((0,), 6), ((0, 400, 401, 1100), 6),
+                                        ((0, 0, 700, 1500), 1)])
+def test_shards_concat_equals_one_streaming_write(tmp_path, sorted_fixture,
+                                                  cuts, level):
+    """Parts (an empty one included) re-blocked into one BGZF stream: the
+    bytes and every sidecar equal the reference's concat and one
+    streaming ``write_bam_records`` of the same records."""
+    from hadoop_bam_tpu.write import write_bam_shards_concat as jconcat
+    from hadoop_bam_torch.write import write_bam_shards_concat
+    header, recs = sorted_fixture
+    jcfg = dataclasses.replace(JCONFIG, write_compress_level=level,
+                               write_index_kinds="bai,sbi,splitting-bai")
+    tcfg = config_from_dict(dataclasses.asdict(jcfg))
+    parts = _headerless_parts(tmp_path, header, recs, cuts, level)
+    a, b, c = (str(tmp_path / f"{n}.bam") for n in ("port", "ref", "one"))
+    ra = write_bam_shards_concat(parts, a, header, config=tcfg)
+    rb = jconcat(parts, b, header, config=jcfg)
+    rc = write_bam_records(c, header, _record_chunks(header, recs, 1),
+                           config=tcfg)
+    assert ra.records == rb.records == rc.records == len(recs)
+    assert open(a, "rb").read() == open(b, "rb").read() == \
+        open(c, "rb").read()
+    assert sorted(ra.sidecars) == sorted(rb.sidecars) == sorted(rc.sidecars)
+    for suffix in ra.sidecars:
+        assert open(a + suffix, "rb").read() == \
+            open(b + suffix, "rb").read() == open(c + suffix, "rb").read()
+
+
+def test_shards_concat_retries_transient_part_reads(tmp_path,
+                                                    sorted_fixture):
+    from hadoop_bam_torch.utils import seekable
+    from hadoop_bam_torch.utils.errors import TransientIOError
+    from hadoop_bam_torch.write import write_bam_shards_concat
+    header, recs = sorted_fixture
+    parts = _headerless_parts(tmp_path, header, recs, (0, 750), 6)
+    real = seekable.as_byte_source
+    fails = {"n": 2}
+
+    def flaky(obj):
+        if isinstance(obj, str) and obj == parts[1] and fails["n"]:
+            fails["n"] -= 1
+            raise TransientIOError("injected part read fault")
+        return real(obj)
+    tcfg = config_from_dict(dataclasses.asdict(dataclasses.replace(
+        JCONFIG, retry_backoff_base_s=0.0)))
+    METRICS.reset()
+    try:
+        seekable.as_byte_source = flaky
+        res = write_bam_shards_concat(parts, str(tmp_path / "o.bam"),
+                                      header, config=tcfg)
+    finally:
+        seekable.as_byte_source = real
+    assert res.records == len(recs) and fails["n"] == 0
+    assert METRICS.snapshot()["counters"]["write.part_read_retries"] == 2
