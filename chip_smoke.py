@@ -169,7 +169,11 @@ Phases (any failure raises and exits non-zero):
    its plain version on every ``synth.MARKDUP_CASES`` row (clips on
    either end, all-clip, no CIGAR, both strands, mate unmapped,
    secondary, supplementary, 0xFF qualities, pos near 0, wraps), pads
-   and a CIGAR past the tile; (b) ``MKDUP_READS`` reads of
+   and a CIGAR past the tile, on ``synth.MARKDUP_TILES`` (runs of
+   400-600 bases, 30-40-byte names, R = 1, R = 7, R % 4 != 0) and on a
+   tile past the persistent grid's first sweep, each staging whole
+   rows, the tile's ``host_row_bytes`` and 48 bytes; (b)
+   ``MKDUP_READS`` reads of
    ``synth.write_markdup_bam`` (about 10% of pairs copies of another,
    three read groups over two libraries) marked with
    ``library_from="rg"`` in rounds of ``MKDUP_ROUND``: every record's
@@ -211,6 +215,12 @@ pass with its unpack wall;
 header's mode set to each part alone);
 ``variant_plane``: phase 15 alone; ``sort_query``: phase 16 alone
 (its variant files written here); ``mkdup``: phase 17 alone;
+``markdup_cols``: K16a alone, checked in phase 17 (a)'s cases, then
+checked and timed at a round's tile of a ``write_markdup_bam`` file
+written beside the BAM and at a round-sized tile of 30-40-byte read
+names (``--tree``: in turns with an earlier tree);
+``markdup_floor``: coalesced reads of that tile's rows cut to the
+sectors and lines K16a reads, against K16a;
 ``native_plane``: the native plane's three
 drivers of phase 5, warmed up, five rounds in turn; ``bai_regions``:
 phase 11 (d)'s ``.bai`` runs on a sorted copy of the reads kept beside
@@ -3669,6 +3679,22 @@ def interval_chain_times(torch, path, dev) -> dict:
     return out
 
 
+def _nvcc_lib(stem, src):
+    """CUDA source ``src`` (a probe or a patched kernel of a ``--times``
+    reading, no part of the port) built by nvcc into the build dir as
+    ``<stem>.so`` with the port's flags, and loaded by ctypes."""
+    import ctypes
+    from hadoop_bam_torch.ops import kernels
+    base = os.path.join(kernels.BUILD_DIR, stem)
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    with open(base + ".cu", "w") as f:
+        f.write(src)
+    subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o",
+                    base + ".so", base + ".cu"], check=True,
+                   capture_output=True)
+    return ctypes.CDLL(base + ".so")
+
+
 def _k10i_memset_scheme(torch):
     """K10i as PR 12 set ``over`` (a memset before the launch, one
     atomicOr a CTA that saw an over-cap row), for ``--times
@@ -3690,13 +3716,7 @@ def _k10i_memset_scheme(torch):
                       "cudaMemsetAsync(over, 0, 4, static_cast<cudaStream_t>"
                       "(stream));\n    if (e != cudaSuccess) return "
                       "static_cast<int>(e);\n  }\n" + launch)
-    base = os.path.join(kernels.BUILD_DIR, "interval_cols_memset")
-    with open(base + ".cu", "w") as f:
-        f.write(src)
-    subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o",
-                    base + ".so", base + ".cu"], check=True,
-                   capture_output=True)
-    fn = ctypes.CDLL(base + ".so").hbam_interval_cols
+    fn = _nvcc_lib("interval_cols_memset", src).hbam_interval_cols
     fn.argtypes = kernels.KERNELS["interval_cols"][1]
     fn.restype = ctypes.c_int
 
@@ -4605,40 +4625,91 @@ def _flags_of(path):
     ).astype(np.int64)
 
 
-def _k16a_cases(torch, dev) -> int:
+def _k16a_tile_check(torch, dev, rows, lib, count, kmax, what,
+                     shifts=(0, 16), plain_dev=None, hints=(None,)) -> None:
+    """K16a on one tile (at each offset from its allocation, at each
+    ``row_bytes`` of ``hints``, twice) against its plain version, on the
+    CPU or on ``plain_dev``."""
+    from hadoop_bam_torch.prep import markdup as md
+    on = torch.device("cpu") if plain_dev is None else plain_dev
+    want = md.markdup_columns_plain(
+        torch.from_numpy(rows).to(on),
+        torch.arange(rows.shape[0], device=on) < count,
+        torch.from_numpy(lib).to(on), kmax)
+    for shift in shifts:
+        base = torch.zeros(rows.size + shift, dtype=torch.uint8, device=dev)
+        rt = base[shift:].view(rows.shape)
+        rt.copy_(torch.from_numpy(rows))
+        for hint in hints:
+            kw = {} if hint is None else {"row_bytes": hint}
+            for _ in range(2):
+                got = md.markdup_columns(rt, count,
+                                         torch.from_numpy(lib).to(dev), kmax,
+                                         **kw)
+                sync(torch, dev)
+                check(torch.equal(got[0].to(on), want[0])
+                      and torch.equal(got[1].to(on), want[1]),
+                      f"K16a equals its plain version ({what}, kmax {kmax}, "
+                      f"offset {shift}, row_bytes {hint})")
+
+
+def _tile_row_bytes(rows, count) -> int:
+    """``host_row_bytes`` of a tile's records (rows 0 .. count)."""
+    import numpy as np
+    from hadoop_bam_torch.prep import markdup as md
+    return md.host_row_bytes(rows.reshape(-1),
+                             np.arange(count, dtype=np.int64) * rows.shape[1])
+
+
+def _k16a_cases(torch, dev, this_tree=True) -> int:
     """K16a against its plain version on ``synth.MARKDUP_CASES`` (and
     ``markdup_rows``' pads and tile-end row), at the rows' CIGAR width and
-    below it, the tile 16 bytes off its allocation too, twice each."""
+    below it, the tile 16 bytes off its allocation too, twice each; then
+    on ``synth.MARKDUP_TILES`` (runs of 400-600 bases at stride 1024,
+    30-40-byte names, R = 1, R = 7, R = 1,031) and on a tile past the
+    persistent grid's first sweep (more rows than the card has threads
+    at once, 2,048 an SM, plus 777: R % 64 != 0), its plain version on
+    the card.  Each tile is
+    checked with the kernel staging whole rows (no ``row_bytes``), the
+    tile's ``host_row_bytes`` and 48 bytes (every op and quality word
+    past the fixed fields read from the tile).  ``this_tree`` False (an
+    earlier tree, ``--times --tree``): the edge rows alone, staging
+    whole rows.  Returns the tiles checked."""
     from hadoop_bam_torch import synth
-    from hadoop_bam_torch.prep import markdup as md
+
+    def hints(rows, count):
+        return ((None, 48, _tile_row_bytes(rows, count)) if this_tree
+                else (None,))
     n = 0
     for seed in (0, 1):
         rows, lib, count, _ = synth.markdup_rows(seed=seed)
         for kmax in (synth.rows_kmax(rows), 2, 0):
-            want = md.markdup_columns_plain(
-                torch.from_numpy(rows), torch.arange(rows.shape[0]) < count,
-                torch.from_numpy(lib), kmax)
-            for shift in (0, 16):
-                base = torch.zeros(rows.size + shift, dtype=torch.uint8,
-                                   device=dev)
-                rt = base[shift:].view(rows.shape)
-                rt.copy_(torch.from_numpy(rows))
-                for _ in range(2):
-                    got = md.markdup_columns(rt, count,
-                                             torch.from_numpy(lib).to(dev),
-                                             kmax)
-                    sync(torch, dev)
-                    check(torch.equal(got[0].cpu(), want[0])
-                          and torch.equal(got[1].cpu(), want[1]),
-                          f"K16a equals its plain version (seed {seed}, "
-                          f"kmax {kmax}, offset {shift})")
-                n += 1
-    return n
+            _k16a_tile_check(torch, dev, rows, lib, count, kmax,
+                             f"seed {seed}", hints=hints(rows, count))
+            n += 2
+    if not this_tree:
+        return n
+    for name, kw in synth.MARKDUP_TILES:
+        rows, lib, count = synth.markdup_tile(seed=3, **kw)
+        for kmax in (synth.rows_kmax(rows), 2, 0):
+            _k16a_tile_check(torch, dev, rows, lib, count, kmax, name,
+                             hints=hints(rows, count))
+            n += 2
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 1)
+    R = sms * 2048 + 777
+    rows, lib, count = synth.markdup_tile(R, seed=4, stride=128,
+                                          l_seq=(10, 40))
+    _k16a_tile_check(torch, dev, rows, lib, count, synth.rows_kmax(rows),
+                     f"R = {R}, past the first sweep", shifts=(16,),
+                     plain_dev=dev, hints=hints(rows, count))
+    return n + 1
 
 
-def _k16_round(torch, path, dev):
+def _k16_round(torch, path, dev, hint=True):
     """Round 0 of (b)'s run as the pipeline packs it: its rows, lengths,
-    library column (``library_from="rg"``) and CIGAR width."""
+    library column (``library_from="rg"``), CIGAR width and (``hint``)
+    ``row_bytes``, as the pipeline passes them."""
     import numpy as np
     from hadoop_bam_torch.config import DEFAULT_CONFIG
     from hadoop_bam_torch.formats.bamio import read_bam_header
@@ -4667,7 +4738,72 @@ def _k16_round(torch, path, dev):
                                      + l_seq.astype(np.int64).sum())
     return {"rows": rows, "lens": ln, "count": count, "R": R,
             "stride": stride, "kmax": 1 << (kmax - 1).bit_length(),
-            "lib": torch.from_numpy(lib).to(dev), "nbytes": nbytes}
+            "lib": torch.from_numpy(lib).to(dev), "nbytes": nbytes,
+            "sector_bytes": _k16a_sector_bytes(data, offs, R),
+            "kw": {"row_bytes": md.host_row_bytes(data, offs)} if hint
+            else {}, "what": "the round's tile"}
+
+
+def _k16_names_tile(torch, dev, hint=True):
+    """A tile of a round's size, [1,000,448, 512], of ``synth.markdup_tile``
+    records with read names of 30-40 bytes (NUL included, as Illumina's
+    run and tile coordinate names) and 151-base reads, their quality runs
+    ending at bytes 297-331: written by this tree's synth into this
+    tree's build dir (``--tree`` runs read it there, so trees in turns
+    time the same rows).  The same keys as ``_k16_round``."""
+    import numpy as np
+    src = os.path.join(os.path.dirname(os.path.realpath(__file__)),
+                       "hadoop_bam_torch", "_build", "smoke",
+                       "markdup_names.npz")
+    R = -(-MKDUP_ROUND // 1024) * 1024
+    if not os.path.exists(src):
+        os.makedirs(os.path.dirname(src), exist_ok=True)
+        from hadoop_bam_torch import synth
+        rows, lib, count = synth.markdup_tile(R, seed=7, pads=R - MKDUP_ROUND,
+                                              name_len=(30, 40))
+        tmp = f"{src}.{os.getpid()}.npz"
+        np.savez(tmp, rows=rows, lib=lib, count=count)
+        os.replace(tmp, src)
+    with np.load(src) as z:
+        rows, lib, count = z["rows"], z["lib"], int(z["count"])
+    stride = rows.shape[1]
+    flat = rows.reshape(-1)
+    offs = np.arange(count, dtype=np.int64) * stride
+    nc = rows[:count, 16:18].copy().view("<u2").ravel().astype(np.int64)
+    ls = rows[:count, 20:24].copy().view("<i4").ravel().astype(np.int64)
+    kmax = int(nc.max())
+    return {"rows": torch.from_numpy(rows).to(dev), "count": count, "R": R,
+            "stride": stride, "kmax": 1 << (kmax - 1).bit_length(),
+            "lib": torch.from_numpy(lib).to(dev),
+            "nbytes": R * (28 + 4 + 25) + int(4 * nc.sum() + ls.sum()),
+            "sector_bytes": _k16a_sector_bytes(flat, offs, R),
+            "kw": {"row_bytes": _tile_row_bytes(rows, count)} if hint else {},
+            "what": "a round-sized tile of 30-40-byte names"}
+
+
+def _k16a_sector_bytes(data, offs, R) -> int:
+    """A note beside K16a's bound, not the bound: the bytes a kernel
+    moves that reads whole 32-byte sectors of each record's row (its
+    fixed fields' sector, its CIGAR's, its quality run's; rows start on
+    a sector) and writes its 25 output bytes, with each row's 4-byte
+    library number."""
+    import numpy as np
+    b = offs.astype(np.int64)
+    lrn = data[b + 12].astype(np.int64)
+    nc = data[b[:, None] + np.arange(16, 18)].view("<u2").ravel()
+    ls = data[b[:, None] + np.arange(20, 24)].view("<i4").ravel()
+    nc, ls = nc.astype(np.int64), ls.astype(np.int64)
+    c0 = 36 + lrn
+    q0 = c0 + 4 * nc + (ls + 1) // 2
+
+    def span(lo, hi):            # sectors of [lo, hi), 0 when empty
+        return np.where(hi > lo, (hi - 1) // 32 - lo // 32 + 1, 0)
+    first = np.ones_like(lrn)    # bytes 4-31
+    cig = span(c0, c0 + 4 * nc) - (c0 // 32 == 0) * (nc > 0)
+    qual = span(q0, q0 + ls)
+    shared = (q0 // 32 == (c0 + 4 * nc - 1) // 32) & (nc > 0) & (ls > 0)
+    sectors = first + cig + qual - shared
+    return int(32 * sectors.sum()) + R * (4 + 25)
 
 
 def _k16a_check_and_time(torch, rnd, card) -> dict:
@@ -4676,28 +4812,37 @@ def _k16a_check_and_time(torch, rnd, card) -> dict:
     plain version's time and its bound."""
     from hadoop_bam_torch.prep import markdup as md
     rows, lib, count, kmax = rnd["rows"], rnd["lib"], rnd["count"], rnd["kmax"]
+    kw, what = rnd["kw"], rnd["what"]
     valid = torch.arange(rnd["R"], device=rows.device) < count
-    got = md.markdup_columns(rows, count, lib, kmax)
+    got = md.markdup_columns(rows, count, lib, kmax, **kw)
     want = md.markdup_columns_plain(rows, valid, lib, kmax)
     check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-          "K16a equals its plain version at the round's tile")
+          f"K16a equals its plain version at {what}")
     del want
-    calls = [lambda: md.markdup_columns(rows, count, lib, kmax)]
+    calls = [lambda: md.markdup_columns(rows, count, lib, kmax, **kw)]
     ms_ = device_ms(torch, calls, reps=16, kernel="markdup_cols_kernel")
     ms_by = device_ms.how
     looped = loop_ms(torch, calls, reps=16)
     plain_ms = device_ms(torch, [lambda: md.markdup_columns_plain(
         rows, valid, lib, kmax)], reps=4)
     bound = rnd["nbytes"] / H100_BYTES_PER_S * 1e3
-    log(f"(a) K16a at the round's tile [{rnd['R']}, {rnd['stride']}] "
-        f"({count} records, CIGAR width {kmax}): bit-equal to plain; "
+    sector_ms = rnd["sector_bytes"] / H100_BYTES_PER_S * 1e3
+    log(f"(a) K16a at {what} [{rnd['R']}, {rnd['stride']}] "
+        f"({count} records, CIGAR width {kmax}, {kw or 'whole rows'}): "
+        f"bit-equal to plain; "
         f"{ms_:.4f} ms by {ms_by}, {looped:.4f} ms a call in a row by "
         f"events, plain {plain_ms:.4f} ms, bound {bound:.6f} ms = "
-        f"{rnd['nbytes']} B / 3.35 TB/s, {100 * bound / ms_:.1f}% of it "
-        f"[{card}]")
+        f"{rnd['nbytes']} B / 3.35 TB/s, {100 * bound / ms_:.1f}% of it; "
+        f"a note, not the bound: whole 32-byte sectors move "
+        f"{rnd['sector_bytes']} B = {sector_ms:.6f} ms, a ceiling of "
+        f"{100 * bound / sector_ms:.1f}% of the bound [{card}]")
     return {"name": "markdup_columns", "route": "cuda",
             "source": "hadoop_bam_torch/csrc/markdup_cols.cu",
             "replaces": "hadoop_bam_tpu/prep/markdup.py:69",
+            "status": "redesigned: each CTA stages its next batch of "
+                      "rows' first row_bytes (host_row_bytes) by "
+                      "cp.async whole lines while a thread a record "
+                      "computes the last",
             "max_abs_err": 0, "ms": ms_, "ms_by": ms_by, "loop_ms": looped,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
             "library_ms": None,
@@ -4806,8 +4951,9 @@ def phase_mkdup(torch, path, card, dev, seed):
     from hadoop_bam_torch.split import bai as bai_mod
     from hadoop_bam_torch.utils.metrics import MetricsContext
     n_cases = _k16a_cases(torch, dev)
-    log(f"(a) K16a bit-equal to its plain version in {n_cases} tiles of "
-        f"the {len(synth.MARKDUP_CASES)} MARKDUP_CASES rows, twice each")
+    log(f"(a) K16a bit-equal to its plain version in {n_cases} tiles (the "
+        f"{len(synth.MARKDUP_CASES)} MARKDUP_CASES rows, MARKDUP_TILES, a "
+        f"tile past the first sweep), twice each")
     work = os.path.join(os.path.dirname(os.path.abspath(path)), "phase17")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -4928,6 +5074,171 @@ def mkdup_times(torch, path, dev) -> dict:
     return {"K16": rows, "launches": launches}
 
 
+def _markdup_round_file(path) -> str:
+    """A ``MKDUP_ROUND``-read ``write_markdup_bam`` file beside the BAM,
+    written by the first timing process and reused by later ones (so
+    trees in turns time the same tile)."""
+    from hadoop_bam_torch import synth
+    src = path[:-len(".bam")] + "_markdup.bam"
+    if not os.path.exists(src):
+        tmp = f"{src}.{os.getpid()}.tmp"
+        synth.write_markdup_bam(tmp, MKDUP_ROUND,
+                                int(os.path.basename(path).split("_")[1]))
+        os.replace(tmp, src)
+    return src
+
+
+def _this_tree() -> bool:
+    """Whether the imported port is the one beside this script (not an
+    earlier tree's, ``--tree``)."""
+    import hadoop_bam_torch
+    here = os.path.dirname(os.path.realpath(__file__))
+    return os.path.realpath(os.path.dirname(hadoop_bam_torch.__file__)) \
+        == os.path.join(here, "hadoop_bam_torch")
+
+
+def markdup_cols_times(torch, path, dev) -> dict:
+    """``--times markdup_cols``: K16a alone, no pipeline: checked in
+    phase 17 (a)'s cases (an earlier tree: the edge rows alone), then
+    checked and timed at round 0's tile of ``_markdup_round_file`` and at
+    ``_k16_names_tile``, with ``row_bytes`` as the pipeline passes it
+    (an earlier tree: as its wrapper launches)."""
+    this = _this_tree()
+    n = _k16a_cases(torch, dev, this)
+    card = card_line()
+    out = {"tiles_checked": n}
+    for key, rnd in (
+            ("K16a", lambda: _k16_round(torch, _markdup_round_file(path),
+                                        dev, hint=this)),
+            ("K16a, 30-40-byte names",
+             lambda: _k16_names_tile(torch, dev, hint=this))):
+        out[key] = _k16a_check_and_time(torch, rnd(), card)
+    return out
+
+
+# a read probe, no part of the port: the 16-byte words sel[0 .. n_sel) of
+# each of R rows (at most 32), a warp a row
+_ROW_PROBE_SRC = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+// warp w reads rows w, w + warps, ...: lane k < n_sel the 16-byte word
+// sel[k] of the row, four rows in flight a warp
+__global__ void __launch_bounds__(256)
+row_probe(const uint4* __restrict__ rows, int64_t R, int64_t wpr,
+          const int* __restrict__ sel, int n_sel, unsigned* sink) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int64_t warps = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
+  const bool on = lane < n_sel;
+  const int w = on ? __ldg(sel + lane) : 0;
+  uint32_t x = 0;
+  int64_t r = warp;
+  for (; r + 3 * warps < R; r += 4 * warps) {
+    uint4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      v[u] = on ? __ldg(rows + (r + u * warps) * wpr + w)
+                : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) x ^= v[u].x ^ v[u].y ^ v[u].z ^ v[u].w;
+  }
+  for (; r < R; r += warps) {
+    const uint4 v = on ? __ldg(rows + r * wpr + w) : make_uint4(0u, 0u, 0u, 0u);
+    x ^= v.x ^ v.y ^ v.z ^ v.w;
+  }
+  if (x == 0x9E3779B9u) sink[0] = x;   // keeps the loads
+}
+extern "C" int hbam_row_probe(const void* rows, int64_t R, int64_t wpr,
+                              const void* sel, int n_sel, void* sink,
+                              int blocks, void* stream) {
+  row_probe<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(rows), R, wpr, static_cast<const int*>(sel),
+      n_sel, static_cast<unsigned*>(sink));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def _row_probe(torch):
+    """``_ROW_PROBE_SRC`` built by ``_nvcc_lib``: a call (rows, words)
+    reading those 16-byte words of every row."""
+    import ctypes
+    from hadoop_bam_torch.ops import kernels
+    fn = _nvcc_lib("row_probe", _ROW_PROBE_SRC).hbam_row_probe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def reader(rows, words):
+        check(len(words) <= 32, "the probe reads at most 32 words a row")
+        sel = torch.tensor(sorted(words), dtype=torch.int32, device="cuda")
+        R, stride = rows.shape
+
+        def call():
+            rc = fn(rows.data_ptr(), R, stride // 16, sel.data_ptr(),
+                    sel.numel(), sink.data_ptr(), sms * 8,
+                    torch.cuda.current_stream().cuda_stream)
+            kernels.check_launch("row_probe", rc)
+        return call
+    return reader
+
+
+def markdup_floor_times(torch, path, dev) -> dict:
+    """``--times markdup_floor``: the memory system under K16a at round
+    0's tile of ``_markdup_round_file``: the time to read chosen 16-byte words of every row
+    with coalesced loads (``_ROW_PROBE_SRC``, no part of the port), for
+    the words of the 32-byte sectors K16a reads from a typical row (its
+    fixed fields', its CIGAR's, its quality run's), for the 128-byte
+    lines those lie in, for every word of the row, and for the fixed
+    fields' sector alone; K16a itself before and after.  Each by events
+    over calls in a row, with its bytes and rate."""
+    import numpy as np
+    from hadoop_bam_torch.prep import markdup as md
+    rnd = _k16_round(torch, _markdup_round_file(path), dev)
+    rows, count, R, stride = rnd["rows"], rnd["count"], rnd["R"], rnd["stride"]
+    # a typical row: the median record's CIGAR and quality run
+    head = rows[:count].cpu().numpy()
+    lrn = head[:, 12].astype(np.int64)
+    nc = head[:, 16:18].copy().view("<u2").ravel().astype(np.int64)
+    ls = head[:, 20:24].copy().view("<i4").ravel().astype(np.int64)
+    q0 = 36 + lrn + 4 * nc + (ls + 1) // 2
+    m = int(np.argsort(q0)[count // 2])
+    spans = [(4, 32), (36 + lrn[m], 36 + lrn[m] + 4 * nc[m]),
+             (q0[m], q0[m] + ls[m])]
+
+    def words(grain):
+        out = set()
+        for a, b in spans:
+            for g in range(int(a) // grain, (int(b) - 1) // grain + 1):
+                out.update(range(g * grain // 16, (g + 1) * grain // 16))
+        return sorted(out)
+    reader = _row_probe(torch)
+    sets = {"K16a's sectors": words(32), "their 128-byte lines": words(128),
+            "every word": list(range(stride // 16)),
+            "the fixed fields' sector": [0, 1]}
+    lib, kmax = rnd["lib"], rnd["kmax"]
+    out = {"card": card_line(), "R": R, "stride": stride,
+           "typical_row": {"spans": [[int(a), int(b)] for a, b in spans]}}
+    k16a = [lambda: md.markdup_columns(rows, count, lib, kmax, **rnd["kw"])]
+    out["K16a ms"] = [loop_ms(torch, k16a, reps=32)]
+    for name, w in sets.items():
+        call = reader(rows, w)
+        ms_ = statistics.median(loop_ms(torch, [call], reps=32)
+                                for _ in range(3))
+        nbytes = 16 * len(w) * R
+        out[name] = {"words": w, "bytes": nbytes, "ms": ms_,
+                     "TB/s": nbytes / ms_ / 1e9}
+        log(f"row probe, {name} ({len(w)} words a row): {nbytes} B in "
+            f"{ms_:.4f} ms, {nbytes / ms_ / 1e9:.3f} TB/s [{card_line()}]")
+    out["K16a ms"].append(loop_ms(torch, k16a, reps=32))
+    log(f"K16a at the same tile: {out['K16a ms']} ms by events in a row")
+    return out
+
+
 TIMES = {"walk_records_device": k9_times, "resolve_pack": k7_times,
          "payload_gather": k10p_times, "device_plane": device_plane_times,
          "native_plane": native_plane_times, "k2_window": k2_window_times,
@@ -4938,7 +5249,9 @@ TIMES = {"walk_records_device": k9_times, "resolve_pack": k7_times,
          "interval_floor": interval_floor_times,
          "variant_gt": variant_gt_times, "variant_floor": variant_floor_times,
          "variant_plane": variant_plane_times,
-         "sort_query": sort_query_times, "mkdup": mkdup_times}
+         "sort_query": sort_query_times, "mkdup": mkdup_times,
+         "markdup_cols": markdup_cols_times,
+         "markdup_floor": markdup_floor_times}
 
 
 def check_truth(flag, stats, truth) -> None:

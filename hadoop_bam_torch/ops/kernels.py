@@ -54,7 +54,8 @@ KERNELS: Dict[str, tuple] = {
                        [_VP, _I64, _VP, _I64, _I64, _I64, _VP, _VP, _VP, _VP,
                         _VP], "variant_gt"),
     "markdup_cols": ("hbam_markdup_cols",
-                     [_VP, _I64, _I64, _I64, _I64, _VP, _VP, _VP, _VP]),
+                     [_VP, _I64, _I64, _I64, _I64, _VP, _I64, _VP, _VP,
+                      _VP]),
 }
 
 

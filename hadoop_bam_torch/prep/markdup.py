@@ -23,7 +23,7 @@ global index, so ties break as the reference's ``lax.sort`` breaks them.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +49,28 @@ def host_kmax(data: np.ndarray, offs: np.ndarray) -> int:
     base = offs.astype(np.int64)
     n_cigar = data[base[:, None] + np.arange(16, 18)].view("<u2").ravel()
     return int(n_cigar.max())
+
+
+def host_row_bytes(data: np.ndarray, offs: np.ndarray) -> int:
+    """The bytes of each row K16a stages for a decoded span
+    (``markdup_columns``' ``row_bytes``).  A record's quality run ends e
+    bytes from its start (its row's).  The card reads memory in 64-byte
+    pieces, and a piece a record reads past the stage costs about two
+    staged ones, so the stage that moves the fewest bytes ends at the
+    64-byte boundary past the median record's e (at most half the
+    records read past it), or at the furthest e where that is nearer."""
+    if not offs.size:
+        return 0
+    base = offs.astype(np.int64)
+    l_read_name = data[base + 12].astype(np.int64)
+    n_cigar = data[base[:, None] + np.arange(16, 18)].view("<u2").ravel()
+    l_seq = data[base[:, None] + np.arange(20, 24)].view("<i4").ravel()
+    l_seq = l_seq.astype(np.int64)
+    end = (36 + l_read_name + 4 * n_cigar.astype(np.int64)
+           + (l_seq + 1) // 2 + l_seq)
+    mid = (end.size - 1) // 2
+    median = int(np.partition(end, mid)[mid])
+    return min(-(-median // 64) * 64, int(end.max()))
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -155,7 +177,7 @@ def _check_columns_args(rows: torch.Tensor, lib: torch.Tensor) -> None:
 
 
 def markdup_columns(rows: torch.Tensor, count: int, lib: torch.Tensor,
-                    kmax: int):
+                    kmax: int, row_bytes: Optional[int] = None):
     """K16a: the duplicate-signature columns of the first ``count`` rows
     of a tile (the rest are pads, never eligible).  rows uint8 [R,
     stride] (16-byte aligned, stride a multiple of 16, at least 48), lib
@@ -165,7 +187,10 @@ def markdup_columns(rows: torch.Tensor, count: int, lib: torch.Tensor,
 
     A CUDA tensor launches the kernel on the current stream, which takes
     n_cigar and ``kmax`` at run time; a CPU tensor takes
-    ``markdup_columns_plain``.  ``markdup_columns.launches`` counts
+    ``markdup_columns_plain``.  The kernel stages the first ``row_bytes``
+    bytes of each row (the pipeline passes ``host_row_bytes``; None: the
+    whole row), at most 512, and reads any byte past them from the tile:
+    the columns do not depend on it.  ``markdup_columns.launches`` counts
     kernel launches."""
     _check_columns_args(rows, lib)
     R, stride = rows.shape
@@ -181,7 +206,9 @@ def markdup_columns(rows: torch.Tensor, count: int, lib: torch.Tensor,
         fn = kernels.kernel("markdup_cols")
         with torch.cuda.device(rows.device):
             rc = fn(rows.data_ptr(), R, stride, int(count), int(kmax),
-                    lib.data_ptr(), out.data_ptr(), elig.data_ptr(),
+                    lib.data_ptr(),
+                    stride if row_bytes is None else int(row_bytes),
+                    out.data_ptr(), elig.data_ptr(),
                     torch.cuda.current_stream(rows.device).cuda_stream)
         kernels.check_launch("markdup_columns", rc)
         markdup_columns.launches += 1
@@ -194,14 +221,15 @@ markdup_columns.launches = 0
 def fused_sort_markdup_step(rows: torch.Tensor, lens: torch.Tensor,
                             count: int, base: int, lib: torch.Tensor,
                             bhi: torch.Tensor, blo: torch.Tensor,
-                            kmax: int):
+                            kmax: int, row_bytes: Optional[int] = None):
     """The bytes exchange's step (K15) with K16a's columns taken from the
-    rows before they ship (at one device the exchange is the identity).
-    Returns ((sorted rows, lengths, int32 global indices), (uint32 [6, R]
-    columns, uint8 [R] elig)); the columns stay in input row order, so
-    row i is global index ``base + i``."""
+    rows before they ship (at one device the exchange is the identity;
+    ``row_bytes`` as ``markdup_columns`` takes it).  Returns ((sorted
+    rows, lengths, int32 global indices), (uint32 [6, R] columns, uint8
+    [R] elig)); the columns stay in input row order, so row i is global
+    index ``base + i``."""
     fused_sort_markdup_step.launches += 1
-    cols = markdup_columns(rows, count, lib, kmax)
+    cols = markdup_columns(rows, count, lib, kmax, row_bytes)
     return bytes_sort_step(rows, lens, count, base, bhi, blo), cols
 
 

@@ -274,7 +274,7 @@ def _sort_stage(input_path, spans, n_rounds, shard_dir, *, device, config,
     (bucket -> run paths, column sidecars in round order, records)."""
     from hadoop_bam_torch.parallel import mesh_sort as ms
     from hadoop_bam_torch.prep.markdup import (
-        fused_sort_markdup_step, host_kmax,
+        fused_sort_markdup_step, host_kmax, host_row_bytes,
     )
     from hadoop_bam_torch.prep.oracle import library_column
     bhi = blo = None
@@ -300,6 +300,7 @@ def _sort_stage(input_path, spans, n_rounds, shard_dir, *, device, config,
         count = int(offs.size)
         max_len = int(lens.max()) if count else 0
         kmax = host_kmax(data, offs)
+        row_bytes = host_row_bytes(data, offs)
         if bhi is None:
             if bounds_ev is not None:
                 # the finished rounds' runs were bucketed under these
@@ -328,7 +329,7 @@ def _sort_stage(input_path, spans, n_rounds, shard_dir, *, device, config,
         lib = torch.zeros(records_cap, dtype=torch.uint32)
         lib[:count] = torch.from_numpy(libs)
         (rows_s, lens_s, six_s), (cols, elig) = fused_sort_markdup_step(
-            rows, ln, count, base, lib.to(device), bhi, blo, kpow)
+            rows, ln, count, base, lib.to(device), bhi, blo, kpow, row_bytes)
         del rows, ln
 
         # the sort half: the bucket's sorted rows as a framed run

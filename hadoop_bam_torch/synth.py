@@ -1565,6 +1565,103 @@ def markdup_rows(seed: int = 0, stride: int = _MD_STRIDE, pads: int = 5
     return rows, lib, count, tuple(n for n, _ in MARKDUP_CASES)
 
 
+# K16a's tiles of other shapes than the round's (name, ``markdup_tile``
+# keywords): quality runs longer than the kernel's staged bytes, names
+# of Illumina's length (runs ending past a round tile's), tiles smaller
+# than a warp, and one whose R is not a multiple of a CTA's batch (a
+# tile past the persistent grid's first sweep is ``markdup_tile`` at the
+# card's size, chip_smoke phase 17 (a))
+MARKDUP_TILES: Tuple[Tuple[str, Dict], ...] = (
+    ("reads of 400-600 bases, stride 1024",
+     dict(n_rows=300, stride=1024, l_seq=(400, 600))),
+    ("30-40-byte names", dict(n_rows=300, name_len=(30, 40))),
+    ("R = 1", dict(n_rows=1, pads=0)),
+    ("R = 7", dict(n_rows=7, pads=2)),
+    ("R = 1,031, stride 128", dict(n_rows=1031, stride=128, l_seq=(10, 40))),
+)
+_TILE_FLAGS = np.array([99, 147, 83, 163, 0, 16, 73, 97, 1123, 355, 2145, 77])
+# a tile record's CIGAR: H S M (I | D | N) M S H, each part but the first M
+# present at random; a part's code
+_TILE_OPS = np.array([5, 4, 0, 1, 0, 4, 5], np.uint32)
+
+
+def markdup_tile(n_rows: int, seed: int = 0, stride: int = _MD_STRIDE,
+                 l_seq: Tuple[int, int] = (151, 151), pads: int = 3,
+                 name_len: Optional[Tuple[int, int]] = None
+                 ) -> Tuple[np.ndarray, np.ndarray, int]:
+    """A K16a tile of ``n_rows`` rows, built with array ops (any size):
+    ``n_rows - pads`` records of random fields and flags (both strands,
+    paired and not, secondary, supplementary, unmapped), l_seq drawn from
+    ``l_seq``, l_read_name from ``name_len`` (NUL included; None:
+    ``NAME_LEN``), a CIGAR of up to seven ops with soft and hard clips at
+    either end and an I, D or N inside, qualities 2-41 with runs of 14 /
+    15 / 16 and 0xFF, each record cut at its row's end; then ``pads`` rows
+    of random bytes (n_cigar under 256).  Returns (rows uint8 [n_rows,
+    stride], lib uint32 [n_rows], count)."""
+    rng = np.random.default_rng(seed)
+    count = max(n_rows - pads, 0)
+    rows = rng.integers(0, 256, (n_rows, stride), dtype=np.uint8)
+    rows[:, 17] = 0
+    lib = rng.integers(0, 4, n_rows).astype(np.uint32)
+    n = count
+    ls = rng.integers(l_seq[0], l_seq[1] + 1, n)
+
+    def part(lo, hi, share, cap):
+        return np.minimum(rng.integers(lo, hi, n), cap) * (rng.random(n)
+                                                           < share)
+    hl, ht = part(1, 6, 0.2, 1 << 20), part(1, 6, 0.2, 1 << 20)
+    sl, st = part(1, 40, 0.4, ls // 4), part(1, 40, 0.4, ls // 4)
+    mid = rng.integers(1, 4, n)                    # I, D or N
+    ml = part(1, 5, 0.3, ls // 4)
+    m = ls - sl - st - np.where(mid == 1, ml, 0)
+    m1 = np.where(ml > 0, m // 2, m)
+    lens = np.stack([hl, sl, m1, ml, m - m1, st, ht], 1).astype(np.uint32)
+    codes = np.broadcast_to(_TILE_OPS, lens.shape).copy()
+    codes[:, 3] = mid
+    present = lens > 0
+    order = np.argsort(~present, axis=1, kind="stable")
+    words = np.take_along_axis((lens << 4) | codes, order, 1)
+    n_cigar = present.sum(1)
+
+    nl = (np.full(n, NAME_LEN) if name_len is None
+          else rng.integers(name_len[0], name_len[1] + 1, n))
+    fixed = np.zeros(n, np.dtype([
+        ("block_size", "<i4"), ("refid", "<i4"), ("pos", "<i4"),
+        ("l_read_name", "u1"), ("mapq", "u1"), ("bin", "<u2"),
+        ("n_cigar", "<u2"), ("flag", "<u2"), ("l_seq", "<i4"),
+        ("next_refid", "<i4"), ("next_pos", "<i4"), ("tlen", "<i4")]))
+    fixed["refid"] = rng.integers(-1, 25, n)
+    fixed["pos"] = rng.integers(-1, 2**31 - 1, n)
+    fixed["l_read_name"] = nl
+    fixed["mapq"], fixed["bin"] = 60, 4680
+    fixed["n_cigar"] = n_cigar
+    fixed["flag"] = rng.choice(_TILE_FLAGS, n)
+    fixed["l_seq"] = ls
+    fixed["next_refid"] = rng.integers(-1, 25, n)
+    fixed["next_pos"] = rng.integers(-1, 2**31 - 1, n)
+    half = (ls + 1) // 2
+    cig0 = 36 + nl
+    fixed["block_size"] = cig0 - 4 + 4 * n_cigar + half + ls
+    body = rows[:count]
+    body[:, :min(36, stride)] = fixed.view(np.uint8).reshape(n, 36)[
+        :, :stride]
+    cols = np.arange(stride, dtype=np.int32)[None, :]
+    name = (cols >= 36) & (cols < cig0[:, None])
+    body[...] = np.where(name, np.where(cols < cig0[:, None] - 1, ord("m"),
+                                        0), body)
+    cig = words.astype("<u4").view(np.uint8).reshape(n, 28)
+    at = cols - cig0[:, None]
+    body[...] = np.where((at >= 0) & (at < 4 * n_cigar[:, None]),
+                         cig[np.arange(n)[:, None], np.clip(at, 0, 27)], body)
+    q0 = (cig0 + 4 * n_cigar + half)[:, None]
+    qual = rng.integers(2, 42, body.shape, dtype=np.uint8)
+    edge = rng.random(n) < 0.2
+    qual[edge] = np.resize(np.array([14, 15, 16], np.uint8), (stride,))
+    qual[rng.random(n) < 0.05] = 0xFF
+    body[...] = np.where((cols >= q0) & (cols < q0 + ls[:, None]), qual, body)
+    return rows, lib, count
+
+
 def rows_kmax(rows: np.ndarray) -> int:
     """The largest n_cigar of a tile's rows (pads included)."""
     return int(rows[:, 16:18].copy().view("<u2").max()) if rows.size else 0

@@ -1261,6 +1261,70 @@ def test_k16a_markdup_columns_match_plain(cuda, kmax, shift):
     assert torch.equal(got[1].cpu(), want[1])
 
 
+@pytest.mark.parametrize("kmax", ["rows", 2, 0])
+@pytest.mark.parametrize("shift", [0, 16])
+@pytest.mark.parametrize("case", [n for n, _ in synth.MARKDUP_TILES]
+                         + ["past the first sweep"])
+def test_k16a_markdup_columns_match_plain_on_the_tiles(cuda, case, shift,
+                                                       kmax):
+    """``synth.MARKDUP_TILES`` (runs of 400-600 bases at stride 1024,
+    30-40-byte names, R = 1, R = 7, R = 1,031) and a tile past the
+    persistent grid's first sweep (777 rows more than the card has
+    threads at once, 2,048 an SM): the last batch partial."""
+    from hadoop_bam_torch.prep import markdup as md
+    if case == "past the first sweep":
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        rows, lib, count = synth.markdup_tile(sms * 2048 + 777, seed=4,
+                                              stride=128, l_seq=(10, 40))
+    else:
+        rows, lib, count = synth.markdup_tile(
+            seed=3, **dict(synth.MARKDUP_TILES)[case])
+    k = synth.rows_kmax(rows) if kmax == "rows" else kmax
+    base = torch.zeros(rows.size + shift, dtype=torch.uint8, device=cuda)
+    rt = base[shift:].view(rows.shape)
+    rt.copy_(torch.from_numpy(rows))
+    lt = torch.from_numpy(lib).to(cuda)
+    before = md.markdup_columns.launches
+    got = md.markdup_columns(rt, count, lt, k)
+    want = md.markdup_columns_plain(rt, torch.arange(rows.shape[0],
+                                                     device=cuda) < count,
+                                    lt, k)
+    torch.cuda.synchronize()
+    assert md.markdup_columns.launches == before + 1
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("row_bytes", [None, 0, 48, "tile", 400, 2_000])
+@pytest.mark.parametrize("case", ["edge rows", "30-40-byte names",
+                                  "reads of 400-600 bases, stride 1024"])
+def test_k16a_markdup_columns_match_plain_at_each_window(cuda, case,
+                                                         row_bytes):
+    """The staged window from the fixed fields alone (0, 48) through the
+    tile's ``host_row_bytes`` to past the row (None: the whole row, at
+    most 512 bytes): every op and quality word past it read from the
+    tile, the columns the same."""
+    from hadoop_bam_torch.prep import markdup as md
+    if case == "edge rows":
+        rows, lib, count, _ = synth.markdup_rows(seed=5)
+    else:
+        rows, lib, count = synth.markdup_tile(
+            seed=5, **dict(synth.MARKDUP_TILES)[case])
+    if row_bytes == "tile":
+        row_bytes = md.host_row_bytes(
+            rows.reshape(-1), np.arange(count) * rows.shape[1])
+    k = synth.rows_kmax(rows)
+    rt = torch.from_numpy(rows).to(cuda)
+    lt = torch.from_numpy(lib).to(cuda)
+    got = md.markdup_columns(rt, count, lt, k, row_bytes)
+    want = md.markdup_columns_plain(rt, torch.arange(rows.shape[0],
+                                                     device=cuda) < count,
+                                    lt, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
 def test_k16a_refuses_unaligned_rows(cuda):
     from hadoop_bam_torch.prep import markdup as md
     rows, lib, count, _ = synth.markdup_rows()
@@ -1297,7 +1361,8 @@ def test_k16_steps_on_card_equal_their_cpu_run(cuda, markdup_bam):
     kmax = md.host_kmax(data, offs)
     g = md.fused_sort_markdup_step(rows.to(cuda), ln.to(cuda), n, 7,
                                    lib.to(cuda), none.to(cuda),
-                                   none.to(cuda), kmax)
+                                   none.to(cuda), kmax,
+                                   md.host_row_bytes(data, offs))
     w = md.fused_sort_markdup_step(rows, ln, n, 7, lib, none, none, kmax)
     for a, b in zip(g[0] + g[1], w[0] + w[1]):
         assert torch.equal(a.cpu(), b)

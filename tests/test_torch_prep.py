@@ -234,6 +234,29 @@ def test_k16a_plain_equals_the_reference_on_the_wrap_cases(seed, kmax):
     assert elig[by["duplicate flag set"]] and elig[by["mate unmapped"]]
 
 
+@pytest.mark.parametrize("kmax", ["rows", 2, 0])
+@pytest.mark.parametrize("case", [n for n, _ in synth.MARKDUP_TILES])
+def test_k16a_plain_equals_the_reference_on_the_tiles(case, kmax):
+    """``synth.MARKDUP_TILES``: quality runs of 400-600 bases at stride
+    1024 (past the kernel's staged bytes), names of 30-40 bytes (runs
+    ending past byte 288), R = 1, R = 7 (under a warp), R = 1,031 at
+    stride 128 (not a multiple of a CTA's batch); clips at either end,
+    both strands, random pads."""
+    rows, lib, count = synth.markdup_tile(seed=3,
+                                          **dict(synth.MARKDUP_TILES)[case])
+    k = synth.rows_kmax(rows) if kmax == "rows" else kmax
+    cols, elig = _check_columns(rows, lib, count, k)
+    assert not elig[count:].any()
+    if case == "30-40-byte names":
+        lrn = rows[:count, 12]
+        assert lrn.min() >= 30 and lrn.max() <= 40
+    if case.startswith("reads of"):
+        b = rows[:count]
+        assert (b[:, 20:24].copy().view("<i4").ravel() >= 400).all()
+        # the quality runs lie in their rows
+        assert (cols[5, :count] > 0).all()
+
+
 def test_k16a_argument_checks():
     rows, lib, count, _ = synth.markdup_rows()
     with pytest.raises(ValueError, match="uint32"):
