@@ -185,7 +185,23 @@ Phases (any failure raises and exits non-zero):
    modes, one removing duplicates; K16a checked and timed at (b)'s
    round tile, and (c) K16b (``markdup_exchange_step``, torch ops) equal
    to its CPU run at (b)'s shape and timed beside one stable
-   ``torch.sort`` of as many keys.
+   ``torch.sort`` of as many keys;
+18. the cohort plane (``cohort/``): (a) K17a (``cohort_gwas_step``,
+   ``csrc/cohort_stats.cu``) against its plain version in every
+   ``synth.GWAS_CASES`` case, AF and call rate bit for bit, HWE and
+   score within rtol 1e-5, atol 1e-6; (b) ``COHORT_SAMPLES`` (2,504)
+   single-sample call sets of ``synth.write_cohort`` over
+   ``COHORT_SITES`` sites through a journaled
+   ``open_cohort(manifest).gwas(y)`` equal to the generator's truth
+   (HWE and score within 2e-4 of float64 NumPy), a profiled re-run and
+   one ``tensor_batches`` pass from the journal; (c) a ``ServeLoop``
+   over the same manifest: a cold slice, ``COHORT_SLICES`` warm
+   gene-sized slices (10 kb-2 Mb) with no join and no host decode, one
+   request over TCP, counts equal to the truth's; K17a's launches
+   counted in (b) and K17b's (its K17a launches) in (c), each from a
+   count set to 0 just before; K17a timed at the main path's tile and
+   at the full 3,352 x 2,504 tile with and without a phenotype, K17b
+   (``cohort_slice_step``) at the serve's.
 
 The plan memo would let a repeated call skip planning, so every timed
 driver call of phases 5, 9 and 11 and of ``--times`` / ``--turns``
@@ -220,7 +236,7 @@ checked and timed at a round's tile of a ``write_markdup_bam`` file
 written beside the BAM and at a round-sized tile of 30-40-byte read
 names (``--tree``: in turns with an earlier tree);
 ``markdup_floor``: coalesced reads of that tile's rows cut to the
-sectors and lines K16a reads, against K16a;
+sectors and lines K16a reads, against K16a; ``cohort``: phase 18 alone;
 ``native_plane``: the native plane's three
 drivers of phase 5, warmed up, five rounds in turn; ``bai_regions``:
 phase 11 (d)'s ``.bai`` runs on a sorted copy of the reads kept beside
@@ -5239,6 +5255,444 @@ def markdup_floor_times(torch, path, dev) -> dict:
     return out
 
 
+COHORT_SAMPLES = 2504        # phase 18: 1000 Genomes phase 3's sample count
+COHORT_SITES = 200           # the joined grid's sites (the depth, cut)
+COHORT_SLICES = 200          # phase 18 (c): warm gene-sized slices
+
+
+def _k17a_cases(torch, dev) -> float:
+    """K17a against its plain version on the card in every
+    ``synth.GWAS_CASES`` case, twice each: AF and call rate bit for bit,
+    HWE and score within rtol 1e-5, atol 1e-6.  Returns the largest
+    absolute difference over the cases' defined values."""
+    import numpy as np
+    from hadoop_bam_torch import synth
+    from hadoop_bam_torch.cohort.gwas import (
+        cohort_gwas_plain, cohort_gwas_step,
+    )
+    worst = 0.0
+    for name in synth.GWAS_CASES:
+        d, count, pheno, S = synth.gwas_case(name)
+        dt = torch.from_numpy(d).to(dev)
+        pt = None if pheno is None else torch.from_numpy(pheno).to(dev)
+        ct = torch.tensor([count], dtype=torch.int32, device=dev)
+        for _ in range(2):
+            got = cohort_gwas_step(dt, ct, pt, S).cpu().numpy()
+            want = cohort_gwas_plain(dt, ct, pt, S).cpu().numpy()
+            check(np.array_equal(got[..., :2], want[..., :2],
+                                 equal_nan=True),
+                  f"K17a AF and call rate bit-equal to plain ({name})")
+            check(np.array_equal(np.isnan(got), np.isnan(want)),
+                  f"K17a NaNs where plain's are ({name})")
+            check(np.allclose(got[..., 2:], want[..., 2:], rtol=1e-5,
+                              atol=1e-6, equal_nan=True),
+                  f"K17a HWE and score within rtol 1e-5, atol 1e-6 of "
+                  f"plain ({name})")
+            ok = ~np.isnan(want)
+            if ok.any():
+                worst = max(worst, float(np.abs(got - want)[ok].max()))
+    return worst
+
+
+def _k17a_bytes(count: int, spad: int, cap: int, pheno: bool) -> int:
+    """K17a's bytes: the dosage of the rows under the count read once
+    (the kernel reads no row past it), the phenotype and the count, 16
+    bytes a row written."""
+    return count * spad + (4 * spad if pheno else 0) + 4 + 16 * cap
+
+
+def _k17a_times(torch, dosage, count, pheno, S, what, card) -> dict:
+    """K17a timed at one tile: device time, calls in a row, the plain
+    version's time and the bound."""
+    from hadoop_bam_torch.cohort.gwas import (
+        cohort_gwas_plain, cohort_gwas_step,
+    )
+    _, cap, spad = dosage.shape
+    ct = torch.tensor([count], dtype=torch.int32, device=dosage.device)
+    calls = [lambda: cohort_gwas_step(dosage, ct, pheno, S)]
+    ms_ = device_ms(torch, calls, kernel="cohort_stats_kernel")
+    ms_by = device_ms.how
+    looped = loop_ms(torch, calls)
+    plain_ms = device_ms(torch, [lambda: cohort_gwas_plain(
+        dosage, ct, pheno, S)], reps=8)
+    nbytes = _k17a_bytes(count, spad, cap, pheno is not None)
+    bound = nbytes / H100_BYTES_PER_S * 1e3
+    log(f"K17a at {what} [1, {cap}, {spad}], {count} rows, "
+        f"{'a' if pheno is not None else 'no'} phenotype: {ms_:.4f} ms by "
+        f"{ms_by}, {looped:.4f} ms a call in a row by events, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.6f} ms = {nbytes} B / 3.35 "
+        f"TB/s, {100 * bound / ms_:.1f}% of it [{card}]")
+    return {"ms": ms_, "ms_by": ms_by, "loop_ms": looped,
+            "plain_ms": plain_ms, "bound_ms": bound, "nbytes": nbytes,
+            "shape": f"[1, {cap}, {spad}], {count} rows"}
+
+
+def _k17b_times(torch, tile, iv, card) -> dict:
+    """K17b (K17a launched with no phenotype, then the interval keep, its
+    hits and the AF sum and count as torch ops) timed at the serve's
+    tile: device time, in one CUDA graph, in a row, and the bound."""
+    from hadoop_bam_torch.cohort.gwas import cohort_gwas_plain
+    from hadoop_bam_torch.cohort.serving import (
+        cohort_slice_step, slice_of_af,
+    )
+    chrom, pos, dosage, count = tile
+    _, cap, spad = dosage.shape
+    n = int(count[0])
+    calls = [lambda: cohort_slice_step(chrom, pos, dosage, count, iv)]
+    # K17a once a call: with no whole profiler session, one CUDA graph
+    ms_ = device_ms(torch, calls, reps=16, kernel="cohort_stats_kernel")
+    ms_by = device_ms.how
+    graphed = graph_ms(torch, calls, reps=16)
+    looped = loop_ms(torch, calls)
+    plain_ms = device_ms(torch, [lambda: slice_of_af(
+        chrom, pos, count, iv,
+        cohort_gwas_plain(dosage, count, None, spad)[..., 0])], reps=8)
+    # the dosage of the rows under the count and the chrom / pos columns
+    # read once, the count and interval; keep, af and the three sums
+    # written once
+    nbytes = n * spad + 8 * cap + 4 + 12 + cap + 4 * cap + 12
+    bound = nbytes / H100_BYTES_PER_S * 1e3
+    log(f"K17b (cohort_slice_step: K17a, no phenotype, + torch ops) at the "
+        f"serve's tile [1, {cap}, {spad}], {n} rows: {ms_:.4f} ms by "
+        f"{ms_by}, {graphed:.4f} ms a call in one CUDA graph, "
+        f"{looped:.4f} ms a call in a row by events, with K17a's plain "
+        f"version {plain_ms:.4f} ms, bound {bound:.6f} ms = {nbytes} B / "
+        f"3.35 TB/s [{card}]")
+    return {"ms": ms_, "ms_by": ms_by, "loop_ms": looped, "graph_ms": graphed,
+            "plain_ms": plain_ms, "bound_ms": bound, "nbytes": nbytes,
+            "shape": f"[1, {cap}, {spad}], {n} rows"}
+
+
+def _gwas_reference(dosage, pheno):
+    """The GWAS columns of the truth tensor ([sites, samples] int8) in
+    float64 NumPy (tests/test_cohort.py's formulas, by rows)."""
+    import numpy as np
+    d = dosage.astype(np.int64)
+    called = d >= 0
+    nc = called.sum(1)
+    alt = np.where(called, d, 0).sum(1)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        n = [((d == k) & called).sum(1).astype(float) for k in range(3)]
+        m = n[0] + n[1] + n[2]
+        p = np.where(m > 0, (2 * n[2] + n[1]) / (2 * np.maximum(m, 1)), 0.0)
+        exp = ((1 - p) ** 2 * m, 2 * p * (1 - p) * m, p ** 2 * m)
+        hwe = sum(np.where(e > 0, (o - e) ** 2 / np.where(e > 0, e, 1), 0.0)
+                  for o, e in zip(n, exp))
+        hwe = np.where(m > 0, hwe, np.nan)
+        use = called & np.isfinite(pheno)[None, :]
+        k = use.sum(1).astype(float)
+        y = np.where(use, pheno[None, :].astype(float), 0.0)
+        g = np.where(use, d, 0).astype(float)
+        ybar = y.sum(1) / np.maximum(k, 1)
+        gbar = g.sum(1) / np.maximum(k, 1)
+        dy = np.where(use, y - ybar[:, None], 0.0)
+        dg = np.where(use, g - gbar[:, None], 0.0)
+        u = (dy * dg).sum(1)
+        vg = (dg * dg).sum(1)
+        vy = (dy * dy).sum(1) / np.maximum(k, 1)
+        score = np.where((k > 1) & (vy * vg > 1e-12),
+                         u * u / np.where(vy * vg > 0, vy * vg, 1), np.nan)
+    return nc, alt, hwe, score
+
+
+def _raise_nofile(need: int) -> None:
+    """A k-way merge of ``need`` inputs may hold them open at once: raise
+    this process's soft RLIMIT_NOFILE toward its hard limit where it is
+    below, and print both."""
+    import resource
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft != resource.RLIM_INFINITY and soft < need:
+        new = need if hard == resource.RLIM_INFINITY else min(need, hard)
+        resource.setrlimit(resource.RLIMIT_NOFILE, (new, hard))
+        log(f"RLIMIT_NOFILE soft {soft} raised to {new} (hard {hard})")
+    else:
+        log(f"RLIMIT_NOFILE soft {soft}, hard {hard}: enough for {need}")
+
+
+def phase_cohort(torch, path, card, dev, seed):
+    """Phase 18: the cohort plane on cuda:0.  (a) K17a against its plain
+    version in every ``synth.GWAS_CASES`` case; (b) ``COHORT_SAMPLES``
+    single-sample call sets of ``synth.write_cohort`` (text VCF, BGZF
+    VCF, BGZF BCF in turn) over ``COHORT_SITES`` sites, written beside
+    the BAM and removed after, through ``open_cohort(manifest).gwas(y)``
+    (journaled) equal to the truth and to a NumPy reference, and one pass
+    of ``tensor_batches`` (the journal's replay); (c) a ``ServeLoop``
+    over the same manifest: one cold slice, ``COHORT_SLICES`` warm
+    gene-sized slices and one request over TCP, counts equal to the
+    truth's.  K17a timed at the main path's tile and at the full tile,
+    K17b at the serve's.  Returns the K17a and K17b rows and their
+    launches: K17a's in (b), K17b's (K17a in the slice step) in (c)."""
+    log("== phase 18: the cohort plane on cuda:0")
+    import shutil
+    import threading
+    import numpy as np
+    from hadoop_bam_torch import synth
+    from hadoop_bam_torch.cohort import open_cohort
+    from hadoop_bam_torch.cohort import gwas as tg
+    from hadoop_bam_torch.serve import ServeLoop, make_tcp_server
+    from hadoop_bam_torch.utils.metrics import MetricsContext
+    _raise_nofile(COHORT_SAMPLES + 256)
+    worst = _k17a_cases(torch, dev)
+    log(f"(a) K17a bit-equal to its plain version in AF and call rate, HWE "
+        f"and score within rtol 1e-5, atol 1e-6 (largest difference "
+        f"{worst:.3g}), in the {len(synth.GWAS_CASES)} GWAS_CASES "
+        f"({', '.join(synth.GWAS_CASES)}), twice each")
+    for line in kernels_report("cohort_stats"):
+        log(f"  ptxas: {line}")
+    work = os.path.join(os.path.dirname(os.path.abspath(path)), "phase18")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        truth, wall = _timed(lambda: synth.write_cohort(
+            work, COHORT_SAMPLES, COHORT_SITES, seed))
+        size = sum(os.path.getsize(p) for p in truth.paths)
+        n_sites = int(truth.pos.shape[0])
+        log(f"(b) {COHORT_SAMPLES} single-sample call sets (text VCF, BGZF "
+            f"VCF, BGZF BCF in turn) over {COHORT_SITES} sites in "
+            f"{wall:.1f} s, {_mb(size)}: {truth.n_records} records, "
+            f"{n_sites} joined sites ({truth.n_multi_sites} multi-allelic), "
+            f"{truth.n_swapped} REF/ALT swapped, {truth.n_split} split and "
+            f"{truth.n_reversed} reordered multi-allelic records, "
+            f"{truth.n_badref} with an indel REF, {truth.n_duplicates} "
+            f"duplicate positions, {truth.n_missing_calls} './.' calls")
+        rng = np.random.default_rng(seed + 18)
+        y = rng.standard_normal(COHORT_SAMPLES).astype(np.float32)
+        y[rng.random(COHORT_SAMPLES) < 0.05] = np.nan
+        journal = os.path.join(work, "join.hbam-journal")
+        # K17a's launches on the GWAS path: set to 0 just before, read
+        # just after (the profiled re-run and the timings come later)
+        tg.cohort_gwas_step.launches = 0
+        with MetricsContext() as mc:
+            t0 = time.perf_counter()
+            ds = open_cohort(truth.manifest, device=dev,
+                             journal_path=journal)
+            owall = time.perf_counter() - t0
+            res = ds.gwas(y)
+            wall = time.perf_counter() - t0
+        snap = mc.snapshot()
+        launches = {"cohort_gwas_step": tg.cohort_gwas_step.launches}
+        check(res["n_variants"] == n_sites, "gwas found every joined site")
+        for k in ("chrom", "pos", "n_allele"):
+            check(np.array_equal(res[k], getattr(truth, k)),
+                  f"gwas {k} equals the generator's")
+        nc, alt, hwe, score = _gwas_reference(truth.dosage, y)
+        f32 = np.float32
+        af = np.where(nc > 0, f32(alt) / (f32(2) * np.maximum(f32(nc), 1)),
+                      np.nan).astype(np.float32)
+        cr = f32(nc) * (f32(1) / f32(COHORT_SAMPLES))
+        check(np.array_equal(res["af"], af, equal_nan=True),
+              "gwas AF equals the truth's, bit for bit")
+        check(np.array_equal(res["call_rate"], cr),
+              "gwas call rate equals the truth's, bit for bit")
+        for k, want in (("hwe_chi2", hwe), ("score_chi2", score)):
+            check(np.allclose(res[k], want, rtol=2e-4, atol=2e-4,
+                              equal_nan=True),
+                  f"gwas {k} within rtol 2e-4, atol 2e-4 of the float64 "
+                  f"reference")
+        walls = snap["wall_timers"]
+        log(f"(b) open_cohort(manifest, journal).gwas(y): {wall:.3f} s, "
+            f"{n_sites / wall:,.1f} sites/s, {truth.n_records / wall:,.0f} "
+            f"sample-records/s; open (headers) {owall:.3f} s, join "
+            f"{walls.get('cohort.join_wall', 0):.3f} "
+            f"s, K17a spans {walls.get('cohort.kernel_wall', 0):.4f} s, "
+            f"copies {walls.get('cohort.dispatch_wall', 0):.4f} s; AF and "
+            f"call rate equal to the truth's bit for bit, HWE and score "
+            f"within rtol 2e-4 of float64 NumPy on the truth; "
+            f"{int(np.isfinite(res['score_chi2']).sum())} score tests "
+            f"[{card}]")
+        # one dataset over the finished journal for the profiled re-run and
+        # the feed: each pass replays the chunks, neither joins again
+        ds, owall = _timed(lambda: open_cohort(
+            truth.manifest, device=dev, journal_path=journal))
+        for _ in range(3):
+            # late in a smoke a profiler session now and then records no
+            # device event at all: such a reading is not kept
+            pwall, busy, by_name = device_busy(torch, lambda: ds.gwas(y))
+            if by_name:
+                break
+            log("(b) the profiler recorded no device event; again")
+        if by_name:
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+            log(f"(b) gwas again from the journal (no join; opened in "
+                f"{owall:.3f} s) profiled: "
+                f"{pwall:.3f} s wall, device busy {busy:.4f} s "
+                f"({100 * busy / pwall:.2f}% of it, "
+                f"{100 * busy / wall:.3f}% of the joined run's wall); top: "
+                + "; ".join(f"{k[:60]} {v * 1e3:.3f} ms" for k, v in top)
+                + f" [{card}]")
+        else:
+            log(f"(b) gwas again from the journal (no join; opened in "
+                f"{owall:.3f} s): {pwall:.3f} s wall; device busy not "
+                f"measured: three profiler sessions recorded no device "
+                f"event [{card}]")
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        batches = list(ds.tensor_batches())
+        sync(torch, dev)
+        bwall = time.perf_counter() - t0
+        nbytes = sum(t.numel() * t.element_size() for b in batches
+                     for t in b.values())
+        cols = {k: np.concatenate([b[k][0, :int(b["n_records"][0])]
+                                   .cpu().numpy() for b in batches])
+                for k in ("chrom", "pos", "n_allele", "dosage")}
+        for k in ("chrom", "pos", "n_allele"):
+            check(np.array_equal(cols[k], getattr(truth, k)),
+                  f"tensor_batches {k} equals the generator's")
+        check(np.array_equal(cols["dosage"][:, :COHORT_SAMPLES],
+                             truth.dosage),
+              "tensor_batches dosage equals the generator's")
+        log(f"(b) open_cohort(manifest, journal).tensor_batches() (the "
+            f"journal's replay): {len(batches)} batches of "
+            f"{tuple(batches[0]['dosage'].shape)} in {bwall:.3f} s, "
+            f"{len(batches) / bwall:,.1f} batches/s, "
+            f"{nbytes / bwall / 1e9:.3f} GB/s delivered; rows equal the "
+            f"generator's [{card}]")
+        main_tile = batches[0]
+        del batches, cols
+
+        # (c) cohort slices served from resident tiles
+        names = list(truth.contigs)
+        regions = []
+        for _ in range(COHORT_SLICES + 1):
+            c = int(rng.integers(len(names)))
+            span = int(10 ** rng.uniform(4, np.log10(2e6)))
+            beg = int(rng.integers(1, synth.COHORT_CONTIGS[c][1] - span))
+            regions.append((c, beg, beg + span - 1))
+        text = [f"{names[c]}:{b}-{e}" for c, b, e in regions]
+        want = [truth.slice_count(c, b, e) for c, b, e in regions]
+        # K17b's launches (K17a's, in the slice step) on the serve path:
+        # set to 0 just before, read just after the TCP request
+        tg.cohort_gwas_step.launches = 0
+        with ServeLoop(device=dev) as loop:
+            with MetricsContext() as m:
+                cold, cwall = _timed(lambda: loop.query(
+                    truth.manifest, [text[0]], cohort=True)[0])
+            cw = m.snapshot()["wall_timers"]
+            check(cold.count == want[0] and cold.tile_misses >= 1,
+                  "the cold slice's count equals the truth's")
+            check(cold.extra["n_samples"] == COHORT_SAMPLES,
+                  "the slice reports the cohort's samples")
+            lat, got = [], []
+            with MetricsContext() as m:
+                t0 = time.perf_counter()
+                for r in text[1:]:
+                    t1 = time.perf_counter()
+                    x = loop.query(truth.manifest, [r], cohort=True)[0]
+                    lat.append(time.perf_counter() - t1)
+                    got.append((x.count, x.tile_hits, x.tile_misses))
+                wwall = time.perf_counter() - t0
+            ww = m.snapshot()["wall_timers"]
+            check([g[0] for g in got] == want[1:],
+                  "every warm slice's count equals the truth's")
+            check(all(h >= 1 and ms_ == 0 for _, h, ms_ in got),
+                  "every warm slice hit the resident tiles")
+            check(ww.get("cohort.join_wall", 0.0) == 0.0
+                  and ww.get("pipeline.host_decode_wall", 0.0) == 0.0,
+                  "warm slices do no join and no host decode")
+            lat = np.asarray(lat)
+            from hadoop_bam_torch.cohort import manifest as tman
+            man = tman.load_manifest(truth.manifest)
+            _, by_path = _timed(lambda: [os.stat(p) for p in truth.paths])
+            _, ident = _timed(man.identity)
+            log(f"(c) the manifest's identity: {len(truth.paths)} stats "
+                f"by path {1e3 * by_path:.3f} ms; the identity (a stat "
+                f"relative to each directory opened once) "
+                f"{1e3 * ident:.3f} ms")
+            log(f"(c) ServeLoop cohort slices: cold {cwall:.3f} s (join "
+                f"{cw.get('cohort.join_wall', 0):.3f} s, tile build "
+                f"{cw.get('cohort.tile_build_wall', 0):.3f} s); "
+                f"{COHORT_SLICES} warm gene-sized slices (10 kb-2 Mb) in "
+                f"{wwall:.3f} s, p50 {1e3 * np.percentile(lat, 50):.3f} "
+                f"ms, p99 {1e3 * np.percentile(lat, 99):.3f} ms, "
+                f"{sum(want[1:])} sites kept; join and host decode 0 s "
+                f"on the warm pass, the manifest's identity checks "
+                f"{ww.get('cohort.resolve_wall', 0):.3f} s, the slice "
+                f"steps {ww.get('cohort.slice_wall', 0):.3f} s [{card}]")
+            server = make_tcp_server(loop, port=0)
+            host, port = server.server_address[:2]
+            th = threading.Thread(target=server.serve_forever, daemon=True)
+            th.start()
+            try:
+                out = {"tcp": []}
+                _tcp_lines(host, port, [{
+                    "id": 1, "cohort": True, "path": truth.manifest,
+                    "regions": text[1:4], "records": True}], out, "tcp")
+            finally:
+                server.shutdown()
+                server.server_close()
+                th.join(10)
+            doc = out["tcp"][0][1]
+            check([r["count"] for r in doc["results"]] == want[1:4]
+                  and [len(r["records"]) for r in doc["results"]]
+                  == want[1:4],
+                  "the TCP request's counts and records equal the truth's")
+            log(f"(c) one request of three slices over TCP: counts "
+                f"{[r['count'] for r in doc['results']]}, mean AF "
+                f"{[r['mean_af'] for r in doc['results']]}, "
+                f"{doc['latency_ms']} ms")
+            launches["cohort_slice_step"] = tg.cohort_gwas_step.launches
+            tile = None
+            for v in loop.tiles._entries.values():
+                g = v.groups[0]
+                tile = (g.cols[0], g.cols[1], g.cols[3], g.counts)
+        check(launches["cohort_gwas_step"] > 0
+              and launches["cohort_slice_step"] > 0,
+              f"the main path launched K17a and K17b: {launches}")
+        log(f"phase 18 launches: K17a {launches['cohort_gwas_step']} in "
+            f"(b)'s gwas, K17b (K17a in the slice step) "
+            f"{launches['cohort_slice_step']} in (c)'s "
+            f"{COHORT_SLICES + 1} slices and TCP request")
+
+        # K17a timed at the main path's tile as the run gave it, and at
+        # the full tile of the GWAS_CASES with and without a phenotype
+        # (the phenotype's re-reads against the dosage's counting);
+        # K17b at the serve's tile
+        ypad = torch.from_numpy(y).to(dev)
+        ka = _k17a_times(torch, main_tile["dosage"], int(
+            main_tile["n_records"][0]), ypad, COHORT_SAMPLES,
+            "the main path's tile", card)
+        d, count, pheno, S = synth.gwas_case("main path tile")
+        dfull = torch.from_numpy(d).to(dev)
+        kf = _k17a_times(torch, dfull, count,
+                         torch.from_numpy(pheno).to(dev), S,
+                         "the full tile (GWAS_CASES)", card)
+        kn = _k17a_times(torch, dfull, count, None, S,
+                         "the full tile (GWAS_CASES)", card)
+        iv = torch.tensor(regions[1], dtype=torch.int32, device=dev)
+        kb = _k17b_times(torch, tile, iv, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("no single PyTorch call computes K17a or K17b (library_ms null)")
+    row_a = {"name": "cohort_gwas_step", "route": "cuda",
+             "source": "hadoop_bam_torch/csrc/cohort_stats.cu",
+             "replaces": "hadoop_bam_tpu/cohort/gwas.py:40",
+             "max_abs_err": worst, "ms": ka["ms"], "ms_by": ka["ms_by"],
+             "loop_ms": ka["loop_ms"], "plain_ms": ka["plain_ms"],
+             "bound_ms": ka["bound_ms"], "bound_by": "bytes",
+             "library_ms": None, "main_path_shape": ka["shape"],
+             "full_tile_shape": kf["shape"], "full_tile_ms": kf["ms"],
+             "full_tile_plain_ms": kf["plain_ms"],
+             "full_tile_bound_ms": kf["bound_ms"],
+             "full_tile_no_pheno_ms": kn["ms"],
+             "full_tile_no_pheno_bound_ms": kn["bound_ms"],
+             "launches_of": "cohort_gwas_step in (b)'s gwas"}
+    row_b = {"name": "cohort_slice_step", "route": "cuda",
+             "form": "K17a (hand kernel, no phenotype) + torch ops",
+             "source": "hadoop_bam_torch/cohort/serving.py",
+             "replaces": "hadoop_bam_tpu/cohort/serving.py:79",
+             "max_abs_err": 0, "ms": kb["ms"], "ms_by": kb["ms_by"],
+             "loop_ms": kb["loop_ms"], "plain_ms": kb["plain_ms"],
+             "bound_ms": kb["bound_ms"], "bound_by": "bytes",
+             "library_ms": None, "main_path_shape": kb["shape"],
+             "launches_of": "cohort_gwas_step in (c)'s slice steps"}
+    return {"cohort_gwas_step": row_a, "cohort_slice_step": row_b}, launches
+
+
+def cohort_times(torch, path, dev) -> dict:
+    """``--times cohort``: phase 18 alone."""
+    rows, launches = phase_cohort(torch, path, card_line(), dev, 0)
+    return {"K17": rows, "launches": launches}
+
+
 TIMES = {"walk_records_device": k9_times, "resolve_pack": k7_times,
          "payload_gather": k10p_times, "device_plane": device_plane_times,
          "native_plane": native_plane_times, "k2_window": k2_window_times,
@@ -5251,7 +5705,7 @@ TIMES = {"walk_records_device": k9_times, "resolve_pack": k7_times,
          "variant_plane": variant_plane_times,
          "sort_query": sort_query_times, "mkdup": mkdup_times,
          "markdup_cols": markdup_cols_times,
-         "markdup_floor": markdup_floor_times}
+         "markdup_floor": markdup_floor_times, "cohort": cohort_times}
 
 
 def check_truth(flag, stats, truth) -> None:
@@ -5348,6 +5802,8 @@ def main(argv=None) -> int:
     rows["mesh_sort_step"] = k15
     k16, mkdup_launches = phase_mkdup(torch, path, card, dev, args.seed)
     rows.update(k16)
+    k17, cohort_launches = phase_cohort(torch, path, card, dev, args.seed)
+    rows.update(k17)
     rows["seq_qual_stats"].update(k2_window)
     for name, x in list(rows.items()) + [
             ("seq_qual_stats at the window shape",
@@ -5374,7 +5830,8 @@ def main(argv=None) -> int:
                    "serve": serve_launches.get(name, 0),
                    "variant": variant_launches.get(name, 0),
                    "sort": sort_launches.get(name, 0),
-                   "mkdup": mkdup_launches.get(name, 0)}
+                   "mkdup": mkdup_launches.get(name, 0),
+                   "cohort": cohort_launches.get(name, 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["share_of_bound"] = row["bound_ms"] / row["ms"]

@@ -23,4 +23,7 @@ caller passes ``device="cpu"``.
 
 The read formats (``open_fastq``, ``open_qseq``, ``open_fasta``,
 ``parallel.pipeline.fastq_seq_stats_file``) feed the same K2 kernel.
+Later slices add the device decode plane, coverage, region queries and
+the resident server, the variant plane, the mesh sort, duplicate
+marking and the cohort plane (``cohort/``: ``api.open_cohort``).
 """

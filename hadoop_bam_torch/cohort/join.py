@@ -1,0 +1,221 @@
+"""The k-way position join: sample site streams -> joined column chunks
+(copy of hadoop_bam_tpu/cohort/join.py).
+
+One stream per manifest sample (``VcfDataset.records`` in any container
+the dispatcher recognises, reduced to ``SampleSite``), merged on
+``(contig, pos)`` by the shared ``split/kmerge.py`` heap core, each
+group harmonized (cohort/harmonize.py) and packed into
+``cohort_chunk_sites``-row column chunks:
+
+    chrom i32 [n], pos i32 [n], n_allele i16 [n],
+    dosage i8 [n, samples_pad] (-1 missing),
+    qual f32 [n, samples_pad] (NaN missing)
+
+— exactly the schema the shared ``variant_feed``/``FeedPipeline``
+machinery tiles onto the card (the sentinels ride the TileSpec pads).
+
+**Per-input-file fault domains**: each sample stream runs inside a guard keyed
+``("cohort", "input", <abspath>)`` in the resilience registry.  A data
+fault mid-stream (corrupt bytes, a container error, out-of-order
+records) QUARANTINES that sample — its column carries the missing
+sentinels from the fault onward, the manifest records the casualty,
+the domain's breaker is fed — and the join keeps going.  PLAN-class
+errors (bad paths, bad parameters) always raise: configuration is
+never quarantined.  ``cohort_max_quarantine_fraction`` bounds the
+damage — losing most of the cohort's columns is not a result.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from hadoop_bam_torch.config import DEFAULT_CONFIG, HBamConfig
+from hadoop_bam_torch.cohort.harmonize import SampleSite, harmonize_site
+from hadoop_bam_torch.cohort.manifest import CohortManifest
+from hadoop_bam_torch.split.kmerge import kmerge_grouped
+from hadoop_bam_torch.utils.errors import (
+    CorruptDataError, PLAN, classify_error,
+)
+from hadoop_bam_torch.utils.metrics import METRICS
+
+
+def build_contig_space(headers: Sequence) -> List[str]:
+    """The shared cohort contig namespace: the union of every sample
+    header's contigs, in manifest order then header order.  Every
+    sample's positions key into ONE index space, so the k-way merge key
+    ``(contig_index, pos)`` is comparable across streams."""
+    contigs: List[str] = []
+    seen = set()
+    for h in headers:
+        for c in h.contigs:
+            if c not in seen:
+                seen.add(c)
+                contigs.append(c)
+    return contigs
+
+
+def _parse_alleles(genotype: str) -> Tuple[Optional[int], ...]:
+    """GT string -> allele index tuple (None for '.'); '' -> ()."""
+    gt = genotype.split(":", 1)[0]
+    if not gt:
+        return ()
+    out: List[Optional[int]] = []
+    for a in gt.replace("|", "/").split("/"):
+        out.append(int(a) if a.isdigit() else None)
+    return tuple(out)
+
+
+def iter_sample_sites(records, cmap: Dict[str, int]) -> Iterator[SampleSite]:
+    """Reduce one sample's ``VcfRecord`` stream to ``SampleSite``s keyed
+    into the shared contig space.  A record on a contig absent from
+    every header, or a record that breaks (contig, pos) order, is a
+    DATA fault (``CorruptDataError``) — the guard above decides whether
+    it quarantines or raises."""
+    last: Optional[Tuple[int, int]] = None
+    for rec in records:
+        ci = cmap.get(rec.chrom)
+        if ci is None:
+            raise CorruptDataError(
+                f"cohort join: contig {rec.chrom!r} appears in records "
+                f"but in no sample header — the shared contig space "
+                f"cannot order it")
+        site = SampleSite(
+            chrom=ci, pos=int(rec.pos), ref=rec.ref, alts=tuple(rec.alts),
+            alleles=(_parse_alleles(rec.genotypes[0])
+                     if rec.fmt and rec.fmt[0] == "GT" and rec.genotypes
+                     else ()),
+            qual=float(rec.qual) if rec.qual is not None else math.nan)
+        if last is not None and site.key < last:
+            raise CorruptDataError(
+                f"cohort join: records out of (contig, pos) order at "
+                f"{rec.chrom}:{rec.pos} — the streaming merge needs "
+                f"position-sorted inputs")
+        last = site.key
+        yield site
+
+
+class _JoinState:
+    """Shared mutable accounting across the guarded streams."""
+
+    def __init__(self, n_samples: int, max_fraction: float):
+        self.n_samples = n_samples
+        self.max_fraction = float(max_fraction)
+        self.quarantined = 0
+
+
+def guarded_sites(site_iter: Iterator[SampleSite], sample_id: str,
+                  path: str, manifest: CohortManifest, state: _JoinState,
+                  config: HBamConfig) -> Iterator[SampleSite]:
+    """The per-input fault domain: stream ``site_iter`` through,
+    classifying any fault.  PLAN raises; data faults feed the input's
+    breaker and (under ``cohort_quarantine_inputs``) end THIS stream —
+    the sample's column stays sentinel-filled — unless the quarantined
+    fraction trips the build-wide circuit."""
+    from hadoop_bam_torch.resilience import file_ident, registry
+
+    domain = registry().domain("cohort", "input", file_ident(path),
+                               config=config)
+    try:
+        yield from site_iter
+    except BaseException as e:  # noqa: BLE001 — classified below
+        if not isinstance(e, Exception) or classify_error(e) == PLAN:
+            raise              # configuration / KeyboardInterrupt etc.
+        domain.record_failure(e)
+        if not bool(getattr(config, "cohort_quarantine_inputs", True)):
+            raise
+        manifest.record_quarantine(
+            sample_id, f"{type(e).__name__}: {e}")
+        state.quarantined += 1
+        METRICS.count("cohort.samples_quarantined")
+        frac = state.quarantined / max(1, state.n_samples)
+        if frac > state.max_fraction:
+            raise CorruptDataError(
+                f"cohort join: {state.quarantined}/{state.n_samples} "
+                f"sample inputs quarantined ({frac:.0%}) — over the "
+                f"cohort_max_quarantine_fraction="
+                f"{state.max_fraction} circuit; the joined tensor "
+                f"would be mostly sentinel") from e
+        return                 # stream ends; the join keeps going
+    else:
+        domain.record_success()
+
+
+def iter_joined_chunks(manifest: CohortManifest,
+                       streams: Sequence[Iterator[SampleSite]],
+                       samples_pad: int,
+                       config: HBamConfig = DEFAULT_CONFIG,
+                       skip_through_key: Optional[Tuple[int, int]] = None
+                       ) -> Iterator[Dict[str, np.ndarray]]:
+    """Merge + harmonize + pack: yields column-chunk dicts of up to
+    ``config.cohort_chunk_sites`` joined sites.  ``streams`` are the
+    (already guarded) per-sample ``SampleSite`` iterators, in manifest
+    order — their index IS the sample column index.
+
+    ``skip_through_key`` is the journal-resume continuation point
+    (jobs/): merged site GROUPS with key <= it are dropped before
+    harmonize/pack — they are already inside replayed chunks.  Group
+    keys strictly increase and every record of a key lands in one
+    group, so a chunk boundary is always a clean key boundary and the
+    continuation reproduces the uninterrupted chunk sequence exactly
+    (the streams are still consumed — record decode is not skipped,
+    only the join/harmonize work and the chunk assembly are)."""
+    k = manifest.n_samples
+    chunk_sites = max(1, int(getattr(config, "cohort_chunk_sites", 1024)))
+
+    def empty_chunk():
+        return {
+            "chrom": np.empty(chunk_sites, np.int32),
+            "pos": np.empty(chunk_sites, np.int32),
+            "n_allele": np.empty(chunk_sites, np.int16),
+            "dosage": np.full((chunk_sites, samples_pad), -1, np.int8),
+            "qual": np.full((chunk_sites, samples_pad), np.nan,
+                            np.float32),
+        }
+
+    cols = empty_chunk()
+    n = 0
+    groups = kmerge_grouped(streams, key=lambda s: s.key)
+    while True:
+        # the span covers merge + harmonize + pack work for one chunk;
+        # the generator suspends OUTSIDE it, so consumer time (device
+        # dispatch) never pollutes the join wall
+        with METRICS.span("cohort.join_wall"), \
+                METRICS.wall_timer("pipeline.host_decode_wall"):
+            # counters accumulate locally and emit ONCE per chunk: a
+            # per-site METRICS.count would take the metrics lock per
+            # joined variant inside the merge hot loop
+            dupes = dropped = 0
+            while n < chunk_sites:
+                nxt = next(groups, None)
+                if nxt is None:
+                    break
+                _key, group = nxt
+                if skip_through_key is not None \
+                        and tuple(_key) <= tuple(skip_through_key):
+                    continue       # already inside a replayed chunk
+                h = harmonize_site(group, k)
+                cols["chrom"][n] = h.chrom
+                cols["pos"][n] = min(h.pos, np.iinfo(np.int32).max)
+                cols["n_allele"][n] = min(h.n_allele,
+                                          np.iinfo(np.int16).max)
+                cols["dosage"][n, :k] = h.dosage
+                cols["qual"][n, :k] = h.qual
+                n += 1
+                dupes += h.duplicates
+                dropped += h.dropped
+            if n:
+                METRICS.count("cohort.sites", n)
+            if dupes:
+                METRICS.count("cohort.duplicate_sites", dupes)
+            if dropped:
+                METRICS.count("cohort.harmonize_dropped", dropped)
+        if n == 0:
+            return
+        out = {kk: v[:n] for kk, v in cols.items()}
+        yield out
+        if n < chunk_sites:       # stream exhausted mid-chunk
+            return
+        cols = empty_chunk()
+        n = 0

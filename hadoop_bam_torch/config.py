@@ -152,7 +152,8 @@ class HBamConfig:
     # the tile builder's staging-ring slots, the retry hint on sheds and
     # the fault pressure that pauses prefetch.  serve_replica_id and
     # serve_peers name a fleet, which the port refuses until it is
-    # ported; serve_cohort_manifests is carried for the cohort plane
+    # ported; serve_cohort_manifests is the cohort manifests kept
+    # resident before LRU eviction
     serve_tile_cache_bytes: int = 512 << 20
     serve_tile_records: int = 4096
     serve_prefetch: bool = True
@@ -206,6 +207,14 @@ class HBamConfig:
     # post-mortem
     journal_fsync: bool = True
     debug_keep_spill: bool = False
+
+    # the cohort plane (cohort/): joined sites a host column chunk, and
+    # what a sample input whose bytes fault mid-join does: quarantined
+    # (its column -1 / NaN from the fault on; False: raise), with the
+    # build refused once more than the fraction of samples quarantined
+    cohort_chunk_sites: int = 1024
+    cohort_quarantine_inputs: bool = True
+    cohort_max_quarantine_fraction: float = 0.5
 
     # VCF / BCF input (api/dispatch.py, api/vcf_dataset.py): trust a
     # .vcf / .vcf.gz / .bcf extension over the magic bytes, and what a

@@ -1,9 +1,8 @@
 """Job-level resume policy (trimmed copy of hadoop_bam_tpu/jobs/runner.py):
 which config fields a job kind's resume contract fingerprints, the
 job-grain idempotence wrapper, and ``resume_job``, which re-drives the
-job a journal describes.  The port resumes the mesh sort's kinds and
-duplicate marking; the cohort kind raises PlanError until the port has
-that pipeline (ROADMAP Queue 1 item 11).
+job a journal describes: the mesh sort's kinds, duplicate marking and
+the journaled cohort join (resumed a chunk at a time).
 """
 from __future__ import annotations
 
@@ -22,6 +21,12 @@ from hadoop_bam_torch.utils.metrics import METRICS
 SORT_FINGERPRINT_FIELDS = (
     "write_compress_level", "write_header", "write_terminator",
     "write_index_kinds", "splitting_index_granularity",
+)
+# the join's: the chunk cut (the units the journal indexes) and the
+# quarantine policy (which columns come out sentinel)
+COHORT_FINGERPRINT_FIELDS = (
+    "cohort_chunk_sites", "cohort_quarantine_inputs",
+    "cohort_max_quarantine_fraction",
 )
 
 
@@ -92,7 +97,8 @@ def resume_job(journal_path: str, config=None, device=None) -> Dict:
     pipeline as it re-opens the journal, so resuming a resume is the same
     path.  The config's fingerprinted fields come from the journal's
     header, so a job run with non-default settings resumes as it ran.
-    Returns {kind, output, records}."""
+    Returns {kind, output, records}; a cohort join {kind, output (None),
+    chunks, sites, quarantined}."""
     from hadoop_bam_torch.config import DEFAULT_CONFIG
 
     config = DEFAULT_CONFIG if config is None else config
@@ -130,11 +136,26 @@ def resume_job(journal_path: str, config=None, device=None) -> Dict:
                 round_records=params.get("round_records"),
                 journal_path=journal_path)
             return {"kind": kind, "output": params["output"], "records": n}
-    if kind == "cohort_join":
-        raise PlanError(
-            f"journal {journal_path} records a {kind!r} job: the port has "
-            f"no such pipeline yet (ROADMAP Queue 1 item 11)")
+        if kind == "cohort_join":
+            from hadoop_bam_torch.cohort.dataset import open_cohort
+            manifest = params.get("manifest")
+            if not manifest:
+                raise PlanError(
+                    f"journal {journal_path} records a 'cohort_join' job "
+                    f"over an inline manifest (or without its manifest "
+                    f"param): only manifest-file joins resume from the "
+                    f"journal alone; resume through "
+                    f"open_cohort(..., journal_path=...)")
+            ds = open_cohort(manifest, device=device, config=config,
+                             journal_path=journal_path)
+            sites = chunks = 0
+            for chunk in ds.site_chunks():
+                sites += int(chunk["pos"].shape[0])
+                chunks += 1
+            return {"kind": kind, "output": None, "chunks": chunks,
+                    "sites": sites,
+                    "quarantined": sorted(ds.manifest.quarantined)}
     raise PlanError(
         f"journal {journal_path} records job kind {kind!r}, which the port "
         f"cannot resume (resumable kinds: mesh_sort_spill, mesh_sort, "
-        f"mkdup)")
+        f"mkdup, cohort_join)")

@@ -56,6 +56,8 @@ KERNELS: Dict[str, tuple] = {
     "markdup_cols": ("hbam_markdup_cols",
                      [_VP, _I64, _I64, _I64, _I64, _VP, _I64, _VP, _VP,
                       _VP]),
+    "cohort_stats": ("hbam_cohort_stats",
+                     [_VP, _I64, _I64, _VP, _VP, _I64, _VP, _VP]),
 }
 
 

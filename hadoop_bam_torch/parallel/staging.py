@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import contextvars
 import dataclasses
 import queue
 import threading
@@ -289,8 +290,11 @@ class FeedPipeline:
             except Cancelled:
                 pass
 
-        packer = threading.Thread(target=pack, name="hbam-feed-pack",
-                                  daemon=True)
+        # the packer runs under the caller's contextvars snapshot, so
+        # what the span stream counts lands in the caller's metrics
+        ctx = contextvars.copy_context()
+        packer = threading.Thread(target=lambda: ctx.run(pack),
+                                  name="hbam-feed-pack", daemon=True)
         self.dispatches = 0
         packer.start()
         try:

@@ -478,8 +478,8 @@ def variant_feed(cols_stream, n_dev: int, cap: int, **fp_kwargs):
     FeedPipeline over it.  Returns ``(keys, fp, tuples)``, or ``(None,
     None, None)`` for an empty stream, where ``tuples`` is the dict
     stream as key-ordered array tuples for ``fp.feed`` / ``fp.stream``:
-    the one wiring the stats driver and ``VcfDataset.tensor_batches``
-    share."""
+    the one wiring the stats driver, ``VcfDataset.tensor_batches`` and
+    the cohort feed share."""
     stream = iter(cols_stream)
     first = next(stream, None)
     if first is None:

@@ -14,7 +14,9 @@ its capability, so one decision serves them all.  ``plane_report`` is
 the display-only decision of the serve ``health()``.
 ``run_chunk_columns`` is the reference's
 query-chunk runner (``_run_chunk_columns``), called by the query engine
-directly until the plan IR is ported.
+directly until the plan IR is ported, and ``run_cohort_batches`` its
+cohort tensor feed (``_run_cohort_batches``), called by
+``CohortDataset.tensor_batches``.
 
 One deliberate difference: the reference's fused gate also asks whether
 the native library exports the ``hbam_fused_*`` entry points and falls
@@ -27,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -168,3 +170,34 @@ def run_chunk_columns(span, config: HBamConfig, decode_fn: Callable
     METRICS.observe("query.chunk_bytes", int(value["nbytes"]))
     METRICS.count("query.chunks_decoded")
     return (value, int(value["nbytes"]))
+
+
+def run_cohort_batches(dataset, geometry=None) -> Iterator[Dict]:
+    """The cohort tensor feed: ``dataset.site_chunks()`` (the joined
+    chunks) through ``variant_feed`` in fixed-shape tiles whose rows fill
+    the device in order, every batch ``cap`` rows, each group copied to
+    the dataset's device with its ``n_records``, the copies' event as the
+    ring slot's in-flight handle (``_batch_emit``); the copies are timed
+    as ``cohort.dispatch_wall``.  A generator, so a ``tensor_batches``
+    that is built but never iterated starts no join and opens no
+    journal."""
+    def gen():
+        from hadoop_bam_torch.parallel.pipeline import _batch_emit
+        from hadoop_bam_torch.parallel.variant_pipeline import variant_feed
+
+        geom = dataset.geometry if geometry is None else geometry
+        dev = dataset.device
+        keys, fp, tuples = variant_feed(
+            dataset.site_chunks(), 1, geom.tile_records, fixed_shape=True,
+            balance=False, pin_memory=dev.type == "cuda")
+        if fp is None:
+            return
+        emit = _batch_emit(dev, keys)
+
+        def timed(tensors, counts):
+            with METRICS.wall_timer("cohort.dispatch_wall"):
+                return emit(tensors, counts)
+
+        yield from fp.stream(tuples, timed)
+
+    return gen()

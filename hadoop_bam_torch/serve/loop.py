@@ -35,9 +35,13 @@ takes ``mesh=``; a region's match counts add up on the card and come
 back in one read per region (the reference reads each tile group's
 counts); a device tile build demotes to the host build only on a data
 fault (the drivers' rule: the reference demotes every non-PLAN fault);
-the serving fleet (``serve_replica_id`` + ``serve_peers``) and
-the cohort plane (``cohort=True``) raise ``PlanError`` until they are
-ported (ROADMAP Queue 1 items 11a and 11).
+the serving fleet (``serve_replica_id`` + ``serve_peers``) raises
+``PlanError`` until it is ported (ROADMAP Queue 1 item 11a).
+
+Cohort slices: ``submit(..., cohort=True)`` names a cohort manifest JSON
+for ``path``, and each region is answered from the joined
+``[variants, samples]`` dosage tiles in the same device tile cache
+(``cohort.serving.CohortServer``), keyed by the manifest's identity.
 """
 from __future__ import annotations
 
@@ -79,15 +83,16 @@ from hadoop_bam_torch.utils.metrics import (
 @dataclasses.dataclass
 class ServeResult:
     """One served region: the match count is always computed (tile
-    path); ``records`` materialize only when asked for.  (The
-    reference's ``extra`` aggregates come from the fleet and cohort
-    planes, which the port does not have.)"""
+    path); ``records`` materialize only when asked for.  ``extra``
+    carries a projection's aggregates (a cohort slice's ``n_samples`` /
+    ``mean_af`` / ``quarantined``)."""
     region: str
     count: int
     n_candidates: int
     tile_hits: int               # chunks served from resident tiles
     tile_misses: int             # chunks that needed a tile build
     records: Optional[List[object]] = None
+    extra: Optional[Dict[str, object]] = None
 
 
 @dataclasses.dataclass(order=True)
@@ -103,6 +108,9 @@ class _Job:
     future: cf.Future = dataclasses.field(compare=False)
     ctx: contextvars.Context = dataclasses.field(compare=False)
     t_enqueue: float = dataclasses.field(compare=False)
+    # cohort-slice request: ``path`` is a cohort manifest JSON and the
+    # regions slice the joined [variants, samples] tensor
+    cohort: bool = dataclasses.field(compare=False, default=False)
 
 
 class ServeLoop:
@@ -152,6 +160,7 @@ class ServeLoop:
                 dump_cap=int(config.flight_dump_cap))
         self.tile_cap = int(config.serve_tile_records)
         self._builder: Optional[TileBuilder] = None
+        self._cohort = None          # cohort.serving.CohortServer, lazy
         self._stream = None          # the dispatcher's CUDA stream
         self._cond = threading.Condition()
         self._heap: List[_Job] = []
@@ -209,11 +218,11 @@ class ServeLoop:
         Blocks (bounded) on THIS thread for tenant admission — the
         backpressure lands on the flooding client — then returns a
         Future of ``[ServeResult, ...]``.  Over-quota tenants shed with
-        ``TransientIOError``; bad parameters raise ``PlanError``, and so
-        does ``cohort=True`` until the cohort plane is ported."""
-        if cohort:
-            raise PlanError("cohort-slice serving is not ported yet: "
-                            "ROADMAP Queue 1 item 11 (cohort/serving.py)")
+        ``TransientIOError``; bad parameters raise ``PlanError``.
+
+        With ``cohort=True``, ``path`` names a cohort manifest JSON and
+        each region is answered from the device-resident joined dosage
+        tiles (cohort/serving.py) instead of the per-file index path."""
         if not regions:
             raise PlanError("submit() needs at least one region")
         rank = priority_rank(priority)
@@ -241,7 +250,7 @@ class ServeLoop:
                        want_records=bool(want_records), deadline=deadline,
                        admission=admission, future=cf.Future(),
                        ctx=contextvars.copy_context(),
-                       t_enqueue=time.perf_counter())
+                       t_enqueue=time.perf_counter(), cohort=bool(cohort))
         with self._cond:
             if self._stopping:
                 self._finish_admission(job)
@@ -257,10 +266,13 @@ class ServeLoop:
         return self.submit(path, regions, **kwargs).result()
 
     def stats(self) -> Dict[str, object]:
-        return {"tiles": self.tiles.stats(),
-                "chunks": self.engine.cache.stats(),
-                "prefetch": self.prefetcher.stats(),
-                "tenants": self.tenants.stats()}
+        out = {"tiles": self.tiles.stats(),
+               "chunks": self.engine.cache.stats(),
+               "prefetch": self.prefetcher.stats(),
+               "tenants": self.tenants.stats()}
+        if self._cohort is not None:
+            out["cohort"] = self._cohort.stats()
+        return out
 
     def health(self) -> Dict[str, object]:
         """The degraded-mode diagnosis surface (``{"op": "health"}`` on
@@ -393,7 +405,19 @@ class ServeLoop:
                                         int(self.config.serve_ring_slots))
         return self._builder
 
+    def _cohort_or_make(self):
+        if self._cohort is None:
+            from hadoop_bam_torch.cohort.serving import CohortServer
+            self._cohort = CohortServer(self.device, self.config)
+        return self._cohort
+
     def _serve_region(self, job: _Job, region: str) -> ServeResult:
+        if job.cohort:
+            # the cohort plane: joined [variants, samples] tiles in the
+            # SAME device cache, keyed by the manifest identity
+            return self._cohort_or_make().serve(
+                job.path, region, self.tiles,
+                want_records=job.want_records, deadline=job.deadline)
         engine = self.engine
         job.deadline.check("serve resolve")
         meta = engine._file_meta(job.path)

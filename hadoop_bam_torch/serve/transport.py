@@ -23,9 +23,11 @@ stopping loop) additionally carry the server's backoff hint::
     {"id": 2, "error": "...", "kind": "transient", "retry_after_s": 0.1}
     {"id": 3, "error": "...", "kind": "plan"}        # fix the request
 
-``"cohort": true`` marks a cohort-slice request, which the port
-refuses with a ``plan`` error until the cohort plane is ported (ROADMAP
-Queue 1 item 11).
+``"cohort": true`` marks a cohort-slice request: ``path`` names a
+cohort manifest JSON and each region slices the joined
+``[variants, samples]`` tensor from device-resident dosage tiles
+(cohort/serving.py); its results also carry ``n_samples`` /
+``mean_af`` / ``quarantined``.
 
 ``{"op": "health"}`` answers out of band with the loop's breaker and
 demotion-ladder state (``ServeLoop.health``) — the liveness/diagnosis
@@ -127,7 +129,12 @@ def _result_doc(req_id, tenant: str, results, t_enqueue: float,
             {"region": r.region, "count": r.count,
              "candidates": r.n_candidates, "tile_hits": r.tile_hits,
              "tile_misses": r.tile_misses,
-             **({"records": [rec.to_line() for rec in r.records]}
+             # the cohort plane's aggregates ride the result verbatim
+             **(r.extra if r.extra else {}),
+             # region records carry to_line(); cohort slice records are
+             # already wire-shaped dicts
+             **({"records": [rec.to_line() if hasattr(rec, "to_line")
+                             else rec for rec in r.records]}
                 if r.records is not None else {})}
             for r in results],
     }

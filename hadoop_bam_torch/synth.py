@@ -1887,3 +1887,315 @@ def _markdup_truth(g: Dict[str, np.ndarray], rg: np.ndarray,
     dup = np.zeros(flag.size, np.uint8)
     dup[idx[order][1:][same]] = 1
     return dup
+
+
+# ---------------------------------------------------------------------------
+# the cohort plane: single-sample call sets and a manifest, and K17a's
+# edge cases
+# ---------------------------------------------------------------------------
+
+COHORT_CONTIGS: Tuple[Tuple[str, int], ...] = (("20", 63025520),
+                                               ("21", 48129895))
+COHORT_PRESENCE = 0.6        # (site, sample) pairs with a record
+COHORT_MULTI_SHARE = 0.05    # sites with two ALT alleles
+COHORT_SPLIT_SHARE = 0.3     # their records listing only the ALTs called
+COHORT_SWAP_SHARE = 0.02     # biallelic records written REF/ALT swapped
+COHORT_BADREF_SHARE = 0.005  # records with an indel REF at the site
+COHORT_DUP_SHARE = 0.01      # records followed by a same-position copy
+COHORT_MISSING_SHARE = 0.01  # './.' calls
+COHORT_FORMATS = (".vcf", ".vcf.gz", ".bcf")
+
+# record shapes of the generator
+_NORMAL, _REVERSED, _SPLIT, _SWAP, _BADREF = range(5)
+
+
+@dataclasses.dataclass
+class CohortTruth:
+    """What harmonizing and joining ``write_cohort``'s files must give:
+    one row a joined site in (contig, pos) order, ``dosage`` int8
+    [sites, samples] (-1 where a sample has no record, a './.' call or a
+    record whose REF cannot map), ``chrom`` (index into ``contigs``) and
+    ``pos`` int32, ``n_allele`` int16; with the shapes written, counted
+    over the records."""
+    manifest: str
+    sample_ids: Tuple[str, ...]
+    paths: Tuple[str, ...]
+    contigs: Tuple[str, ...]
+    chrom: np.ndarray
+    pos: np.ndarray
+    n_allele: np.ndarray
+    dosage: np.ndarray
+    n_records: int = 0
+    n_multi_sites: int = 0
+    n_swapped: int = 0
+    n_badref: int = 0
+    n_split: int = 0
+    n_reversed: int = 0
+    n_duplicates: int = 0
+    n_missing_calls: int = 0
+
+    def slice_count(self, contig: int, beg: int, end: int) -> int:
+        """Joined sites on ``contig`` with ``beg <= pos <= end``."""
+        return int(((self.chrom == contig) & (self.pos >= beg)
+                    & (self.pos <= end)).sum())
+
+
+def _cohort_header(sample_id: str) -> "VCFHeader":
+    from hadoop_bam_torch.formats.vcf import VCFHeader
+    text = ("##fileformat=VCFv4.2\n"
+            + "".join(f"##contig=<ID={c},length={n}>\n"
+                      for c, n in COHORT_CONTIGS)
+            + '##FORMAT=<ID=GT,Number=1,Type=String,Description='
+              '"Genotype">\n'
+            + "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+            + sample_id + "\n")
+    return VCFHeader.from_text(text)
+
+
+def _cohort_sites(rng: np.random.Generator, n_sites: int):
+    """Site columns: contig, 1-based position (distinct and sorted within
+    each contig), REF base index, ALT base indices (the second -1 but at
+    a multi-allelic site), the multi-allelic flag and the ALT
+    frequency (log-uniform between 0.005 and 0.5)."""
+    chrom = np.zeros(n_sites, np.int32)
+    chrom[n_sites // 2:] = 1
+    pos = np.empty(n_sites, np.int64)
+    for c, (_, length) in enumerate(COHORT_CONTIGS):
+        sel = chrom == c
+        pos[sel] = 60_001 + np.sort(rng.choice(length - 120_000,
+                                               int(sel.sum()), replace=False))
+    ref = rng.integers(0, 4, n_sites)
+    shift = np.argsort(rng.random((n_sites, 3)), axis=1)[:, :2] + 1
+    alt = (ref[:, None] + shift) % 4
+    multi = rng.random(n_sites) < COHORT_MULTI_SHARE
+    alt[~multi, 1] = -1
+    p = 10.0 ** rng.uniform(np.log10(0.005), np.log10(0.5), n_sites)
+    return chrom, pos, ref, alt, multi, p
+
+
+def write_cohort(directory: str, n_samples: int, n_sites: int,
+                 seed: int) -> CohortTruth:
+    """Write a cohort of ``n_samples`` single-sample call sets over a grid
+    of ``n_sites`` sites into ``directory`` (sample ``i`` in
+    ``COHORT_FORMATS[i % 3]``: text VCF, BGZF VCF or BGZF BCF) and a
+    manifest ``cohort.json``; return the truth (``CohortTruth``),
+    computed from the generating arrays, not by reading the files back.
+
+    A sample has a record at a site with probability
+    ``COHORT_PRESENCE`` (a site no sample has is not a joined row).
+    Diploid genotypes at a log-uniform ALT frequency; at the
+    ``COHORT_MULTI_SHARE`` multi-allelic sites a record lists both ALTs,
+    in either order, or (``COHORT_SPLIT_SHARE``) only those it calls;
+    ``COHORT_SWAP_SHARE`` of biallelic records are written with REF and
+    ALT swapped (and their genotype indices with them: same dosage),
+    ``COHORT_BADREF_SHARE`` carry an indel REF that cannot map (their
+    call is missing), ``COHORT_DUP_SHARE`` are followed by a record at
+    the same position with another genotype (the first wins) and
+    ``COHORT_MISSING_SHARE`` of calls are './.'.  At each site the first
+    sample's record is a plain one and the swapped and indel-REF records
+    are fewer than the plain ones, so the site's canonical REF is the
+    generator's.  Built with NumPy; only each record's bytes are joined
+    in Python."""
+    import json
+    import os
+
+    from hadoop_bam_torch.formats import bgzf
+    from hadoop_bam_torch.formats.bcf import encode_header
+
+    rng = np.random.default_rng(seed)
+    S, N = int(n_samples), int(n_sites)
+    chrom, pos, ref, alt, multi, p = _cohort_sites(rng, N)
+    present = rng.random((N, S)) < COHORT_PRESENCE
+    # genotypes: allele 0 REF, 1 the first ALT, 2 the second
+    carry = rng.random((N, S, 2)) < p[:, None, None]
+    second = rng.random((N, S, 2)) < 0.5
+    allele = carry.astype(np.int8) + (carry & second
+                                      & multi[:, None, None]).astype(np.int8)
+    missing = rng.random((N, S)) < COHORT_MISSING_SHARE
+    u = rng.random((N, S))
+    shape = np.full((N, S), _NORMAL, np.int8)
+    shape[multi[:, None] & (u < 0.5)] = _REVERSED
+    shape[multi[:, None] & (u < COHORT_SPLIT_SHARE)] = _SPLIT
+    swap = ~multi[:, None] & (rng.random((N, S)) < COHORT_SWAP_SHARE)
+    shape[swap] = _SWAP
+    shape[rng.random((N, S)) < COHORT_BADREF_SHARE] = _BADREF
+    shape[~present] = _NORMAL
+    # the first sample with a record at a site writes a plain one, and
+    # the swapped and indel REFs stay fewer than the canonical one
+    rows = np.flatnonzero(present.any(axis=1))
+    first = np.argmax(present, axis=1)[rows]
+    shape[rows, first] = np.where(shape[rows, first] >= _SWAP, _NORMAL,
+                                  shape[rows, first])
+    n_plain = (present & (shape <= _SPLIT)).sum(1)
+    for k in (_SWAP, _BADREF):
+        over = (present & (shape == k)).sum(1) >= n_plain
+        shape[over[:, None] & (shape == k)] = _NORMAL
+    dup = present & (rng.random((N, S)) < COHORT_DUP_SHARE)
+    dup_gt = rng.integers(0, 2, (N, S, 2)).astype(np.int8)
+    phased = rng.random((N, S)) < 0.5
+    qual = np.where(rng.random((N, S)) < 0.1, -1,
+                    rng.integers(1, 100, (N, S)))
+
+    # the truth
+    dose = (allele > 0).sum(2).astype(np.int8)
+    dose[missing | (shape == _BADREF)] = -1
+    dose[~present] = -1
+    # bit k - 1 of listed: the record lists ALT k
+    lists_all = (shape == _NORMAL) | (shape == _REVERSED)
+    listed = np.where(lists_all, np.where(multi, 3, 1)[:, None], 0)
+    calls = (allele == 1).any(2) * 1 + (allele == 2).any(2) * 2
+    split = shape == _SPLIT
+    listed[split] = np.where(calls[split] == 0, 1, calls[split])
+    ref_ok = present & (shape <= _SPLIT)
+    union = np.bitwise_or.reduce(np.where(ref_ok, listed, 0), axis=1)
+    keep = present.any(axis=1)
+    n_allele = (1 + (union & 1) + ((union >> 1) & 1)).astype(np.int16)
+
+    bases = "ACGT"
+    ids = tuple(f"HG{96 + i:05d}" for i in range(S))
+    os.makedirs(directory, exist_ok=True)
+    paths = []
+    for s in range(S):
+        fmt = COHORT_FORMATS[s % len(COHORT_FORMATS)]
+        path = os.path.join(directory, f"{ids[s]}{fmt}")
+        paths.append(path)
+        header = _cohort_header(ids[s])
+        sites = np.flatnonzero(present[:, s])
+        recs = []        # (chrom, pos, ref, alts, gt indices, phased, qual)
+        for i in sites:
+            r, a1, a2 = bases[ref[i]], bases[alt[i, 0]], \
+                bases[alt[i, 1]] if multi[i] else ""
+            k = shape[i, s]
+            g = [int(x) for x in allele[i, s]]
+            if k == _NORMAL:
+                alts = (a1, a2) if multi[i] else (a1,)
+            elif k == _REVERSED:
+                alts = (a2, a1)
+                g = [{0: 0, 1: 2, 2: 1}[x] for x in g]
+            elif k == _SPLIT:
+                c = int(calls[i, s])
+                alts = {0: (a1,), 1: (a1,), 2: (a2,), 3: (a1, a2)}[c]
+                if c == 2:
+                    g = [1 if x == 2 else 0 for x in g]
+            elif k == _SWAP:
+                r, alts = a1, (r,)
+                g = [1 - x for x in g]
+            else:
+                r, alts = r + "T", (r,)
+                g = [min(x, 1) for x in g]
+            if missing[i, s]:
+                g = [None, None]
+            q = int(qual[i, s])
+            recs.append((int(chrom[i]), int(pos[i]), r, alts, g,
+                         bool(phased[i, s]), q))
+            if dup[i, s]:
+                recs.append((int(chrom[i]), int(pos[i]), r, alts,
+                             [min(int(x), len(alts)) for x in dup_gt[i, s]],
+                             False, q))
+        if fmt == ".bcf":
+            _write_cohort_bcf(path, header, recs, bgzf, encode_header)
+        else:
+            text = header.to_text() + "".join(
+                f"{COHORT_CONTIGS[c][0]}\t{ps}\t.\t{r}\t{','.join(al)}\t"
+                f"{'.' if q < 0 else q}\tPASS\t.\tGT\t"
+                + ("|" if ph else "/").join(
+                    "." if x is None else str(x) for x in g) + "\n"
+                for c, ps, r, al, g, ph, q in recs)
+            if fmt == ".vcf":
+                with open(path, "w") as f:
+                    f.write(text)
+            else:
+                with open(path, "wb") as f, bgzf.BGZFWriter(f) as w:
+                    w.write(text.encode())
+    manifest = os.path.join(directory, "cohort.json")
+    with open(manifest, "w") as f:
+        json.dump({"samples": [{"id": i, "path": os.path.basename(pth)}
+                               for i, pth in zip(ids, paths)]}, f)
+    return CohortTruth(
+        manifest=manifest, sample_ids=ids, paths=tuple(paths),
+        contigs=tuple(c for c, _ in COHORT_CONTIGS),
+        chrom=chrom[keep], pos=pos[keep].astype(np.int32),
+        n_allele=n_allele[keep], dosage=dose[keep],
+        n_records=int(present.sum() + dup.sum()),
+        n_multi_sites=int((multi & keep).sum()),
+        n_swapped=int((present & (shape == _SWAP)).sum()),
+        n_badref=int((present & (shape == _BADREF)).sum()),
+        n_split=int((present & split).sum()),
+        n_reversed=int((present & (shape == _REVERSED)).sum()),
+        n_duplicates=int(dup.sum()),
+        n_missing_calls=int((present & missing).sum()))
+
+
+def _write_cohort_bcf(path: str, header, recs, bgzf, encode_header) -> None:
+    """One sample's records as a BGZF BCF (GT the one FORMAT field)."""
+    key = {s: i for i, s in enumerate(header.string_dictionary())}
+    gt_head = _typed_ints([key["GT"]]) + _typed_desc(2, _T_INT8)
+    parts = [encode_header(header)]
+    for c, ps, r, alts, g, ph, q in recs:
+        shared = struct.pack("<iii", c, ps - 1, len(r)) + (
+            struct.pack("<I", 0x7F800001) if q < 0
+            else struct.pack("<f", float(q))) + struct.pack(
+            "<HHI", 0, 1 + len(alts), 1 | (1 << 24))
+        shared += _typed_str(".") + _typed_str(r) + b"".join(
+            _typed_str(a) for a in alts) + _typed_ints([0])
+        gt = bytes(0 if x is None else ((x + 1) << 1) | (j and ph)
+                   for j, x in enumerate(g))
+        indiv = gt_head + gt
+        parts.append(struct.pack("<II", len(shared), len(indiv)) + shared
+                     + indiv)
+    with open(path, "wb") as f, bgzf.BGZFWriter(f) as w:
+        w.write(b"".join(parts))
+
+
+# K17a's edge cases, shared by the CPU parity tests, the card tests and
+# chip_smoke.py phase 18 (a): name -> (cap, n_samples, samples_pad,
+# count, phenotype: "normal" | "nan" | "binary" | None, dosage mix)
+_GWAS_SPECS: Dict[str, Tuple[int, int, int, int, Optional[str], str]] = {
+    "all-missing rows": (64, 300, 304, 64, "normal", "sparse"),
+    "polyploid dosages": (64, 300, 304, 64, "normal", "polyploid"),
+    "NaN phenotypes": (64, 517, 520, 64, "nan", "diploid"),
+    "n_samples < samples_pad": (64, 517, 528, 64, "normal", "diploid"),
+    "count < cap": (64, 300, 304, 37, "binary", "diploid"),
+    "no phenotype": (64, 300, 304, 64, None, "diploid"),
+    "one sample": (16, 1, 8, 16, "normal", "diploid"),
+    "main path tile": (3352, 2504, 2504, 3352, "nan", "diploid"),
+}
+GWAS_CASES: Tuple[str, ...] = tuple(_GWAS_SPECS)
+
+
+def gwas_case(name: str, seed: int = 0):
+    """One K17a case: ``(dosage int8 [1, cap, samples_pad], count,
+    pheno float32 [samples_pad] or None, n_samples)``.  Diploid dosages
+    at a per-row ALT frequency with ~10% of calls missing (-1); the
+    columns at or past ``n_samples`` and the rows at or past ``count``
+    hold other values the step must not read (-1..3).  "all-missing
+    rows" has rows with no call, one call and one called phenotyped
+    sample; "polyploid dosages" dosages up to 6 and some 127;
+    phenotypes standard normal ("normal"), with ~20% NaN ("nan"), or
+    0/1 with ~5% NaN ("binary")."""
+    cap, S, spad, count, pk, mix = _GWAS_SPECS[name]
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(0.0, 0.6, cap)[:, None]
+    d = ((rng.random((cap, spad)) < p).astype(np.int8)
+         + (rng.random((cap, spad)) < p).astype(np.int8))
+    if mix == "polyploid":
+        d = d + rng.integers(0, 5, (cap, spad)).astype(np.int8)
+        d[rng.random((cap, spad)) < 0.01] = 127
+    d[rng.random((cap, spad)) < 0.1] = -1
+    if mix == "sparse":
+        d[:8] = -1                           # nothing called
+        d[8:12, 1:] = -1                     # one call
+        d[8:12, 0] = np.arange(4) % 3
+    d[:, S:] = rng.integers(-1, 4, (cap, spad - S))
+    d[count:] = rng.integers(-1, 4, (cap - count, spad))
+    pheno = None
+    if pk is not None:
+        if pk == "binary":
+            pheno = (rng.random(spad) < 0.4).astype(np.float32)
+            pheno[rng.random(spad) < 0.05] = np.nan
+        else:
+            pheno = rng.standard_normal(spad).astype(np.float32)
+            if pk == "nan":
+                pheno[rng.random(spad) < 0.2] = np.nan
+        pheno[S:] = rng.standard_normal(spad - S).astype(np.float32)
+    return d[None], count, pheno, S

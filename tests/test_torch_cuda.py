@@ -1389,3 +1389,71 @@ def test_markdup_on_card_equals_oracle_and_truth(cuda, markdup_bam,
                             library_from=library_from) == 20_000
     markdup_bam_oracle(path, ref, library_from=library_from)
     assert open(out, "rb").read() == open(ref, "rb").read()
+
+
+# ---------------------------------------------------------------------------
+# K17a (cohort_stats.cu): the cohort plane's GWAS columns
+# ---------------------------------------------------------------------------
+
+def _k17a_hold(got, want):
+    """AF and call rate (integer-derived) bit for bit; HWE and score
+    within rtol 1e-5, atol 1e-6 (their sums run in another order)."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(g[..., :2], w[..., :2])
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+    np.testing.assert_allclose(g[..., 2:], w[..., 2:], rtol=1e-5,
+                               atol=1e-6, equal_nan=True)
+
+
+@pytest.mark.parametrize("case", synth.GWAS_CASES)
+def test_k17a_cohort_gwas_matches_plain(cuda, case):
+    from hadoop_bam_torch.cohort.gwas import (
+        cohort_gwas_plain, cohort_gwas_step,
+    )
+    d, count, pheno, S = synth.gwas_case(case)
+    dt = torch.from_numpy(d).to(cuda)
+    pt = None if pheno is None else torch.from_numpy(pheno).to(cuda)
+    ct = torch.tensor([count], dtype=torch.int32, device=cuda)
+    before = cohort_gwas_step.launches
+    for _ in range(2):
+        got = cohort_gwas_step(dt, ct, pt, S)
+        _k17a_hold(got, cohort_gwas_plain(dt, ct, pt, S))
+    assert cohort_gwas_step.launches == before + 2
+    assert torch.isnan(got[0, count:]).all()
+    # an int count takes the same path
+    _k17a_hold(cohort_gwas_step(dt, count, pt, S),
+               cohort_gwas_plain(dt, count, pt, S))
+
+
+def test_k17a_refuses_unaligned_phenotype(cuda):
+    from hadoop_bam_torch.cohort.gwas import cohort_gwas_step
+    d = torch.zeros((1, 4, 8), dtype=torch.int8, device=cuda)
+    y = torch.zeros(9, dtype=torch.float32, device=cuda)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        cohort_gwas_step(d, 4, y, 8)
+
+
+def test_cohort_gwas_and_slices_on_card_equal_the_cpu(cuda, tmp_path):
+    from hadoop_bam_torch.cohort import open_cohort
+    from hadoop_bam_torch.cohort.gwas import cohort_gwas_step
+    from hadoop_bam_torch.serve import ServeLoop
+    truth = synth.write_cohort(str(tmp_path), 40, 300, 3)
+    y = np.random.default_rng(1).standard_normal(40).astype(np.float32)
+    before = cohort_gwas_step.launches
+    got = open_cohort(truth.manifest, device=cuda).gwas(y)
+    assert cohort_gwas_step.launches > before
+    want = open_cohort(truth.manifest, device="cpu").gwas(y)
+    for k in ("chrom", "pos", "n_allele", "af", "call_rate"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for k in ("hwe_chi2", "score_chi2"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6,
+                                   equal_nan=True, err_msg=k)
+    regions = ["20:1-30000000", "21:1000000-9000000", "20"]
+    with ServeLoop(device=cuda) as loop:
+        res = loop.query(truth.manifest, regions, cohort=True)
+    for r, reg in zip(res, regions):
+        c, _, span = reg.partition(":")
+        beg, end = (map(int, span.split("-")) if span
+                    else (1, 1 << 31))
+        assert r.count == truth.slice_count(
+            list(truth.contigs).index(c), beg, end)

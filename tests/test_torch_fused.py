@@ -463,12 +463,16 @@ def test_multithreaded_workers_race_free(bam):
 
 
 def test_chunk_blocks_knob_changes_granularity(bam):
+    """One worker thread: with several, a walk that finds every chunk
+    already inflated at its first drain publishes the span as one range,
+    so the count of ranges would depend on the threads' timing."""
     raw, table, _, after = _span_setup(bam[0])
     n_blocks = int(table["isize"].size)
     fine = len(list(inflate_ops.FusedSpanDecode(
-        raw, table, start=after, chunk_blocks=1).chunks()))
+        raw, table, start=after, chunk_blocks=1, n_threads=1).chunks()))
     coarse = len(list(inflate_ops.FusedSpanDecode(
-        raw, table, start=after, chunk_blocks=n_blocks).chunks()))
+        raw, table, start=after, chunk_blocks=n_blocks,
+        n_threads=1).chunks()))
     assert coarse == 1 and fine > coarse
 
 

@@ -269,7 +269,10 @@ def test_port_imports_with_jax_blocked():
               "formats.fasta", "split.read_planners", "split.tabix",
               "split.kmerge", "write.api", "write.parallel_bgzf",
               "write.indexing", "jobs.journal", "jobs.runner",
-              "parallel.mesh_sort", "parallel.distributed", "utils.sort"):
+              "parallel.mesh_sort", "parallel.distributed", "utils.sort",
+              "cohort.manifest", "cohort.harmonize", "cohort.join",
+              "cohort.dataset", "cohort.gwas", "cohort.serving",
+              "plan.ir", "plan.builders"):
         assert f"hadoop_bam_torch.{m}" in mods
     code = f"""
 import importlib, sys

@@ -208,9 +208,10 @@ def test_resume_job_reconstructs_nondefault_config(tmp_path, sort_fixture):
 
 @pytest.mark.parametrize("kind", ["mkdup", "cohort_join", "other"])
 def test_resume_job_refuses_kinds_the_port_lacks(tmp_path, kind):
-    """Cohort and unknown kinds are refused; a mkdup journal (a kind the
-    port resumes, ``test_torch_prep.py``) is refused when its params are
-    not a duplicate-marking run's."""
+    """Unknown kinds are refused; a mkdup or cohort_join journal (kinds
+    the port resumes, ``test_torch_prep.py`` and
+    ``test_torch_cohort.py``) is refused when its params are not a
+    duplicate-marking run's or a manifest-file join's."""
     jp, inputs, hdr = _mini_job(tmp_path, kind=kind)
     j, _ = JobJournal.resume(jp, inputs=inputs, **hdr)
     j.close()

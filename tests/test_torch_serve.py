@@ -5,8 +5,10 @@ waits for ROADMAP Queue 1 item 12), each run through the port's
 engine oracle on the same BAM and index: counts, ``n_candidates`` and
 records line for line.  The tile cache's, the ring's and the pools'
 unit cases run the port's classes (and the reference's where they
-compare).  Cases of the port alone: the fleet and cohort refusals, the
-health document and the transport's out-of-band ops.
+compare).  Cases of the port alone: the fleet refusal, the health
+document and the transport's out-of-band ops (a cohort-slice request
+among them, whose count equals the oracle join's; the cohort plane's
+own cases are tests/test_torch_cohort.py's).
 
 Each test starts from reset metrics, flight recorders, resilience
 registries, chaos and background queues in both packages.  Tile
@@ -864,8 +866,12 @@ def test_tcp_transport_round_trip(served_bam):
             t.join(5.0)
 
 
-def test_out_of_band_ops_health_metrics_and_fleet_answers(served_bam):
+def test_out_of_band_ops_health_metrics_and_fleet_answers(served_bam,
+                                                          tmp_path):
+    from test_cohort import _oracle_join, _serve_fixture
     path, _header = served_bam
+    cohort_man, cohort_paths = _serve_fixture(tmp_path)
+    _contigs, rows = _oracle_join([str(p) for p in cohort_paths])
     lines = [json.dumps({"id": 1, "path": path, "region": _REGIONS[0],
                          "tenant": "w"}),
              json.dumps({"id": "h", "op": "health"}),
@@ -876,8 +882,8 @@ def test_out_of_band_ops_health_metrics_and_fleet_answers(served_bam):
              json.dumps({"id": "f", "op": "fleet"}),
              json.dumps({"id": "c", "op": "chunk", "path": path, "s": 0,
                          "e": 1}),
-             json.dumps({"id": "co", "path": path, "region": _REGIONS[0],
-                         "cohort": True}),
+             json.dumps({"id": "co", "path": cohort_man,
+                         "region": "chr20:1-150", "cohort": True}),
              json.dumps({"id": "dl", "path": path, "region": _REGIONS[0],
                          "deadline_s": 5.0, "enqueue_age_s": 9.0})]
     out = io.StringIO()
@@ -894,7 +900,12 @@ def test_out_of_band_ops_health_metrics_and_fleet_answers(served_bam):
     assert "hbam_serve_latency_s_count" in docs["p"]["prometheus"]
     assert docs["hb"] == {"id": "hb", "ok": True, "replica": None}
     assert docs["f"] == {"id": "f", "fleet": None}
-    assert docs["c"]["kind"] == "plan" and docs["co"]["kind"] == "plan"
+    assert docs["c"]["kind"] == "plan"
+    # a cohort-slice request is served: the oracle join's count
+    co = docs["co"]["results"][0]
+    assert co["count"] == sum(1 for r in rows
+                              if r[0] == 0 and 1 <= r[1] <= 150)
+    assert co["n_samples"] == 3 and co["tile_misses"] >= 1
     # an enqueue age past the budget re-anchors to an expired deadline
     assert docs["dl"]["kind"] == "transient"
 
@@ -913,15 +924,35 @@ def test_stopped_loop_sheds_submissions(served_bam):
 # the port's refusals and device rule
 # ---------------------------------------------------------------------------
 
-def test_fleet_and_cohort_are_refused_until_ported(served_bam):
+def test_fleet_is_refused_until_ported(served_bam):
     path, _header = served_bam
     with pytest.raises(PlanError, match="item 11a"):
         _loop(serve_replica_id="r1", serve_peers="r2=localhost:1")
     # either one alone is carried and changes nothing
     with _loop(serve_replica_id="r1") as loop:
         assert loop.fleet is None
-        with pytest.raises(PlanError, match="item 11"):
-            loop.submit(path, [_REGIONS[0]], cohort=True)
+        assert loop.query(path, [_REGIONS[0]])[0].count == \
+            _oracle(path, [_REGIONS[0]])[0][0]
+
+
+def test_cohort_requests_are_served(served_bam, tmp_path):
+    """``cohort=True`` is served (the cohort plane is ported): the count
+    equals the oracle join's, beside a region query on the same loop; a
+    BAM named as a manifest is a PlanError."""
+    from test_cohort import _oracle_join, _serve_fixture
+    path, _header = served_bam
+    man, paths = _serve_fixture(tmp_path)
+    _contigs, rows = _oracle_join([str(p) for p in paths])
+    with _loop(serve_replica_id="r1") as loop:
+        res = loop.query(man, ["chr20:1-150"], cohort=True)[0]
+        assert res.count == sum(1 for r in rows
+                                if r[0] == 0 and 1 <= r[1] <= 150)
+        assert res.extra["n_samples"] == 3
+        assert loop.query(path, [_REGIONS[0]])[0].count == \
+            _oracle(path, [_REGIONS[0]])[0][0]
+        with pytest.raises(PlanError):
+            loop.query(path, [_REGIONS[0]], cohort=True)
+        assert loop.stats()["cohort"] == {"manifests": 1}
 
 
 def test_serve_config_fields_carry_over():
