@@ -189,7 +189,10 @@ Phases (any failure raises and exits non-zero):
 18. the cohort plane (``cohort/``): (a) K17a (``cohort_gwas_step``,
    ``csrc/cohort_stats.cu``) against its plain version in every
    ``synth.GWAS_CASES`` case, AF and call rate bit for bit, HWE and
-   score within rtol 1e-5, atol 1e-6; (b) ``COHORT_SAMPLES`` (2,504)
+   score within rtol 1e-5, atol 1e-6, and K17b (``cohort_slice_step``,
+   ``hbam_cohort_slice`` in the same source) against
+   ``cohort_slice_plain`` in every ``synth.SLICE_CASES`` case (keep,
+   hits, af and af_n exactly, af_sum within rtol 1e-6); (b) ``COHORT_SAMPLES`` (2,504)
    single-sample call sets of ``synth.write_cohort`` over
    ``COHORT_SITES`` sites through a journaled
    ``open_cohort(manifest).gwas(y)`` equal to the generator's truth
@@ -198,10 +201,10 @@ Phases (any failure raises and exits non-zero):
    over the same manifest: a cold slice, ``COHORT_SLICES`` warm
    gene-sized slices (10 kb-2 Mb) with no join and no host decode, one
    request over TCP, counts equal to the truth's; K17a's launches
-   counted in (b) and K17b's (its K17a launches) in (c), each from a
-   count set to 0 just before; K17a timed at the main path's tile and
-   at the full 3,352 x 2,504 tile with and without a phenotype, K17b
-   (``cohort_slice_step``) at the serve's.
+   counted in (b) and K17b's in (c) (where K17a launches none), each
+   from a count set to 0 just before; K17a timed at the main path's
+   tile and at the full 3,352 x 2,504 tile with and without a
+   phenotype, K17b at the serve's.
 
 The plan memo would let a repeated call skip planning, so every timed
 driver call of phases 5, 9 and 11 and of ``--times`` / ``--turns``
@@ -237,6 +240,14 @@ written beside the BAM and at a round-sized tile of 30-40-byte read
 names (``--tree``: in turns with an earlier tree);
 ``markdup_floor``: coalesced reads of that tile's rows cut to the
 sectors and lines K16a reads, against K16a; ``cohort``: phase 18 alone;
+``cohort_stats``: K17a and K17b alone, checked in phase 18 (a)'s cases
+(an earlier tree: K17a's cases and K17b at its timing tile), then timed
+at the full GWAS tile with and without a phenotype, at the main path's
+200-row tile and K17b at the serve's tile, by the profiler, in a row by
+events and with L2 flushed by a 64 MB write before each launch, with
+each wrapper's host time; ``cohort_variants``: variants of this tree's
+``csrc/cohort_stats.cu`` built into the build dir, checked and timed at
+the same tiles;
 ``native_plane``: the native plane's three
 drivers of phase 5, warmed up, five rounds in turn; ``bai_regions``:
 phase 11 (d)'s ``.bai`` runs on a sorted copy of the reads kept beside
@@ -5294,6 +5305,79 @@ def _k17a_cases(torch, dev) -> float:
     return worst
 
 
+def _k17_kernel() -> str:
+    """The profiler's name of the imported tree's cohort kernel: the row
+    kernel K17a and K17b both launch, or an earlier tree's
+    ``cohort_stats_kernel`` (whose K17b was that kernel and torch ops)."""
+    from hadoop_bam_torch.ops import kernels
+    return ("cohort_rows_kernel" if "cohort_slice" in kernels.KERNELS
+            else "cohort_stats_kernel")
+
+
+def _k17b_hold(torch, got, want, what) -> float:
+    """K17b against its plain version: keep, hits and af_n exactly, af
+    bit for bit, af_sum within rtol 1e-6.  Returns af_sum's absolute
+    difference."""
+    import numpy as np
+    names = ("keep", "hits", "af", "af_sum", "af_n")
+    g = dict(zip(names, (x.cpu() for x in got)))
+    w = dict(zip(names, (x.cpu() for x in want)))
+    for k in names:
+        check(g[k].dtype == w[k].dtype and g[k].shape == w[k].shape,
+              f"K17b {k} of plain's dtype and shape ({what})")
+    for k in ("keep", "hits", "af_n"):
+        check(torch.equal(g[k], w[k]), f"K17b {k} equals plain's ({what})")
+    check(torch.equal(g["af"].view(torch.int32), w["af"].view(torch.int32)),
+          f"K17b af bit-equal to plain's ({what})")
+    check(np.allclose(g["af_sum"].numpy(), w["af_sum"].numpy(), rtol=1e-6,
+                      atol=0.0),
+          f"K17b af_sum within rtol 1e-6 of plain's ({what})")
+    return float((g["af_sum"] - w["af_sum"]).abs().max())
+
+
+def _k17b_cases(torch, dev) -> float:
+    """K17b against ``cohort_slice_plain`` on the card in every
+    ``synth.SLICE_CASES`` case, twice each (the ticket is back at zero
+    between launches).  Returns the largest af_sum difference."""
+    from hadoop_bam_torch import synth
+    from hadoop_bam_torch.cohort.serving import (
+        cohort_slice_plain, cohort_slice_step,
+    )
+    worst = 0.0
+    for name in synth.SLICE_CASES:
+        tile = [torch.from_numpy(a).to(dev) for a in synth.slice_case(name)]
+        for _ in range(2):
+            worst = max(worst, _k17b_hold(torch, cohort_slice_step(*tile),
+                                          cohort_slice_plain(*tile), name))
+    return worst
+
+
+def _serve_tile(torch, dev, count=200, cap=4096, spad=2504, seed=0):
+    """The serve's tile [1, 4,096, 2,504] with ``count`` live rows, built
+    here so that every tree times the same inputs: sorted positions on
+    two contigs, diploid dosages with ~10% of calls missing and ~5% of
+    rows uncalled, rows past the count -1; and an interval on contig 0
+    keeping a quarter of the live rows."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    chrom = np.full((1, cap), -1, np.int32)
+    pos = np.zeros((1, cap), np.int32)
+    chrom[0, :count] = np.sort(rng.integers(0, 2, count))
+    pos[0, :count] = rng.integers(1, 60_000_000, count)
+    pos[0, :count] = pos[0, np.lexsort((pos[0, :count], chrom[0, :count]))]
+    p = rng.uniform(0.0, 0.6, cap)[:, None]
+    d = ((rng.random((cap, spad)) < p).astype(np.int8)
+         + (rng.random((cap, spad)) < p).astype(np.int8))
+    d[rng.random((cap, spad)) < 0.1] = -1
+    d[rng.random(cap) < 0.05] = -1
+    d[count:] = -1
+    on0 = np.sort(pos[0, :count][chrom[0, :count] == 0])
+    iv = [0, int(on0[len(on0) // 4]), int(on0[len(on0) // 2])]
+    tile = tuple(torch.from_numpy(a).to(dev) for a in (
+        chrom, pos, d[None], np.asarray([count], np.int32)))
+    return tile, torch.tensor(iv, dtype=torch.int32, device=dev)
+
+
 def _k17a_bytes(count: int, spad: int, cap: int, pheno: bool) -> int:
     """K17a's bytes: the dosage of the rows under the count read once
     (the kernel reads no row past it), the phenotype and the count, 16
@@ -5301,36 +5385,64 @@ def _k17a_bytes(count: int, spad: int, cap: int, pheno: bool) -> int:
     return count * spad + (4 * spad if pheno else 0) + 4 + 16 * cap
 
 
-def _k17a_times(torch, dosage, count, pheno, S, what, card) -> dict:
-    """K17a timed at one tile: device time, calls in a row, the plain
-    version's time and the bound."""
+def _k17b_bytes(count: int, spad: int, cap: int) -> int:
+    """K17b's bytes: the dosage of the rows under the count and the
+    chrom / pos columns read once, the count and interval; keep, af and
+    the three sums written once."""
+    return count * spad + 8 * cap + 4 + 12 + cap + 4 * cap + 12
+
+
+def _flushed_ms(torch, call, flush) -> float:
+    """Device ms of a call with L2 flushed before each launch by a 64 MB
+    write, by the profiler: every kernel of the call but the flush's fill
+    (NaN without a session that recorded every launch)."""
+    split = kernel_split(torch, [lambda: (flush.zero_(), call())], reps=16,
+                         kernel=_k17_kernel())
+    return (sum(v for k, v in split.items() if "FillFunctor" not in k)
+            if split else float("nan"))
+
+
+def _flush_buffer(torch, dev):
+    """64 MB rewritten before each launch of a flushed timing: more than
+    the 50 MB L2, which the 8.4 MB tiles otherwise stay in."""
+    return torch.empty(16 << 20, dtype=torch.float32, device=dev)
+
+
+def _k17a_times(torch, dosage, count, pheno, S, what, card,
+                flush=None) -> dict:
+    """K17a timed at one tile: device time, calls in a row, with L2
+    flushed before each launch (``flush`` given), the plain version's
+    time and the bound."""
     from hadoop_bam_torch.cohort.gwas import (
         cohort_gwas_plain, cohort_gwas_step,
     )
     _, cap, spad = dosage.shape
     ct = torch.tensor([count], dtype=torch.int32, device=dosage.device)
     calls = [lambda: cohort_gwas_step(dosage, ct, pheno, S)]
-    ms_ = device_ms(torch, calls, kernel="cohort_stats_kernel")
+    ms_ = device_ms(torch, calls, kernel=_k17_kernel())
     ms_by = device_ms.how
     looped = loop_ms(torch, calls)
+    flushed = (_flushed_ms(torch, calls[0], flush) if flush is not None
+               else None)
     plain_ms = device_ms(torch, [lambda: cohort_gwas_plain(
         dosage, ct, pheno, S)], reps=8)
     nbytes = _k17a_bytes(count, spad, cap, pheno is not None)
     bound = nbytes / H100_BYTES_PER_S * 1e3
     log(f"K17a at {what} [1, {cap}, {spad}], {count} rows, "
         f"{'a' if pheno is not None else 'no'} phenotype: {ms_:.4f} ms by "
-        f"{ms_by}, {looped:.4f} ms a call in a row by events, plain "
-        f"{plain_ms:.4f} ms, bound {bound:.6f} ms = {nbytes} B / 3.35 "
-        f"TB/s, {100 * bound / ms_:.1f}% of it [{card}]")
+        f"{ms_by}, {looped:.4f} ms a call in a row by events"
+        + (f", {flushed:.4f} ms a call with L2 flushed" if flushed else "")
+        + f", plain {plain_ms:.4f} ms, bound {bound:.6f} ms = {nbytes} B / "
+        f"3.35 TB/s, {100 * bound / ms_:.1f}% of it [{card}]")
     return {"ms": ms_, "ms_by": ms_by, "loop_ms": looped,
-            "plain_ms": plain_ms, "bound_ms": bound, "nbytes": nbytes,
-            "shape": f"[1, {cap}, {spad}], {count} rows"}
+            "flushed_ms": flushed, "plain_ms": plain_ms, "bound_ms": bound,
+            "nbytes": nbytes, "shape": f"[1, {cap}, {spad}], {count} rows"}
 
 
-def _k17b_times(torch, tile, iv, card) -> dict:
-    """K17b (K17a launched with no phenotype, then the interval keep, its
-    hits and the AF sum and count as torch ops) timed at the serve's
-    tile: device time, in one CUDA graph, in a row, and the bound."""
+def _k17b_times(torch, tile, iv, card, flush=None) -> dict:
+    """K17b timed at the serve's tile: device time, in one CUDA graph, in
+    a row, with L2 flushed before each launch (``flush`` given), its
+    plain version's time and the bound."""
     from hadoop_bam_torch.cohort.gwas import cohort_gwas_plain
     from hadoop_bam_torch.cohort.serving import (
         cohort_slice_step, slice_of_af,
@@ -5339,28 +5451,30 @@ def _k17b_times(torch, tile, iv, card) -> dict:
     _, cap, spad = dosage.shape
     n = int(count[0])
     calls = [lambda: cohort_slice_step(chrom, pos, dosage, count, iv)]
-    # K17a once a call: with no whole profiler session, one CUDA graph
-    ms_ = device_ms(torch, calls, reps=16, kernel="cohort_stats_kernel")
+    # a tree whose K17b was K17a and torch ops: with no whole profiler
+    # session, one CUDA graph
+    ms_ = device_ms(torch, calls, reps=16, kernel=_k17_kernel())
     ms_by = device_ms.how
     graphed = graph_ms(torch, calls, reps=16)
     looped = loop_ms(torch, calls)
+    flushed = (_flushed_ms(torch, calls[0], flush) if flush is not None
+               else None)
+    # the plain version (``cohort_slice_plain``, spelled out for trees
+    # before it)
     plain_ms = device_ms(torch, [lambda: slice_of_af(
         chrom, pos, count, iv,
         cohort_gwas_plain(dosage, count, None, spad)[..., 0])], reps=8)
-    # the dosage of the rows under the count and the chrom / pos columns
-    # read once, the count and interval; keep, af and the three sums
-    # written once
-    nbytes = n * spad + 8 * cap + 4 + 12 + cap + 4 * cap + 12
+    nbytes = _k17b_bytes(n, spad, cap)
     bound = nbytes / H100_BYTES_PER_S * 1e3
-    log(f"K17b (cohort_slice_step: K17a, no phenotype, + torch ops) at the "
-        f"serve's tile [1, {cap}, {spad}], {n} rows: {ms_:.4f} ms by "
-        f"{ms_by}, {graphed:.4f} ms a call in one CUDA graph, "
-        f"{looped:.4f} ms a call in a row by events, with K17a's plain "
-        f"version {plain_ms:.4f} ms, bound {bound:.6f} ms = {nbytes} B / "
+    log(f"K17b (cohort_slice_step) at the serve's tile [1, {cap}, {spad}], "
+        f"{n} rows: {ms_:.4f} ms by {ms_by}, {graphed:.4f} ms a call in one "
+        f"CUDA graph, {looped:.4f} ms a call in a row by events"
+        + (f", {flushed:.4f} ms a call with L2 flushed" if flushed else "")
+        + f", plain {plain_ms:.4f} ms, bound {bound:.6f} ms = {nbytes} B / "
         f"3.35 TB/s [{card}]")
     return {"ms": ms_, "ms_by": ms_by, "loop_ms": looped, "graph_ms": graphed,
-            "plain_ms": plain_ms, "bound_ms": bound, "nbytes": nbytes,
-            "shape": f"[1, {cap}, {spad}], {n} rows"}
+            "flushed_ms": flushed, "plain_ms": plain_ms, "bound_ms": bound,
+            "nbytes": nbytes, "shape": f"[1, {cap}, {spad}], {n} rows"}
 
 
 def _gwas_reference(dosage, pheno):
@@ -5421,7 +5535,7 @@ def phase_cohort(torch, path, card, dev, seed):
     gene-sized slices and one request over TCP, counts equal to the
     truth's.  K17a timed at the main path's tile and at the full tile,
     K17b at the serve's.  Returns the K17a and K17b rows and their
-    launches: K17a's in (b), K17b's (K17a in the slice step) in (c)."""
+    launches: K17a's in (b), K17b's in (c)."""
     log("== phase 18: the cohort plane on cuda:0")
     import shutil
     import threading
@@ -5431,12 +5545,18 @@ def phase_cohort(torch, path, card, dev, seed):
     from hadoop_bam_torch.cohort import gwas as tg
     from hadoop_bam_torch.serve import ServeLoop, make_tcp_server
     from hadoop_bam_torch.utils.metrics import MetricsContext
+    from hadoop_bam_torch.cohort import serving as tsv
     _raise_nofile(COHORT_SAMPLES + 256)
     worst = _k17a_cases(torch, dev)
     log(f"(a) K17a bit-equal to its plain version in AF and call rate, HWE "
         f"and score within rtol 1e-5, atol 1e-6 (largest difference "
         f"{worst:.3g}), in the {len(synth.GWAS_CASES)} GWAS_CASES "
         f"({', '.join(synth.GWAS_CASES)}), twice each")
+    worst_b = _k17b_cases(torch, dev)
+    log(f"(a) K17b equal to cohort_slice_plain (keep, hits, af_n; af bit "
+        f"for bit; af_sum within rtol 1e-6, largest difference "
+        f"{worst_b:.3g}) in the {len(synth.SLICE_CASES)} SLICE_CASES "
+        f"({', '.join(synth.SLICE_CASES)}), twice each")
     for line in kernels_report("cohort_stats"):
         log(f"  ptxas: {line}")
     work = os.path.join(os.path.dirname(os.path.abspath(path)), "phase18")
@@ -5559,9 +5679,10 @@ def phase_cohort(torch, path, card, dev, seed):
             regions.append((c, beg, beg + span - 1))
         text = [f"{names[c]}:{b}-{e}" for c, b, e in regions]
         want = [truth.slice_count(c, b, e) for c, b, e in regions]
-        # K17b's launches (K17a's, in the slice step) on the serve path:
-        # set to 0 just before, read just after the TCP request
+        # K17b's launches on the serve path: set to 0 just before, read
+        # just after the TCP request; the slices launch no K17a
         tg.cohort_gwas_step.launches = 0
+        tsv.cohort_slice_step.launches = 0
         with ServeLoop(device=dev) as loop:
             with MetricsContext() as m:
                 cold, cwall = _timed(lambda: loop.query(
@@ -5629,7 +5750,10 @@ def phase_cohort(torch, path, card, dev, seed):
                 f"{[r['count'] for r in doc['results']]}, mean AF "
                 f"{[r['mean_af'] for r in doc['results']]}, "
                 f"{doc['latency_ms']} ms")
-            launches["cohort_slice_step"] = tg.cohort_gwas_step.launches
+            launches["cohort_slice_step"] = tsv.cohort_slice_step.launches
+            check(tg.cohort_gwas_step.launches == 0,
+                  f"the slices launched K17b alone, no K17a "
+                  f"({tg.cohort_gwas_step.launches})")
             tile = None
             for v in loop.tiles._entries.values():
                 g = v.groups[0]
@@ -5638,8 +5762,7 @@ def phase_cohort(torch, path, card, dev, seed):
               and launches["cohort_slice_step"] > 0,
               f"the main path launched K17a and K17b: {launches}")
         log(f"phase 18 launches: K17a {launches['cohort_gwas_step']} in "
-            f"(b)'s gwas, K17b (K17a in the slice step) "
-            f"{launches['cohort_slice_step']} in (c)'s "
+            f"(b)'s gwas, K17b {launches['cohort_slice_step']} in (c)'s "
             f"{COHORT_SLICES + 1} slices and TCP request")
 
         # K17a timed at the main path's tile as the run gave it, and at
@@ -5647,9 +5770,10 @@ def phase_cohort(torch, path, card, dev, seed):
         # (the phenotype's re-reads against the dosage's counting);
         # K17b at the serve's tile
         ypad = torch.from_numpy(y).to(dev)
+        flush = _flush_buffer(torch, dev)
         ka = _k17a_times(torch, main_tile["dosage"], int(
             main_tile["n_records"][0]), ypad, COHORT_SAMPLES,
-            "the main path's tile", card)
+            "the main path's tile", card, flush)
         d, count, pheno, S = synth.gwas_case("main path tile")
         dfull = torch.from_numpy(d).to(dev)
         kf = _k17a_times(torch, dfull, count,
@@ -5658,7 +5782,7 @@ def phase_cohort(torch, path, card, dev, seed):
         kn = _k17a_times(torch, dfull, count, None, S,
                          "the full tile (GWAS_CASES)", card)
         iv = torch.tensor(regions[1], dtype=torch.int32, device=dev)
-        kb = _k17b_times(torch, tile, iv, card)
+        kb = _k17b_times(torch, tile, iv, card, flush)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log("no single PyTorch call computes K17a or K17b (library_ms null)")
@@ -5674,16 +5798,18 @@ def phase_cohort(torch, path, card, dev, seed):
              "full_tile_bound_ms": kf["bound_ms"],
              "full_tile_no_pheno_ms": kn["ms"],
              "full_tile_no_pheno_bound_ms": kn["bound_ms"],
+             "flushed_ms": ka["flushed_ms"],
              "launches_of": "cohort_gwas_step in (b)'s gwas"}
     row_b = {"name": "cohort_slice_step", "route": "cuda",
-             "form": "K17a (hand kernel, no phenotype) + torch ops",
-             "source": "hadoop_bam_torch/cohort/serving.py",
+             "form": "CUDA C++",
+             "source": "hadoop_bam_torch/csrc/cohort_stats.cu",
              "replaces": "hadoop_bam_tpu/cohort/serving.py:79",
-             "max_abs_err": 0, "ms": kb["ms"], "ms_by": kb["ms_by"],
+             "max_abs_err": worst_b, "ms": kb["ms"], "ms_by": kb["ms_by"],
              "loop_ms": kb["loop_ms"], "plain_ms": kb["plain_ms"],
              "bound_ms": kb["bound_ms"], "bound_by": "bytes",
              "library_ms": None, "main_path_shape": kb["shape"],
-             "launches_of": "cohort_gwas_step in (c)'s slice steps"}
+             "flushed_ms": kb["flushed_ms"],
+             "launches_of": "cohort_slice_step in (c)'s slice steps"}
     return {"cohort_gwas_step": row_a, "cohort_slice_step": row_b}, launches
 
 
@@ -5691,6 +5817,265 @@ def cohort_times(torch, path, dev) -> dict:
     """``--times cohort``: phase 18 alone."""
     rows, launches = phase_cohort(torch, path, card_line(), dev, 0)
     return {"K17": rows, "launches": launches}
+
+
+# variants of csrc/cohort_stats.cu timed by ``--times cohort_stats`` (no
+# part of the port): name -> [(text of the source, its replacement)];
+# a name starting "probe:" takes a part out to time the rest (its outputs
+# are not checked)
+_K17_VARIANTS = {
+    "8 warps a CTA (4 CTAs an SM)": [
+        ("constexpr int kWarps = 16;", "constexpr int kWarps = 8;"),
+        ("__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads, 4)")],
+    "32 warps a CTA (1 CTA an SM)": [
+        ("constexpr int kWarps = 16;", "constexpr int kWarps = 32;"),
+        ("__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads, 1)")],
+    "the phenotype read from its vector (not staged)": [
+        ("constexpr int kStageMax = 9000;", "constexpr int kStageMax = 8;")],
+    "no fast 0 / 1 / 2 sums (the general sums every word)": [
+        ("      if (!__any_sync(kAll, big != 0u)) {", "      if (false) {")],
+    "SWAR by __vcmpges4 / __vcmpeq4 / __popc (the first design's counts)": [
+        ("      if (!__any_sync(kAll, big != 0u)) {", "      if (false) {"),
+        ('  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(x), "r"(0u), '
+         '"r"(0xBA98u));',
+         "  r = ~__vcmpges4(x, 0u);"),
+        ("  const uint32_t s80 =\n"
+         "      ~(((x & 0x7C7C7C7Cu) + 0x7C7C7C7Cu) | x) & 0x80808080u;\n"
+         "  const uint32_t s1 = s80 >> 7;\n"
+         "  const uint32_t lo = x & (s1 * 3u);\n"
+         "  a.ns = __dp4a(static_cast<int>(s1), 0x01010101, a.ns);\n"
+         "  a.s1 = __dp4a(static_cast<int>(lo), 0x01010101, a.s1);\n"
+         "  a.s2 = __dp4a(static_cast<int>(lo), static_cast<int>(lo), a.s2);\n"
+         "  a.n3 = __dp4a(static_cast<int>(lo & (lo >> 1) & 0x01010101u), "
+         "0x01010101,\n                a.n3);",
+         "  const int e0 = __popc(__vcmpeq4(x, 0u)) >> 3;\n"
+         "  const int e1 = __popc(__vcmpeq4(x, 0x01010101u)) >> 3;\n"
+         "  const int e2 = __popc(__vcmpeq4(x, 0x02020202u)) >> 3;\n"
+         "  a.ns += e0 + e1 + e2;\n  a.s1 += e1 + 2 * e2;\n"
+         "  a.s2 += e1 + 4 * e2;")],
+    "2^23 + byte floats and a saturated 'called'": [
+        ("    const float t = (neg >> (8 * k)) & 1u ? 0.0f : y[k];",
+         "    const float b = __int_as_float(static_cast<int>(\n"
+         "        __byte_perm(xc | neg, 0x4B00u, 0x5440u | k)));\n"
+         "    const float t = __fmul_rn(\n"
+         "        __saturatef(__fsub_rn(8388736.0f, b)), y[k]);"),
+        ("    a.sgy = __fmaf_rn(static_cast<float>((xc >> (8 * k)) & 0xFFu), "
+         "y[k],\n                      a.sgy);",
+         "    a.sgy = __fmaf_rn(__fsub_rn(b, 8388608.0f), t, a.sgy);")],
+    "probe: return after reading the count": [
+        ("  const int32_t c_raw = __ldg(a.count);\n",
+         "  const int32_t c_raw = __ldg(a.count);\n"
+         "  if (c_raw != -7) return;\n")],
+    "probe: no dosage loads (made-up words)": [
+        ("__ldg(words + wi)", "make_uint2(0x00010200u ^ wi, 0x02000100u)")],
+    "probe: no phenotype loads (made-up values)": [
+        ("    p0 = pheno4(a.pheno, 2 * threadIdx.x);\n"
+         "    q0 = pheno4(a.pheno, 2 * threadIdx.x + 1);",
+         "    p0 = make_float4(0.5f, -1.0f, 2.0f, 0.25f);\n"
+         "    q0 = make_float4(1.5f, -0.5f, 0.75f, 3.0f);")],
+    "probe: no formulas or row writes": [
+        ("    if (!on || lane != 0) continue;",
+         "    if (!on || lane != 0 || acc.unc != -2147483647) continue;")]}
+
+
+def _k17_variant(torch, name, edits):
+    """One ``_K17_VARIANTS`` entry built by ``_nvcc_lib``: (a K17a call
+    (dosage, count, pheno, S) -> out, a K17b call (tile, iv) -> the five
+    outputs), launching the patched kernels like the wrappers (no launch
+    count)."""
+    import ctypes
+    from hadoop_bam_torch.cohort import serving as tsv
+    from hadoop_bam_torch.ops import kernels
+    with open(os.path.join(kernels.CSRC, "cohort_stats.cu")) as f:
+        src = f.read()
+    for old, new in edits:
+        check(src.count(old) >= 1, f"variant {name!r}: {old!r} in the source")
+        src = src.replace(old, new)
+    stem = "cohort_variant_" + "".join(ch if ch.isalnum() else "_"
+                                       for ch in name)[:40]
+    lib = _nvcc_lib(stem, src)
+    fa, fb = lib.hbam_cohort_stats, lib.hbam_cohort_slice
+    fa.argtypes = kernels.KERNELS["cohort_stats"][1]
+    fb.argtypes = kernels.KERNELS["cohort_slice"][1]
+    fa.restype = fb.restype = ctypes.c_int
+
+    def gwas(d, ct, y, S):
+        out = torch.empty((1, d.shape[1], 4), dtype=torch.float32,
+                          device=d.device)
+        kernels.check_launch(name, fa(
+            d.data_ptr(), d.shape[1], d.shape[2], ct.data_ptr(),
+            None if y is None else y.data_ptr(), S, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream))
+        return out
+    scratch = torch.zeros_like(tsv._slice_scratch(
+        torch.device("cuda", 0), torch.cuda.current_stream().cuda_stream))
+
+    def slice_(tile, iv):
+        chrom, pos, d, c = tile
+        cap = d.shape[1]
+        keep = torch.empty((1, cap), dtype=torch.bool, device=d.device)
+        af = torch.empty((1, cap), dtype=torch.float32, device=d.device)
+        sums = torch.empty(3, dtype=torch.int32, device=d.device)
+        kernels.check_launch(name, fb(
+            chrom.data_ptr(), pos.data_ptr(), d.data_ptr(), cap, d.shape[2],
+            c.data_ptr(), iv.data_ptr(), af.data_ptr(), keep.data_ptr(),
+            sums.data_ptr(), scratch.data_ptr(), scratch.numel() // 16 - 1,
+            torch.cuda.current_stream().cuda_stream))
+        return keep, sums[0:1], af, sums[2:3].view(torch.float32), sums[1:2]
+    return gwas, slice_
+
+
+def _k17_host_us(torch, dev, dosage, pheno, S, tile, iv, this) -> dict:
+    """Host microseconds a call (400 calls, no synchronisation between
+    them, so the launches queue and the card never holds the host back)
+    of K17a's and K17b's wrappers and, in this tree, of the pieces of
+    K17b's: its argument checks, its three allocations, the device
+    guard, the current stream, the C call alone and the result views."""
+    from hadoop_bam_torch.cohort.gwas import cohort_gwas_step
+    from hadoop_bam_torch.cohort import serving as tsv
+    ct = torch.tensor([200], dtype=torch.int32, device=dev)
+
+    def host_us(fn, n=400):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = 1e6 * (time.perf_counter() - t0) / n
+        torch.cuda.synchronize()
+        return us
+    out = {"cohort_gwas_step": host_us(
+               lambda: cohort_gwas_step(dosage, ct, pheno, S)),
+           "cohort_slice_step": host_us(
+               lambda: tsv.cohort_slice_step(*tile, iv))}
+    if this:
+        from hadoop_bam_torch.ops import kernels
+        chrom, pos, d, c = tile
+        cap, spad = d.shape[1:]
+        fn = kernels.kernel("cohort_slice")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = tsv._slice_scratch(dev, stream)
+        keep = torch.empty((1, cap), dtype=torch.bool, device=dev)
+        af = torch.empty((1, cap), dtype=torch.float32, device=dev)
+        sums = torch.empty(3, dtype=torch.int32, device=dev)
+        args = (chrom.data_ptr(), pos.data_ptr(), d.data_ptr(), cap, spad,
+                c.data_ptr(), iv.data_ptr(), af.data_ptr(), keep.data_ptr(),
+                sums.data_ptr(), scratch.data_ptr(), scratch.numel() // 16 - 1,
+                stream)
+
+        def guard():
+            with torch.cuda.device(dev):
+                pass
+        out.update({
+            "K17b: argument checks": host_us(
+                lambda: tsv._check_slice_args(chrom, pos, d, iv)),
+            "K17b: three torch.empty": host_us(lambda: (
+                torch.empty((1, cap), dtype=torch.bool, device=dev),
+                torch.empty((1, cap), dtype=torch.float32, device=dev),
+                torch.empty(3, dtype=torch.int32, device=dev))),
+            "K17b: device guard": host_us(guard),
+            "K17b: current stream": host_us(
+                lambda: torch.cuda.current_stream(dev).cuda_stream),
+            "K17b: the C call alone": host_us(lambda: fn(*args)),
+            "K17b: result views": host_us(
+                lambda: sums.split(1)[2].view(torch.float32))})
+    log("host us a call: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in out.items()))
+    return out
+
+
+def _k17_timing_inputs(torch, dev):
+    """The inputs every ``--times cohort_*`` reading times: the serve's
+    tile and interval (``_serve_tile``), the full GWAS tile
+    (``synth.gwas_case("main path tile")``, in every tree) with its
+    phenotype and sample count, the L2 flush, and K17a's three shapes
+    (name, live rows, phenotype)."""
+    from hadoop_bam_torch import synth
+    tile, iv = _serve_tile(torch, dev)
+    d, _, pheno, S = synth.gwas_case("main path tile")
+    dfull = torch.from_numpy(d).to(dev)
+    ypad = torch.from_numpy(pheno).to(dev)
+    shapes = (("K17a, full tile, phenotype", 3352, ypad),
+              ("K17a, full tile, no phenotype", 3352, None),
+              ("K17a, main path's 200 rows, phenotype", 200, ypad))
+    return tile, iv, dfull, ypad, S, _flush_buffer(torch, dev), shapes
+
+
+def cohort_stats_times(torch, path, dev) -> dict:
+    """``--times cohort_stats``: K17a and K17b alone.  Checked in phase 18
+    (a)'s cases (an earlier tree: K17a's cases, K17b at its timing tile),
+    then timed at the full GWAS tile (``synth.gwas_case("main path
+    tile")``) with and without its phenotype, at that tile with the main
+    path's 200 live rows, and K17b at the serve's tile with 200 live rows
+    (``_serve_tile``): by the profiler, in a row by events and with L2
+    flushed before each launch; and each wrapper's host time."""
+    from hadoop_bam_torch.cohort.gwas import cohort_gwas_plain
+    from hadoop_bam_torch.cohort.serving import cohort_slice_step, slice_of_af
+    this = _this_tree()
+    card = card_line()
+    out = {"card": card, "K17a cases max abs err": _k17a_cases(torch, dev)}
+    if this:
+        out["K17b cases max af_sum err"] = _k17b_cases(torch, dev)
+    tile, iv, dfull, ypad, S, flush, shapes = _k17_timing_inputs(torch, dev)
+    chrom, pos, d, n = tile
+    # the plain version (``cohort_slice_plain``, spelled out for trees
+    # before it)
+    _k17b_hold(torch, cohort_slice_step(*tile, iv), slice_of_af(
+        chrom, pos, n, iv, cohort_gwas_plain(d, n, None, d.shape[-1])[..., 0]),
+        "the serve's timing tile")
+    for what, n, y in shapes:
+        out[what] = _k17a_times(torch, dfull, n, y, S, "the full GWAS tile",
+                                card, flush)
+    out["K17b, serve's tile, 200 rows"] = _k17b_times(torch, tile, iv, card,
+                                                      flush)
+    out["host us a call"] = _k17_host_us(torch, dev, dfull, ypad, S, tile, iv,
+                                         this)
+    return out
+
+
+def cohort_variants_times(torch, path, dev) -> dict:
+    """``--times cohort_variants``: the ``_K17_VARIANTS`` of this tree's
+    source, each checked against the plain versions (probes not) and
+    timed at ``--times cohort_stats``' four tiles, by the profiler, in a
+    row and with L2 flushed."""
+    import numpy as np
+    from hadoop_bam_torch.cohort.gwas import cohort_gwas_plain
+    from hadoop_bam_torch.cohort.serving import cohort_slice_plain
+    card = card_line()
+    tile, iv, dfull, ypad, S, flush, shapes = _k17_timing_inputs(torch, dev)
+    out = {"card": card}
+    for name, edits in _K17_VARIANTS.items():
+        probe = name.startswith("probe:")
+        gwas, slice_ = _k17_variant(torch, name, edits)
+        row = {}
+        for what, n, y in shapes:
+            ct = torch.tensor([n], dtype=torch.int32, device=dev)
+            got = gwas(dfull, ct, y, S).cpu().numpy()
+            want = cohort_gwas_plain(dfull, ct, y, S).cpu().numpy()
+            check(probe or (np.array_equal(got[..., :2], want[..., :2],
+                                           equal_nan=True)
+                            and np.allclose(got[..., 2:], want[..., 2:],
+                                            rtol=1e-5, atol=1e-6,
+                                            equal_nan=True)),
+                  f"variant {name!r} equals plain at {what}")
+            calls = [lambda: gwas(dfull, ct, y, S)]
+            row[what] = {"ms": device_ms(torch, calls, kernel=_k17_kernel()),
+                         "ms_by": device_ms.how,
+                         "loop_ms": loop_ms(torch, calls),
+                         "flushed_ms": _flushed_ms(torch, calls[0], flush)}
+        if not probe:
+            _k17b_hold(torch, slice_(tile, iv), cohort_slice_plain(*tile, iv),
+                       f"variant {name!r}")
+        calls = [lambda: slice_(tile, iv)]
+        row["K17b, serve's tile, 200 rows"] = {
+            "ms": device_ms(torch, calls, reps=16, kernel=_k17_kernel()),
+            "ms_by": device_ms.how, "loop_ms": loop_ms(torch, calls),
+            "flushed_ms": _flushed_ms(torch, calls[0], flush)}
+        log(f"variant {name}: " + "; ".join(
+            f"{k} {v['ms']:.4f} ms ({v['flushed_ms']:.4f} flushed)"
+            for k, v in row.items()) + f" [{card}]")
+        out[name] = row
+    return out
 
 
 TIMES = {"walk_records_device": k9_times, "resolve_pack": k7_times,
@@ -5705,7 +6090,9 @@ TIMES = {"walk_records_device": k9_times, "resolve_pack": k7_times,
          "variant_plane": variant_plane_times,
          "sort_query": sort_query_times, "mkdup": mkdup_times,
          "markdup_cols": markdup_cols_times,
-         "markdup_floor": markdup_floor_times, "cohort": cohort_times}
+         "markdup_floor": markdup_floor_times, "cohort": cohort_times,
+         "cohort_stats": cohort_stats_times,
+         "cohort_variants": cohort_variants_times}
 
 
 def check_truth(flag, stats, truth) -> None:

@@ -45,6 +45,9 @@ def _count_tensor(count, device: torch.device) -> torch.Tensor:
     """``count`` (an int, or an int [1] tensor) as an int32 [1] tensor on
     ``device``; a tensor already there is used as it is (no host read)."""
     if isinstance(count, torch.Tensor):
+        if count.dtype == torch.int32 and count.shape == (1,) \
+                and count.device == device:
+            return count
         c = count.reshape(-1)[:1]
         if c.dtype != torch.int32:
             c = c.to(torch.int32)

@@ -17,12 +17,14 @@ The COLD path runs the whole position join (host work, spanned as
 joined tiles on the card; every WARM slice goes straight to the slice
 step (K17b): no host decode at all.
 
-K17b (``cohort_slice_step``) is K17a (``cohort.gwas.cohort_gwas_step``,
-the hand kernel) launched with no phenotype over every column of the
-tile, whose column 0 is each row's ALT allele frequency, then the
-interval predicate, its hit count and the AF sum and count over the
-kept rows as torch ops.  The AF is computed over the whole tile on every
-request, as the reference's step computes it.
+K17b (``cohort_slice_step``) is one launch of a hand CUDA kernel
+(``csrc/cohort_stats.cu``, entry point ``hbam_cohort_slice``: K17a's
+row loop with no phenotype over every column of the tile, whose AF is
+each row's ALT allele frequency, with the interval predicate, its hit
+count and the AF sum and count over the kept rows in the same launch).
+Its plain version ``cohort_slice_plain`` is K17a's plain version's AF
+column and ``slice_of_af``'s torch ops.  The AF is computed over the
+whole tile on every request, as the reference's step computes it.
 """
 from __future__ import annotations
 
@@ -84,6 +86,56 @@ class _CohortMeta:
         return self.dataset.geometry.samples_pad
 
 
+def cohort_slice_plain(chrom: torch.Tensor, pos: torch.Tensor,
+                       dosage: torch.Tensor, count: torch.Tensor,
+                       iv: torch.Tensor):
+    """K17b's plain version: K17a's plain version with no phenotype over
+    every column of the tile (the tile pads past the cohort's samples
+    with -1, as in the reference's step), its AF column through
+    ``slice_of_af``."""
+    from hadoop_bam_torch.cohort.gwas import cohort_gwas_plain
+    af = cohort_gwas_plain(dosage, count, None, dosage.shape[-1])[..., 0]
+    return slice_of_af(chrom, pos, count, iv, af)
+
+
+# K17b's per-stream scratch: a uint32 ticket that is zero between launches
+# in the first 16 bytes, then one 16-byte partial a CTA (32 a streaming
+# multiprocessor, the most that can be resident), keyed by (device index,
+# stream handle): launches on one stream never overlap
+_SLICE_SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
+_SLICE_SCRATCH_LOCK = threading.Lock()
+
+
+def _slice_scratch(dev: torch.device, stream: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    with _SLICE_SCRATCH_LOCK:
+        scratch = _SLICE_SCRATCH.get(key)
+        if scratch is None:
+            slots = 32 * torch.cuda.get_device_properties(
+                dev).multi_processor_count
+            scratch = _SLICE_SCRATCH[key] = torch.zeros(
+                16 * (1 + slots), dtype=torch.uint8, device=dev)
+    return scratch
+
+
+def _check_slice_args(chrom, pos, dosage, iv) -> None:
+    if dosage.dtype != torch.int8 or dosage.dim() != 3 \
+            or dosage.shape[0] != 1 or dosage.shape[2] % 8:
+        raise ValueError(f"dosage must be int8 [1, cap, samples_pad], "
+                         f"samples_pad a multiple of 8, got {dosage.dtype} "
+                         f"{tuple(dosage.shape)}")
+    cap = dosage.shape[1]
+    for name, col in (("chrom", chrom), ("pos", pos)):
+        if col.dtype != torch.int32 or tuple(col.shape) != (1, cap):
+            raise ValueError(f"{name} must be int32 [1, {cap}], got "
+                             f"{col.dtype} {tuple(col.shape)}")
+    if iv.dtype != torch.int32 or tuple(iv.shape) != (3,):
+        raise ValueError(f"iv must be int32 [3], got {iv.dtype} "
+                         f"{tuple(iv.shape)}")
+    if any(t.device != dosage.device for t in (chrom, pos, iv)):
+        raise ValueError("chrom, pos, dosage and iv must share a device")
+
+
 def cohort_slice_step(chrom: torch.Tensor, pos: torch.Tensor,
                       dosage: torch.Tensor, count: torch.Tensor,
                       iv: torch.Tensor):
@@ -92,15 +144,48 @@ def cohort_slice_step(chrom: torch.Tensor, pos: torch.Tensor,
     overlap ONE interval ``iv = [contig, beg, end]`` (int32 [3] on the
     tile's device).  Returns ``(keep, hits, af, af_sum, af_n)``: the
     bool [1, cap] mask, int32 [1] hits, float32 [1, cap] ALT allele
-    frequency (K17a's column 0, NaN where nothing is called and on rows
-    past the count), and the float32 [1] sum and int32 [1] count of the
-    kept rows' defined AFs.  Its one kernel launch is K17a's, counted
-    in ``cohort_gwas_step.launches``."""
-    from hadoop_bam_torch.cohort.gwas import cohort_gwas_step
-    # every column of the tile counts, as in the reference's step: the
-    # tile pads past the cohort's samples with -1
-    af = cohort_gwas_step(dosage, count, None, dosage.shape[-1])[..., 0]
-    return slice_of_af(chrom, pos, count, iv, af)
+    frequency (over every column of the tile, NaN where nothing is
+    called and on rows past the count), and the float32 [1] sum and
+    int32 [1] count of the kept rows' defined AFs.
+
+    A CUDA tile is one launch of the kernel (``hbam_cohort_slice`` in
+    ``csrc/cohort_stats.cu``) on the current stream, which reads the
+    count and the interval from device memory (no host read); a CPU tile
+    takes ``cohort_slice_plain``.  A kernel that fails to build or
+    launch raises.  ``cohort_slice_step.launches`` counts kernel
+    launches."""
+    from hadoop_bam_torch.cohort.gwas import _count_tensor
+    from hadoop_bam_torch.ops import kernels
+    _check_slice_args(chrom, pos, dosage, iv)
+    if dosage.device.type == "cpu":
+        return cohort_slice_plain(chrom, pos, dosage, count, iv)
+    if dosage.device.type != "cuda":
+        raise ValueError(f"unsupported device {dosage.device}")
+    dev = dosage.device
+    _, cap, spad = dosage.shape
+    d = dosage.contiguous()
+    if d.data_ptr() % 8:
+        raise ValueError("dosage must start 8-byte aligned")
+    chrom, pos, iv = chrom.contiguous(), pos.contiguous(), iv.contiguous()
+    c = _count_tensor(count, dev)
+    keep = torch.empty((1, cap), dtype=torch.bool, device=dev)
+    af = torch.empty((1, cap), dtype=torch.float32, device=dev)
+    sums = torch.empty(3, dtype=torch.int32, device=dev)
+    fn = kernels.kernel("cohort_slice")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = _slice_scratch(dev, stream)
+        rc = fn(chrom.data_ptr(), pos.data_ptr(), d.data_ptr(), cap, spad,
+                c.data_ptr(), iv.data_ptr(), af.data_ptr(), keep.data_ptr(),
+                sums.data_ptr(), scratch.data_ptr(),
+                scratch.numel() // 16 - 1, stream)
+    kernels.check_launch("cohort_slice_step", rc)
+    cohort_slice_step.launches += 1
+    hits, af_n, af_sum = sums.split(1)
+    return keep, hits, af, af_sum.view(torch.float32), af_n
+
+
+cohort_slice_step.launches = 0
 
 
 def slice_of_af(chrom: torch.Tensor, pos: torch.Tensor,

@@ -58,6 +58,9 @@ KERNELS: Dict[str, tuple] = {
                       _VP]),
     "cohort_stats": ("hbam_cohort_stats",
                      [_VP, _I64, _I64, _VP, _VP, _I64, _VP, _VP]),
+    "cohort_slice": ("hbam_cohort_slice",
+                     [_VP, _VP, _VP, _I64, _I64, _VP, _VP, _VP, _VP, _VP,
+                      _VP, _I64, _VP], "cohort_stats"),
 }
 
 

@@ -2159,6 +2159,7 @@ _GWAS_SPECS: Dict[str, Tuple[int, int, int, int, Optional[str], str]] = {
     "no phenotype": (64, 300, 304, 64, None, "diploid"),
     "one sample": (16, 1, 8, 16, "normal", "diploid"),
     "main path tile": (3352, 2504, 2504, 3352, "nan", "diploid"),
+    "main path 200 rows": (3352, 2504, 2504, 200, "nan", "diploid"),
 }
 GWAS_CASES: Tuple[str, ...] = tuple(_GWAS_SPECS)
 
@@ -2199,3 +2200,52 @@ def gwas_case(name: str, seed: int = 0):
                 pheno[rng.random(spad) < 0.2] = np.nan
         pheno[S:] = rng.standard_normal(spad - S).astype(np.float32)
     return d[None], count, pheno, S
+
+
+# K17b's cases at the serve's tile (``serve_tile_records`` = 4,096 rows of
+# 2,504 samples), shared by the card tests and chip_smoke.py phase 18 (a):
+# name -> (live rows, interval: "slice" | "none" | "all")
+_SLICE_SPECS: Dict[str, Tuple[int, str]] = {
+    "200 rows, a slice": (200, "slice"),
+    "200 rows, no row kept": (200, "none"),
+    "200 rows, every row kept": (200, "all"),
+    "4096 rows, a slice": (4096, "slice"),
+    "4096 rows, every row kept": (4096, "all"),
+}
+SLICE_CASES: Tuple[str, ...] = tuple(_SLICE_SPECS)
+
+
+def slice_case(name: str, seed: int = 0, cap: int = 4096,
+               samples_pad: int = 2504):
+    """One K17b case: ``(chrom int32 [1, cap], pos int32 [1, cap], dosage
+    int8 [1, cap, samples_pad], count int32 [1], iv int32 [3])`` as the
+    serve's tiles hold them: rows sorted by (chrom, pos) over two contigs
+    (one for "all"), diploid dosages with ~10% of calls missing and ~5%
+    of rows with no call (NaN AF; some fall in every interval), rows past
+    the count chrom -1, pos 0 and dosage -1.  "slice" keeps the rows of
+    contig 0 from a quarter to a half of the live rows' positions, "none"
+    asks for a contig no row has, "all" for every position of contig 0."""
+    count, kind = _SLICE_SPECS[name]
+    rng = np.random.default_rng(seed)
+    chrom = np.full((1, cap), -1, np.int32)
+    pos = np.zeros((1, cap), np.int32)
+    chrom[0, :count] = 0 if kind == "all" else np.sort(
+        rng.integers(0, 2, count))
+    for c in (0, 1):
+        rows = np.flatnonzero(chrom[0, :count] == c)
+        pos[0, rows] = np.sort(rng.integers(1, 60_000_000, rows.size))
+    p = rng.uniform(0.0, 0.6, cap)[:, None]
+    d = ((rng.random((cap, samples_pad)) < p).astype(np.int8)
+         + (rng.random((cap, samples_pad)) < p).astype(np.int8))
+    d[rng.random((cap, samples_pad)) < 0.1] = -1
+    d[rng.random(cap) < 0.05] = -1
+    d[count:] = -1
+    on0 = pos[0, :count][chrom[0, :count] == 0]
+    if kind == "slice":
+        iv = [0, int(np.quantile(on0, 0.25)), int(np.quantile(on0, 0.5))]
+    elif kind == "none":
+        iv = [7, 1, 2 ** 31 - 1]
+    else:
+        iv = [0, 1, 2 ** 31 - 1]
+    return (chrom, pos, d[None], np.asarray([count], np.int32),
+            np.asarray(iv, np.int32))

@@ -397,7 +397,8 @@ def test_k17a_refuses_bad_arguments():
                                 (1, 1, 10), (0, 5, 4)])
 def test_k17b_slice_step_matches_the_jax_step(iv):
     """K17b on a serve tile (rows past the count padded with -1, as the
-    tile builder pads them) against the reference's slice step."""
+    tile builder pads them) against the reference's slice step: on a CPU
+    tile, its plain version ``cohort_slice_plain``."""
     import jax
 
     from hadoop_bam_tpu.cohort.serving import make_cohort_slice_step
@@ -420,12 +421,12 @@ def test_k17b_slice_step_matches_the_jax_step(iv):
     step = make_cohort_slice_step(make_mesh(devices=jax.devices("cpu")[:1]))
     want = [np.asarray(x) for x in step(chrom, pos, dosage,
                                         np.asarray([count], np.int32), ivs)]
-    before = cohort_gwas_step.launches
+    before = (cohort_gwas_step.launches, cohort_slice_step.launches)
     got = [x.numpy() for x in cohort_slice_step(
         *map(torch.from_numpy, (chrom, pos, dosage,
                                 np.asarray([count], np.int32), ivs)))]
-    # a CPU tile takes K17a's plain version: no kernel launch is counted
-    assert cohort_gwas_step.launches == before
+    # a CPU tile takes K17b's plain version: no kernel launch is counted
+    assert (cohort_gwas_step.launches, cohort_slice_step.launches) == before
     for name, g, w in zip(("keep", "hits", "af", "af_sum", "af_n"), got,
                           want):
         assert g.shape == w.shape, name
@@ -433,6 +434,24 @@ def test_k17b_slice_step_matches_the_jax_step(iv):
             np.testing.assert_allclose(g, w, rtol=1e-6)
         else:
             np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+def test_k17b_refuses_bad_arguments():
+    from hadoop_bam_torch.cohort.serving import cohort_slice_step
+    chrom, pos, d, c, iv = map(torch.from_numpy,
+                               synth.slice_case("200 rows, a slice",
+                                                cap=256, samples_pad=16))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cohort_slice_step(chrom, pos, d[..., :12], c, iv)
+    with pytest.raises(ValueError, match="chrom"):
+        cohort_slice_step(chrom.to(torch.int64), pos, d, c, iv)
+    with pytest.raises(ValueError, match="pos"):
+        cohort_slice_step(chrom, pos[:, :10], d, c, iv)
+    with pytest.raises(ValueError, match="iv"):
+        cohort_slice_step(chrom, pos, d, c, iv[:2])
+    before = cohort_slice_step.launches
+    got = cohort_slice_step(chrom, pos, d, c, iv)
+    assert cohort_slice_step.launches == before and got[0].shape == (1, 256)
 
 
 # ---------------------------------------------------------------------------

@@ -1433,6 +1433,106 @@ def test_k17a_refuses_unaligned_phenotype(cuda):
         cohort_gwas_step(d, 4, y, 8)
 
 
+def test_k17a_wide_tile_reads_the_phenotype_unstaged(cuda):
+    """samples_pad past the staged width (csrc/cohort_stats.cu kStageMax):
+    the phenotype is read from its vector as the rows need it."""
+    from hadoop_bam_torch.cohort.gwas import (
+        cohort_gwas_plain, cohort_gwas_step,
+    )
+    rng = np.random.default_rng(17)
+    spad, S, count = 9_608, 9_603, 40
+    d = rng.integers(-1, 3, (1, 48, spad)).astype(np.int8)
+    y = rng.standard_normal(spad).astype(np.float32)
+    y[rng.random(spad) < 0.1] = np.nan
+    dt, yt = torch.from_numpy(d).to(cuda), torch.from_numpy(y).to(cuda)
+    _k17a_hold(cohort_gwas_step(dt, count, yt, S),
+               cohort_gwas_plain(dt, count, yt, S))
+
+
+# ---------------------------------------------------------------------------
+# K17b (hbam_cohort_slice in cohort_stats.cu): the cohort slice step
+# ---------------------------------------------------------------------------
+
+def _k17b_hold(got, want):
+    """keep, hits and af_n exactly, af bit for bit, af_sum within rtol
+    1e-6 (the kernel adds in float64, plain in float32)."""
+    names = ("keep", "hits", "af", "af_sum", "af_n")
+    for name, g, w in zip(names, got, want):
+        g, w = g.cpu(), w.cpu()
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if name == "af_sum":
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6)
+        elif name == "af":
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        else:
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("case", synth.SLICE_CASES)
+def test_k17b_cohort_slice_matches_plain(cuda, case):
+    from hadoop_bam_torch.cohort.gwas import cohort_gwas_step
+    from hadoop_bam_torch.cohort.serving import (
+        cohort_slice_plain, cohort_slice_step,
+    )
+    tile = [torch.from_numpy(a).to(cuda) for a in synth.slice_case(case)]
+    before = (cohort_slice_step.launches, cohort_gwas_step.launches)
+    for _ in range(3):     # the ticket is back at zero between launches
+        _k17b_hold(cohort_slice_step(*tile), cohort_slice_plain(*tile))
+    assert cohort_slice_step.launches == before[0] + 3
+    assert cohort_gwas_step.launches == before[1]
+
+
+def test_k17b_is_one_launch_a_call(cuda):
+    """The profiler sees the slice kernel and nothing else: no memset, no
+    torch op."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hadoop_bam_torch.cohort.serving import cohort_slice_step
+    tile = [torch.from_numpy(a).to(cuda)
+            for a in synth.slice_case("200 rows, a slice")]
+    cohort_slice_step(*tile)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            cohort_slice_step(*tile)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and all("cohort_rows_kernel" in n for n in names), names
+
+
+def test_k17b_streams_keep_their_own_tickets(cuda):
+    from hadoop_bam_torch.cohort.serving import (
+        cohort_slice_plain, cohort_slice_step,
+    )
+    tiles = [[torch.from_numpy(a).to(cuda) for a in synth.slice_case(c)]
+             for c in ("200 rows, a slice", "4096 rows, every row kept")]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(4):
+        for k, (st, tile) in enumerate(zip(streams, tiles)):
+            with torch.cuda.stream(st):
+                got[k].append(cohort_slice_step(*tile))
+    torch.cuda.synchronize()
+    for k, tile in enumerate(tiles):
+        want = cohort_slice_plain(*tile)
+        for g in got[k]:
+            _k17b_hold(g, want)
+
+
+def test_k17b_refuses_bad_arguments_on_the_card(cuda):
+    from hadoop_bam_torch.cohort.serving import cohort_slice_step
+    chrom, pos, d, c, iv = (torch.from_numpy(a).to(cuda) for a in
+                            synth.slice_case("200 rows, a slice"))
+    with pytest.raises(ValueError, match="aligned"):
+        x = torch.zeros(d.numel() + 1, dtype=torch.int8, device=cuda)
+        cohort_slice_step(chrom, pos, x[1:].view(d.shape), c, iv)
+    with pytest.raises(ValueError, match="share a device"):
+        cohort_slice_step(chrom, pos, d, c, iv.cpu())
+
+
 def test_cohort_gwas_and_slices_on_card_equal_the_cpu(cuda, tmp_path):
     from hadoop_bam_torch.cohort import open_cohort
     from hadoop_bam_torch.cohort.gwas import cohort_gwas_step
