@@ -246,8 +246,8 @@ at the full GWAS tile with and without a phenotype, at the main path's
 200-row tile and K17b at the serve's tile, by the profiler, in a row by
 events and with L2 flushed by a 64 MB write before each launch, with
 each wrapper's host time; ``cohort_variants``: variants of this tree's
-``csrc/cohort_stats.cu`` built into the build dir, checked and timed at
-the same tiles;
+``csrc/cohort_stats.cu`` built into the build dir and launched through
+the port's wrappers, checked and timed at the same tiles;
 ``native_plane``: the native plane's three
 drivers of phase 5, warmed up, five rounds in turn; ``bai_regions``:
 phase 11 (d)'s ``.bai`` runs on a sorted copy of the reads kept beside
@@ -267,6 +267,7 @@ checkout's as one JSON line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -5386,10 +5387,10 @@ def _k17a_bytes(count: int, spad: int, cap: int, pheno: bool) -> int:
 
 
 def _k17b_bytes(count: int, spad: int, cap: int) -> int:
-    """K17b's bytes: the dosage of the rows under the count and the
-    chrom / pos columns read once, the count and interval; keep, af and
-    the three sums written once."""
-    return count * spad + 8 * cap + 4 + 12 + cap + 4 * cap + 12
+    """K17b's bytes: the dosage and the chrom / pos of the rows under the
+    count read once (the kernel reads no row past it), the count and
+    interval; keep and af of every row and the three sums written once."""
+    return count * spad + 8 * count + 4 + 12 + cap + 4 * cap + 12
 
 
 def _flushed_ms(torch, call, flush) -> float:
@@ -5878,12 +5879,17 @@ _K17_VARIANTS = {
          "    if (!on || lane != 0 || acc.unc != -2147483647) continue;")]}
 
 
-def _k17_variant(torch, name, edits):
-    """One ``_K17_VARIANTS`` entry built by ``_nvcc_lib``: (a K17a call
-    (dosage, count, pheno, S) -> out, a K17b call (tile, iv) -> the five
-    outputs), launching the patched kernels like the wrappers (no launch
-    count)."""
+@contextlib.contextmanager
+def _k17_variant(name, edits):
+    """One ``_K17_VARIANTS`` entry built by ``_nvcc_lib``, its entry
+    points put in place of the port's while the block runs, so that
+    ``cohort_gwas_step`` and ``cohort_slice_step`` launch it (with
+    per-stream scratches of its own; the launch counts restored after)."""
     import ctypes
+
+    import torch
+
+    from hadoop_bam_torch.cohort import gwas as tg
     from hadoop_bam_torch.cohort import serving as tsv
     from hadoop_bam_torch.ops import kernels
     with open(os.path.join(kernels.CSRC, "cohort_stats.cu")) as f:
@@ -5894,45 +5900,32 @@ def _k17_variant(torch, name, edits):
     stem = "cohort_variant_" + "".join(ch if ch.isalnum() else "_"
                                        for ch in name)[:40]
     lib = _nvcc_lib(stem, src)
-    fa, fb = lib.hbam_cohort_stats, lib.hbam_cohort_slice
-    fa.argtypes = kernels.KERNELS["cohort_stats"][1]
-    fb.argtypes = kernels.KERNELS["cohort_slice"][1]
-    fa.restype = fb.restype = ctypes.c_int
-
-    def gwas(d, ct, y, S):
-        out = torch.empty((1, d.shape[1], 4), dtype=torch.float32,
-                          device=d.device)
-        kernels.check_launch(name, fa(
-            d.data_ptr(), d.shape[1], d.shape[2], ct.data_ptr(),
-            None if y is None else y.data_ptr(), S, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream))
-        return out
-    scratch = torch.zeros_like(tsv._slice_scratch(
-        torch.device("cuda", 0), torch.cuda.current_stream().cuda_stream))
-
-    def slice_(tile, iv):
-        chrom, pos, d, c = tile
-        cap = d.shape[1]
-        keep = torch.empty((1, cap), dtype=torch.bool, device=d.device)
-        af = torch.empty((1, cap), dtype=torch.float32, device=d.device)
-        sums = torch.empty(3, dtype=torch.int32, device=d.device)
-        kernels.check_launch(name, fb(
-            chrom.data_ptr(), pos.data_ptr(), d.data_ptr(), cap, d.shape[2],
-            c.data_ptr(), iv.data_ptr(), af.data_ptr(), keep.data_ptr(),
-            sums.data_ptr(), scratch.data_ptr(), scratch.numel() // 16 - 1,
-            torch.cuda.current_stream().cuda_stream))
-        return keep, sums[0:1], af, sums[2:3].view(torch.float32), sums[1:2]
-    return gwas, slice_
+    swap = {}
+    for k in ("cohort_stats", "cohort_slice", "cohort_slice_slots"):
+        symbol, argtypes = kernels.KERNELS[k][:2]
+        fn = getattr(lib, symbol)
+        fn.restype, fn.argtypes = ctypes.c_int, argtypes
+        swap[k] = fn
+    kept = ({k: kernels.kernel(k) for k in swap}, dict(tsv._SLICE_SCRATCH),
+            tg.cohort_gwas_step.launches, tsv.cohort_slice_step.launches)
+    kernels._fns.update(swap)
+    tsv._SLICE_SCRATCH.clear()
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        kernels._fns.update(kept[0])
+        tsv._SLICE_SCRATCH.clear()
+        tsv._SLICE_SCRATCH.update(kept[1])
+        tg.cohort_gwas_step.launches, tsv.cohort_slice_step.launches = kept[2:]
 
 
-def _k17_host_us(torch, dev, dosage, pheno, S, tile, iv, this) -> dict:
+def _k17_host_us(torch, dev, dosage, pheno, S, tile, iv) -> dict:
     """Host microseconds a call (400 calls, no synchronisation between
     them, so the launches queue and the card never holds the host back)
-    of K17a's and K17b's wrappers and, in this tree, of the pieces of
-    K17b's: its argument checks, its three allocations, the device
-    guard, the current stream, the C call alone and the result views."""
+    of K17a's and K17b's wrappers."""
     from hadoop_bam_torch.cohort.gwas import cohort_gwas_step
-    from hadoop_bam_torch.cohort import serving as tsv
+    from hadoop_bam_torch.cohort.serving import cohort_slice_step
     ct = torch.tensor([200], dtype=torch.int32, device=dev)
 
     def host_us(fn, n=400):
@@ -5947,38 +5940,7 @@ def _k17_host_us(torch, dev, dosage, pheno, S, tile, iv, this) -> dict:
     out = {"cohort_gwas_step": host_us(
                lambda: cohort_gwas_step(dosage, ct, pheno, S)),
            "cohort_slice_step": host_us(
-               lambda: tsv.cohort_slice_step(*tile, iv))}
-    if this:
-        from hadoop_bam_torch.ops import kernels
-        chrom, pos, d, c = tile
-        cap, spad = d.shape[1:]
-        fn = kernels.kernel("cohort_slice")
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        scratch = tsv._slice_scratch(dev, stream)
-        keep = torch.empty((1, cap), dtype=torch.bool, device=dev)
-        af = torch.empty((1, cap), dtype=torch.float32, device=dev)
-        sums = torch.empty(3, dtype=torch.int32, device=dev)
-        args = (chrom.data_ptr(), pos.data_ptr(), d.data_ptr(), cap, spad,
-                c.data_ptr(), iv.data_ptr(), af.data_ptr(), keep.data_ptr(),
-                sums.data_ptr(), scratch.data_ptr(), scratch.numel() // 16 - 1,
-                stream)
-
-        def guard():
-            with torch.cuda.device(dev):
-                pass
-        out.update({
-            "K17b: argument checks": host_us(
-                lambda: tsv._check_slice_args(chrom, pos, d, iv)),
-            "K17b: three torch.empty": host_us(lambda: (
-                torch.empty((1, cap), dtype=torch.bool, device=dev),
-                torch.empty((1, cap), dtype=torch.float32, device=dev),
-                torch.empty(3, dtype=torch.int32, device=dev))),
-            "K17b: device guard": host_us(guard),
-            "K17b: current stream": host_us(
-                lambda: torch.cuda.current_stream(dev).cuda_stream),
-            "K17b: the C call alone": host_us(lambda: fn(*args)),
-            "K17b: result views": host_us(
-                lambda: sums.split(1)[2].view(torch.float32))})
+               lambda: cohort_slice_step(*tile, iv))}
     log("host us a call: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in out.items()))
     return out
@@ -6028,49 +5990,55 @@ def cohort_stats_times(torch, path, dev) -> dict:
                                 card, flush)
     out["K17b, serve's tile, 200 rows"] = _k17b_times(torch, tile, iv, card,
                                                       flush)
-    out["host us a call"] = _k17_host_us(torch, dev, dfull, ypad, S, tile, iv,
-                                         this)
+    out["host us a call"] = _k17_host_us(torch, dev, dfull, ypad, S, tile,
+                                         iv)
     return out
 
 
 def cohort_variants_times(torch, path, dev) -> dict:
     """``--times cohort_variants``: the ``_K17_VARIANTS`` of this tree's
-    source, each checked against the plain versions (probes not) and
-    timed at ``--times cohort_stats``' four tiles, by the profiler, in a
-    row and with L2 flushed."""
+    source, launched through the port's wrappers, each checked against
+    the plain versions (probes not) and timed at ``--times
+    cohort_stats``' four tiles, by the profiler, in a row and with L2
+    flushed."""
     import numpy as np
-    from hadoop_bam_torch.cohort.gwas import cohort_gwas_plain
-    from hadoop_bam_torch.cohort.serving import cohort_slice_plain
+    from hadoop_bam_torch.cohort.gwas import (
+        cohort_gwas_plain, cohort_gwas_step,
+    )
+    from hadoop_bam_torch.cohort.serving import (
+        cohort_slice_plain, cohort_slice_step,
+    )
     card = card_line()
     tile, iv, dfull, ypad, S, flush, shapes = _k17_timing_inputs(torch, dev)
     out = {"card": card}
     for name, edits in _K17_VARIANTS.items():
         probe = name.startswith("probe:")
-        gwas, slice_ = _k17_variant(torch, name, edits)
         row = {}
-        for what, n, y in shapes:
-            ct = torch.tensor([n], dtype=torch.int32, device=dev)
-            got = gwas(dfull, ct, y, S).cpu().numpy()
-            want = cohort_gwas_plain(dfull, ct, y, S).cpu().numpy()
-            check(probe or (np.array_equal(got[..., :2], want[..., :2],
-                                           equal_nan=True)
-                            and np.allclose(got[..., 2:], want[..., 2:],
-                                            rtol=1e-5, atol=1e-6,
-                                            equal_nan=True)),
-                  f"variant {name!r} equals plain at {what}")
-            calls = [lambda: gwas(dfull, ct, y, S)]
-            row[what] = {"ms": device_ms(torch, calls, kernel=_k17_kernel()),
-                         "ms_by": device_ms.how,
-                         "loop_ms": loop_ms(torch, calls),
-                         "flushed_ms": _flushed_ms(torch, calls[0], flush)}
-        if not probe:
-            _k17b_hold(torch, slice_(tile, iv), cohort_slice_plain(*tile, iv),
-                       f"variant {name!r}")
-        calls = [lambda: slice_(tile, iv)]
-        row["K17b, serve's tile, 200 rows"] = {
-            "ms": device_ms(torch, calls, reps=16, kernel=_k17_kernel()),
-            "ms_by": device_ms.how, "loop_ms": loop_ms(torch, calls),
-            "flushed_ms": _flushed_ms(torch, calls[0], flush)}
+        with _k17_variant(name, edits):
+            for what, n, y in shapes:
+                ct = torch.tensor([n], dtype=torch.int32, device=dev)
+                got = cohort_gwas_step(dfull, ct, y, S).cpu().numpy()
+                want = cohort_gwas_plain(dfull, ct, y, S).cpu().numpy()
+                check(probe or (np.array_equal(got[..., :2], want[..., :2],
+                                               equal_nan=True)
+                                and np.allclose(got[..., 2:], want[..., 2:],
+                                                rtol=1e-5, atol=1e-6,
+                                                equal_nan=True)),
+                      f"variant {name!r} equals plain at {what}")
+                calls = [lambda: cohort_gwas_step(dfull, ct, y, S)]
+                row[what] = {
+                    "ms": device_ms(torch, calls, kernel=_k17_kernel()),
+                    "ms_by": device_ms.how, "loop_ms": loop_ms(torch, calls),
+                    "flushed_ms": _flushed_ms(torch, calls[0], flush)}
+            if not probe:
+                _k17b_hold(torch, cohort_slice_step(*tile, iv),
+                           cohort_slice_plain(*tile, iv),
+                           f"variant {name!r}")
+            calls = [lambda: cohort_slice_step(*tile, iv)]
+            row["K17b, serve's tile, 200 rows"] = {
+                "ms": device_ms(torch, calls, reps=16, kernel=_k17_kernel()),
+                "ms_by": device_ms.how, "loop_ms": loop_ms(torch, calls),
+                "flushed_ms": _flushed_ms(torch, calls[0], flush)}
         log(f"variant {name}: " + "; ".join(
             f"{k} {v['ms']:.4f} ms ({v['flushed_ms']:.4f} flushed)"
             for k, v in row.items()) + f" [{card}]")

@@ -99,22 +99,38 @@ def cohort_slice_plain(chrom: torch.Tensor, pos: torch.Tensor,
 
 
 # K17b's per-stream scratch: a uint32 ticket that is zero between launches
-# in the first 16 bytes, then one 16-byte partial a CTA (32 a streaming
-# multiprocessor, the most that can be resident), keyed by (device index,
-# stream handle): launches on one stream never overlap
+# in the first 16 bytes, then one 16-byte partial a resident CTA of the
+# kernel, keyed by (device index, stream handle): launches on one stream
+# never overlap
 _SLICE_SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
 _SLICE_SCRATCH_LOCK = threading.Lock()
 
 
+def _new_slice_scratch(dev: torch.device) -> torch.Tensor:
+    """A zeroed scratch for K17b's launches on ``dev`` (the current
+    device), sized by the kernel's resident CTAs."""
+    import ctypes
+
+    from hadoop_bam_torch.ops import kernels
+    slots = ctypes.c_int64(0)
+    kernels.check_launch("cohort_slice_slots", kernels.kernel(
+        "cohort_slice_slots")(ctypes.addressof(slots)))
+    return torch.zeros(16 * (1 + slots.value), dtype=torch.uint8, device=dev)
+
+
 def _slice_scratch(dev: torch.device, stream: int) -> torch.Tensor:
+    """The scratch of K17b's launch on ``stream``.  Under CUDA graph
+    capture, a new one zeroed in the graph (a memset node before the
+    kernel node, in the graph's own memory), so a replay on any stream
+    shares no ticket with eager launches and the per-stream scratch is
+    never made by a fill that only a replay would run."""
+    if torch.cuda.is_current_stream_capturing():
+        return _new_slice_scratch(dev)
     key = (dev.index, stream)
     with _SLICE_SCRATCH_LOCK:
         scratch = _SLICE_SCRATCH.get(key)
         if scratch is None:
-            slots = 32 * torch.cuda.get_device_properties(
-                dev).multi_processor_count
-            scratch = _SLICE_SCRATCH[key] = torch.zeros(
-                16 * (1 + slots), dtype=torch.uint8, device=dev)
+            scratch = _SLICE_SCRATCH[key] = _new_slice_scratch(dev)
     return scratch
 
 
@@ -150,10 +166,11 @@ def cohort_slice_step(chrom: torch.Tensor, pos: torch.Tensor,
 
     A CUDA tile is one launch of the kernel (``hbam_cohort_slice`` in
     ``csrc/cohort_stats.cu``) on the current stream, which reads the
-    count and the interval from device memory (no host read); a CPU tile
-    takes ``cohort_slice_plain``.  A kernel that fails to build or
-    launch raises.  ``cohort_slice_step.launches`` counts kernel
-    launches."""
+    count and the interval from device memory (no host read); captured
+    into a CUDA graph, the launch is preceded by the zero fill of its own
+    scratch.  A CPU tile takes ``cohort_slice_plain``.  A kernel that
+    fails to build or launch raises.  ``cohort_slice_step.launches``
+    counts kernel launches."""
     from hadoop_bam_torch.cohort.gwas import _count_tensor
     from hadoop_bam_torch.ops import kernels
     _check_slice_args(chrom, pos, dosage, iv)

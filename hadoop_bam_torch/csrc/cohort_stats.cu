@@ -89,8 +89,13 @@
 //   af_n) to a per-stream scratch; the last CTA to take a ticket (an
 //   atomic counter in the same scratch, zero between launches) adds the
 //   partials in CTA order, writes hits, af_n and af_sum, and resets the
-//   ticket.  At most 4,096 float32 AFs in [0, 1] add exactly in float64,
-//   so af_sum is the rounded exact sum, whatever the order.
+//   ticket.  That order is fixed for a grid, so af_sum is deterministic.
+//   It is also the rounded exact sum where the float64 sum is exact: an
+//   AF is a float32 alt / 2n, n <= samples_pad, so a multiple of 2^-(k +
+//   23) with 2^k the power of two at or above 2 samples_pad, and cap of
+//   them add exactly while cap 2^k <= 2^30 (the serve's 4,096 x 2,504
+//   tile: 2^12 2^13).  The scratch holds one partial a resident CTA
+//   (hbam_cohort_slice_slots).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -494,26 +499,34 @@ cohort_rows_kernel(const Args a) {
 
 using Kernel = void (*)(const Args);
 
-// the persistent grid: as many CTAs as are resident at once (with the
-// most shared memory a launch of the kernel takes, occ_smem), found once a
-// device and kernel; at most the rows (at least one) and slots
-cudaError_t launch(Kernel kern, int which, int smem, int occ_smem,
-                   const Args& a, int64_t slots, void* stream) {
-  static int resident[64][4];
+// the CTAs of kern resident at once (with the most shared memory a launch
+// of it takes, occ_smem) on the current device, found once a device and
+// kernel
+cudaError_t resident(Kernel kern, int which, int occ_smem, int* res) {
+  static int found[64][4];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  int res = dev < 64 ? resident[dev][which] : 0;
-  if (res == 0) {
-    int sms = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kern, kThreads, occ_smem);
-    if (e != cudaSuccess) return e;
-    res = sms * per_sm > 0 ? sms * per_sm : 1;
-    if (dev < 64) resident[dev][which] = res;
-  }
+  *res = dev < 64 ? found[dev][which] : 0;
+  if (*res > 0) return cudaSuccess;
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+                                                      occ_smem);
+  if (e != cudaSuccess) return e;
+  *res = sms * per_sm > 0 ? sms * per_sm : 1;
+  if (dev < 64) found[dev][which] = *res;
+  return cudaSuccess;
+}
+
+// the persistent grid: as many CTAs as are resident, at most the rows (at
+// least one) and slots
+cudaError_t launch(Kernel kern, int which, int smem, int occ_smem,
+                   const Args& a, int64_t slots, void* stream) {
+  int res = 0;
+  cudaError_t e = resident(kern, which, occ_smem, &res);
+  if (e != cudaSuccess) return e;
   int64_t blocks = a.cap > 0 ? a.cap : 1;
   if (blocks > res) blocks = res;
   if (blocks > slots) blocks = slots;
@@ -558,12 +571,23 @@ extern "C" int hbam_cohort_stats(const void* dosage, int64_t cap,
   return static_cast<int>(e);
 }
 
+// K17b's scratch: the partials hbam_cohort_slice's grid needs on the
+// current device (its resident CTAs), written to *slots (int64).
+// Returns a CUDA error code.
+extern "C" int hbam_cohort_slice_slots(void* slots) {
+  int res = 0;
+  const cudaError_t e =
+      resident(cohort_rows_kernel<false, false, true>, 3, 0, &res);
+  *static_cast<int64_t*>(slots) = res;
+  return static_cast<int>(e);
+}
+
 // K17b.  chrom, pos int32 [cap], dosage int8 [cap, spad] (as above),
 // count int32 [1], iv int32 [3], af float32 [cap], keep bool [cap], sums
 // int32 [3] (hits, af_n, af_sum's float32 bits), scratch: 16 bytes whose
 // first uint32 is zero between launches, then `slots` 16-byte partials
-// (one a CTA: the grid is at most `slots` CTAs).  Returns
-// cudaGetLastError().
+// (one a CTA: the grid is at most `slots` CTAs, and all resident with
+// hbam_cohort_slice_slots' count).  Returns cudaGetLastError().
 extern "C" int hbam_cohort_slice(const void* chrom, const void* pos,
                                  const void* dosage, int64_t cap,
                                  int64_t spad, const void* count,

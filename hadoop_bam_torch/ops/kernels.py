@@ -31,7 +31,7 @@ _I32 = ctypes.c_int32
 # kernel name -> (C entry point, argtypes[, source stem]); the source
 # stem is the name unless given (one source may hold several entry
 # points); every entry point returns the cudaGetLastError() code after
-# its launch
+# its launch (a query, ``cohort_slice_slots``, its CUDA error code)
 KERNELS: Dict[str, tuple] = {
     "unpack_bam": ("hbam_unpack_fixed_fields",
                    [_VP, _I64, _VP, _I64, _VP, _VP]),
@@ -61,6 +61,8 @@ KERNELS: Dict[str, tuple] = {
     "cohort_slice": ("hbam_cohort_slice",
                      [_VP, _VP, _VP, _I64, _I64, _VP, _VP, _VP, _VP, _VP,
                       _VP, _I64, _VP], "cohort_stats"),
+    "cohort_slice_slots": ("hbam_cohort_slice_slots", [_VP],
+                           "cohort_stats"),
 }
 
 

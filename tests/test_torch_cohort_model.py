@@ -626,8 +626,9 @@ def test_slice_model_on_the_serve_tile(case):
 
 
 def test_af_sum_is_exact_in_float64():
-    """At most 4,096 float32 AFs (alt / 2n, n <= samples_pad) add exactly
-    in float64, so any order of the partials gives one af_sum."""
+    """At the serve's width (samples_pad 2,504) 4,096 float32 AFs (alt /
+    2n, n <= samples_pad) add exactly in float64, so any order of the
+    partials gives one af_sum (the bound: ``test_af_sum_exact_width``)."""
     rng = np.random.default_rng(3)
     n = rng.integers(1, 2505, 4096)
     af = (rng.integers(0, 2 * n + 1) / (2.0 * n)).astype(np.float32)
@@ -636,3 +637,25 @@ def test_af_sum_is_exact_in_float64():
     from fractions import Fraction
     exact = sum(Fraction(float(v)) for v in af)
     assert sums == {float(exact)} and Fraction(sums.pop()) == exact
+
+
+@pytest.mark.parametrize("n_max,exact", [(131_072, True),
+                                         (1_000_000, False)])
+def test_af_sum_exact_width(n_max, exact):
+    """The kernel's claim: cap float32 AFs with n <= samples_pad add
+    exactly in float64 while cap 2^k <= 2^30, 2^k the power of two at or
+    above 2 samples_pad (each AF a multiple of 2^-(k + 23)).  At cap
+    4,096 that holds to 131,072 samples; at 10^6 the float64 sum is no
+    longer exact, and the kernel's fixed order alone makes it
+    deterministic."""
+    from fractions import Fraction
+    cap = 4096
+    k = int(np.ceil(np.log2(2 * n_max)))
+    assert (cap << k <= 1 << 30) == exact
+    rng = np.random.default_rng(11)
+    n = rng.integers(n_max // 2, n_max + 1, cap)
+    af = (rng.integers(0, 2 * n + 1) / (2.0 * n)).astype(np.float32)
+    af[: cap // 2] = np.float32(1) - np.float32(2.0 ** -24)
+    af[-1] = np.float32(1 / (2.0 * n_max))
+    got = float(np.sum(af.astype(np.float64)))
+    assert (Fraction(got) == sum(Fraction(float(v)) for v in af)) == exact

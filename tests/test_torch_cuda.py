@@ -1522,6 +1522,38 @@ def test_k17b_streams_keep_their_own_tickets(cuda):
             _k17b_hold(g, want)
 
 
+def test_k17b_graph_capture_then_eager_on_the_same_stream(cuda):
+    """A capture on a stream K17b never ran on eagerly, a graph never
+    replayed, then eager calls on that stream and replays on another: a
+    graph has its own scratch, zeroed in the graph, so every result
+    equals plain's."""
+    from hadoop_bam_torch.cohort.serving import (
+        cohort_slice_plain, cohort_slice_step,
+    )
+    tile = [torch.from_numpy(a).to(cuda)
+            for a in synth.slice_case("200 rows, a slice")]
+    want = cohort_slice_plain(*tile)
+    cohort_slice_step(*tile)           # built and loaded, on another stream
+    cap, other = torch.cuda.Stream(), torch.cuda.Stream()
+    for st in (cap, other):
+        st.wait_stream(torch.cuda.current_stream())
+    unused, graph = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(unused, stream=cap):
+        cohort_slice_step(*tile)
+    with torch.cuda.graph(graph, stream=cap):
+        out = cohort_slice_step(*tile)
+    del unused
+    for _ in range(3):                 # the two streams not ordered
+        with torch.cuda.stream(cap):
+            eager = [cohort_slice_step(*tile) for _ in range(4)]
+        with torch.cuda.stream(other):
+            graph.replay()
+        torch.cuda.synchronize()
+        for e in eager:
+            _k17b_hold(e, want)
+        _k17b_hold(out, want)
+
+
 def test_k17b_refuses_bad_arguments_on_the_card(cuda):
     from hadoop_bam_torch.cohort.serving import cohort_slice_step
     chrom, pos, d, c, iv = (torch.from_numpy(a).to(cuda) for a in
